@@ -1,0 +1,50 @@
+"""Architecture registry: the ``ArchConfig`` dataclass and its lookup.
+
+A copy of the dense-model part of ``repro/configs/base.py``: the port
+reads nothing of the JAX package, so it keeps its own config records.
+Each config module provides ``CONFIG`` (the published shape) and
+``smoke()`` (a 2-layer reduction for CPU tests).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # only "dense" is served by the port so far
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # 0 → d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    act: str = "swiglu"  # swiglu | gelu
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    source: str = ""
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_head:
+            return self.d_head
+        return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def vocab_padded(self) -> int:
+        return ((self.vocab + 255) // 256) * 256  # pad for clean sharding
+
+
+def get_arch(arch_id: str) -> ArchConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{arch_id.replace('-', '_')}")
+    return mod.CONFIG
+
+
+def get_smoke(arch_id: str) -> ArchConfig:
+    mod = importlib.import_module(f"repro_torch.configs.{arch_id.replace('-', '_')}")
+    return mod.smoke()

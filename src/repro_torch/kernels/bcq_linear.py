@@ -1,0 +1,63 @@
+"""Fused W4A4 linear: encode → decode → GEMM in ONE launch.
+
+Counterpart of ``repro/kernels/bcq_linear.py``.  ``bcq_linear`` launches
+csrc/bcq_linear.cu for CUDA tensors (design notes in the source) and runs
+the plain version, ``ref.fused_linear_ref`` (the encode/decode/matmul
+composition the reference's kernel is held to), for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bcq import BCQConfig
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import fused_linear_ref
+
+BCQ_LINEAR = build.counter("bcq_linear")
+
+
+def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.Tensor:
+    """Fused W4A4 linear: raw x (M, K) f32 + packed weights → f32 (M, N).
+
+    w_idx (N, K/2) uint8, w_sel (N, K/16) uint8, w_inv (N, K/L_A) f32 =
+    1/(ŝ_A·s_W) (zero where never written); s_x: the per-tensor activation
+    scale, a 0-d tensor the caller reduced over the whole launch batch.
+    K must be a multiple of L_A; ragged M and N are masked in the kernel."""
+    if x.device.type == "cpu":
+        return fused_linear_ref(x, w_idx, w_sel, w_inv, codebooks, cfg, s_x,
+                                valid_k=x.shape[1])
+    if x.device.type != "cuda":
+        raise ValueError(f"bcq_linear: unsupported device {x.device}")
+    if (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (64, 8, 16, 8):
+        raise ValueError(f"bcq_linear kernel: unsupported BCQ config {cfg}")
+    m, k = x.shape
+    n = w_idx.shape[0]
+    if k % cfg.array_len:
+        raise ValueError(f"bcq_linear kernel: K={k} is not a multiple of {cfg.array_len}")
+    shapes = {
+        "x": (x, torch.float32, (m, k)),
+        "w_idx": (w_idx, torch.uint8, (n, k // 2)),
+        "w_sel": (w_sel, torch.uint8, (n, k // 16)),
+        "w_inv": (w_inv, torch.float32, (n, k // 64)),
+        "codebooks": (codebooks, torch.float32, (8, 16)),
+        "s_x": (s_x, torch.float32, ()),
+    }
+    for name, (t, dt, shape) in shapes.items():
+        if t.device != x.device or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"bcq_linear kernel: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                f"expected {shape} {dt} on {x.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"bcq_linear kernel: {name} must be contiguous")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    status = build.library().bcq_linear_launch(
+        x.data_ptr(), w_idx.data_ptr(), w_sel.data_ptr(), w_inv.data_ptr(),
+        codebooks.data_ptr(), s_x.data_ptr(), out.data_ptr(), m, n, k,
+        cfg.codeword_max, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(status, "bcq_linear_launch")
+    BCQ_LINEAR.count += 1
+    return out

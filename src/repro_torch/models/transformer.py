@@ -1,0 +1,149 @@
+"""Decoder-only transformer LM, dense family (counterpart of the dense part
+of ``repro/models/transformer.py``).
+
+Parameters are the reference's tree: per-layer leaves stacked on a
+leading layer axis (``params["layers"]``), the page pool likewise
+(leaves (L, n_pages, page_size, ...)).  The layer loop is a Python loop
+over views of both; page writes land in the pool in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers
+from repro_torch.models.layers import Runtime
+
+
+# ------------------------------------------------------------------- init
+def init_lm(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
+    """Random float parameters with the reference's shapes and scales
+    (normal · 1/sqrt(d_in) for linears, 0.02 for the embedding; norms at
+    scale 1, bias 0), drawn on the CPU from ``generator``."""
+    L, d, hd, f = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    dt = rt.param_dtype
+
+    def dense(d_in, d_out, scale=None):
+        scale = scale if scale is not None else d_in**-0.5
+        return (torch.randn((L, d_in, d_out), generator=generator) * scale).to(dt)
+
+    def norm():
+        p = {"scale": torch.ones((L, d), dtype=dt)}
+        if cfg.norm == "layernorm":
+            p["nbias"] = torch.zeros((L, d), dtype=dt)
+        return p
+
+    def lin(d_in, d_out, bias=False):
+        p = {"kernel": dense(d_in, d_out)}
+        if bias:
+            p["bias"] = torch.zeros((L, d_out), dtype=dt)
+        return p
+
+    mlp = {"wi": lin(d, f), "wo": lin(f, d)}
+    if cfg.act == "swiglu":
+        mlp["wg"] = lin(d, f)
+    params = {
+        "embed": {"kernel": (torch.randn((cfg.vocab_padded, d), generator=generator) * 0.02).to(dt)},
+        "layers": {
+            "ln1": norm(),
+            "attn": {
+                "wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
+                "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wo": lin(cfg.n_heads * hd, d),
+            },
+            "ln2": norm(),
+            "mlp": mlp,
+        },
+        "ln_f": {k: v[0] for k, v in norm().items()},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {
+            "kernel": (torch.randn((d, cfg.vocab_padded), generator=generator) * 0.02).to(dt)
+        }
+    return params
+
+
+# ----------------------------------------------------------- shared pieces
+def embed_tokens(params, tokens, rt: Runtime):
+    return params["embed"]["kernel"].to(rt.compute_dtype)[tokens.long()]
+
+
+def lm_logits(params, x, rt: Runtime):
+    if "lm_head" in params:
+        w = params["lm_head"]["kernel"]
+    else:
+        w = params["embed"]["kernel"].T  # tied
+    return x.to(rt.compute_dtype) @ w.to(rt.compute_dtype)
+
+
+def block_apply(x, p, cfg, rt: Runtime, cb, positions, paged):
+    h = layers.norm_apply(x, p["ln1"], cfg.norm)
+    attn_out, _ = layers.attention(h, p["attn"], cfg, rt, cb, positions, paged)
+    x = x + attn_out
+    h = layers.norm_apply(x, p["ln2"], cfg.norm)
+    return x + layers.mlp(h, p["mlp"], cfg.act, rt, cb)
+
+
+def _layer(tree, i):
+    """Layer i's view of a layer-stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def backbone(params, x, cfg, rt: Runtime, positions, pool, paged_tables):
+    """Run the layer stack over a page pool.  ``paged_tables``:
+    (block_tables, lengths) for decode, or (block_tables, n_past,
+    chunk_page_ids[, chunk_len]) for chunked prefill (see
+    layers.attention)."""
+    cb = params.get("codebooks")
+    for i in range(cfg.n_layers):
+        x = block_apply(
+            x, _layer(params["layers"], i), cfg, rt, cb, positions,
+            (_layer(pool, i),) + tuple(paged_tables),
+        )
+    return layers.norm_apply(x, params["ln_f"], cfg.norm)
+
+
+def cache_init_stacked(cfg: ArchConfig, rt: Runtime, batch, max_len, device="cpu"):
+    """Layer-stacked cache leaves; a page pool is (n_pages, page_size)."""
+    one = layers.cache_init(batch, max_len, cfg.n_kv_heads, cfg.head_dim, rt.cache_kind,
+                            rt.bcq_cfg, device=device)
+    return {n: leaf[None].repeat((cfg.n_layers,) + (1,) * leaf.ndim) for n, leaf in one.items()}
+
+
+def paged_decode_step(params, pool, tokens, block_tables, lengths, cfg: ArchConfig, rt: Runtime):
+    """One paged serving step: tokens (B, 1) next token per sequence;
+    block_tables (B, MAXP) int32; lengths (B,) tokens already in cache per
+    sequence (the new token is written at that position).  Returns
+    (logits (B, 1, V), pool) — the pool is updated in place."""
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, rt)
+    positions = lengths[:, None].long() + torch.arange(s, device=tokens.device)[None, :]
+    x = backbone(params, x, cfg, rt, positions, pool, (block_tables, lengths))
+    return lm_logits(params, x, rt), pool
+
+
+def prefill_from_pages(params, tokens, pool, block_tables, n_past, chunk_page_ids,
+                       cfg: ArchConfig, rt: Runtime, chunk_len=None):
+    """Chunked prefill: run one prompt chunk per row against the page pool.
+
+    tokens: (B, C) chunk of each prompt, starting at page-aligned
+    ``n_past[b]``; chunk_page_ids: (B, ceil(C/ps)) private pages that
+    receive the chunk's K/V; ``chunk_len`` (B,) valid tokens per row when C
+    is a padded bucket.  Returns (logits (B, 1, V) at each row's last
+    valid position, pool) — the pool is updated in place."""
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, rt)
+    positions = n_past[:, None].long() + torch.arange(s, device=tokens.device)[None, :]
+    paged_tables = (block_tables, n_past, chunk_page_ids)
+    if chunk_len is not None:
+        paged_tables += (chunk_len,)
+    x = backbone(params, x, cfg, rt, positions, pool, paged_tables)
+    if chunk_len is None:
+        x_last = x[:, -1:, :]
+    else:
+        last = (chunk_len.long() - 1).clamp(0, s - 1)
+        x_last = x[torch.arange(b, device=x.device), last][:, None, :]
+    return lm_logits(params, x_last, rt), pool

@@ -26,6 +26,9 @@ def pytest_configure(config):
         "no_leak_check: skip the autouse PagedEngine page-leak audit "
         "(for tests that corrupt engine state on purpose)",
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel has no interpret mode); skips without one"
+    )
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,134 @@
+"""Hygiene of the port: it imports neither JAX nor the JAX package, its
+entry points run on the card unless asked for the CPU, and its kernel
+build fails clearly without a CUDA toolkit."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    assert len(files) > 10
+    bad = [
+        (str(f.relative_to(ROOT)), m)
+        for f in files
+        for m in _imports(f)
+        if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro.")
+    ]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.models.convert\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.paged_attention\n"
+        "import repro_torch.kernels.chunked_prefill, repro_torch.core.ptq\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.launch.serve import main
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving.engine import PagedEngine
+
+    cfg = get_smoke("gpt3_126m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zoo.build(cfg, Runtime())
+    api = zoo.build(cfg, Runtime(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedEngine(api, api.init(0), n_slots=1, max_len=16, page_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--smoke", "--paged", "--chunked-prefill", "--batch", "1", "--gen", "2"])
+
+
+def test_chip_smoke_fails_without_card_or_repository(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(SMOKE.read_text())
+    runs = [(tmp_path, lone)]
+    if not torch.cuda.is_available():
+        runs.append((ROOT, SMOKE))
+    for cwd, script in runs:
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
+
+
+def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    real_exists = os.path.exists
+    monkeypatch.setattr(build.os.path, "exists",
+                        lambda p: False if "cuda" in str(p) else real_exists(p))
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.build()
+
+
+def test_wrappers_refuse_other_devices():
+    from repro_torch.core.bcq import BCQConfig
+    from repro_torch.kernels.bcq_linear import bcq_linear
+    from repro_torch.kernels.common import page_gather_attention
+
+    meta = torch.empty((4, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bcq_linear(meta, None, None, None, None, None, BCQConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
+        page_gather_attention(torch.empty((1, 1, 2, 32), device="meta"), {}, None, None,
+                              "bf16", BCQConfig())
+
+
+def test_serve_cli_runs_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--smoke", "--paged", "--chunked-prefill", "--packed", "--batch", "2",
+          "--prompt-len", "10", "--gen", "3", "--page-size", "8", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "6 tokens" in out and "device=cpu" in out
+    with pytest.raises(SystemExit):
+        main(["--smoke", "--device", "cpu"])  # only the paged chunked path is ported
+
+
+def test_page_pool_accounting():
+    from repro_torch.serving.pages import NULL_PAGE, PagePool, pages_needed
+
+    pool = PagePool(4)
+    pids = [pool.alloc() for _ in range(3)]
+    assert NULL_PAGE not in pids and pool.alloc() is None and pool.used() == 3
+    pool.ref(pids[0])
+    assert not pool.deref(pids[0]) and pool.deref(pids[0])
+    pool.release(pids[0])
+    assert pool.available() == 1
+    with pytest.raises(ValueError):
+        pool.release(pids[1])  # still referenced
+    assert [pages_needed(n, 8) for n in (0, 1, 8, 9)] == [0, 1, 1, 2]
+    assert np.int32(NULL_PAGE) == 0
