@@ -23,8 +23,34 @@ success):
    twice the plain path's own 1-ulp noise floor with it); greedy tokens
    must agree under the margin rule; then one steady decode tick is
    timed and traced.
-5. a ``kernels`` JSON line (launches, error, times, bound), the card's
-   name and power limit, then the device line as the last line.
+5. flash attention kernel vs its plain version: bf16 and f32, causal and
+   full, S ∈ {128, 384, 2048, 200}, d_head ∈ {32, 64, 128}, GQA through
+   the (B, S, H, D) wrapper.
+6. quantize kernel vs ``quantize_ref`` at (8192, 768), (8192, 3072) and a
+   ragged (37, 192): bytes equal (decoded values equal on a codebook
+   tie), ratios exactly equal.
+7. W4A4 matmul kernel vs ``matmul_ref`` at M 8192 × (K, N) ∈ {(768,
+   3072), (3072, 768)} and a ragged (37, 192, 100).
+8. the two-launch W4A4 GEMM: ``ops.w4a4_linear`` over all 72 packed
+   weights of full-width gpt3_126m, each with a seeded (8192, K)
+   activation, against ``ops.w4a4_linear_fused``; exactly 72 quantize and
+   72 matmul launches.
+9. held-out evaluation: full-width gpt3_126m (seeded random weights
+   packed to W4), bf16 compute, ``flash_kernel=True``, on two held-out
+   batches of 4 × 2048 tokens — once through the kernels (exactly 12
+   flash and 72 fused-linear launches per forward) and once through the
+   plain paths; every flash and fused-linear launch of one forward is
+   held against its plain version on the inputs the forward gave it;
+   W4A4 losses agree to twice the plain path's own noise floor (a 1-ulp
+   nudge of the input embedding); with float weights the bf16 losses
+   agree to 1e-3 and the f32 hidden states and logits to rounding; loss,
+   perplexity, ms per forward, tokens/s and the device idle share of one
+   forward.
+10. each kernel timed at its main-path shape beside its plain version
+    (and held to it there), its bound (W4A4 products at the int8
+    tensor-core peak) and its library yardstick; a ``kernels`` JSON line
+    (launches, error, times, bound), the card's name and power limit,
+    then the device line as the last line.
 
 Needs the repository's ``src/`` beside it: run alone, it fails.
 """
@@ -41,19 +67,37 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and f32 FLOP/s
-# on the CUDA cores (both kernels multiply-add in f32 outside the tensor
-# cores).  Stated at the 700 W limit.
+# H100 SXM peaks (NVIDIA data sheet, dense), stated at the 700 W limit:
+# HBM3 bytes/s; f32 FLOP/s on the CUDA cores (the LO-BCQ encode's compares
+# and sums have no tensor-core form); bf16 FLOP/s on the tensor cores (the
+# least time for attention over bf16 inputs); int8 OP/s on the tensor cores
+# (the least time for a W4A4 product: both operands decode to INT6
+# codewords times a scale per 64-wide array, so an int8 MMA per array with
+# an f32 rescale computes the same function).
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+W4A4_PEAKS = "int8 tensor cores 1979 TOP/s (product), f32 67 TFLOP/s (encode)"
 
 LINEAR_TOL = 1e-5  # rtol, and atol as a multiple of max|plain| (f32 sum order)
 GATHER_TOL = 2e-5  # atol = rtol, as tests/test_paged_kernel.py
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 1e-2}  # atol = rtol: tests/test_flash_kernel.py;
+# bf16 output rounding of two f32 sums taken in different orders
+
+EVAL_SEQ, EVAL_BATCH, EVAL_BATCHES = 2048, 4, 2  # GPT-3's context length
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", flush=True)
     sys.exit(1)
+
+
+def held(got, ref, rtol, atol):
+    """(ok, max|err|): finite ``got`` within atol + rtol·|ref| of ``ref``."""
+    err = (got.float() - ref.float()).abs()
+    ok = bool(got.float().isfinite().all()) and bool((err <= atol + rtol * ref.float().abs()).all())
+    return ok, float(err.max())
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -368,7 +412,369 @@ def profile_decode(eng_done, prompts):
 
 
 # ------------------------------------------------------------------ phase 5
-def time_linear(cb, worst_err, launches):
+def phase_flash():
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import _attend_chunked
+
+    worst = {}
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        worst[dtype] = 0.0
+        for causal in (True, False):
+            for s_len in (128, 384, 2048, 200):
+                for d in (32, 64, 128):
+                    q, k, v = (torch.randn((4, s_len, d), generator=g, device="cuda").to(dtype)
+                               for _ in range(3))
+                    got = fa.flash_attention_kernel(q, k, v, causal)
+                    ref = fa.flash_attention_plain(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    err = (got.float() - ref.float()).abs()
+                    ok = got.dtype == dtype and bool(torch.isfinite(got.float()).all()) and bool(
+                        (err <= tol + tol * ref.float().abs()).all())
+                    worst[dtype] = max(worst[dtype], float(err.max()))
+                    if not ok:
+                        fail(f"flash attention disagrees with its plain version ({dtype}, "
+                             f"causal={causal}, S={s_len}, D={d}): max|err| {float(err.max()):.3e}")
+        print(f"flash {str(dtype):14s}: 24 cases (causal/full × S 128/384/2048/200 × D 32/64/128) "
+              f"ok, max|err| {worst[dtype]:.3e} (tol atol=rtol={tol})", flush=True)
+    # GQA through the (B, S, H, D) wrapper, against the model's masked softmax
+    q = torch.randn((2, 384, 12, 64), generator=g, device="cuda")
+    k, v = (torch.randn((2, 384, 4, 64), generator=g, device="cuda") for _ in range(2))
+    got = fa.flash_attention(q, k, v)
+    ref = _attend_chunked(q, k, v, torch.arange(384, device="cuda")[None].expand(2, 384), 384)
+    err = float((got - ref).abs().max())
+    print(f"flash GQA wrapper H=12 Hkv=4 S=384: max|err| {err:.3e} (tol 2e-4)", flush=True)
+    if not torch.allclose(got, ref, rtol=2e-4, atol=2e-4):
+        fail("flash GQA wrapper disagrees with the masked softmax")
+    return max(*worst.values(), err)
+
+
+# ------------------------------------------------------------- phases 6, 7
+def activation(m, k, seed):
+    """A seeded (m, k) activation with LLM-like outlier channels, on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    x[:, :: max(1, k // 8)] *= 12.0
+    return x
+
+
+def phase_quantize(cb):
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_quantize as bq
+    from repro_torch.kernels.ref import decode_ref, quantize_ref
+
+    cfg = bcq.BCQConfig()
+    worst = 0.0
+    for i, (m, k) in enumerate(((8192, 768), (8192, 3072), (37, 192))):
+        x = activation(m, k, 20 + i)
+        s_x = bcq.tensor_scale(x, cfg)
+        idx, sel, ratio = bq.bcq_quantize(x, cb, s_x, cfg)
+        r_idx, r_sel, r_ratio = quantize_ref(x, cb, cfg, s_x)
+        torch.cuda.synchronize()
+        if not torch.equal(ratio, r_ratio):
+            fail(f"quantize ratios differ at ({m}, {k})")
+        inv = torch.ones_like(r_ratio) / (r_ratio * s_x)
+        got, ref = decode_ref(idx, sel, inv, cb, cfg), decode_ref(r_idx, r_sel, inv, cb, cfg)
+        n_diff = int((idx != r_idx).sum() + (sel != r_sel).sum())
+        worst = max(worst, float((got - ref).abs().max()))
+        print(f"quantize ({m}, {k}): ratios equal, {n_diff} differing idx/sel bytes, "
+              f"decoded values {'equal' if torch.equal(got, ref) else 'DIFFER'}", flush=True)
+        if not torch.equal(got, ref):
+            fail(f"quantize decoded values differ at ({m}, {k})")
+    return worst
+
+
+def phase_matmul(cb):
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_matmul as bm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+
+    cfg = bcq.BCQConfig()
+    worst = 0.0
+    for i, (m, k, n) in enumerate(((8192, 768, 3072), (8192, 3072, 768), (37, 192, 100))):
+        a = ops.quantize(activation(m, k, 30 + i), cb, cfg)
+        _, w = linear_case(8, k, n, 40 + i, cb)
+        args = (a.idx_packed, a.sel_packed, a.inv_scale, w.idx_packed, w.sel_packed,
+                w.inv_scale, cb, cb, cfg)
+        got, ref = bm.bcq_matmul(*args), matmul_ref(*args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        ok = bool((err <= LINEAR_TOL * ref.abs().max() + LINEAR_TOL * ref.abs()).all())
+        worst = max(worst, float(err.max()))
+        print(f"matmul M={m:4d} K={k:4d} N={n:4d}: max|err| {float(err.max()):.3e} "
+              f"(max|err|/max|plain| {float(err.max() / ref.abs().max()):.2e}, tol rtol="
+              f"{LINEAR_TOL} atol={LINEAR_TOL}·max|plain|) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"W4A4 matmul disagrees with its plain version at M={m} K={k} N={n}")
+    return worst
+
+
+# ------------------------------------------------------------------ phase 8
+def packed_weights(params, cfg):
+    """The 72 packed GEMM weights of a packed gpt3_126m tree, as
+    (name, PackedOperand) per layer."""
+    from repro_torch.kernels import ops
+
+    out = []
+    for i in range(cfg.n_layers):
+        for blk, names in (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("wi", "wo"))):
+            for nm in names:
+                pk = {k: v[i] for k, v in params["layers"][blk][nm]["kernel_packed"].items()}
+                out.append((f"{i}.{blk}.{nm}", ops.packed_operand(pk)))
+    return out
+
+
+def phase_two_launch(cb):
+    """The two-launch W4A4 GEMM over every packed weight of full-width
+    gpt3_126m: the main path of ops.w4a4_linear."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.bcq import BCQConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    cfg = get_arch("gpt3_126m")
+    params = zoo.build(cfg, Runtime(quant_mode="packed"), device="cuda").init(0)
+    weights = packed_weights(params, cfg)
+    bcfg = BCQConfig()
+    worst, worst_rel = 0.0, 0.0
+    build.reset_counts()
+    for i, (name, w) in enumerate(weights):
+        x = activation(EVAL_SEQ * EVAL_BATCH, w.k, 100 + i)
+        got = ops.w4a4_linear(x, w, cb, bcfg)
+        ref = ops.w4a4_linear_fused(x, w, cb, bcfg)  # launches bcq_linear, not counted here
+        err = (got - ref).abs()
+        worst, worst_rel = max(worst, float(err.max())), max(worst_rel, float(err.max() / ref.abs().max()))
+        if not bool((err <= LINEAR_TOL * ref.abs().max() + LINEAR_TOL * ref.abs()).all()):
+            fail(f"two-launch linear disagrees with the fused linear on weight {name}")
+    counts = {n: build.counts().get(n, 0) for n in ("bcq_quantize", "bcq_matmul")}
+    print(f"two-launch vs fused W4A4 linear over {len(weights)} weights at M={EVAL_SEQ * EVAL_BATCH}: "
+          f"max|err| {worst:.3e}, max|err|/max|fused| {worst_rel:.2e} (tol rtol={LINEAR_TOL} "
+          f"atol={LINEAR_TOL}·max|fused|) ok; launches {counts}", flush=True)
+    for name in ("bcq_quantize", "bcq_matmul"):
+        if counts.get(name, 0) != len(weights):
+            fail(f"{name} launched {counts.get(name, 0)} times, expected {len(weights)}")
+    return counts, worst
+
+
+# ------------------------------------------------------------------ phase 9
+def _eval_losses(api, params, batches):
+    """The held-out loss of each batch, and the host ms of each forward."""
+    import torch
+
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(api.loss_fn(params, b)))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, ms
+
+
+def phase_eval():
+    """Held-out W4A4 evaluation of full-width gpt3_126m: the forward of
+    ``launch/train.py``'s eval loss and of ``benchmarks/table2_ppl.py``."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, eval_stream
+    from repro_torch.kernels import build
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.transformer import forward_hidden, lm_logits
+
+    cfg = get_arch("gpt3_126m")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=EVAL_SEQ, global_batch=EVAL_BATCH)
+    batches = list(eval_stream(dc, EVAL_BATCHES, device="cuda"))
+    toks = EVAL_SEQ * EVAL_BATCH
+    rt_k = Runtime(quant_mode="packed", compute_dtype=torch.bfloat16, flash_kernel=True)
+    rt_p = dataclasses.replace(rt_k, flash_kernel=False, fused_linear=False)
+    api_k, api_p = (zoo.build(cfg, rt, device="cuda") for rt in (rt_k, rt_p))
+    params = api_k.init(0)
+
+    build.reset_counts()
+    loss_k, ms_k = _eval_losses(api_k, params, batches)
+    counts = build.counts()
+    build.reset_counts()
+    loss_p, ms_p = _eval_losses(api_p, params, batches)
+    counts_p = build.counts()
+    expect = {"flash_attention": cfg.n_layers * EVAL_BATCHES,
+              "bcq_linear": cfg.n_layers * 6 * EVAL_BATCHES}
+    for name, n in expect.items():
+        if counts.get(name, 0) != n:
+            fail(f"{name} launched {counts.get(name, 0)} times in the evaluation, expected {n}")
+    if any(counts_p.values()):
+        fail(f"kernels launched in the plain evaluation run: {counts_p}")
+    mean_k, mean_p = sum(loss_k) / len(loss_k), sum(loss_p) / len(loss_p)
+    for nm, losses, ms in (("kernels", loss_k, ms_k), ("plain  ", loss_p, ms_p)):
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"non-finite evaluation loss through the {nm.strip()}: {losses}")
+        print(f"eval W4A4 [{nm}]: loss {sum(losses) / len(losses):.6f} (per batch "
+              f"{', '.join(f'{x:.6f}' for x in losses)}), ppl {math.exp(sum(losses) / len(losses)):.2f}, "
+              f"{ms[-1]:.1f} ms/forward ({toks / ms[-1] * 1e3:.0f} tokens/s; first {ms[0]:.1f} ms)",
+              flush=True)
+    print(f"launch counts match layers × per-layer × forwards: {expect} "
+          f"({EVAL_BATCHES} forwards of {EVAL_BATCH} × {EVAL_SEQ} tokens)", flush=True)
+
+    err_in = check_eval_launches(api_k, params, batches[0])
+
+    # W4A4 noise floor: the plain path against itself after a 1-ulp nudge of
+    # the input embedding in the compute dtype (bf16: × (1 + 2^-7)); the tied
+    # output head keeps the original weights, so the nudge does not rescale
+    # every logit
+    nudged = dict(params, embed={"kernel": params["embed"]["kernel"] * (1 + 2**-7)},
+                  lm_head={"kernel": params["embed"]["kernel"].T})
+    loss_n, _ = _eval_losses(api_p, nudged, batches)
+    floor = abs(sum(loss_n) / len(loss_n) - mean_p)
+    delta = abs(mean_k - mean_p)
+    print(f"eval W4A4 |Δloss| kernels vs plain {delta:.3e}; plain vs plain with a 1-ulp "
+          f"embedding nudge (noise floor) {floor:.3e}", flush=True)
+    if delta > 2 * floor:
+        fail(f"W4A4 evaluation loss of the kernels differs from the plain path's by {delta:.3e}, "
+             f"beyond twice the plain path's own noise floor {floor:.3e}")
+
+    # float weights: only the flash kernel differs.  In bf16 compute the
+    # losses agree to 1e-3 (bf16 rounding of attention outputs); in f32
+    # compute the final hidden states and the logits of every 64th position
+    # agree to rounding, max|Δ| ≤ 1e-3 · max|plain| as phase 4's yardstick
+    def float_model(dt):
+        rt = Runtime(quant_mode="none", compute_dtype=dt, flash_kernel=True)
+        api_fk, api_fp = (zoo.build(cfg, r, device="cuda")
+                          for r in (rt, dataclasses.replace(rt, flash_kernel=False)))
+        build.reset_counts()
+        return api_fk, api_fp, api_fk.init(0)
+
+    def flash_launched():
+        if build.counts().get("flash_attention", 0) != cfg.n_layers * EVAL_BATCHES:
+            fail(f"flash launched {build.counts()} times in the float evaluation")
+
+    api_fk, api_fp, fparams = float_model(torch.bfloat16)
+    lf_k, _ = _eval_losses(api_fk, fparams, batches)
+    flash_launched()
+    lf_p, _ = _eval_losses(api_fp, fparams, batches)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lf_k, lf_p))
+    print(f"eval float weights, bf16: loss kernels {sum(lf_k) / 2:.6f} vs plain "
+          f"{sum(lf_p) / 2:.6f}, max relative Δ {rel:.2e} (tol 1e-3)", flush=True)
+    if rel > 1e-3:
+        fail("without W4A4 the flash path's loss must agree with the plain path's to 1e-3")
+
+    api_fk, api_fp, fparams = float_model(torch.float32)
+    h_k = [forward_hidden(fparams, b["tokens"], cfg, api_fk.rt) for b in batches]
+    flash_launched()
+    for b, hk in zip(batches, h_k):
+        hp = forward_hidden(fparams, b["tokens"], cfg, api_fp.rt)
+        lk, lp = (lm_logits(fparams, h[:, ::64], api_fk.rt).float() for h in (hk, hp))
+        for nm, a, r in (("hidden", hk, hp), ("logits", lk, lp)):
+            d = float((a - r).abs().max() / r.abs().max())
+            print(f"eval float weights, f32 {nm}: max|Δ|/max|plain| {d:.2e} (tol 1e-3)", flush=True)
+            if not d <= 1e-3:
+                fail(f"without W4A4 the flash path's {nm} must agree with the plain path's")
+
+    idle = profile_forward(api_k, params, batches[0], ms_k[-1])
+    return counts, err_in, {"loss": mean_k, "ppl": math.exp(mean_k), "ms": ms_k[-1],
+                            "tokens_per_s": toks / ms_k[-1] * 1e3, "idle": idle}
+
+
+def check_eval_launches(api, params, batch):
+    """Hold every flash and fused-linear launch of one evaluation forward
+    against its plain version on the very inputs the forward gave it (the
+    launches of this check are not counted toward the main path's).
+    Returns the worst max|err| per kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import fused_linear_ref
+
+    kernel_fa, plain_fa, kernel_lin = fa.flash_attention_kernel, fa.flash_attention_plain, ops.bcq_linear
+    worst = {"flash_attention": [], "bcq_linear": []}
+
+    def flash(q, k, v, causal=True):
+        out = kernel_fa(q, k, v, causal)
+        tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+        ok, err = held(out, plain_fa(q, k, v, causal), tol, tol)
+        if not ok:
+            fail(f"flash disagrees with its plain version on evaluation inputs {tuple(q.shape)} "
+                 f"{q.dtype}: max|err| {err:.3e}")
+        worst["flash_attention"].append(err)
+        return out
+
+    def linear(x, w_idx, w_sel, w_inv, cb, s_x, cfg):
+        out = kernel_lin(x, w_idx, w_sel, w_inv, cb, s_x, cfg)
+        ref = fused_linear_ref(x, w_idx, w_sel, w_inv, cb, cfg, s_x, valid_k=x.shape[1])
+        ok, err = held(out, ref, LINEAR_TOL, LINEAR_TOL * float(ref.abs().max()))
+        if not ok:
+            fail(f"fused linear disagrees with its plain version on evaluation inputs "
+                 f"M={x.shape[0]} K={x.shape[1]} N={w_idx.shape[0]}: max|err| {err:.3e}")
+        worst["bcq_linear"].append(err)
+        return out
+
+    fa.flash_attention_kernel, ops.bcq_linear = flash, linear
+    try:
+        api.loss_fn(params, batch)
+    finally:
+        fa.flash_attention_kernel, ops.bcq_linear = kernel_fa, kernel_lin
+    n = {name: len(v) for name, v in worst.items()}
+    expect = {"flash_attention": api.cfg.n_layers, "bcq_linear": 6 * api.cfg.n_layers}
+    if n != expect:
+        fail(f"the evaluation forward made {n} launches, expected {expect}")
+    out = {name: max(v) for name, v in worst.items()}
+    print(f"every launch of one evaluation forward vs its plain version on its own inputs: "
+          f"{n} ok, max|err| {out} (flash tol atol=rtol={FLASH_TOL['bfloat16']}, linear rtol="
+          f"{LINEAR_TOL} atol={LINEAR_TOL}·max|plain|)", flush=True)
+    return out
+
+
+def profile_forward(api, params, batch, wall_ms):
+    """Where one evaluation forward's time goes (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        api.loss_fn(params, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        print("eval forward profile: the profiler saw no device kernels (device time not "
+              "measured)", flush=True)
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    idle = max(0.0, 1 - busy / wall_ms)
+    print(f"eval forward profile: wall {wall_ms:.1f} ms unprofiled, {len(kern)} CUDA kernels, "
+          f"device busy {busy:.1f} ms (idle share {idle:.3f})", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {name[:90]}", flush=True)
+    return idle
+
+
+# ------------------------------------------------------------------ phase 10
+def _bound(nbytes, *work):
+    """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
+    peak per second)`` pairs of ``work`` (each on its own units, which run
+    side by side), and which of bytes and operations bounds it."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = max(ops / peak * 1e3 for ops, peak in work)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _linear_times(cb, m, k, n, seed):
+    """Fused linear at (m, k, n): kernel, plain and bf16 torch.matmul ms, bound."""
     import torch
 
     from repro_torch.core import bcq
@@ -376,27 +782,39 @@ def time_linear(cb, worst_err, launches):
     from repro_torch.kernels.ref import fused_linear_ref
 
     cfg = bcq.BCQConfig()
-    m, k, n = 8, 768, 3072  # decode mlp-in: n_slots rows
-    x, w = linear_case(m, k, n, 99, cb)
+    x, w = linear_case(m, k, n, seed, cb)
     s_x = bcq.tensor_scale(x, cfg)
     args = (x, w.idx_packed, w.sel_packed, w.inv_scale, cb)
-    ms = cuda_ms(lambda: bl.bcq_linear(*args, s_x, cfg))
+    ms = cuda_ms(lambda: bl.bcq_linear(*args, s_x, cfg), iters=50 if m < 1024 else 10)
     plain_ms = cuda_ms(lambda: fused_linear_ref(*args, cfg, s_x, valid_k=k), iters=10)
+    ref = fused_linear_ref(*args, cfg, s_x, valid_k=k)
+    ok, err = held(bl.bcq_linear(*args, s_x, cfg), ref, LINEAR_TOL, LINEAR_TOL * float(ref.abs().max()))
+    if not ok:
+        fail(f"fused linear disagrees with its plain version at M={m} K={k} N={n}: {err:.3e}")
     xb = x.to(torch.bfloat16)
     wb = torch.randn((k, n)).cuda().to(torch.bfloat16)
     library_ms = cuda_ms(lambda: torch.matmul(xb, wb))
     nbytes = m * k * 4 + n * k // 2 + n * k // 16 + n * k // 64 * 4 + 8 * 16 * 4 + 4 + m * n * 4
-    flops = 2 * m * n * k
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    enc = 8 * (15 + 3) * m * k  # encode x once: per scalar and codebook 15 compares, d, d², Σ
+    bound, by = _bound(nbytes, (2 * m * n * k, INT8_OPS), (enc, F32_FLOPS))
     print(f"bcq_linear timing at M={m} K={k} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.matmul bf16 {library_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
-          f"({nbytes} B, {flops} f32 FLOP)", flush=True)
+          f"torch.matmul bf16 {library_ms:.4f} ms, bound {bound:.5f} ms by {by} "
+          f"({nbytes} B, {2 * m * n * k} product OP at {INT8_OPS:.3g}/s, {enc} encode OP at "
+          f"{F32_FLOPS:.3g}/s; {2 * m * n * k / F32_FLOPS * 1e3:.5f} ms if the product ran at "
+          f"the f32 peak); kernel vs plain max|err| {err:.3e}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def time_linear(cb, worst_err, launches):
+    dec = _linear_times(cb, 8, 768, 3072, 99)  # decode mlp-in: n_slots rows
+    ev = _linear_times(cb, EVAL_SEQ * EVAL_BATCH, 768, 3072, 98)  # evaluation mlp-in
     return {
         "name": "bcq_linear", "route": "cuda", "source": "src/repro_torch/csrc/bcq_linear.cu",
-        "replaces": "src/repro/kernels/bcq_linear.py:81", "launches": launches,
-        "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
+        "replaces": "src/repro/kernels/bcq_linear.py:81", "launches": sum(launches.values()),
+        "launches_by_path": launches, "max_abs_err": worst_err, **dec,
+        "bound_peak": W4A4_PEAKS, "shape": "M 8 K 768 N 3072 (decode)",
+        "at_eval": dict(ev, shape=f"M {EVAL_SEQ * EVAL_BATCH} K 768 N 3072"),
     }
 
 
@@ -422,16 +840,112 @@ def time_gather(cb, worst_err, launches):
     page_bytes = ps * hkv * (d // 2 + d // 16 + d // 64)  # one K or V page
     nbytes = q.numel() * 4 * 2 + 2 * pages * page_bytes + bt.numel() * 4 + b * 4 + 8 * 16 * 4 + 8
     flops = 4 * hkv * d * pages * ps  # QK and PV, C = 1, H = Hkv
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    bound, by = _bound(nbytes, (flops, F32_FLOPS))
     print(f"page_gather timing at decode B={b} H={hkv} D={d} bcq4 kv_len={kv_len}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms by {by} "
           f"({nbytes} B, {flops} f32 FLOP)", flush=True)
     return {
         "name": "page_gather", "route": "cuda", "source": "src/repro_torch/csrc/page_gather.cu",
         "replaces": "src/repro/kernels/common.py:265", "launches": launches,
         "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "bound_ms": bound, "bound_by": by, "library_ms": None, "bound_peak": "f32 67 TFLOP/s",
+    }
+
+
+def time_flash(worst_err, launches):
+    """Flash at the evaluation shape: (4 · 12, 2048, 64) bf16, causal."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    bh, s_len, d = EVAL_BATCH * 12, EVAL_SEQ, 64
+    q, k, v = (torch.randn((bh, s_len, d), device="cuda").to(torch.bfloat16) for _ in range(3))
+    ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, True), iters=20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True), iters=5)
+    tol = FLASH_TOL["bfloat16"]
+    ok, err = held(fa.flash_attention_kernel(q, k, v, True), fa.flash_attention_plain(q, k, v, True),
+                   tol, tol)
+    if not ok:
+        fail(f"flash disagrees with its plain version at BH={bh} S={s_len} D={d}: {err:.3e}")
+    q4, k4, v4 = (t.reshape(EVAL_BATCH, 12, s_len, d) for t in (q, k, v))
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), iters=20)
+    nbytes = 4 * bh * s_len * d * 2  # q, k, v read once, out written once
+    pairs = s_len * (s_len + 1) // 2  # causal (query, key) pairs per head
+    flops = 4 * d * pairs * bh  # q·k and p·v
+    bound, by = _bound(nbytes, (flops, BF16_FLOPS))
+    print(f"flash timing at BH={bh} S={s_len} D={d} bf16 causal: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.5f} ms by {by} "
+          f"({nbytes} B, {flops} FLOP at the bf16 tensor-core peak; {flops / F32_FLOPS * 1e3:.4f} ms "
+          f"at the f32 peak); kernel vs plain max|err| {err:.3e}", flush=True)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26", "launches": launches,
+        "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by, "library_ms": library_ms, "bound_peak": "bf16 989 TFLOP/s",
+        "shape": f"BH {bh} S {s_len} D {d} bf16 causal",
+    }
+
+
+def time_quantize(cb, worst_err, launches):
+    """Quantize at the evaluation's activation shape (8192, 768)."""
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_quantize as bq
+    from repro_torch.kernels.ref import quantize_ref
+
+    cfg = bcq.BCQConfig()
+    m, k = EVAL_SEQ * EVAL_BATCH, 768
+    x = activation(m, k, 7)
+    s_x = bcq.tensor_scale(x, cfg)
+    ms = cuda_ms(lambda: bq.bcq_quantize(x, cb, s_x, cfg))
+    plain_ms = cuda_ms(lambda: quantize_ref(x, cb, cfg, s_x), iters=5)
+    nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
+    ops = 8 * (15 + 3) * m * k  # per scalar and codebook: 15 compares, d, d², Σ
+    bound, by = _bound(nbytes, (ops, F32_FLOPS))
+    print(f"quantize timing at M={m} K={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.5f} ms by {by} ({nbytes} B, {ops} f32 operations)", flush=True)
+    return {
+        "name": "bcq_quantize", "route": "cuda", "source": "src/repro_torch/csrc/bcq_quantize.cu",
+        "replaces": "src/repro/kernels/bcq_quantize.py:31", "launches": launches,
+        "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by, "library_ms": None, "bound_peak": "f32 67 TFLOP/s",
+        "shape": f"M {m} K {k}",
+    }
+
+
+def time_matmul(cb, worst_err, launches):
+    """W4A4 matmul at the evaluation's mlp-in shape, 8192 × 768 → 3072."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_matmul as bm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+
+    cfg = bcq.BCQConfig()
+    m, k, n = EVAL_SEQ * EVAL_BATCH, 768, 3072
+    a = ops.quantize(activation(m, k, 8), cb, cfg)
+    _, w = linear_case(8, k, n, 9, cb)
+    args = (a.idx_packed, a.sel_packed, a.inv_scale, w.idx_packed, w.sel_packed, w.inv_scale,
+            cb, cb, cfg)
+    ms = cuda_ms(lambda: bm.bcq_matmul(*args), iters=10)
+    plain_ms = cuda_ms(lambda: matmul_ref(*args), iters=5)
+    xb = torch.randn((m, k), device="cuda").to(torch.bfloat16)
+    wb = torch.randn((k, n), device="cuda").to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.matmul(xb, wb))
+    nbytes = (m + n) * (k // 2 + k // 16 + k // 64 * 4) + 2 * 8 * 16 * 4 + m * n * 4
+    bound, by = _bound(nbytes, (2 * m * n * k, INT8_OPS))
+    print(f"matmul timing at M={m} K={k} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul bf16 {library_ms:.4f} ms, bound {bound:.5f} ms by {by} ({nbytes} B, "
+          f"{2 * m * n * k} OP at the int8 tensor-core peak; {2 * m * n * k / F32_FLOPS * 1e3:.5f} ms "
+          f"at the f32 peak)", flush=True)
+    return {
+        "name": "bcq_matmul", "route": "cuda", "source": "src/repro_torch/csrc/bcq_matmul.cu",
+        "replaces": "src/repro/kernels/bcq_matmul.py:52", "launches": launches,
+        "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by, "library_ms": library_ms, "bound_peak": "int8 tensor cores 1979 TOP/s",
+        "shape": f"M {m} K {k} N {n}",
     }
 
 
@@ -465,9 +979,18 @@ def main() -> int:
     err_lin = phase_linear(cb)
     err_gat = phase_gather(cb)
     _, counts = phase_serving()
+    err_fl = phase_flash()
+    err_q = phase_quantize(cb)
+    err_mm = phase_matmul(cb)
+    counts_2l, err_2l = phase_two_launch(cb)
+    counts_ev, err_ev, _ = phase_eval()
     kernels = [
-        time_linear(cb, err_lin, counts["bcq_linear"]),
+        time_linear(cb, max(err_lin, err_ev["bcq_linear"]),
+                    {"serving": counts["bcq_linear"], "evaluation": counts_ev["bcq_linear"]}),
         time_gather(cb, err_gat, counts["page_gather"]),
+        time_flash(max(err_fl, err_ev["flash_attention"]), counts_ev["flash_attention"]),
+        time_quantize(cb, err_q, counts_2l["bcq_quantize"]),
+        time_matmul(cb, max(err_mm, err_2l), counts_2l["bcq_matmul"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

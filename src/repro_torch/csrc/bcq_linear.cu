@@ -32,36 +32,22 @@
 // known cost in PERF.md).  wgmma, TMA and an exact int8 route are later
 // work.
 //
-// Bit-exactness with the plain PyTorch encode: every product and sum
-// that feeds a compare or a stored value uses the _rn intrinsics, so no
-// multiply-add is contracted into an FMA; the block error is summed
-// left to right; rintf rounds half to even like torch.round.  Build
-// without --use_fast_math.
+// The encode and the weight decode are the shared device functions of
+// bcq_encode.cuh (bit-exact with the plain PyTorch encode; see there).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bcq_encode.cuh"
+
 namespace {
 
-constexpr int LA = 64;   // L_A: scalars per block array (one K step)
-constexpr int LB = 8;    // L_b: scalars per block
-constexpr int NE = 16;   // 2^B codebook entries
-constexpr int NC = 8;    // N_c codebooks
+using bcq::LA;
+using bcq::LB;
+using bcq::NC;
+using bcq::NE;
 constexpr int TM = 16;   // output rows per block
 constexpr int TN = 64;   // output columns per block
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ float pow2i(int e) { return __int_as_float((e + 127) << 23); }
-
-// E4M3 round to nearest even for positive values, clamped to [2^-9, 448]
-// (repro/kernels/common.py: e4m3_snap).
-__device__ __forceinline__ float e4m3_snap(float a) {
-  float e = floorf(log2f(fmaxf(a, 1e-38f)));
-  e = fminf(fmaxf(e, -6.f), 8.f);
-  const float ulp = pow2i(static_cast<int>(e) - 3);
-  float q = __fmul_rn(rintf(__fdiv_rn(a, ulp)), ulp);
-  q = fminf(q, 448.f);
-  return fmaxf(q, 0.001953125f);
-}
 
 __global__ void __launch_bounds__(THREADS) bcq_linear_kernel(
     const float* __restrict__ x, const uint8_t* __restrict__ w_idx,
@@ -76,12 +62,7 @@ __global__ void __launch_bounds__(THREADS) bcq_linear_kernel(
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * TN;
   const int m0 = blockIdx.y * TM;
-  if (tid < NC * NE) cb_s[tid] = cb[tid];
-  __syncthreads();
-  if (tid < NC * (NE - 1)) {
-    const int c = tid / (NE - 1), t = tid % (NE - 1);
-    thr_s[tid] = 0.5f * (cb_s[c * NE + t] + cb_s[c * NE + t + 1]);
-  }
+  bcq::load_tables(cb, cb_s, thr_s, tid);
   const float s_x = *s_x_ptr;
   const int kb = K / 2, ks = K / 16, ka = K / LA;
 
@@ -97,45 +78,12 @@ __global__ void __launch_bounds__(THREADS) bcq_linear_kernel(
       const int r = tid >> 3, b = tid & 7;
       const int m = m0 + r;
       float y[LB];
-      float amax = 0.f;
 #pragma unroll
-      for (int i = 0; i < LB; ++i) {
+      for (int i = 0; i < LB; ++i)
         y[i] = m < M ? x[static_cast<size_t>(m) * K + k0 + b * LB + i] : 0.f;
-        amax = fmaxf(amax, fabsf(y[i]));
-      }
-      // the 8 blocks of an array sit on 8 neighbouring lanes
-#pragma unroll
-      for (int o = 1; o < 8; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      const float s_a = amax > 0.f ? __fdiv_rn(cw_max, amax) : s_x;
-      const float ratio = e4m3_snap(__fdiv_rn(s_a, s_x));
-      const float scale = __fmul_rn(ratio, s_x);
-#pragma unroll
-      for (int i = 0; i < LB; ++i) y[i] = __fmul_rn(y[i], scale);
-
-      float best = INFINITY;
-      int bsel = 0;
-      int bidx[LB];
-#pragma unroll
-      for (int i = 0; i < LB; ++i) bidx[i] = 0;
-      for (int c = 0; c < NC; ++c) {
-        int id[LB];
-        float err = 0.f;
-#pragma unroll
-        for (int i = 0; i < LB; ++i) {
-          int k = 0;
-#pragma unroll
-          for (int t = 0; t < NE - 1; ++t) k += y[i] >= thr_s[c * (NE - 1) + t];
-          id[i] = k;
-          const float d = __fsub_rn(y[i], cb_s[c * NE + k]);
-          err = __fadd_rn(err, __fmul_rn(d, d));
-        }
-        if (err < best) {
-          best = err;
-          bsel = c;
-#pragma unroll
-          for (int i = 0; i < LB; ++i) bidx[i] = id[i];
-        }
-      }
+      int bidx[LB], bsel;
+      float ratio, scale;
+      bcq::encode_block(y, cb_s, thr_s, s_x, cw_max, bidx, bsel, ratio, scale);
       const float inv = __fdiv_rn(1.f, scale);
 #pragma unroll
       for (int i = 0; i < LB; ++i) a_s[b * LB + i][r] = __fmul_rn(cb_s[bsel * NE + bidx[i]], inv);
@@ -145,18 +93,10 @@ __global__ void __launch_bounds__(THREADS) bcq_linear_kernel(
       const int wn = t & (TN - 1), half = t >> 6;
       const int n = n0 + wn;
       if (n < N) {
-        const uint8_t* ib = w_idx + static_cast<size_t>(n) * kb + k0 / 2 + half * 16;
-        const uint8_t* sb = w_sel + static_cast<size_t>(n) * ks + k0 / 16 + half * 2;
-        const float inv = w_inv[static_cast<size_t>(n) * ka + k0 / LA];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const uint8_t byte = ib[j];
-          const uint8_t sbyte = sb[j / 8];
-          const int sel = (j / 4) & 1 ? sbyte >> 4 : sbyte & 15;
-          const int kk = half * 32 + 2 * j;
-          w_s[kk][wn] = __fmul_rn(cb_s[sel * NE + (byte & 15)], inv);
-          w_s[kk + 1][wn] = __fmul_rn(cb_s[sel * NE + (byte >> 4)], inv);
-        }
+        bcq::decode_half(w_idx + static_cast<size_t>(n) * kb + k0 / 2 + half * 16,
+                         w_sel + static_cast<size_t>(n) * ks + k0 / 16 + half * 2,
+                         w_inv[static_cast<size_t>(n) * ka + k0 / LA], cb_s,
+                         &w_s[half * 32][wn], TN);
       } else {
 #pragma unroll
         for (int j = 0; j < 32; ++j) w_s[half * 32 + j][wn] = 0.f;

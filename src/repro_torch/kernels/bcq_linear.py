@@ -34,22 +34,12 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
     n = w_idx.shape[0]
     if k % cfg.array_len:
         raise ValueError(f"bcq_linear kernel: K={k} is not a multiple of {cfg.array_len}")
-    shapes = {
-        "x": (x, torch.float32, (m, k)),
-        "w_idx": (w_idx, torch.uint8, (n, k // 2)),
-        "w_sel": (w_sel, torch.uint8, (n, k // 16)),
-        "w_inv": (w_inv, torch.float32, (n, k // 64)),
-        "codebooks": (codebooks, torch.float32, (8, 16)),
-        "s_x": (s_x, torch.float32, ()),
-    }
-    for name, (t, dt, shape) in shapes.items():
-        if t.device != x.device or t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(
-                f"bcq_linear kernel: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
-                f"expected {shape} {dt} on {x.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"bcq_linear kernel: {name} must be contiguous")
+    for name, t, dt, shape in (
+        ("x", x, torch.float32, (m, k)), ("w_idx", w_idx, torch.uint8, (n, k // 2)),
+        ("w_sel", w_sel, torch.uint8, (n, k // 16)), ("w_inv", w_inv, torch.float32, (n, k // 64)),
+        ("codebooks", codebooks, torch.float32, (8, 16)), ("s_x", s_x, torch.float32, ()),
+    ):
+        build.check_tensor(f"bcq_linear kernel: {name}", t, dt, shape, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a`` and linked into one shared library with
 a plain C interface, loaded with ``ctypes``.  The build happens on first
 use, into ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``); the library's file name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one reused.
+``.gitignore``); the library's file name carries a hash of the flags and
+of every source and header under ``csrc/``, so an edited source or
+shared header is rebuilt and an unchanged tree reused.
 
 Each kernel wrapper keeps a :class:`LaunchCounter` that it bumps where
 (and only where) it launches its kernel; ``reset_counts`` / ``counts``
@@ -23,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("bcq_linear.cu", "page_gather.cu")
+SOURCES = ("bcq_linear.cu", "page_gather.cu", "bcq_quantize.cu", "bcq_matmul.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -36,6 +38,12 @@ _SIGNATURES = {
     # kind, q, k0..k2, v0..v2, k_sx, v_sx, cb, tables, kv_len, out,
     # B, C, H, Hkv, D, ps, maxp, la, scale, stream
     "page_gather_launch": (_I,) + (_P,) * 13 + (_I,) * 8 + (_F, _P),
+    # x, cb, s_x, idx, sel, ratio, M, K, cw_max, stream
+    "bcq_quantize_launch": (_P,) * 6 + (_I, _I, _F, _P),
+    # a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, cb_a, cb_w, out, M, N, K, stream
+    "bcq_matmul_launch": (_P,) * 9 + (_I, _I, _I, _P),
+    # dtype, q, k, v, out, BH, S, D, causal, scale, stream
+    "flash_attention_launch": (_I,) + (_P,) * 4 + (_I,) * 4 + (_F, _P),
 }
 
 
@@ -81,7 +89,8 @@ def find_nvcc() -> str:
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sorted({*SOURCES, *(p.name for p in CSRC.glob("*.cuh"))}):
+        h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"libreprotorch-{h.hexdigest()[:16]}.so"
 
@@ -141,6 +150,16 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``shape`` ``dtype`` tensor on
+    ``device`` (what a kernel's C entry takes on trust)."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                         f"expected {tuple(shape)} {dtype} on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check(status: int, name: str) -> None:

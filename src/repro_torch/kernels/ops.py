@@ -1,12 +1,23 @@
-"""Wrappers around the fused W4A4 linear (counterpart of ``repro/kernels/ops.py``).
+"""Wrappers around the W4A4 kernels (counterpart of ``repro/kernels/ops.py``).
 
-The dispatch is by device: CUDA tensors launch the kernel, CPU tensors
-run its plain version (see ``kernels/bcq_linear.py``).  The wrapper owns
-the per-tensor activation scale: ``s_x`` is one torch reduction over the
-whole launch batch (``ops.py:187-190``), so every row of a launch shares
-it — the reason the serving engine stages launches exactly like the
-reference.  No padding is needed: the kernel masks ragged M and N, and K
-must already be a multiple of L_A.
+Two routes to the same linear:
+
+* ``w4a4_linear_fused`` — one launch (``kernels/bcq_linear.py``) that
+  encodes the raw activation in the kernel;
+* ``w4a4_linear`` — two launches, ``quantize`` (``kernels/bcq_quantize.py``)
+  then ``matmul`` (``kernels/bcq_matmul.py``), the packed activation
+  round-tripping through device memory.  The model never takes this
+  route (the reference's ``Runtime(fused_linear=False)`` decodes and
+  multiplies in plain code instead); it is the kernel API of
+  ``examples/quickstart.py`` and ``benchmarks/kernel_bench.py``.
+
+The dispatch is by device: CUDA tensors launch the kernels, CPU tensors
+run their plain versions.  The wrappers own the per-tensor activation
+scale: ``s_x`` is one torch reduction over the whole launch batch
+(``ops.py:187-190``), so every row of a launch shares it — the reason the
+serving engine stages launches exactly like the reference.  No padding
+is needed: the kernels mask ragged M and N, and K must already be a
+multiple of L_A.
 """
 from __future__ import annotations
 
@@ -17,6 +28,8 @@ import torch
 from repro_torch.core import bcq, formats
 from repro_torch.core.bcq import BCQConfig
 from repro_torch.kernels.bcq_linear import bcq_linear
+from repro_torch.kernels.bcq_matmul import bcq_matmul
+from repro_torch.kernels.bcq_quantize import bcq_quantize
 
 
 @dataclasses.dataclass
@@ -36,6 +49,40 @@ def packed_operand(pk: dict) -> PackedOperand:
     ratio = formats.bits_to_e4m3(pk["scale"])
     inv = torch.where(ratio > 0, 1.0 / (ratio * pk["s_x"]), torch.zeros_like(ratio))
     return PackedOperand(pk["idx"], pk["sel"], inv, pk["idx"].shape[1] * 2)
+
+
+def quantize(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig,
+             s_x: torch.Tensor | None = None) -> PackedOperand:
+    """Encode a 2-D operand (rows × reduction K, K % L_A == 0) to packed
+    LO-BCQ; ``s_x`` defaults to the per-tensor reduction over x."""
+    k = x.shape[1]
+    if k % cfg.array_len:
+        raise ValueError(f"quantize: K={k} is not a multiple of L_A={cfg.array_len}")
+    xf = x.float().contiguous()
+    if s_x is None:
+        s_x = bcq.tensor_scale(xf, cfg)
+    idx_p, sel_p, ratio = bcq_quantize(xf, codebooks, s_x, cfg)
+    inv = torch.ones_like(ratio) / (ratio * s_x)  # tensor / tensor, as XLA divides
+    return PackedOperand(idx_p, sel_p, inv, k)
+
+
+def matmul(a: PackedOperand, w: PackedOperand, codebooks: torch.Tensor,
+           cfg: BCQConfig) -> torch.Tensor:
+    """W4A4 GEMM: (M, K)·(N, K)ᵀ on packed operands → f32 (M, N)."""
+    if a.k != w.k:
+        raise ValueError(f"matmul: K={a.k} vs weight K={w.k}")
+    return bcq_matmul(a.idx_packed, a.sel_packed, a.inv_scale, w.idx_packed, w.sel_packed,
+                      w.inv_scale, codebooks, codebooks, cfg)
+
+
+def w4a4_linear(x: torch.Tensor, w: PackedOperand, codebooks: torch.Tensor,
+                cfg: BCQConfig) -> torch.Tensor:
+    """Two-launch W4A4 linear: ``quantize`` the activation (dynamic s_X),
+    then ``matmul`` with the pre-encoded weight (N, K).  x: (..., K).
+    Returns (..., N) in x.dtype."""
+    lead = x.shape[:-1]
+    a = quantize(x.reshape(-1, x.shape[-1]), codebooks, cfg)
+    return matmul(a, w, codebooks, cfg).reshape(*lead, -1).to(x.dtype)
 
 
 def w4a4_linear_fused(x: torch.Tensor, w: PackedOperand, codebooks: torch.Tensor,

@@ -26,7 +26,12 @@ class Runtime:
     fused_linear: packed linears go through the fused kernel
     (kernels/bcq_linear.py) instead of decode + matmul.  paged_kernel:
     paged attention goes through the page-gather kernel
-    (kernels/common.py) instead of gather + dequant + masked softmax."""
+    (kernels/common.py) instead of gather + dequant + masked softmax.
+    flash_kernel: causal self-attention without a cache (the training /
+    evaluation forward) goes through the flash kernel
+    (kernels/flash_attention.py) instead of the masked softmax.
+    logit_chunk: the loss takes its logits this many positions at a time
+    (0: all at once)."""
 
     quant_mode: str = "none"
     bcq_cfg: BCQConfig = BCQConfig()
@@ -35,6 +40,8 @@ class Runtime:
     cache_kind: str = "bf16"  # bf16 | int8 | bcq4
     paged_kernel: bool = False
     fused_linear: bool = True
+    flash_kernel: bool = False
+    logit_chunk: int = 0
 
 
 # ------------------------------------------------------------------ norms
@@ -300,11 +307,11 @@ def paged_gather_kv(pool, block_tables, kind, cfg: BCQConfig, cb, dtype):
 
 
 # ---------------------------------------------------------------- attention
-def _attend_chunked(q, k, v, q_pos, kv_valid_len):
-    """Exact causal softmax attention.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv,
-    D); q_pos (B, Sq) absolute positions; kv index j is absolute position
-    j.  Masks: j <= pos and j < kv_valid_len, with finite -1e30.  (The
-    reference scans over query chunks to bound memory; rows are
+def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True):
+    """Exact softmax attention.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D);
+    q_pos (B, Sq) absolute positions; kv index j is absolute position j.
+    Masks: j < kv_valid_len, and j <= pos when causal, with finite -1e30.
+    (The reference scans over query chunks to bound memory; rows are
     independent, so all rows at once give the same values.)"""
     d = q.shape[-1]
     rep = q.shape[2] // k.shape[2]
@@ -312,22 +319,28 @@ def _attend_chunked(q, k, v, q_pos, kv_valid_len):
     vx = torch.repeat_interleave(v, rep, dim=2) if rep > 1 else v
     s = torch.einsum("bchd,bkhd->bhck", q.float(), kx.float()) * d**-0.5
     j = torch.arange(k.shape[1], device=q.device)
-    m = (j[None, None, None, :] < kv_valid_len) & (j[None, None, None, :] <= q_pos[:, None, :, None])
+    m = j[None, None, None, :] < kv_valid_len
+    if causal:
+        m = m & (j[None, None, None, :] <= q_pos[:, None, :, None])
     s = torch.where(m, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhck,bkhd->bchd", p, vx.float()).to(q.dtype)
 
 
-def attention(x, p, cfg, rt: Runtime, cb, positions, paged):
-    """Paged GQA attention (the two serving branches of the reference).
+def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None):
+    """GQA attention: the cache-free self-attention and the two paged
+    serving branches of the reference.
 
+    ``paged`` = None: causal SELF-ATTENTION over x alone, no cache (the
+    training / evaluation forward) — through the flash kernel when
+    ``rt.flash_kernel``, else the masked softmax.
     ``paged`` = (pool, block_tables, lengths): DECODE — the new token is
     written into its page, attention reads live pages only.
     ``paged`` = (pool, block_tables, n_past, chunk_page_ids[, chunk_len]):
     CHUNKED PREFILL — x is a prompt chunk starting at page-aligned
     ``n_past``; its K/V are written whole-page into ``chunk_page_ids`` and
     the chunk attends causally to itself and every earlier page.
-    Returns (out, pool) — the pool is updated in place."""
+    Returns (out, pool) — the pool is updated in place (None without one)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q, k, v = qdense_shared(x, [p["wq"], p["wk"], p["wv"]], rt, cb)
@@ -336,7 +349,15 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged):
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
     kind = rt.cache_kind
 
-    if len(paged) >= 4:
+    if paged is None:
+        pool = None
+        if rt.flash_kernel:  # causal, no window, as many keys as queries
+            from repro_torch.kernels.flash_attention import flash_attention
+
+            out = flash_attention(q, k, v, causal=True).to(q.dtype)
+        else:
+            out = _attend_chunked(q, k, v, positions, k.shape[1])
+    elif len(paged) >= 4:
         pool, block_tables, n_past, chunk_page_ids = paged[:4]
         chunk_len = paged[4] if len(paged) == 5 else None
         paged_chunk_write(pool, k, v, chunk_page_ids, kind, rt.bcq_cfg, cb, chunk_len)

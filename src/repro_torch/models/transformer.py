@@ -4,7 +4,9 @@ of ``repro/models/transformer.py``).
 Parameters are the reference's tree: per-layer leaves stacked on a
 leading layer axis (``params["layers"]``), the page pool likewise
 (leaves (L, n_pages, page_size, ...)).  The layer loop is a Python loop
-over views of both; page writes land in the pool in place.
+over views of both; page writes land in the pool in place.  Without a
+pool the stack runs cache-free causal self-attention: the training /
+evaluation forward (``forward_train``, scored by ``xent_loss``).
 """
 from __future__ import annotations
 
@@ -77,6 +79,31 @@ def lm_logits(params, x, rt: Runtime):
     return x.to(rt.compute_dtype) @ w.to(rt.compute_dtype)
 
 
+def xent_loss(params, x, labels, rt: Runtime, mask=None):
+    """Mean next-token cross-entropy of final hidden states x (B, S, d)
+    against labels (B, S), weighted by ``mask``.  With ``rt.logit_chunk``
+    dividing S, the (B, S, V) logits are taken a chunk of positions at a
+    time and never exist whole."""
+
+    def piece(xc, lc, mc):
+        logits = lm_logits(params, xc, rt).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return ((lse - gold) * mc).sum(), mc.sum()
+
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+    c, s = rt.logit_chunk, x.shape[1]
+    if c and s > c and s % c == 0:
+        parts = [piece(x[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c])
+                 for i in range(0, s, c)]
+        tot = torch.stack([t for t, _ in parts]).sum()
+        cnt = torch.stack([n for _, n in parts]).sum()
+    else:
+        tot, cnt = piece(x, labels, mask)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
 def block_apply(x, p, cfg, rt: Runtime, cb, positions, paged):
     h = layers.norm_apply(x, p["ln1"], cfg.norm)
     attn_out, _ = layers.attention(h, p["attn"], cfg, rt, cb, positions, paged)
@@ -92,18 +119,31 @@ def _layer(tree, i):
     return tree[i]
 
 
-def backbone(params, x, cfg, rt: Runtime, positions, pool, paged_tables):
-    """Run the layer stack over a page pool.  ``paged_tables``:
-    (block_tables, lengths) for decode, or (block_tables, n_past,
-    chunk_page_ids[, chunk_len]) for chunked prefill (see
-    layers.attention)."""
+def backbone(params, x, cfg, rt: Runtime, positions, pool=None, paged_tables=None):
+    """Run the layer stack, over a page pool when one is given.
+    ``paged_tables``: (block_tables, lengths) for decode, or (block_tables,
+    n_past, chunk_page_ids[, chunk_len]) for chunked prefill (see
+    layers.attention).  Without a pool: cache-free self-attention."""
     cb = params.get("codebooks")
     for i in range(cfg.n_layers):
-        x = block_apply(
-            x, _layer(params["layers"], i), cfg, rt, cb, positions,
-            (_layer(pool, i),) + tuple(paged_tables),
-        )
+        paged = None if pool is None else (_layer(pool, i),) + tuple(paged_tables)
+        x = block_apply(x, _layer(params["layers"], i), cfg, rt, cb, positions, paged)
     return layers.norm_apply(x, params["ln_f"], cfg.norm)
+
+
+def forward_hidden(params, tokens, cfg: ArchConfig, rt: Runtime):
+    """Final hidden states (B, S, d) of the cache-free forward of tokens (B, S)."""
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, rt)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    return backbone(params, x, cfg, rt, positions)
+
+
+def forward_train(params, batch, cfg: ArchConfig, rt: Runtime):
+    """batch: {'tokens', 'labels' (B, S), optional 'mask'} → scalar loss
+    (dense family: no auxiliary loss)."""
+    x = forward_hidden(params, batch["tokens"], cfg, rt)
+    return xent_loss(params, x, batch["labels"], rt, batch.get("mask"))
 
 
 def cache_init_stacked(cfg: ArchConfig, rt: Runtime, batch, max_len, device="cpu"):

@@ -1,6 +1,7 @@
 """ArchConfig → model API (counterpart of the dense branch of
-``repro/models/zoo.build``): random init, the paged decode step, the
-page-pool init and the chunked-prefill step, all on one device."""
+``repro/models/zoo.build``): random init, the loss of a batch (the
+evaluation forward), the paged decode step, the page-pool init and the
+chunked-prefill step, all on one device."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,13 +34,14 @@ class ModelAPI:
     rt: Runtime
     device: torch.device
     init: Callable[[int], Any]
+    loss_fn: Callable[..., Any]
     paged_decode_fn: Callable[..., Any]
     pool_init: Callable[..., Any]
     prefill_from_pages_fn: Callable[..., Any]
 
 
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
-    """The serving API of a dense decoder.  ``init(seed)`` draws random
+    """The model API of a dense decoder.  ``init(seed)`` draws random
     weights from a seeded ``torch.Generator`` (on the CPU, then moved to
     ``device``); with ``quant_mode="packed"`` they are packed to W4 with
     the frozen universal codebooks, which ride in ``params["codebooks"]``."""
@@ -60,6 +62,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     return ModelAPI(
         cfg, rt, device,
         init=init,
+        loss_fn=lambda p, b: transformer.forward_train(p, b, cfg, rt),
         paged_decode_fn=lambda p, pool, t, bt, ln: transformer.paged_decode_step(
             p, pool, t, bt, ln, cfg, rt
         ),

@@ -6,11 +6,18 @@ interpret mode).  Run on the card with::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py
 
-Tolerances: fused linear ``rtol=1e-5, atol=1e-5·max|plain|`` (the encode
-is bit-identical, the f32 sum order over K differs); page-gather
-``atol=rtol=2e-5`` (softmax and accumulation order differ); serving
-tokens equal under the margin rule with a 1e-3 logit tolerance.
+Tolerances: fused linear, W4A4 matmul and the two-launch linear
+``rtol=1e-5, atol=1e-5·max|plain|`` (the encode is bit-identical, the f32
+sum order over K differs); quantize bytes equal (decoded values equal
+where a block ties between codebooks) and ratios exactly equal;
+page-gather ``atol=rtol=2e-5`` (softmax and accumulation order differ);
+flash attention ``atol=rtol=2e-4`` for f32 inputs, as
+tests/test_flash_kernel.py, and ``1e-2`` for bf16 (the output's bf16
+rounding of two f32 sums taken in different orders); serving tokens equal
+under the margin rule with a 1e-3 logit tolerance.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,8 +25,9 @@ import torch
 from repro_torch.configs.base import get_smoke
 from repro_torch.core import bcq
 from repro_torch.core.calibrate import default_universal_codebooks
-from repro_torch.kernels import bcq_linear, build, common, ops
-from repro_torch.kernels.ref import fused_linear_ref
+from repro_torch.kernels import bcq_linear, bcq_matmul, bcq_quantize, build, common, ops
+from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels.ref import decode_ref, fused_linear_ref, matmul_ref, quantize_ref
 from repro_torch.launch.serve import serve
 from repro_torch.models import layers
 from repro_torch.serving.generate import greedy_agreement
@@ -58,6 +66,88 @@ def test_bcq_linear_kernel_matches_plain(cuda, mkn):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
 
 
+def _activation(m, k, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g)
+    x[:, :: k // 8] *= 12.0  # outlier channels
+    return x.to(device)
+
+
+def _packed(n, k, seed, device):
+    w = (torch.randn((k, n), generator=torch.Generator().manual_seed(seed)) * k**-0.5).to(device)
+    return ops.packed_operand(layers.pack_weight(w, CFG, _cb(device)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mk", [(256, 768), (64, 3072), (37, 192)])
+def test_bcq_quantize_kernel_matches_plain(cuda, mk):
+    m, k = mk
+    x, cb = _activation(m, k, m + k, cuda), _cb(cuda)
+    s_x = bcq.tensor_scale(x, CFG)
+    before = bcq_quantize.BCQ_QUANTIZE.count
+    idx, sel, ratio = bcq_quantize.bcq_quantize(x, cb, s_x, CFG)
+    assert bcq_quantize.BCQ_QUANTIZE.count == before + 1
+    r_idx, r_sel, r_ratio = quantize_ref(x, cb, CFG, s_x)
+    assert torch.equal(ratio, r_ratio)
+    if not (torch.equal(idx, r_idx) and torch.equal(sel, r_sel)):  # a codebook tie
+        inv = 1.0 / (r_ratio * s_x)
+        assert torch.equal(decode_ref(idx, sel, inv, cb, CFG), decode_ref(r_idx, r_sel, inv, cb, CFG))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(256, 768, 3072), (64, 3072, 768), (37, 192, 100)])
+def test_bcq_matmul_kernel_matches_plain(cuda, mkn):
+    m, k, n = mkn
+    cb = _cb(cuda)
+    a = ops.quantize(_activation(m, k, m, cuda), cb, CFG)
+    w = _packed(n, k, n, cuda)
+    args = (a.idx_packed, a.sel_packed, a.inv_scale, w.idx_packed, w.sel_packed, w.inv_scale,
+            cb, cb, CFG)
+    before = bcq_matmul.BCQ_MATMUL.count
+    got = bcq_matmul.bcq_matmul(*args)
+    assert bcq_matmul.BCQ_MATMUL.count == before + 1
+    want = matmul_ref(*args)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_two_launch_linear_matches_fused(cuda):
+    cb = _cb(cuda)
+    x = _activation(300, 768, 1, cuda).reshape(3, 100, 768)
+    w = _packed(3072, 768, 2, cuda)
+    build.reset_counts()
+    got = ops.w4a4_linear(x, w, cb, CFG)
+    assert build.counts()["bcq_quantize"] == 1 and build.counts()["bcq_matmul"] == 1
+    want = ops.w4a4_linear_fused(x, w, cb, CFG)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(128, 64), (200, 32), (384, 128)])
+def test_flash_kernel_matches_plain(cuda, dtype, causal, s, d):
+    g = torch.Generator().manual_seed(s + d)
+    q, k, v = (torch.randn((6, s, d), generator=g).to(cuda, dtype) for _ in range(3))
+    before = flash.FLASH_ATTENTION.count
+    got = flash.flash_attention_kernel(q, k, v, causal)
+    assert flash.FLASH_ATTENTION.count == before + 1
+    want = flash.flash_attention_plain(q, k, v, causal)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_gqa_wrapper_matches_plain(cuda):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 256, 8, 64), generator=g).to(cuda)
+    k, v = (torch.randn((2, 256, 2, 64), generator=g).to(cuda) for _ in range(2))
+    got = flash.flash_attention(q, k, v)
+    want = layers._attend_chunked(q, k, v, torch.arange(256, device=cuda)[None].expand(2, 256), 256)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "int8", "bcq4"])
 @pytest.mark.parametrize("c,d,h,hkv", [(1, 64, 12, 12), (8, 32, 4, 2)])
@@ -82,6 +172,27 @@ def test_page_gather_kernel_matches_plain(cuda, kind, c, d, h, hkv):
     assert common.PAGE_GATHER.count == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_smoke_eval_loss_through_kernels_matches_plain(cuda):
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import zoo
+
+    cfg = get_smoke("gpt3_126m")
+    batch = batch_at(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=2), 1_000_000, cuda)
+    rt = layers.Runtime(quant_mode="packed", compute_dtype=torch.float32)
+    api_k = zoo.build(cfg, dataclasses.replace(rt, flash_kernel=True), device=cuda)
+    api_p = zoo.build(cfg, dataclasses.replace(rt, fused_linear=False), device=cuda)
+    params = api_k.init(0)
+    build.reset_counts()
+    got = float(api_k.loss_fn(params, batch))
+    assert build.counts()["flash_attention"] == cfg.n_layers
+    assert build.counts()["bcq_linear"] == cfg.n_layers * 6
+    build.reset_counts()
+    want = float(api_p.loss_fn(params, batch))
+    assert not any(build.counts().values())
+    assert abs(got - want) <= 1e-3 * abs(want)
 
 
 @pytest.mark.cuda

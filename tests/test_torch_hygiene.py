@@ -43,6 +43,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.engine, repro_torch.launch.serve, repro_torch.models.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.paged_attention\n"
         "import repro_torch.kernels.chunked_prefill, repro_torch.core.ptq\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.data.pipeline\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -94,10 +95,31 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
         build.build()
 
 
+def test_build_hash_covers_shared_headers(monkeypatch, tmp_path):
+    """A kernel library is rebuilt when a header that its sources include
+    changes, not only when a listed source does."""
+    from repro_torch.kernels import build
+
+    assert (build.CSRC / "bcq_encode.cuh").exists()
+    for src in build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build._lib_path()
+    assert build._lib_path() == before
+    header = tmp_path / "bcq_encode.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert build._lib_path() != before
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert len({before, build._lib_path()}) == 2
+
+
 def test_wrappers_refuse_other_devices():
     from repro_torch.core.bcq import BCQConfig
     from repro_torch.kernels.bcq_linear import bcq_linear
+    from repro_torch.kernels.bcq_matmul import bcq_matmul
+    from repro_torch.kernels.bcq_quantize import bcq_quantize
     from repro_torch.kernels.common import page_gather_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_kernel
 
     meta = torch.empty((4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -105,6 +127,17 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         page_gather_attention(torch.empty((1, 1, 2, 32), device="meta"), {}, None, None,
                               "bf16", BCQConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
+        bcq_quantize(meta, None, None, BCQConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
+        bcq_matmul(torch.empty((4, 32), dtype=torch.uint8, device="meta"), None, None, None,
+                   None, None, None, None, BCQConfig())
+    qkv = torch.empty((1, 8, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(qkv, qkv, qkv)
+    cpu = torch.zeros((2, 8, 32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_kernel(cpu, cpu, cpu)  # the kernel never runs the plain version
 
 
 def test_serve_cli_runs_on_cpu(capsys):
