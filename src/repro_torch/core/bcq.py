@@ -64,10 +64,24 @@ class BCQConfig:
 
 @dataclasses.dataclass
 class CodebookSet:
-    """N_c frozen codebooks (sorted, INT-(B_c) integer values)."""
+    """N_c frozen codebooks (sorted, INT-(B_c) integer values).
+
+    The premise is checked once, here, on the host: the W4A4 kernels
+    multiply codewords as int8 integers and find the nearest entry by a
+    table over floor(2y), both exact only for sorted integer levels within
+    ±codeword_max (csrc/bcq_encode.cuh, csrc/bcq_gemm.cuh)."""
 
     levels: np.ndarray  # (N_c, 2^B) float32 holding integers
     cfg: BCQConfig
+
+    def __post_init__(self):
+        lv = np.asarray(self.levels, dtype=np.float32)
+        if not np.array_equal(lv, np.round(lv)):
+            raise ValueError("codebook levels must be integers (INT codewords)")
+        if np.any(np.diff(lv, axis=-1) < 0):
+            raise ValueError("codebook levels must be sorted ascending")
+        if np.any(np.abs(lv) > self.cfg.codeword_max):
+            raise ValueError(f"codebook levels must lie within ±{self.cfg.codeword_max:g}")
 
     def as_tensor(self, device="cpu") -> torch.Tensor:
         return torch.as_tensor(self.levels, dtype=torch.float32, device=device)

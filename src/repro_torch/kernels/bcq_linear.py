@@ -1,9 +1,13 @@
-"""Fused W4A4 linear: encode → decode → GEMM in ONE launch.
+"""Fused W4A4 linear: encode → decode → GEMM behind one call.
 
 Counterpart of ``repro/kernels/bcq_linear.py``.  ``bcq_linear`` launches
-csrc/bcq_linear.cu for CUDA tensors (design notes in the source) and runs
-the plain version, ``ref.fused_linear_ref`` (the encode/decode/matmul
-composition the reference's kernel is held to), for CPU tensors.
+csrc/bcq_linear.cu for CUDA tensors — two device kernels behind one C
+entry: the encode pass writes the activation's int8 codewords and
+per-array scales into a workspace this wrapper allocates, then the int8
+tensor-core GEMM reads them (design notes in the source) — and runs the
+plain version, ``ref.fused_linear_ref`` (the encode/decode/matmul
+composition the reference's kernel is held to), for CPU tensors.  The
+launch counter counts calls, one per fused linear.
 """
 from __future__ import annotations
 
@@ -43,10 +47,15 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
+    x, w_idx = build.aligned(x, 16), build.aligned(w_idx, 16)  # read in 16-byte words
+    w_sel = build.aligned(w_sel, 4)
+    codes = torch.empty((m, k), dtype=torch.int8, device=x.device)  # encode-pass workspace
+    a_inv = torch.empty((m, k // 64), dtype=torch.float32, device=x.device)
     status = build.library().bcq_linear_launch(
         x.data_ptr(), w_idx.data_ptr(), w_sel.data_ptr(), w_inv.data_ptr(),
-        codebooks.data_ptr(), s_x.data_ptr(), out.data_ptr(), m, n, k,
-        cfg.codeword_max, torch.cuda.current_stream(x.device).cuda_stream,
+        codebooks.data_ptr(), s_x.data_ptr(), codes.data_ptr(), a_inv.data_ptr(),
+        out.data_ptr(), m, n, k, cfg.codeword_max,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(status, "bcq_linear_launch")
     BCQ_LINEAR.count += 1

@@ -43,6 +43,8 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
+    a_idx, w_idx = build.aligned(a_idx, 16), build.aligned(w_idx, 16)  # 16-byte copies
+    a_sel, w_sel = build.aligned(a_sel, 4), build.aligned(w_sel, 4)
     status = build.library().bcq_matmul_launch(
         a_idx.data_ptr(), a_sel.data_ptr(), a_inv.data_ptr(), w_idx.data_ptr(),
         w_sel.data_ptr(), w_inv.data_ptr(), codebooks_a.data_ptr(), codebooks_w.data_ptr(),

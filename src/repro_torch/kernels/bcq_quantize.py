@@ -33,8 +33,7 @@ def bcq_quantize(x: torch.Tensor, codebooks: torch.Tensor, s_x: torch.Tensor, cf
                                ("codebooks", codebooks, torch.float32, (8, 16)),
                                ("s_x", s_x, torch.float32, ())):
         build.check_tensor(f"bcq_quantize kernel: {name}", t, dt, shape, x.device)
-    if x.data_ptr() % 16:
-        x = x.clone()  # the kernel reads x as float4
+    x = build.aligned(x, 16)  # the kernel reads x as float4
     idx = torch.empty((m, k // 2), dtype=torch.uint8, device=x.device)
     sel = torch.empty((m, k // 16), dtype=torch.uint8, device=x.device)
     ratio = torch.empty((m, k // 64), dtype=torch.float32, device=x.device)

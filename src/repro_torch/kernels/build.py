@@ -33,8 +33,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w_idx, w_sel, w_inv, cb, s_x, out, M, N, K, cw_max, stream
-    "bcq_linear_launch": (_P,) * 7 + (_I, _I, _I, _F, _P),
+    # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, M, N, K, cw_max, stream
+    "bcq_linear_launch": (_P,) * 9 + (_I, _I, _I, _F, _P),
     # kind, q, k0..k2, v0..v2, k_sx, v_sx, cb, tables, kv_len, out,
     # B, C, H, Hkv, D, ps, maxp, la, scale, stream
     "page_gather_launch": (_I,) + (_P,) * 13 + (_I,) * 8 + (_F, _P),
@@ -160,6 +160,12 @@ def check_tensor(name: str, t, dtype, shape, device) -> None:
                          f"expected {tuple(shape)} {dtype} on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned(t, nbytes: int):
+    """``t``, or a fresh copy when its data does not start on an
+    ``nbytes`` boundary (a kernel reading it in wide words needs that)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def check(status: int, name: str) -> None:

@@ -2,11 +2,13 @@
 
 Two routes to the same linear:
 
-* ``w4a4_linear_fused`` — one launch (``kernels/bcq_linear.py``) that
-  encodes the raw activation in the kernel;
-* ``w4a4_linear`` — two launches, ``quantize`` (``kernels/bcq_quantize.py``)
+* ``w4a4_linear_fused`` — one call (``kernels/bcq_linear.py``) that
+  encodes the raw activation to int8 codewords once and multiplies them
+  (two device kernels behind one C entry);
+* ``w4a4_linear`` — two calls, ``quantize`` (``kernels/bcq_quantize.py``)
   then ``matmul`` (``kernels/bcq_matmul.py``), the packed activation
-  round-tripping through device memory.  The model never takes this
+  round-tripping through device memory.  Both routes share the encode
+  and the int8 tensor-core GEMM, and give the same bits.  The model never takes this
   route (the reference's ``Runtime(fused_linear=False)`` decodes and
   multiplies in plain code instead); it is the kernel API of
   ``examples/quickstart.py`` and ``benchmarks/kernel_bench.py``.
@@ -87,7 +89,7 @@ def w4a4_linear(x: torch.Tensor, w: PackedOperand, codebooks: torch.Tensor,
 
 def w4a4_linear_fused(x: torch.Tensor, w: PackedOperand, codebooks: torch.Tensor,
                       cfg: BCQConfig, s_x: torch.Tensor | None = None) -> torch.Tensor:
-    """Single-launch fused W4A4 linear.  x: (..., K); weights pre-encoded
+    """Fused W4A4 linear (one kernel call).  x: (..., K); weights pre-encoded
     (N, K); ``s_x`` overrides the per-tensor activation scale (default: the
     reduction over all of x).  Returns (..., N) in x.dtype."""
     lead = x.shape[:-1]

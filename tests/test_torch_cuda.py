@@ -7,8 +7,11 @@ interpret mode).  Run on the card with::
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py
 
 Tolerances: fused linear, W4A4 matmul and the two-launch linear
-``rtol=1e-5, atol=1e-5·max|plain|`` (the encode is bit-identical, the f32
-sum order over K differs); quantize bytes equal (decoded values equal
+``rtol=1e-5, atol=1e-5·max|plain|`` (the encode is bit-identical; the
+kernels sum each 64-wide array exactly in int32 and rescale it once,
+where the plain versions round every decoded value before an f32 dot);
+the two W4A4 routes equal to the bit (the same codes, scales and fold
+order); quantize bytes equal (decoded values equal
 where a block ties between codebooks) and ratios exactly equal;
 page-gather ``atol=rtol=2e-5`` (softmax and accumulation order differ);
 flash attention ``atol=rtol=2e-4`` for f32 inputs, as
@@ -47,10 +50,17 @@ def _cb(device):
     return default_universal_codebooks().as_tensor(device)
 
 
+# decode (M ≤ 16: the swapped small-M GEMM), ragged and prefill rows, at
+# gpt3_126m's linear widths and a ragged one
+GEMM_M = [1, 8, 16, 37, 300]
+GEMM_KN = [(768, 768), (768, 3072), (3072, 768), (192, 100)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mkn", [(8, 768, 3072), (256, 3072, 768), (37, 192, 100)])
-def test_bcq_linear_kernel_matches_plain(cuda, mkn):
-    m, k, n = mkn
+@pytest.mark.parametrize("kn", GEMM_KN, ids=lambda kn: f"K{kn[0]}_N{kn[1]}")
+@pytest.mark.parametrize("m", GEMM_M)
+def test_bcq_linear_kernel_matches_plain(cuda, m, kn):
+    k, n = kn
     g = torch.Generator().manual_seed(m + k + n)
     x = torch.randn((m, k), generator=g)
     x[:, :: k // 8] *= 12.0
@@ -95,9 +105,10 @@ def test_bcq_quantize_kernel_matches_plain(cuda, mk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mkn", [(256, 768, 3072), (64, 3072, 768), (37, 192, 100)])
-def test_bcq_matmul_kernel_matches_plain(cuda, mkn):
-    m, k, n = mkn
+@pytest.mark.parametrize("kn", GEMM_KN, ids=lambda kn: f"K{kn[0]}_N{kn[1]}")
+@pytest.mark.parametrize("m", GEMM_M)
+def test_bcq_matmul_kernel_matches_plain(cuda, m, kn):
+    k, n = kn
     cb = _cb(cuda)
     a = ops.quantize(_activation(m, k, m, cuda), cb, CFG)
     w = _packed(n, k, n, cuda)
@@ -120,6 +131,17 @@ def test_two_launch_linear_matches_fused(cuda):
     assert build.counts()["bcq_quantize"] == 1 and build.counts()["bcq_matmul"] == 1
     want = ops.w4a4_linear_fused(x, w, cb, CFG)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 300])
+def test_two_routes_bit_equal(cuda, m):
+    """The fused linear and the two-launch GEMM multiply the same codes
+    with the same scales and fold each array in the same order."""
+    cb = _cb(cuda)
+    x = _activation(m, 768, 3, cuda)
+    w = _packed(3072, 768, 4, cuda)
+    assert torch.equal(ops.w4a4_linear(x, w, cb, CFG), ops.w4a4_linear_fused(x, w, cb, CFG))
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+STUDY = ROOT / "chip_gate_study.py"
 
 
 def _imports(path: Path):
@@ -26,7 +27,7 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY]
     assert len(files) > 10
     bad = [
         (str(f.relative_to(ROOT)), m)
