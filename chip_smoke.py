@@ -10,9 +10,10 @@ success):
    (csrc/*.cu, one nvcc per source) and the ptxas register report.
 2. fused W4A4 linear kernel vs its plain PyTorch version at the serving
    shapes of gpt3_126m.
-3. page-gather attention kernel vs its plain version: bf16 / int8 / bcq4
-   pages, C = 1 and 64, d_head 64 and 32, GQA, NULL-padded tables,
-   zero-length rows.
+3. page-gather attention kernel (split over the KV pages, then a
+   combine) vs its plain version: bf16 / int8 / bcq4 pages, C = 1 and 64,
+   d_head 64 and 32, GQA, NULL-padded tables, zero-length rows, rows of
+   up to 40 pages (five splits).
 4. serving: full-width gpt3_126m (12 layers, seeded random weights packed
    to W4 by the port's pack_params) through PagedEngine — bcq4 pool,
    page 16, prefill chunk 64, 8 slots, 8 requests of 48–500 prompt
@@ -23,9 +24,9 @@ success):
    twice the plain path's own 1-ulp noise floor with it); greedy tokens
    must agree under the margin rule; then one steady decode tick is
    timed and traced.
-5. flash attention kernel vs its plain version: bf16 and f32, causal and
-   full, S ∈ {128, 384, 2048, 200}, d_head ∈ {32, 64, 128}, GQA through
-   the (B, S, H, D) wrapper.
+5. flash attention kernel vs its plain version: bf16 (tensor cores) and
+   f32 (CUDA cores), causal and full, S ∈ {128, 384, 2048, 200}, d_head ∈
+   {32, 64, 128}, GQA through the (B, S, H, D) wrapper.
 6. quantize kernel vs ``quantize_ref`` at (8192, 768), (8192, 3072) and a
    ragged (37, 192): bytes equal (decoded values equal on a codebook
    tie), ratios exactly equal.
@@ -53,9 +54,11 @@ success):
     tensor-core peak) and its library yardstick — the fused linear at
     decode (M 8) and at the evaluation's mlp-in and mlp-out shapes (M
     8192), with its two device kernels (encode pass, GEMM) split out by
-    torch.profiler; a ``kernels`` JSON line (launches, error, times,
-    bound), the card's name and power limit, then the device line as the
-    last line.
+    torch.profiler; the page gather at decode and at a chunked-prefill
+    shape; flash in bf16 and its f32 specialisation; each printed line
+    names the kernel's time in an earlier run (``EARLIER_MS``); a
+    ``kernels`` JSON line (launches, error, times, bound), the card's name
+    and power limit, then the device line as the last line.
 
 Needs the repository's ``src/`` beside it: run alone, it fails.
 """
@@ -91,6 +94,14 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 1e-2}  # atol = rtol: tests/test_flash
 # bf16 output rounding of two f32 sums taken in different orders
 
 EVAL_SEQ, EVAL_BATCH, EVAL_BATCHES = 2048, 4, 2  # GPT-3's context length
+
+# Each kernel's time at its main-path shape in an earlier run of this
+# script on an NVIDIA H100 80GB HBM3 at 700 W (the bracketed times of
+# PERF.md's kernel table), printed beside this run's.
+EARLIER_MS = {"bcq_linear": {(8, 768, 3072): 0.0471, (8192, 768, 3072): 0.2418,
+                          (8192, 3072, 768): 0.2931},
+           "page_gather": 0.2148, "flash_attention": 1.2186, "bcq_quantize": 0.0617,
+           "bcq_matmul": 0.2746}
 
 
 def fail(msg: str) -> None:
@@ -891,7 +902,8 @@ def _linear_times(cb, m, k, n, seed):
           f"{plain_ms:.4f} ms, torch.matmul bf16 {library_ms:.4f} ms, bound {bound:.5f} ms by {by} "
           f"({nbytes} B, {2 * m * n * k} product OP at {INT8_OPS:.3g}/s, {enc} encode OP at "
           f"{F32_FLOPS:.3g}/s; {2 * m * n * k / F32_FLOPS * 1e3:.5f} ms if the product ran at "
-          f"the f32 peak); kernel vs plain max|err| {err:.3e}", flush=True)
+          f"the f32 peak); kernel vs plain max|err| {err:.3e}; earlier run: "
+          f"{EARLIER_MS['bcq_linear'].get((m, k, n), 'not measured')} ms", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms, **split}
 
@@ -911,7 +923,10 @@ def time_linear(cb, worst_err, launches):
     }
 
 
-def time_gather(cb, worst_err, launches):
+def _gather_times(cb, c, kv_len, seed):
+    """Page gather (bcq4, page 16, 12 heads of 64) over rows of ``kv_len``
+    tokens with ``c`` queries each: kernel (event loop and device time of
+    its two launches), plain, bound."""
     import torch
 
     from repro_torch.core.bcq import BCQConfig
@@ -919,29 +934,55 @@ def time_gather(cb, worst_err, launches):
 
     cfg = BCQConfig()
     ps, hkv, d = 16, 12, 64
-    kv_len = [n + GEN for n in PROMPT_LENS]  # decode at the end of the serving run
     b = len(kv_len)
     maxp = -(-max(kv_len) // ps)
     n_pages = 1 + b * maxp
-    pool = gather_pool("bcq4", n_pages, ps, hkv, d, 5, cb)
-    bt, kvl = gather_case(b, maxp, ps, kv_len, 6, n_pages)
-    q = torch.randn((b, 1, hkv, d)).cuda()
+    pool = gather_pool("bcq4", n_pages, ps, hkv, d, seed, cb)
+    bt, kvl = gather_case(b, maxp, ps, kv_len, seed + 1, n_pages)
+    q = torch.randn((b, c, hkv, d), generator=torch.Generator().manual_seed(seed + 2)).cuda()
     run = (q, pool, bt, kvl, "bcq4", cfg, cb)
     ms = cuda_ms(lambda: common.page_gather_attention(*run))
+    by_name = kernel_split_ms(lambda: common.page_gather_attention(*run))
+    dev = device_ms(by_name)
+    pick = lambda key: None if by_name is None else sum(  # noqa: E731
+        t for nm, t in by_name.items() if key in nm)
     plain_ms = cuda_ms(lambda: common.page_gather_attention_plain(*run), iters=10)
+    ok, err = held(common.page_gather_attention(*run), common.page_gather_attention_plain(*run),
+                   GATHER_TOL, GATHER_TOL)
+    if not ok:
+        fail(f"page_gather disagrees with its plain version at C={c} kv_len={kv_len}: {err:.3e}")
     pages = sum(max(1, -(-n // ps)) for n in kv_len)
     page_bytes = ps * hkv * (d // 2 + d // 16 + d // 64)  # one K or V page
     nbytes = q.numel() * 4 * 2 + 2 * pages * page_bytes + bt.numel() * 4 + b * 4 + 8 * 16 * 4 + 8
-    flops = 4 * hkv * d * pages * ps  # QK and PV, C = 1, H = Hkv
+    seen = sum(n - c + i + 1 for n in kv_len for i in range(c))  # (query, key) pairs, causal
+    flops = 4 * hkv * d * seen  # QK and PV, H = Hkv
     bound, by = _bound(nbytes, (flops, F32_FLOPS))
-    print(f"page_gather timing at decode B={b} H={hkv} D={d} bcq4 kv_len={kv_len}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms by {by} "
-          f"({nbytes} B, {flops} f32 FLOP)", flush=True)
+    return {"ms": ms, "device_ms": dev, "split_ms": pick("split_kernel"),
+            "combine_ms": pick("combine_kernel"), "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "nbytes": nbytes, "flops": flops, "err": err}
+
+
+def time_gather(cb, worst_err, launches):
+    kv_dec = [n + GEN for n in PROMPT_LENS]  # decode at the end of the serving run
+    dec = _gather_times(cb, 1, kv_dec, 5)
+    kv_pre = [500] * 8  # a full prefill chunk of 8 rows at the longest prompt
+    pre = _gather_times(cb, 64, kv_pre, 15)
+    for nm, t, shape in (("decode", dec, f"B=8 C=1 kv_len={kv_dec}"),
+                         ("chunked prefill", pre, "B=8 C=64 kv_len=500")):
+        dev = "not measured" if t["device_ms"] is None else (
+            f"{t['device_ms']:.4f} ms = split {t['split_ms']:.4f} + combine {t['combine_ms']:.4f}")
+        print(f"page_gather timing at {nm} {shape} H=12 D=64 bcq4: kernel {t['ms']:.4f} ms "
+              f"(device {dev}, torch.profiler), plain {t['plain_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['nbytes']} B, "
+              f"{t['flops']} f32 FLOP); kernel vs plain max|err| {t['err']:.3e}"
+              + (f"; earlier run: {EARLIER_MS['page_gather']} ms" if nm == "decode" else ""), flush=True)
+    strip = lambda t: {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
     return {
         "name": "page_gather", "route": "cuda", "source": "src/repro_torch/csrc/page_gather.cu",
         "replaces": "src/repro/kernels/common.py:265", "launches": launches,
-        "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None, "bound_peak": "f32 67 TFLOP/s",
+        "max_abs_err": worst_err, **strip(dec), "library_ms": None,
+        "bound_peak": "f32 67 TFLOP/s", "shape": "B 8 C 1 H 12 D 64 bcq4 kv 80-532 (decode)",
+        "at_prefill": dict(strip(pre), shape="B 8 C 64 H 12 D 64 bcq4 kv 500"),
     }
 
 
@@ -955,6 +996,12 @@ def time_flash(worst_err, launches):
     q, k, v = (torch.randn((bh, s_len, d), device="cuda").to(torch.bfloat16) for _ in range(3))
     ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, True), iters=20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True), iters=5)
+    q32, k32, v32 = (t.float() for t in (q, k, v))  # the f32 specialisation (CUDA cores)
+    f32_ms = cuda_ms(lambda: fa.flash_attention_kernel(q32, k32, v32, True), iters=5)
+    ok32, err32 = held(fa.flash_attention_kernel(q32, k32, v32, True),
+                       fa.flash_attention_plain(q32, k32, v32, True), *(FLASH_TOL["float32"],) * 2)
+    if not ok32:
+        fail(f"f32 flash disagrees with its plain version at BH={bh} S={s_len} D={d}: {err32:.3e}")
     tol = FLASH_TOL["bfloat16"]
     ok, err = held(fa.flash_attention_kernel(q, k, v, True), fa.flash_attention_plain(q, k, v, True),
                    tol, tol)
@@ -967,17 +1014,18 @@ def time_flash(worst_err, launches):
     pairs = s_len * (s_len + 1) // 2  # causal (query, key) pairs per head
     flops = 4 * d * pairs * bh  # q·k and p·v
     bound, by = _bound(nbytes, (flops, BF16_FLOPS))
-    print(f"flash timing at BH={bh} S={s_len} D={d} bf16 causal: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound:.5f} ms by {by} "
-          f"({nbytes} B, {flops} FLOP at the bf16 tensor-core peak; {flops / F32_FLOPS * 1e3:.4f} ms "
-          f"at the f32 peak); kernel vs plain max|err| {err:.3e}", flush=True)
+    print(f"flash timing at BH={bh} S={s_len} D={d} bf16 causal: kernel {ms:.4f} ms (earlier run: "
+          f"{EARLIER_MS['flash_attention']} ms), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+          f"bound {bound:.5f} ms by {by} ({nbytes} B, {flops} FLOP at the bf16 tensor-core peak; "
+          f"{flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak); kernel vs plain max|err| {err:.3e}; "
+          f"f32 specialisation on f32 inputs {f32_ms:.4f} ms (max|err| {err32:.3e})", flush=True)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26", "launches": launches,
         "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": by, "library_ms": library_ms, "bound_peak": "bf16 989 TFLOP/s",
-        "shape": f"BH {bh} S {s_len} D {d} bf16 causal",
+        "shape": f"BH {bh} S {s_len} D {d} bf16 causal", "f32_ms": f32_ms,
     }
 
 
@@ -999,8 +1047,8 @@ def time_quantize(cb, worst_err, launches):
     bound, by = _bound(nbytes, (ops, F32_FLOPS))
     print(f"quantize timing at M={m} K={k} (table encode of bcq_encode.cuh): kernel {ms:.4f} ms "
           f"(device {dev if dev is None else f'{dev:.4f}'} ms, torch.profiler), plain "
-          f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} ({nbytes} B, {ops} f32 operations)",
-          flush=True)
+          f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} ({nbytes} B, {ops} f32 operations); "
+          f"earlier run: {EARLIER_MS['bcq_quantize']} ms", flush=True)
     return {
         "name": "bcq_quantize", "route": "cuda", "source": "src/repro_torch/csrc/bcq_quantize.cu",
         "replaces": "src/repro/kernels/bcq_quantize.py:31", "launches": launches,
@@ -1037,7 +1085,7 @@ def time_matmul(cb, worst_err, launches):
           f"{dev if dev is None else f'{dev:.4f}'} ms, torch.profiler), plain {plain_ms:.4f} ms, "
           f"torch.matmul bf16 {library_ms:.4f} ms, bound {bound:.5f} ms by {by} ({nbytes} B, "
           f"{2 * m * n * k} OP at the int8 tensor-core peak; {2 * m * n * k / F32_FLOPS * 1e3:.5f} ms "
-          f"at the f32 peak)", flush=True)
+          f"at the f32 peak); earlier run: {EARLIER_MS['bcq_matmul']} ms", flush=True)
     return {
         "name": "bcq_matmul", "route": "cuda", "source": "src/repro_torch/csrc/bcq_matmul.cu",
         "replaces": "src/repro/kernels/bcq_matmul.py:52", "launches": launches,

@@ -35,9 +35,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, M, N, K, cw_max, stream
     "bcq_linear_launch": (_P,) * 9 + (_I, _I, _I, _F, _P),
-    # kind, q, k0..k2, v0..v2, k_sx, v_sx, cb, tables, kv_len, out,
-    # B, C, H, Hkv, D, ps, maxp, la, scale, stream
-    "page_gather_launch": (_I,) + (_P,) * 13 + (_I,) * 8 + (_F, _P),
+    # kind, q, k0..k2, v0..v2, k_sx, v_sx, cb, tables, kv_len, out, part,
+    # B, C, H, Hkv, D, ps, maxp, la, split_pages, scale, stream
+    "page_gather_launch": (_I,) + (_P,) * 14 + (_I,) * 9 + (_F, _P),
     # x, cb, s_x, idx, sel, ratio, M, K, cw_max, stream
     "bcq_quantize_launch": (_P,) * 6 + (_I, _I, _F, _P),
     # a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, cb_a, cb_w, out, M, N, K, stream

@@ -9,7 +9,9 @@ Counterpart of ``repro/kernels/common.py``:
 * the **page-gather attention core** shared by paged decode (C == 1,
   kernels/paged_attention.py) and chunked prefill (C > 1,
   kernels/chunked_prefill.py): ``page_gather_attention`` launches the
-  CUDA kernel (csrc/page_gather.cu) for CUDA tensors and runs
+  CUDA kernels (csrc/page_gather.cu: a row's pages split into groups of
+  ``SPLIT_PAGES``, one block each, then a combine of the splits' partial
+  softmax states in ascending split order) for CUDA tensors and runs
   ``page_gather_attention_plain`` for CPU tensors.
 
 Semantics of the core (``repro/kernels/common.py:236-262``, ``:330-371``):
@@ -36,6 +38,9 @@ _E4M3_MIN_SUB = 2.0**-9
 
 PAGE_GATHER = build.counter("page_gather")
 _KIND_CODE = {"bf16": 0, "int8": 1, "bcq4": 2}
+# Pages per split of the CUDA page gather: fixed, so a row's result depends
+# on its own pages only (not on the batch or the grid).
+SPLIT_PAGES = 8
 
 
 def e4m3_snap(a: torch.Tensor) -> torch.Tensor:
@@ -177,7 +182,8 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
     ``kv_len[b] - C + c``; pool leaves (P, ps, Hkv, ...) per ``cache_init``
     layout; block_tables (B, MAXP) int32; kv_len (B,) int32.  Returns
     (B, C, H, D) f32.  CPU tensors run the plain version; CUDA tensors
-    launch csrc/page_gather.cu (and count the launch) or raise."""
+    launch csrc/page_gather.cu (split kernel and combine, counted as one
+    launch of the page gather) or raise."""
     if q.device.type == "cpu":
         return page_gather_attention_plain(q, pool, block_tables, kv_len, kind, cfg, cb)
     if q.device.type != "cuda":
@@ -206,12 +212,15 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
                 )
             if not leaf.is_contiguous():
                 raise ValueError("page_gather kernel: pool leaves must be contiguous")
+    kl[0], vl[0] = build.aligned(kl[0], 16), build.aligned(vl[0], 16)  # copied by 16-byte chunks
     qf = q.float().contiguous()
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     kvl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     if bt.shape != (b, maxp) or kvl.shape != (b,):
         raise ValueError("page_gather kernel: block_tables (B, MAXP) and kv_len (B,) expected")
     out = torch.empty((b, c, h, d), dtype=torch.float32, device=q.device)
+    n_split = -(-maxp // SPLIT_PAGES)
+    part = torch.empty((b * c * h * n_split * (d + 2),), dtype=torch.float32, device=q.device)
     k_ptrs = [leaf.data_ptr() for leaf in kl] + [None] * (3 - len(kl))
     v_ptrs = [leaf.data_ptr() for leaf in vl] + [None] * (3 - len(vl))
     if kind == "bcq4":
@@ -223,7 +232,8 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
         extra = (None, None, None)
     status = build.library().page_gather_launch(
         _KIND_CODE[kind], qf.data_ptr(), *k_ptrs, *v_ptrs, *extra, bt.data_ptr(),
-        kvl.data_ptr(), out.data_ptr(), b, c, h, hkv, d, ps, maxp, la, d**-0.5,
+        kvl.data_ptr(), out.data_ptr(), part.data_ptr(), b, c, h, hkv, d, ps, maxp, la,
+        SPLIT_PAGES, d**-0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(status, "page_gather_launch")

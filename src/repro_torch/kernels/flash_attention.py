@@ -3,7 +3,9 @@
 Counterpart of ``repro/kernels/flash_attention.py``: the self-attention
 of a forward without a cache (``Runtime(flash_kernel=True)``, the
 held-out evaluation forward).  ``flash_attention_kernel`` launches
-csrc/flash_attention.cu (design notes in the source);
+csrc/flash_attention.cu (design notes in the source): bf16 inputs on the
+bf16 tensor cores (``mma.sync``, P rounded to bf16 for the P·V product),
+f32 inputs on the CUDA cores in f32;
 ``flash_attention_plain`` computes the same function in plain PyTorch;
 ``flash_attention`` takes (B, S, H, D), repeats K/V heads for GQA and
 dispatches by device: CPU tensors run the plain version, CUDA tensors
@@ -39,7 +41,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel on (BH, S, dh) CUDA tensors of one dtype
-    (f32 or bf16), dh in {32, 64, 128}; any S."""
+    (f32 or bf16), dh in {32, 64, 128}; any S.  bf16 tensors not on a
+    16-byte boundary are copied first (the tensor-core kernel reads
+    16-byte chunks)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: unsupported device {q.device}")
     if q.ndim != 3 or q.dtype not in _DTYPE_CODE or q.shape[2] not in (32, 64, 128):
@@ -47,6 +51,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, s_len, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.check_tensor(f"flash_attention kernel: {name}", t, q.dtype, (bh, s_len, d), q.device)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (build.aligned(t, 16) for t in (q, k, v))
     out = torch.empty_like(q)
     if bh == 0 or s_len == 0:
         return out

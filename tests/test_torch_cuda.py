@@ -161,6 +161,22 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, s, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 2048])
+def test_flash_bf16_tensor_core_tile_edges(cuda, s, d, causal):
+    """The bf16 tensor-core kernel at lengths around its 64-row tiles:
+    one key, a tile minus one, a tile plus one, ragged, the evaluation's
+    2048."""
+    g = torch.Generator().manual_seed(7 * s + d)
+    q, k, v = (torch.randn((3, s, d), generator=g).to(cuda, torch.bfloat16) for _ in range(3))
+    got = flash.flash_attention_kernel(q, k, v, causal)
+    want = flash.flash_attention_plain(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
 def test_flash_gqa_wrapper_matches_plain(cuda):
     g = torch.Generator().manual_seed(0)
     q = torch.randn((2, 256, 8, 64), generator=g).to(cuda)
@@ -194,6 +210,53 @@ def test_page_gather_kernel_matches_plain(cuda, kind, c, d, h, hkv):
     assert common.PAGE_GATHER.count == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def _long_rows_case(kind, c, cuda, seed=0):
+    """Rows long enough for several splits: lengths on and just past a
+    split edge (its last page holds a few tokens), a zero-length row, a
+    full table; NULL padding past each row's live pages."""
+    ps, hkv, d, h = 16, 2, 64, 4
+    sp = common.SPLIT_PAGES
+    maxp = 3 * sp + 2
+    n_pages = maxp + 7
+    g = torch.Generator().manual_seed(seed)
+    pool = layers.cache_init(n_pages, ps, hkv, d, kind, CFG, device=cuda)
+    kv = [torch.randn((n_pages, ps, hkv, d), generator=g).to(cuda) for _ in range(2)]
+    for name, val in layers.cache_encode(*kv, kind, CFG, _cb(cuda), pool).items():
+        pool[name].copy_(val)
+    kv_len = [0, sp * ps, sp * ps + 3, 2 * sp * ps + 1, maxp * ps - 5, maxp * ps]
+    if c > 1:
+        kv_len = [max(n, c) for n in kv_len]
+        kv_len[0] = 0  # a zero-length row under a full chunk
+    bt = torch.randint(1, n_pages, (len(kv_len), maxp), generator=g, dtype=torch.int32)
+    for r, n in enumerate(kv_len):
+        bt[r, -(-n // ps):] = 0
+    q = torch.randn((len(kv_len), c, h, d), generator=g).to(cuda)
+    return (q, pool, bt.to(cuda), torch.tensor(kv_len, dtype=torch.int32, device=cuda), kind,
+            CFG, _cb(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 64])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "bcq4"])
+def test_page_gather_split_kv_long_rows_match_plain(cuda, kind, c):
+    args = _long_rows_case(kind, c, cuda)
+    got = common.page_gather_attention(*args)
+    want = common.page_gather_attention_plain(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 64])
+def test_page_gather_split_kv_is_deterministic(cuda, c):
+    """The splits' partials merge in ascending split order, without
+    atomics: two launches give the same bits."""
+    args = _long_rows_case("bcq4", c, cuda, seed=1)
+    first = common.page_gather_attention(*args)
+    second = common.page_gather_attention(*args)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
