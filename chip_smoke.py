@@ -19,17 +19,23 @@ success):
    page 16, prefill chunk 64, 8 slots, 8 requests of 48–500 prompt
    tokens, 32 new tokens each — once through the kernels and once
    through the plain paths.  Every kernel must have launched layers ×
-   per-layer × forward passes times in the kernel run; the two paths'
-   logits on identical inputs must agree (to rounding without W4A4, to
-   twice the plain path's own 1-ulp noise floor with it); greedy tokens
-   must agree under the margin rule; then one steady decode tick is
-   timed and traced.
+   per-layer × forward passes times in the kernel run (the fused linear
+   6 a layer, the page gather and the KV-page writer 1) and none in the
+   plain run; every writer launch of the first engine step (a prefill
+   tick and a decode tick) and of a steady decode tick (8 rows decoding)
+   must write the plain writer's page bytes on the inputs that tick gave
+   it; the two paths' logits on identical inputs must agree (to rounding
+   without W4A4, to twice the plain path's own 1-ulp noise floor with
+   it); greedy tokens must agree under the margin rule; then one steady
+   decode tick of each path is timed and traced, with the KV page write's
+   kernels and device time split out.
 5. flash attention kernel vs its plain version: bf16 (tensor cores) and
    f32 (CUDA cores), causal and full, S ∈ {128, 384, 2048, 200}, d_head ∈
    {32, 64, 128}, GQA through the (B, S, H, D) wrapper.
 6. quantize kernel vs ``quantize_ref`` at (8192, 768), (8192, 3072) and a
    ragged (37, 192): bytes equal (decoded values equal on a codebook
-   tie), ratios exactly equal.
+   tie), ratios exactly equal.  (Its page-store form, the KV writer, is
+   held to its plain version in phase 4 and phase 10.)
 7. W4A4 matmul kernel vs ``matmul_ref`` at M 8192 × (K, N) ∈ {(768,
    3072), (3072, 768)} and a ragged (37, 192, 100).
 8. the two-launch W4A4 GEMM: ``ops.w4a4_linear`` over all 72 packed
@@ -55,8 +61,10 @@ success):
     decode (M 8) and at the evaluation's mlp-in and mlp-out shapes (M
     8192), with its two device kernels (encode pass, GEMM) split out by
     torch.profiler; the page gather at decode and at a chunked-prefill
-    shape; flash in bf16 and its f32 specialisation; each printed line
-    names the kernel's time in an earlier run (``EARLIER_MS``); a
+    shape; flash in bf16 and its f32 specialisation; quantize at (8192,
+    768) and its page-store form, the KV writer, at decode (8 rows) and
+    at a prefill chunk (8 × 64 tokens) of 12 heads of 64; each printed
+    line names the kernel's time in an earlier run (``EARLIER_MS``); a
     ``kernels`` JSON line (launches, error, times, bound), the card's name
     and power limit, then the device line as the last line.
 
@@ -97,11 +105,12 @@ EVAL_SEQ, EVAL_BATCH, EVAL_BATCHES = 2048, 4, 2  # GPT-3's context length
 
 # Each kernel's time at its main-path shape in an earlier run of this
 # script on an NVIDIA H100 80GB HBM3 at 700 W (the bracketed times of
-# PERF.md's kernel table), printed beside this run's.
-EARLIER_MS = {"bcq_linear": {(8, 768, 3072): 0.0471, (8192, 768, 3072): 0.2418,
-                          (8192, 3072, 768): 0.2931},
-           "page_gather": 0.2148, "flash_attention": 1.2186, "bcq_quantize": 0.0617,
-           "bcq_matmul": 0.2746}
+# PERF.md's kernel table), printed beside this run's; B3 by its device
+# time (torch.profiler), the others by their event-loop time.
+EARLIER_MS = {"bcq_linear": {(8, 768, 3072): 0.0538, (8192, 768, 3072): 0.2431,
+                          (8192, 3072, 768): 0.2829},
+           "page_gather": 0.0486, "flash_attention": 0.1578, "bcq_quantize": 0.0214,
+           "bcq_matmul": 0.2668}
 
 
 def fail(msg: str) -> None:
@@ -287,7 +296,8 @@ def phase_serving():
             if len(r.out) != GEN or not all(0 <= t < cfg.vocab_padded for t in r.out):
                 fail(f"request {r.rid}: {len(r.out)} tokens, expected {GEN} in [0, vocab)")
     passes = eng_k.stats["decode_ticks"] + eng_k.stats["prefill_launches"]
-    expect = {"bcq_linear": cfg.n_layers * 6 * passes, "page_gather": cfg.n_layers * passes}
+    expect = {"bcq_linear": cfg.n_layers * 6 * passes, "page_gather": cfg.n_layers * passes,
+              "bcq_page_write": cfg.n_layers * passes}
     for name, n in expect.items():
         if counts.get(name, 0) != n or n == 0:
             fail(f"{name} launched {counts.get(name, 0)} times in the kernel run, expected {n}")
@@ -295,16 +305,116 @@ def phase_serving():
             fail(f"{name} launched in the plain run")
     print(f"launch counts match layers × per-layer × passes: {expect} "
           f"({cfg.n_layers} layers, {passes} forward passes)", flush=True)
+    cb = eng_k.params["codebooks"]
+    err_w = check_write_launches(eng_k, prompts, cb)
     tol = phase_logits(eng_k, eng_p, prompts, [r.out[0] for r in sorted(fin_p, key=lambda r: r.rid)])
     agree = greedy_agreement({r.rid: r for r in fin_p}, {r.rid: r for r in fin_k}, tol)
     margins = np.concatenate([r.margins for r in fin_p])
     print(f"greedy tokens kernels vs plain (margin rule, logit tol {tol:.3e} = the noise "
           f"floor): {agree}; plain-run top-2 margins min {margins.min():.4f} "
           f"median {np.median(margins):.4f}", flush=True)
-    profile_decode(eng_k, prompts)
+    err_w += profile_decode(eng_k, prompts, "kernels", cb)
+    profile_decode(eng_p, prompts, "plain", cb)
     if not agree["ok"]:
         fail("greedy tokens of the kernel run and the plain run disagree beyond the margin rule")
-    return eng_k, counts
+    return eng_k, counts, err_w
+
+
+def _fresh_engine(eng_done, prompts):
+    """A new engine on ``eng_done``'s model with every prompt submitted."""
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.generate import Request
+
+    eng = PagedEngine(eng_done.api, eng_done.params, n_slots=len(prompts),
+                      max_len=eng_done.max_len, page_size=16, prefill_chunk=64, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=GEN - 1))
+    return eng
+
+
+def _pool_diff(got: dict, want: dict, cb) -> int:
+    """Differing bytes of two single-layer bcq4 pools, or -1 where they
+    disagree: the scale bytes must be equal, idx/sel bytes may differ only
+    on a codebook tie (equal decoded values)."""
+    import torch
+
+    from repro_torch.core.bcq import BCQConfig
+    from repro_torch.models.layers import cache_read
+
+    n = sum(int((got[k] != want[k]).sum()) for k in got if got[k].ndim >= 2)
+    if n == 0:
+        return 0
+    if not all(torch.equal(got[f"{s}_scale"], want[f"{s}_scale"]) for s in "kv"):
+        return -1
+    a, b = (cache_read(p, "bcq4", BCQConfig(), cb, torch.float32) for p in (got, want))
+    return n if all(torch.equal(x, y) for x, y in zip(a, b)) else -1
+
+
+def capture_writes(eng):
+    """Step ``eng`` once with every KV page write it makes
+    (``layers.paged_token_write`` / ``paged_chunk_write``, one a layer and
+    pass) captured: the write's function name, copies of its pool before
+    and after, and its arguments."""
+    import torch
+
+    from repro_torch.models import layers
+
+    real = {n: getattr(layers, n) for n in ("paged_token_write", "paged_chunk_write")}
+    calls = []
+
+    def capture(name):
+        def write(pool, *args, **kw):
+            before = {n: t.clone() for n, t in pool.items()}
+            out = real[name](pool, *args, **kw)
+            calls.append((name, before, {n: t.clone() for n, t in out.items()},
+                          [a.clone() if torch.is_tensor(a) else a for a in args], kw))
+            return out
+        return write
+
+    for name in real:
+        setattr(layers, name, capture(name))
+    try:
+        eng.step()
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+    return calls
+
+
+def hold_writes(calls, cb, what):
+    """Each captured write replayed by the plain writer (``kernel=False``)
+    on a copy of its pool before the write, and compared byte for byte
+    with the pool the step left.  Returns the differing bytes (0 unless a
+    codebook tie)."""
+    from repro_torch.models import layers
+
+    diff = 0
+    for name, before, after, args, kw in calls:
+        plain = {n: t.clone() for n, t in before.items()}
+        getattr(layers, name)(plain, *args, **dict(kw, kernel=False))
+        n = _pool_diff(after, plain, cb)
+        if n < 0:
+            fail(f"the KV-page writer disagrees with the plain writer on a {what} write "
+                 f"({name}, k {tuple(args[0].shape)} {args[0].dtype})")
+        diff += n
+    return diff
+
+
+def check_write_launches(eng_done, prompts, cb):
+    """Hold every KV-page writer launch of one engine step — its prefill
+    tick (a chunk of every prompt) and its decode tick — against the plain
+    writer on the very inputs the step gave it (``hold_writes``).  The
+    launches of this check are not counted toward the main path's."""
+    calls = capture_writes(_fresh_engine(eng_done, prompts))
+    n_layers = eng_done.api.cfg.n_layers
+    kinds = [sum(c[0] == n for c in calls) for n in ("paged_chunk_write", "paged_token_write")]
+    if kinds != [n_layers, n_layers]:
+        fail(f"one engine step made {kinds} prefill and decode writes, expected {n_layers} each")
+    diff = hold_writes(calls, cb, "first-step")
+    print(f"every KV-page writer launch of one prefill tick and one decode tick vs the plain "
+          f"writer on its own inputs: {n_layers} + {n_layers} launches, page bytes equal "
+          f"({diff} differing idx/sel bytes, all codebook ties)", flush=True)
+    return diff
 
 
 def _forward_logits(api, params, prompts, tokens):
@@ -383,20 +493,60 @@ def phase_logits(eng_k, eng_p, prompts, tokens):
     return floor["max"]
 
 
-def profile_decode(eng_done, prompts):
-    """Where a steady decode tick's time goes: a fresh engine on the same
-    model is stepped until every request decodes, then 3 ticks are timed
-    (host clock, synchronized) and 3 more traced with torch.profiler."""
+def _device_kernels(fn, n=1):
+    """(CUDA kernels, device ms) per call of ``fn`` over ``n`` profiled
+    calls, or None where the profiler saw no device kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving.engine import PagedEngine
-    from repro_torch.serving.generate import Request
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n / 1e3
+    return len(kern) / n, sum(by_name.values()), by_name
 
-    eng = PagedEngine(eng_done.api, eng_done.params, n_slots=len(prompts),
-                      max_len=eng_done.max_len, page_size=16, prefill_chunk=64, device="cuda")
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new=GEN - 1))
+
+def kv_write_split(eng, cb):
+    """The KV page write of one decode tick on its own: the tick's writes
+    (one a layer) are captured, held to the plain writer
+    (``hold_writes``), then replayed on their pools under torch.profiler.
+    Returns ((CUDA kernels, device ms) per tick, or None; differing
+    bytes)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    calls = capture_writes(eng)
+    if [c[0] for c in calls] != ["paged_token_write"] * eng.api.cfg.n_layers:
+        fail(f"a steady decode tick made the writes {[c[0] for c in calls]}, expected "
+             f"{eng.api.cfg.n_layers} decode writes")
+    diff = hold_writes(calls, cb, "steady decode")
+
+    def replay():
+        for name, before, _, args, kw in calls:
+            getattr(layers, name)(before, *args, **kw)
+
+    replay()
+    torch.cuda.synchronize()
+    got = _device_kernels(replay)
+    return (None if got is None else got[:2]), diff
+
+
+def profile_decode(eng_done, prompts, label, cb):
+    """Where a steady decode tick's time goes: a fresh engine on the same
+    model is stepped until every request decodes, then 3 ticks are timed
+    (host clock, synchronized), 3 more traced with torch.profiler, and the
+    KV page write of one more tick held to the plain writer and split out
+    (``kv_write_split``).  Returns that tick's differing page bytes."""
+    import torch
+
+    eng = _fresh_engine(eng_done, prompts)
     while eng.queue or any(s.mode == "prefill" for s in eng.slots if s.req is not None):
         eng.step()
     eng.step()
@@ -406,25 +556,23 @@ def profile_decode(eng_done, prompts):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 3 * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            eng.step()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 3 / 1e3
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 3 / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    if not kern:
-        print(f"decode tick profile: wall {wall:.2f} ms/tick; the profiler saw no device "
-              f"kernels (device time not measured)", flush=True)
-        return
-    print(f"decode tick profile (8 rows decoding): wall {wall:.2f} ms/tick unprofiled, "
-          f"{len(kern) / 3:.0f} CUDA kernels/tick, device busy {busy:.2f} ms/tick "
-          f"(idle share {max(0.0, 1 - busy / wall):.3f})", flush=True)
-    for name, ms in top:
+    prof = _device_kernels(eng.step, 3)
+    kv, diff = kv_write_split(eng, cb)
+    kv_txt = ("the profiler saw no device kernels" if kv is None else
+              f"{kv[0]:.0f} CUDA kernels/tick, device {kv[1]:.3f} ms/tick")
+    kv_txt += f"; page bytes equal to the plain writer's ({diff} differing, codebook ties)"
+    if prof is None:
+        print(f"decode tick profile [{label}]: wall {wall:.2f} ms/tick; the profiler saw no "
+              f"device kernels (device time not measured); KV page write: {kv_txt}", flush=True)
+        return diff
+    n_kern, busy, by_name = prof
+    print(f"decode tick profile [{label}] (8 rows decoding): wall {wall:.2f} ms/tick unprofiled, "
+          f"{n_kern:.0f} CUDA kernels/tick, device busy {busy:.2f} ms/tick (idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}); of it the KV page write (12 layers, replayed): "
+          f"{kv_txt}", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:8.3f} ms/tick  {name[:90]}", flush=True)
+    return diff
 
 
 # ------------------------------------------------------------------ phase 5
@@ -799,23 +947,14 @@ def check_eval_launches(api, params, batch):
 
 def profile_forward(api, params, batch, wall_ms):
     """Where one evaluation forward's time goes (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        api.loss_fn(params, batch)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kern:
+    prof = _device_kernels(lambda: api.loss_fn(params, batch))
+    if prof is None:
         print("eval forward profile: the profiler saw no device kernels (device time not "
               "measured)", flush=True)
         return None
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    by_name = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    n_kern, busy, by_name = prof
     idle = max(0.0, 1 - busy / wall_ms)
-    print(f"eval forward profile: wall {wall_ms:.1f} ms unprofiled, {len(kern)} CUDA kernels, "
+    print(f"eval forward profile: wall {wall_ms:.1f} ms unprofiled, {n_kern:.0f} CUDA kernels, "
           f"device busy {busy:.1f} ms (idle share {idle:.3f})", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {name[:90]}", flush=True)
@@ -835,23 +974,20 @@ def _bound(nbytes, *work):
 ENCODE_OPS = 8 * (1 + 3)  # per scalar and codebook: a table read, d, d², Σ
 
 
-def kernel_split_ms(fn, iters=10):
+def kernel_split_ms(fn, iters=10, tries=3):
     """Device ms per call of each CUDA kernel ``fn`` launches, by name
-    (torch.profiler over ``iters`` calls after a warm-up), or None."""
+    (torch.profiler over ``iters`` calls after a warm-up), or None.  The
+    profiler on the card now and then sees no kernel in a short window;
+    such a window is profiled again, up to ``tries`` times."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    return by_name or None
+    for _ in range(tries):
+        got = _device_kernels(fn, iters)
+        if got is not None:
+            return got[2]
+    return None
 
 
 def device_ms(by_name):
@@ -1029,8 +1165,56 @@ def time_flash(worst_err, launches):
     }
 
 
-def time_quantize(cb, worst_err, launches):
-    """Quantize at the evaluation's activation shape (8192, 768)."""
+def _write_times(cb, c, seed):
+    """The KV-page writer at gpt3_126m's serving shapes: 8 rows of ``c``
+    tokens (c == 1: a decode tick; c == 64: a prefill chunk, every slot
+    of 4 pages a row) of 12 heads of 64, f32 K and V (the serving run's
+    compute dtype), into a pool of the serving run's size.  Kernel (event
+    loop, device time), plain writer, bound; the two pools must end
+    byte-equal."""
+    import torch
+
+    from repro_torch.core.bcq import BCQConfig
+    from repro_torch.models import layers
+
+    cfg = BCQConfig()
+    b, h, d, ps, n_pages = 8, 12, 64, 16, 1 + 8 * 34
+    pool = layers.cache_init(n_pages, ps, h, d, "bcq4", cfg, device="cuda")
+    pool["v_sx"].fill_(0.37)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, v = (torch.randn((b, c, h, d), generator=g, device="cuda") for _ in range(2))
+    if c == 1:
+        ids = (torch.arange(1, 1 + 3 * b, 3, device="cuda"),
+               torch.arange(b, dtype=torch.int32, device="cuda") % ps)
+        rows = b
+        write = lambda p, kernel: layers.paged_token_write(  # noqa: E731
+            p, k, v, *ids, "bcq4", cfg, cb, kernel=kernel)
+    else:
+        n_cp = c // ps
+        ids = (torch.arange(1, 1 + b * n_cp, dtype=torch.int32, device="cuda").reshape(b, n_cp),
+               torch.full((b,), c, dtype=torch.int32, device="cuda"))
+        rows = b * n_cp * ps
+        write = lambda p, kernel: layers.paged_chunk_write(  # noqa: E731
+            p, k, v, ids[0], "bcq4", cfg, cb, ids[1], kernel=kernel)
+    plain = {n: t.clone() for n, t in pool.items()}
+    run = lambda: write(pool, True)  # noqa: E731
+    ms = cuda_ms(run)
+    dev = device_ms(kernel_split_ms(run))
+    plain_ms = cuda_ms(lambda: write(plain, False), iters=10)
+    diff = _pool_diff(pool, plain, cb)
+    if diff != 0:
+        fail(f"the KV-page writer disagrees with the plain writer at C={c} ({diff})")
+    nbytes = (2 * k.numel() * 4 + 2 * rows * h * (d // 2 + d // 16 + d // 64)
+              + sum(t.numel() * t.element_size() for t in ids) + 8 * 16 * 4 + 8)
+    ops = ENCODE_OPS * 2 * k.numel()
+    bound, by = _bound(nbytes, (ops, F32_FLOPS))
+    return {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "nbytes": nbytes, "ops": ops}
+
+
+def time_quantize(cb, worst_err, launches, write_ties):
+    """Quantize at the evaluation's activation shape (8192, 768), and its
+    page-store form, the KV writer, at decode and at a prefill chunk."""
     from repro_torch.core import bcq
     from repro_torch.kernels import bcq_quantize as bq
     from repro_torch.kernels.ref import quantize_ref
@@ -1045,16 +1229,29 @@ def time_quantize(cb, worst_err, launches):
     nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
     ops = ENCODE_OPS * m * k
     bound, by = _bound(nbytes, (ops, F32_FLOPS))
-    print(f"quantize timing at M={m} K={k} (table encode of bcq_encode.cuh): kernel {ms:.4f} ms "
-          f"(device {dev if dev is None else f'{dev:.4f}'} ms, torch.profiler), plain "
-          f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by} ({nbytes} B, {ops} f32 operations); "
-          f"earlier run: {EARLIER_MS['bcq_quantize']} ms", flush=True)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+    print(f"quantize timing at M={m} K={k} (banked-table encode of bcq_encode.cuh): kernel "
+          f"{ms:.4f} ms (device {fmt(dev)}, torch.profiler), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.5f} ms by {by} ({nbytes} B, {ops} f32 operations); earlier run: device "
+          f"{EARLIER_MS['bcq_quantize']} ms", flush=True)
+    writes = {}
+    for nm, c, seed in (("decode", 1, 61), ("prefill", 64, 62)):
+        t = writes[nm] = _write_times(cb, c, seed)
+        print(f"KV-page writer timing at {nm} (8 rows × {c} token{'s' if c > 1 else ''} × 12 "
+              f"heads × 64, K and V f32, bcq4 pages of 16): kernel {t['ms']:.4f} ms (device "
+              f"{fmt(t['device_ms'])}), plain writer {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['nbytes']} B, {t['ops']} f32 "
+              f"operations); page bytes equal to the plain writer's", flush=True)
+    strip = lambda t: {n: t[n] for n in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
     return {
         "name": "bcq_quantize", "route": "cuda", "source": "src/repro_torch/csrc/bcq_quantize.cu",
-        "replaces": "src/repro/kernels/bcq_quantize.py:31", "launches": launches,
-        "max_abs_err": worst_err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None, "bound_peak": "f32 67 TFLOP/s",
-        "shape": f"M {m} K {k}",
+        "replaces": "src/repro/kernels/bcq_quantize.py:31", "launches": sum(launches.values()),
+        "launches_by_path": launches, "max_abs_err": worst_err, "ms": ms, "device_ms": dev,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "bound_peak": "f32 67 TFLOP/s", "shape": f"M {m} K {k}",
+        "kv_write_tie_bytes": write_ties,
+        "kv_write_at_decode": dict(strip(writes["decode"]), shape="B 8 C 1 H 12 D 64 f32"),
+        "kv_write_at_prefill": dict(strip(writes["prefill"]), shape="B 8 C 64 H 12 D 64 f32"),
     }
 
 
@@ -1124,7 +1321,7 @@ def main() -> int:
     cb = default_universal_codebooks().as_tensor("cuda")
     err_lin = phase_linear(cb)
     err_gat = phase_gather(cb)
-    _, counts = phase_serving()
+    _, counts, err_w = phase_serving()
     err_fl = phase_flash()
     err_q = phase_quantize(cb)
     err_mm = phase_matmul(cb)
@@ -1135,7 +1332,8 @@ def main() -> int:
                     {"serving": counts["bcq_linear"], "evaluation": counts_ev["bcq_linear"]}),
         time_gather(cb, err_gat, counts["page_gather"]),
         time_flash(max(err_fl, err_ev["flash_attention"]), counts_ev["flash_attention"]),
-        time_quantize(cb, err_q, counts_2l["bcq_quantize"]),
+        time_quantize(cb, err_q, {"two_launch": counts_2l["bcq_quantize"],
+                                  "serving": counts["bcq_page_write"]}, err_w),
         time_matmul(cb, max(err_mm, err_2l), counts_2l["bcq_matmul"]),
     ]
     print(smi, flush=True)

@@ -23,8 +23,8 @@
 // 1. The encode pass (bcq_encode.cuh's encode_kernel) touches each
 //    activation scalar once: it writes the int8 codewords cb[sel][idx]
 //    (M, K) and a_inv = 1 / (ratio · s_x) (M, K/64) into a workspace the
-//    wrapper allocates.  Its nearest-entry search is one table lookup per
-//    scalar and codebook.
+//    wrapper allocates.  A scalar's nearest entries in the 8 codebooks are
+//    two 128-bit reads of a banked shared-memory table.
 // 2. The GEMM (bcq_gemm.cuh, shared with bcq_matmul.cu) reads those codes
 //    as its A operand and decodes W's packed tiles through an int8 table;
 //    each 64-wide array is an exact int32 product on the int8 tensor cores
@@ -47,13 +47,13 @@ namespace {
 using bcq::LA;
 using bcq::LB;
 
-// Stores block g's 8 int8 codewords and, once per array, its dequant
-// scale 1 / (ratio · s_x).
-struct CodesOut {
+// Reads block g of x; stores its 8 int8 codewords and, once per array,
+// its dequant scale 1 / (ratio · s_x).
+struct CodesIo : bcq::RowMajorIn {
   uint2* codes;
   float* a_inv;
-  __device__ void operator()(long long g, const uint32_t (&ent)[LB], int, int, float,
-                             float scale) const {
+  __device__ void store(long long g, long long, const uint32_t (&ent)[LB], int, int, float,
+                        float scale) const {
     uint2 c;
     c.x = bcq::entry_code(ent[0]) | bcq::entry_code(ent[1]) << 8 |
           bcq::entry_code(ent[2]) << 16 | bcq::entry_code(ent[3]) << 24;
@@ -79,9 +79,13 @@ extern "C" int bcq_linear_launch(const float* x, const uint8_t* w_idx, const uin
   if (M <= 0 || N <= 0 || K <= 0 || K % LA) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n_blocks = static_cast<long long>(M) * (K / LB);
-  const CodesOut enc{reinterpret_cast<uint2*>(codes), a_inv};
-  bcq::encode_kernel<<<bcq::encode_grid(n_blocks), bcq::ENC_THREADS, 0, st>>>(x, cb, s_x, enc,
-                                                                              n_blocks, cw_max);
+  CodesIo enc;
+  enc.x = x;
+  enc.s_x = s_x;
+  enc.codes = reinterpret_cast<uint2*>(codes);
+  enc.a_inv = a_inv;
+  bcq::encode_kernel<<<bcq::encode_grid<CodesIo>(n_blocks), bcq::ENC_THREADS, 0, st>>>(
+      enc, cb, n_blocks, cw_max, LA / LB);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const bcq::Operand a{codes, nullptr, nullptr, a_inv, nullptr};

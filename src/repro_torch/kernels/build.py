@@ -40,6 +40,10 @@ _SIGNATURES = {
     "page_gather_launch": (_I,) + (_P,) * 14 + (_I,) * 9 + (_F, _P),
     # x, cb, s_x, idx, sel, ratio, M, K, cw_max, stream
     "bcq_quantize_launch": (_P,) * 6 + (_I, _I, _F, _P),
+    # bf16, k, v, k_sx, v_sx, cb, k_idx, k_sel, k_scale, v_idx, v_sel, v_scale,
+    # ids, ids64, ids_stride, aux, aux64, aux_stride, B, S, H, D, P, ps, n_cp,
+    # la, cw_max, stream
+    "bcq_page_write_launch": (_I,) + (_P,) * 12 + (_I, _I, _P) + (_I,) * 10 + (_F, _P),
     # a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, cb_a, cb_w, out, M, N, K, stream
     "bcq_matmul_launch": (_P,) * 9 + (_I, _I, _I, _P),
     # dtype, q, k, v, out, BH, S, D, causal, scale, stream

@@ -26,7 +26,9 @@ class Runtime:
     fused_linear: packed linears go through the fused kernel
     (kernels/bcq_linear.py) instead of decode + matmul.  paged_kernel:
     paged attention goes through the page-gather kernel
-    (kernels/common.py) instead of gather + dequant + masked softmax.
+    (kernels/common.py) instead of gather + dequant + masked softmax, and
+    bcq4 pages are written by the page-store form of the encode kernel
+    (kernels/bcq_quantize.py) instead of ``bcq.encode`` + scatter.
     flash_kernel: causal self-attention without a cache (the training /
     evaluation forward) goes through the flash kernel
     (kernels/flash_attention.py) instead of the masked softmax.
@@ -243,12 +245,19 @@ def _last_writer(flat: torch.Tensor) -> torch.Tensor:
     return torch.where(same, rows[None, :], -1).amax(dim=1)
 
 
-def paged_token_write(pool, k_new, v_new, page_ids, offsets, kind, cfg: BCQConfig, cb):
+def paged_token_write(pool, k_new, v_new, page_ids, offsets, kind, cfg: BCQConfig, cb,
+                      kernel: bool = False):
     """Quantize one new token per sequence and scatter it into its page,
     IN PLACE.  pool: single-layer page-pool tree, leaves (P, ps, H, ...);
     k_new/v_new: (B, 1, H, D); page_ids/offsets: (B,) page slot of each
     sequence's tail.  Rows sharing a slot (idle rows on the null page)
-    resolve last row wins."""
+    resolve last row wins.  ``kernel``: bcq4 pages on the card are written
+    by the page-store form of the encode kernel (kernels/bcq_quantize.py);
+    CPU tensors take this plain version."""
+    if kernel and kind == "bcq4" and k_new.device.type != "cpu":
+        from repro_torch.kernels.bcq_quantize import bcq_page_write
+
+        return bcq_page_write(pool, k_new, v_new, cfg, cb, page_ids=page_ids, offsets=offsets)
     enc = cache_encode(k_new, v_new, kind, cfg, cb, pool)
     ps = pool_page_size(pool)
     win = _last_writer(page_ids.long() * ps + offsets.long())
@@ -260,7 +269,7 @@ def paged_token_write(pool, k_new, v_new, page_ids, offsets, kind, cfg: BCQConfi
 
 
 def paged_chunk_write(pool, k_new, v_new, chunk_page_ids, kind, cfg: BCQConfig, cb,
-                      chunk_len=None):
+                      chunk_len=None, kernel: bool = False):
     """Quantize a prefill chunk's K/V and scatter it whole-page into pool
     pages, IN PLACE.
 
@@ -269,7 +278,13 @@ def paged_chunk_write(pool, k_new, v_new, chunk_page_ids, kind, cfg: BCQConfig, 
     past the chunk (and past each row's ``chunk_len`` when C is a padded
     bucket) write the all-zero ``cache_init`` state, so a padded row
     writes the same bytes as an exact-length one.  Duplicate destinations
-    (the null page) resolve last write wins."""
+    (the null page) resolve last write wins.  ``kernel`` as in
+    ``paged_token_write``."""
+    if kernel and kind == "bcq4" and k_new.device.type != "cpu":
+        from repro_torch.kernels.bcq_quantize import bcq_page_write
+
+        return bcq_page_write(pool, k_new, v_new, cfg, cb, chunk_page_ids=chunk_page_ids,
+                              chunk_len=chunk_len)
     b, c = k_new.shape[:2]
     ps = pool_page_size(pool)
     n_cp = chunk_page_ids.shape[1]
@@ -360,7 +375,8 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None):
     elif len(paged) >= 4:
         pool, block_tables, n_past, chunk_page_ids = paged[:4]
         chunk_len = paged[4] if len(paged) == 5 else None
-        paged_chunk_write(pool, k, v, chunk_page_ids, kind, rt.bcq_cfg, cb, chunk_len)
+        paged_chunk_write(pool, k, v, chunk_page_ids, kind, rt.bcq_cfg, cb, chunk_len,
+                          kernel=rt.paged_kernel)
         if rt.paged_kernel:
             from repro_torch.kernels.chunked_prefill import chunked_prefill
 
@@ -373,7 +389,8 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None):
         ps = pool_page_size(pool)
         rows = torch.arange(b, device=x.device)
         page_ids = block_tables.long()[rows, lengths.long() // ps]
-        paged_token_write(pool, k, v, page_ids, lengths % ps, kind, rt.bcq_cfg, cb)
+        paged_token_write(pool, k, v, page_ids, lengths % ps, kind, rt.bcq_cfg, cb,
+                          kernel=rt.paged_kernel)
         valid = lengths + s
         if rt.paged_kernel and s == 1:
             from repro_torch.kernels.paged_attention import paged_attention

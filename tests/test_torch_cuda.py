@@ -12,7 +12,9 @@ kernels sum each 64-wide array exactly in int32 and rescale it once,
 where the plain versions round every decoded value before an f32 dot);
 the two W4A4 routes equal to the bit (the same codes, scales and fold
 order); quantize bytes equal (decoded values equal
-where a block ties between codebooks) and ratios exactly equal;
+where a block ties between codebooks) and ratios exactly equal; the KV
+page writer's pool bytes equal to the plain writer's (the same f32
+errors in the same order: a tie resolves alike);
 page-gather ``atol=rtol=2e-5`` (softmax and accumulation order differ);
 flash attention ``atol=rtol=2e-4`` for f32 inputs, as
 tests/test_flash_kernel.py, and ``1e-2`` for bf16 (the output's bf16
@@ -102,6 +104,142 @@ def test_bcq_quantize_kernel_matches_plain(cuda, mk):
     if not (torch.equal(idx, r_idx) and torch.equal(sel, r_sel)):  # a codebook tie
         inv = 1.0 / (r_ratio * s_x)
         assert torch.equal(decode_ref(idx, sel, inv, cb, CFG), decode_ref(r_idx, r_sel, inv, cb, CFG))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mk", [(8192, 768), (8192, 3072), (37, 192)])
+def test_bcq_quantize_kernel_matches_plain_at_evaluation_shapes(cuda, mk):
+    """The redesigned encode (banked table, prefetched grid-stride steps)
+    at the two-launch GEMM's activation shapes and a ragged one."""
+    m, k = mk
+    x, cb = _activation(m, k, 3 * m + k, cuda), _cb(cuda)
+    s_x = bcq.tensor_scale(x, CFG)
+    idx, sel, ratio = bcq_quantize.bcq_quantize(x, cb, s_x, CFG)
+    r_idx, r_sel, r_ratio = quantize_ref(x, cb, CFG, s_x)
+    assert torch.equal(ratio, r_ratio)
+    if not (torch.equal(idx, r_idx) and torch.equal(sel, r_sel)):  # a codebook tie
+        inv = 1.0 / (r_ratio * s_x)
+        assert torch.equal(decode_ref(idx, sel, inv, cb, CFG), decode_ref(r_idx, r_sel, inv, cb, CFG))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mk", [(8, 768), (8192, 768), (37, 3072)])
+def test_bcq_linear_encode_pass_bytes_match_quantize_ref(cuda, mk):
+    """B1's first launch shares B3's encode pass: its int8 codes are
+    cb[sel][idx] of quantize_ref's bytes and its scales 1 / (ratio · s_x)."""
+    m, k = mk
+    x, cb = _activation(m, k, m + 2 * k, cuda), _cb(cuda)
+    s_x = bcq.tensor_scale(x, CFG)
+    w = _packed(64, k, 5, cuda)
+    codes = torch.empty((m, k), dtype=torch.int8, device=cuda)
+    a_inv = torch.empty((m, k // 64), dtype=torch.float32, device=cuda)
+    out = torch.empty((m, 64), dtype=torch.float32, device=cuda)
+    status = build.library().bcq_linear_launch(
+        x.data_ptr(), w.idx_packed.data_ptr(), w.sel_packed.data_ptr(), w.inv_scale.data_ptr(),
+        cb.data_ptr(), s_x.data_ptr(), codes.data_ptr(), a_inv.data_ptr(), out.data_ptr(), m, 64,
+        k, CFG.codeword_max, torch.cuda.current_stream(cuda).cuda_stream)
+    build.check(status, "bcq_linear_launch")
+    r_idx, r_sel, r_ratio = quantize_ref(x, cb, CFG, s_x)
+    sel = torch.repeat_interleave(bcq.unpack_nibbles(r_sel).long(), 8, dim=-1)
+    want = cb[sel, bcq.unpack_nibbles(r_idx).long()].to(torch.int8)
+    assert torch.equal(codes, want)
+    assert torch.equal(a_inv, torch.ones_like(r_ratio) / (r_ratio * s_x))
+
+
+def _kv_write_case(c, d, h, dtype, cuda, seed=0):
+    """A 3-layer stacked bcq4 pool of random bytes (so every write shows),
+    v_sx non-unit, and one layer's new K/V: an all-zero head, a head of
+    codeword midpoints (K, s_x = 1: y = x exactly), an outlier.  C == 1:
+    8 decode rows, 5 at their own slots, 3 idle on the null page's slot 0
+    holding different tokens.  C > 1: 8 rows of a chunk over pages of 16 —
+    full rows, a ragged last chunk, a row whose last pages lie wholly past
+    its chunk (routed to the null page) and a pad row."""
+    ps, b, n_pages = 16, 8, 40
+    g = torch.Generator().manual_seed(seed)
+    one = layers.cache_init(n_pages, ps, h, d, "bcq4", CFG, device="cpu")
+    stacked = {n: (torch.randint(0, 256, (3,) + t.shape, generator=g, dtype=torch.uint8)
+                   if t.ndim else torch.tensor([1.0, 0.37, 2.5])) for n, t in one.items()}
+    stacked["k_sx"] = torch.tensor([0.5, 1.0, 3.0])
+    stacked = {n: t.to(cuda) for n, t in stacked.items()}
+    k = torch.randn((b, c, h, d), generator=g) * 1.5
+    v = torch.randn((b, c, h, d), generator=g) * torch.randn((b, c, h, 1), generator=g).exp()
+    k[0, :, 0] = 0.0
+    cbn = _cb("cpu")
+    thr = (0.5 * (cbn[:, 1:] + cbn[:, :-1])).reshape(-1)
+    k[1, :, -1] = thr[torch.randint(0, thr.numel(), (c, d), generator=g)]
+    k[1, :, -1, 0] = 31.0
+    v[2, 0, 0, 5] *= 40.0
+    kw = {}
+    if c == 1:
+        kw["page_ids"] = torch.tensor([3, 1, 3, 0, 5, 0, 6, 0], device=cuda)
+        kw["offsets"] = torch.tensor([2, 15, 5, 0, 0, 0, 9, 0], dtype=torch.int32, device=cuda)
+    else:
+        n_cp = -(-c // ps)
+        ids = torch.arange(1, 1 + b * n_cp, dtype=torch.int32).reshape(b, n_cp)
+        chunk_len = torch.full((b,), c, dtype=torch.int32)
+        chunk_len[3], chunk_len[5], chunk_len[6] = c - 5, ps + 3, 0
+        ids[5, 2:] = 0  # wholly past the row's chunk
+        ids[6] = 0  # a pad row
+        kw["chunk_page_ids"], kw["chunk_len"] = ids.to(cuda), chunk_len.to(cuda)
+    return stacked, k.to(cuda, dtype), v.to(cuda, dtype), kw
+
+
+def _layers_write(pool, k, v, cb, kw, kernel):
+    """One layer's page write through ``layers``: the kernel, or with
+    ``kernel=False`` the plain writer."""
+    if "chunk_page_ids" in kw:
+        return layers.paged_chunk_write(pool, k, v, kw["chunk_page_ids"], "bcq4", CFG, cb,
+                                        kw["chunk_len"], kernel=kernel)
+    return layers.paged_token_write(pool, k, v, kw["page_ids"], kw["offsets"], "bcq4", CFG, cb,
+                                    kernel=kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", [(64, 12), (16, 4), (32, 4), (128, 4)])
+@pytest.mark.parametrize("c", [1, 64])
+def test_page_write_kernel_matches_plain(cuda, c, d, h, dtype):
+    """The writer against the plain writer, byte for byte, on layer 1 of a
+    layer-stacked pool; layers 0 and 2 stay untouched."""
+    stacked, k, v, kw = _kv_write_case(c, d, h, dtype, cuda, seed=c + d)
+    before = {n: t.clone() for n, t in stacked.items()}
+    pool = {n: t[1] for n, t in stacked.items()}
+    plain = {n: t[1].clone() for n, t in stacked.items()}
+    cb = _cb(cuda)
+    n0 = bcq_quantize.BCQ_PAGE_WRITE.count
+    bcq_quantize.bcq_page_write(pool, k, v, CFG, cb, **kw)
+    assert bcq_quantize.BCQ_PAGE_WRITE.count == n0 + 1
+    _layers_write(plain, k, v, cb, kw, kernel=False)
+    for n in stacked:
+        assert torch.equal(pool[n], plain[n]), n
+        assert torch.equal(stacked[n][0], before[n][0]) and torch.equal(stacked[n][2], before[n][2])
+
+
+@pytest.mark.cuda
+def test_page_write_through_layers_selects_the_kernel(cuda):
+    """Runtime.paged_kernel routes bcq4 page writes to the kernel; other
+    page kinds and the flag off take the plain write."""
+    stacked, k, v, kw = _kv_write_case(1, 64, 12, torch.float32, cuda)
+    pool = {n: t[0] for n, t in stacked.items()}
+    cb = _cb(cuda)
+    build.reset_counts()
+    layers.paged_token_write(pool, k, v, kw["page_ids"], kw["offsets"], "bcq4", CFG, cb, kernel=True)
+    layers.paged_token_write(pool, k, v, kw["page_ids"], kw["offsets"], "bcq4", CFG, cb)
+    assert build.counts()["bcq_page_write"] == 1
+
+
+@pytest.mark.cuda
+def test_smoke_serving_writes_pages_through_the_kernel(cuda):
+    cfg = get_smoke("gpt3_126m")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (9, 30, 17)]
+    build.reset_counts()
+    _, eng = serve(cfg, prompts, 5, page_size=8, prefill_chunk=16, device=cuda, kernels=True)
+    passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
+    assert build.counts()["bcq_page_write"] == cfg.n_layers * passes
+    build.reset_counts()
+    serve(cfg, prompts, 5, page_size=8, prefill_chunk=16, device=cuda, kernels=False)
+    assert build.counts().get("bcq_page_write", 0) == 0
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 STUDY = ROOT / "chip_gate_study.py"
+ENCODE_STUDY = ROOT / "chip_encode_study.py"
 
 
 def _imports(path: Path):
@@ -27,7 +28,7 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY]
+    files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY, ENCODE_STUDY]
     assert len(files) > 10
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -118,7 +119,7 @@ def test_wrappers_refuse_other_devices():
     from repro_torch.core.bcq import BCQConfig
     from repro_torch.kernels.bcq_linear import bcq_linear
     from repro_torch.kernels.bcq_matmul import bcq_matmul
-    from repro_torch.kernels.bcq_quantize import bcq_quantize
+    from repro_torch.kernels.bcq_quantize import bcq_page_write, bcq_quantize
     from repro_torch.kernels.common import page_gather_attention
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_kernel
 
@@ -130,6 +131,12 @@ def test_wrappers_refuse_other_devices():
                               "bf16", BCQConfig())
     with pytest.raises(ValueError, match="unsupported device"):
         bcq_quantize(meta, None, None, BCQConfig())
+    kv = torch.empty((2, 1, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bcq_page_write({}, kv, kv, BCQConfig(), None, page_ids=None, offsets=None)
+    with pytest.raises(ValueError, match="unsupported device"):  # layers run the plain write
+        bcq_page_write({}, torch.zeros(kv.shape), kv, BCQConfig(), None, page_ids=None,
+                       offsets=None)
     with pytest.raises(ValueError, match="unsupported device"):
         bcq_matmul(torch.empty((4, 32), dtype=torch.uint8, device="meta"), None, None, None,
                    None, None, None, None, BCQConfig())
