@@ -198,8 +198,25 @@ def cache_encode(k_new, v_new, kind, cfg: BCQConfig, cb, sx: dict) -> dict:
     raise ValueError(kind)
 
 
-def cache_read(cache, kind, cfg: BCQConfig, cb, dtype):
-    """Dequantize cache leaves → (k, v) in ``dtype``."""
+def cache_write(cache, k_new, v_new, pos: int, kind, cfg: BCQConfig, cb):
+    """Insert (B, S_new, H, D) keys/values at sequence offset ``pos`` of a
+    contiguous cache, IN PLACE (the slab prefill and the contiguous decode
+    step).  As the reference's ``dynamic_update_slice``, the offset is
+    clamped so that the update fits.  Returns the cache."""
+    enc = cache_encode(k_new, v_new, kind, cfg, cb, cache)
+    s = k_new.shape[1]
+    for n, val in enc.items():
+        leaf = cache[n]
+        start = max(0, min(pos, leaf.shape[1] - s))
+        leaf[:, start:start + s] = val.to(leaf.dtype)
+    return cache
+
+
+def cache_read(cache, kind, cfg: BCQConfig, cb, dtype, valid_len=None):
+    """Dequantize cache leaves → (k, v) in ``dtype``.  ``valid_len`` bounds
+    the read to the first ``valid_len`` sequence positions."""
+    if valid_len is not None:
+        cache = {n: (leaf[:, :valid_len] if leaf.ndim >= 2 else leaf) for n, leaf in cache.items()}
     if kind == "bf16":
         return cache["k"].to(dtype), cache["v"].to(dtype)
     if kind == "int8":
@@ -342,11 +359,17 @@ def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True):
     return torch.einsum("bhck,bkhd->bchd", p, vx.float()).to(q.dtype)
 
 
-def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None):
-    """GQA attention: the cache-free self-attention and the two paged
-    serving branches of the reference.
+def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cache_pos=None):
+    """GQA attention: the cache-free self-attention, the contiguous-cache
+    branch and the two paged serving branches of the reference.
 
-    ``paged`` = None: causal SELF-ATTENTION over x alone, no cache (the
+    ``cache`` (one layer's contiguous cache, leaves (B, max_len, ...)) with
+    ``cache_pos`` (int): the SLAB path — x's K/V are written at
+    ``cache_pos`` (``cache_write``, in place) and x attends causally to
+    the first ``cache_pos + S`` positions of the cache, the only ones the
+    read dequantizes.  The reference uses no Pallas kernel
+    here; its linears still go through the fused linear.
+    ``paged`` = None and no cache: causal SELF-ATTENTION over x alone (the
     training / evaluation forward) — through the flash kernel when
     ``rt.flash_kernel``, else the masked softmax.
     ``paged`` = (pool, block_tables, lengths): DECODE — the new token is
@@ -355,7 +378,7 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None):
     CHUNKED PREFILL — x is a prompt chunk starting at page-aligned
     ``n_past``; its K/V are written whole-page into ``chunk_page_ids`` and
     the chunk attends causally to itself and every earlier page.
-    Returns (out, pool) — the pool is updated in place (None without one)."""
+    Returns (out, pool or cache) — updated in place (None without one)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q, k, v = qdense_shared(x, [p["wq"], p["wk"], p["wv"]], rt, cb)
@@ -364,7 +387,11 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None):
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
     kind = rt.cache_kind
 
-    if paged is None:
+    if cache is not None:
+        pool = cache_write(cache, k, v, cache_pos, kind, rt.bcq_cfg, cb)
+        kf, vf = cache_read(cache, kind, rt.bcq_cfg, cb, rt.compute_dtype, valid_len=cache_pos + s)
+        out = _attend_chunked(q, kf, vf, positions, cache_pos + s)
+    elif paged is None:
         pool = None
         if rt.flash_kernel:  # causal, no window, as many keys as queries
             from repro_torch.kernels.flash_attention import flash_attention

@@ -6,7 +6,8 @@ leading layer axis (``params["layers"]``), the page pool likewise
 (leaves (L, n_pages, page_size, ...)).  The layer loop is a Python loop
 over views of both; page writes land in the pool in place.  Without a
 pool the stack runs cache-free causal self-attention: the training /
-evaluation forward (``forward_train``, scored by ``xent_loss``).
+evaluation forward (``forward_train``, scored by ``xent_loss``).  With
+contiguous caches (``prefill`` / ``decode_step``) it is the slab path.
 """
 from __future__ import annotations
 
@@ -104,9 +105,10 @@ def xent_loss(params, x, labels, rt: Runtime, mask=None):
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def block_apply(x, p, cfg, rt: Runtime, cb, positions, paged):
+def block_apply(x, p, cfg, rt: Runtime, cb, positions, paged, cache=None, cache_pos=None):
     h = layers.norm_apply(x, p["ln1"], cfg.norm)
-    attn_out, _ = layers.attention(h, p["attn"], cfg, rt, cb, positions, paged)
+    attn_out, _ = layers.attention(h, p["attn"], cfg, rt, cb, positions, paged, cache,
+                                   cache_pos)
     x = x + attn_out
     h = layers.norm_apply(x, p["ln2"], cfg.norm)
     return x + layers.mlp(h, p["mlp"], cfg.act, rt, cb)
@@ -119,15 +121,20 @@ def _layer(tree, i):
     return tree[i]
 
 
-def backbone(params, x, cfg, rt: Runtime, positions, pool=None, paged_tables=None):
-    """Run the layer stack, over a page pool when one is given.
-    ``paged_tables``: (block_tables, lengths) for decode, or (block_tables,
-    n_past, chunk_page_ids[, chunk_len]) for chunked prefill (see
-    layers.attention).  Without a pool: cache-free self-attention."""
+def backbone(params, x, cfg, rt: Runtime, positions, pool=None, paged_tables=None,
+             caches=None, cache_pos=None):
+    """Run the layer stack, over a page pool or contiguous caches when one
+    is given.  ``paged_tables``: (block_tables, lengths) for decode, or
+    (block_tables, n_past, chunk_page_ids[, chunk_len]) for chunked
+    prefill (see layers.attention).  ``caches`` (layer-stacked, leaves
+    (L, B, max_len, ...)) with ``cache_pos``: the slab path, caches
+    written in place.  With neither: cache-free self-attention."""
     cb = params.get("codebooks")
     for i in range(cfg.n_layers):
         paged = None if pool is None else (_layer(pool, i),) + tuple(paged_tables)
-        x = block_apply(x, _layer(params["layers"], i), cfg, rt, cb, positions, paged)
+        cache = None if caches is None else _layer(caches, i)
+        x = block_apply(x, _layer(params["layers"], i), cfg, rt, cb, positions, paged, cache,
+                        cache_pos)
     return layers.norm_apply(x, params["ln_f"], cfg.norm)
 
 
@@ -151,6 +158,29 @@ def cache_init_stacked(cfg: ArchConfig, rt: Runtime, batch, max_len, device="cpu
     one = layers.cache_init(batch, max_len, cfg.n_kv_heads, cfg.head_dim, rt.cache_kind,
                             rt.bcq_cfg, device=device)
     return {n: leaf[None].repeat((cfg.n_layers,) + (1,) * leaf.ndim) for n, leaf in one.items()}
+
+
+def prefill(params, batch, cfg: ArchConfig, rt: Runtime, max_len: int):
+    """Run the prompts (B, S) over fresh contiguous caches of ``max_len``
+    positions.  Returns (last-position logits (B, 1, V), caches)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    caches = cache_init_stacked(cfg, rt, b, max_len, device=tokens.device)
+    x = embed_tokens(params, tokens, rt)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x = backbone(params, x, cfg, rt, positions, caches=caches, cache_pos=0)
+    return lm_logits(params, x[:, -1:, :], rt), caches
+
+
+def decode_step(params, caches, tokens, pos: int, cfg: ArchConfig, rt: Runtime):
+    """One contiguous serving step: tokens (B, 1) at absolute position
+    ``pos``; the caches hold ``pos`` valid entries and are updated in
+    place.  Returns (logits (B, 1, V), caches)."""
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, rt)
+    positions = pos + torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x = backbone(params, x, cfg, rt, positions, caches=caches, cache_pos=pos)
+    return lm_logits(params, x, rt), caches
 
 
 def paged_decode_step(params, pool, tokens, block_tables, lengths, cfg: ArchConfig, rt: Runtime):

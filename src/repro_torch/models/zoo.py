@@ -1,7 +1,8 @@
 """ArchConfig → model API (counterpart of the dense branch of
 ``repro/models/zoo.build``): random init, the loss of a batch (the
-evaluation forward), the paged decode step, the page-pool init and the
-chunked-prefill step, all on one device."""
+evaluation forward), the paged decode step, the page-pool init, the
+chunked-prefill step, and the slab ``prefill`` / contiguous
+``decode_step`` pair, all on one device."""
 from __future__ import annotations
 
 import dataclasses
@@ -38,6 +39,8 @@ class ModelAPI:
     paged_decode_fn: Callable[..., Any]
     pool_init: Callable[..., Any]
     prefill_from_pages_fn: Callable[..., Any]
+    prefill_fn: Callable[..., Any]
+    decode_fn: Callable[..., Any]
 
 
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
@@ -72,6 +75,8 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         prefill_from_pages_fn=lambda p, t, pool, bt, n_past, ids, chunk_len=None: (
             transformer.prefill_from_pages(p, t, pool, bt, n_past, ids, cfg, rt, chunk_len)
         ),
+        prefill_fn=lambda p, b, ml: transformer.prefill(p, b, cfg, rt, ml),
+        decode_fn=lambda p, c, t, pos: transformer.decode_step(p, c, t, pos, cfg, rt),
     )
 
 

@@ -1,12 +1,35 @@
-"""PagedEngine: continuous batching over a paged, quantized KV pool with
-chunked prefill (counterpart of ``repro/serving/engine.PagedEngine`` at
-``pipeline_depth=1``, ``chunked_prefill=True``, ``prefix_caching=False``).
+"""PagedEngine: continuous batching over a paged, quantized KV pool
+(counterpart of ``repro/serving/engine.PagedEngine`` at
+``pipeline_depth=1``).
 
-Each ``step()``: admit queued requests into free slots (plan only — the
-pages a prompt needs, kept above a free-page watermark); advance EVERY
+Each ``step()``: admit queued requests into free slots; advance EVERY
 prefilling slot by one ``prefill_chunk`` in ONE ``prefill_from_pages``
-launch; then ONE fused decode launch over all ``n_slots`` rows, with the
-greedy argmax in the launch.
+launch; then ONE fused decode launch over all ``n_slots`` rows.
+
+* **Admission.**  ``chunked_prefill=True`` only *plans*: it claims the
+  longest chain of prefix-hit pages and marks the slot ``prefill``; the
+  chunk ticks then run the rest of the prompt.  ``chunked_prefill=False``
+  (the reference's default) runs the whole prompt in one slab
+  ``prefill_fn`` over a ``max_len`` contiguous cache and scatters the
+  pages that missed the prefix cache into the pool
+  (``pages.scatter_prefill_pages``).  Either way the pool must hold the
+  prompt above a free-page ``watermark``.
+* **Prefix caching** (``prefix_caching=True``): every full prompt page a
+  prefill writes is registered under its chain hash (``prefix.py``);
+  a later prompt with the same prefix takes a reference instead of
+  recomputing it.  A registered page whose last owner finishes is parked,
+  and the allocator evicts parked pages least recently parked first.
+* **Forking** (``Request(n_samples=n)``): when the prompt is done the slot
+  forks into n siblings that share every prompt page by refcount; the
+  first token write on the shared tail page copies it
+  (``pages.copy_page``, copy-on-write).
+* **Preemption by eviction**: when the pool runs dry the youngest slot
+  gives back its pages and is requeued at the head of the queue as
+  prompt + output, which recomputes it exactly — greedy by argmax,
+  sampled because a token's key is (seed, sample_idx, position).
+* **Sampling and EOS**: a sampled row's token is drawn on the device and
+  overlaid on the launch's greedy vector (``generate.sample_row``, keyed
+  at ``pos + 1``); a decoded ``eos_id`` ends a request.
 
 The launches are staged exactly as the reference stages them, because
 the per-tensor activation scale of every W4A4 linear is one reduction
@@ -20,11 +43,11 @@ over the whole launch batch — a different batch gives different tokens:
   zero rows and columns (``_pow2_bucket``, ``_chunk_bucket``); block
   tables grow by doubling.
 
-Left out (ROADMAP queue A): prefix caching, forking, preemption, the
-depth-2 pipelined tick, fault injection, audits, telemetry and the host
-tier.  The pool is sized so that preemption never triggers
-(``1 + n_slots · max_len/page_size`` pages); where the reference would
-preempt, this engine raises ``PagePoolExhaustedError``.
+Left out (ROADMAP queue A): the depth-2 pipelined tick, fault injection
+and containment (a failing admission or a non-finite row raises instead
+of quarantining one request), audits, telemetry, load shedding and the
+host tier.  A head-of-line request the pool can never admit raises
+``PagePoolExhaustedError`` (the reference's ``shed_stuck=False``).
 """
 from __future__ import annotations
 
@@ -37,13 +60,40 @@ import numpy as np
 import torch
 
 from repro_torch.models.zoo import resolve_device
-from repro_torch.serving.generate import Request, sequence_finished
-from repro_torch.serving.pages import NULL_PAGE, PagePool, pages_needed
+from repro_torch.serving.generate import (
+    Request,
+    RequestError,
+    pick_token,
+    sample_row,
+    sampling_keys,
+    sequence_finished,
+)
+from repro_torch.serving.pages import (
+    NULL_PAGE,
+    PagePool,
+    copy_page,
+    live_pages,
+    pages_needed,
+    scatter_prefill_pages,
+)
+from repro_torch.serving.prefix import PrefixCache, chunk_hashes
+
+# the reference's ``serving.telemetry.ENGINE_STAT_KEYS``
+ENGINE_STAT_KEYS = (
+    "prefix_hits", "prefix_misses", "preemptions", "prefix_evictions",
+    "peak_pages", "decode_ticks", "prefill_chunks", "prefill_tokens",
+    "prefill_tokens_skipped", "prefill_launches", "forks", "cow_copies",
+    "shared_pages", "t_prefill_s", "t_decode_s",
+)
+
+
+class PromptTooLongError(ValueError):
+    """The slab prefill cannot hold the prompt (plen >= max_len)."""
 
 
 class PagePoolExhaustedError(RuntimeError):
-    """The page pool cannot serve the pending work (the reference would
-    preempt a sequence here; the port does not, so it refuses)."""
+    """The page pool cannot serve the pending request even with every
+    parked prefix page evicted and every other sequence preempted."""
 
 
 class NonFiniteLogitsError(RuntimeError):
@@ -60,7 +110,7 @@ def _pow2_bucket(n: int, cap: int) -> int:
 
 def _row_stats(logits: torch.Tensor):
     """Greedy token, finiteness and top-1 minus top-2 margin of each row's
-    last-position logits, computed in the launch (one host fetch)."""
+    last-position logits, on the device."""
     row = logits[:, -1, :].float()
     top2 = torch.topk(row, 2, dim=-1).values
     return (
@@ -74,70 +124,136 @@ def _row_stats(logits: torch.Tensor):
 class _PagedSlot:
     req: Optional[Request] = None
     pos: int = 0  # tokens currently in cache (next write position)
-    mode: str = "decode"  # 'decode' | 'prefill'
+    admit_seq: int = 0  # admission order: preemption takes the youngest
+    mode: str = "decode"  # 'decode' | 'prefill' (chunked admission in flight)
     pending: Optional[np.ndarray] = None  # full prompt while prefilling
+    hashes: Optional[list] = None  # full-page chain hashes of ``pending``
+    # a free slot held for a forking request's sibling (the parent's slot):
+    # chunked admission claims the sibling slots up front, so the fork at
+    # the end of the prompt, many ticks later, finds them
+    reserved_by: Optional[int] = None
 
 
 class PagedEngine:
     """Fixed-slot continuous batching over a shared paged KV pool."""
 
     def __init__(self, api, params, n_slots: int, max_len: int, page_size: int = 16,
-                 n_pages: Optional[int] = None, prefill_chunk: int = 16, device="cuda"):
+                 n_pages: Optional[int] = None, eos_id: int = -1, prefix_caching: bool = True,
+                 watermark: Optional[int] = None, chunked_prefill: bool = False,
+                 prefill_chunk: int = 16, device="cuda"):
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"model built for {api.device}, engine asked for {self.device}")
-        if max_len % page_size or prefill_chunk % page_size:
-            raise ValueError("page_size must divide max_len and prefill_chunk")
+        if max_len % page_size:
+            raise ValueError("page_size must divide max_len")
+        if chunked_prefill and prefill_chunk % page_size:
+            raise ValueError("prefill_chunk must be a page multiple")
         self.api = api
         self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
         self.ps = page_size
+        self.eos = eos_id
+        self.prefix_caching = prefix_caching
+        self.chunked = chunked_prefill
         self.prefill_chunk = prefill_chunk
         self.maxp = max_len // page_size
-        self.watermark = n_slots  # decode headroom kept free at admission
+        # decode headroom kept free at admission: every active slot may
+        # need one fresh page on any upcoming tick
+        self.watermark = n_slots if watermark is None else watermark
         if n_pages is None:
             n_pages = 1 + n_slots * self.maxp  # null page + worst case
         self.pool_mgr = PagePool(n_pages)
+        self.prefix = PrefixCache()
         self.pool = api.pool_init(n_pages, page_size)
         self.slots = [_PagedSlot() for _ in range(n_slots)]
         self.tables = np.full((n_slots, self.maxp), NULL_PAGE, np.int32)
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
         self._next_tok = np.zeros((n_slots,), np.int32)
+        self._admit_counter = 0
         self._launches = 0  # prefill + decode launches so far
         # t_prefill_s / t_decode_s: host clock around each launch up to its
-        # results (the prefill launch syncs the device for this; the decode
+        # results (a prefill launch syncs the device for this; the decode
         # launch syncs anyway to fetch its tokens)
-        self.stats = {"decode_ticks": 0, "prefill_launches": 0, "prefill_tokens": 0,
-                      "t_prefill_s": 0.0, "t_decode_s": 0.0}
+        self.stats = {k: 0 for k in ENGINE_STAT_KEYS}
+        self.stats["t_prefill_s"] = self.stats["t_decode_s"] = 0.0
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request):
-        if not req.sampling.greedy:
-            raise NotImplementedError("the port serves greedy decoding only")
-        self.queue.append(req)
+        """Queue a request, or finish it at once with a ``RequestError``
+        when it cannot be served: ``n_samples`` outside [1, n_slots]
+        (``invalid``), or a slab prompt of at least ``max_len`` tokens
+        (``too_long``)."""
+        if not 1 <= req.n_samples <= self.n_slots:
+            self._finish_error(req, "invalid",
+                               f"n_samples={req.n_samples} outside [1, n_slots={self.n_slots}]")
+        elif not self.chunked and len(req.prompt) >= self.max_len:
+            self._finish_error(req, "too_long", self._too_long_msg(len(req.prompt)))
+        else:
+            self.queue.append(req)
+
+    def _finish_error(self, req: Request, kind: str, msg: str):
+        req.error = RequestError(kind, msg)
+        req.done = True
+        self.finished.append(req)
+
+    def _too_long_msg(self, plen: int) -> str:
+        return (f"prompt of {plen} tokens does not fit the slab prefill (max_len="
+                f"{self.max_len}); serve it with chunked_prefill=True")
+
+    def _emit(self, req: Request, tok: int, margin: float, launch: int):
+        req.out.append(tok)
+        req.margins.append(margin)
+        req.launch_ids.append(launch)
+
+    def _next_launch(self) -> int:
+        launch, self._launches = self._launches, self._launches + 1
+        return launch
 
     # ------------------------------------------------------------ pages
-    def _alloc_page(self) -> int:
+    def _alloc_page(self) -> Optional[int]:
+        """A free page, evicting parked prefix pages LRU-first; None when
+        neither is left."""
         pid = self.pool_mgr.alloc()
-        if pid is None:
-            raise PagePoolExhaustedError(
-                f"page pool dry ({self.pool_mgr.n_pages} pages); the reference "
-                "would preempt here, which the port does not implement"
-            )
+        while pid is None:
+            popped = self.prefix.pop_lru()
+            if popped is None:
+                return None
+            self.stats["prefix_evictions"] += 1
+            self.pool_mgr.release(popped[1])
+            pid = self.pool_mgr.alloc()
+        self.stats["peak_pages"] = max(self.stats["peak_pages"], self.pool_mgr.used())
         return pid
 
-    def _free_slot(self, i: int):
-        for pid in self.tables[i]:
-            pid = int(pid)
-            if pid != NULL_PAGE and self.pool_mgr.deref(pid):
+    def _drop_page(self, pid: int):
+        """One owner lets go of ``pid``: a registered page is parked when
+        its count reaches zero, any other page is freed."""
+        if pid == NULL_PAGE:
+            return
+        if self.pool_mgr.deref(pid):
+            if self.prefix.knows(pid):
+                self.prefix.mark_reclaimable(pid)
+            else:
                 self.pool_mgr.release(pid)
+
+    def _free_slot(self, i: int):
+        """Release slot i: drop ONLY its own page references (forked
+        siblings hold one each) and the sibling slots it had reserved."""
+        for pid in self.tables[i]:
+            self._drop_page(int(pid))
         self.tables[i] = NULL_PAGE
         self.slots[i] = _PagedSlot()
+        for s in self.slots:
+            if s.reserved_by == i:
+                s.reserved_by = None
+
+    def _available_pages(self) -> int:
+        return self.pool_mgr.available() + self.prefix.reclaimable_count()
 
     def _grow_tables(self, n_seq_pages: int):
-        """Widen every block table to ≥ n_seq_pages columns, doubling."""
+        """Widen every block table to ≥ n_seq_pages columns, doubling
+        (chunked mode only)."""
         width = self.tables.shape[1]
         if n_seq_pages <= width:
             return
@@ -149,38 +265,260 @@ class PagedEngine:
         )
 
     def _seq_capacity(self) -> int:
+        """Tokens a sequence may hold: the block-table width (== max_len
+        for a slab engine)."""
         return self.tables.shape[1] * self.ps
 
-    # -------------------------------------------------------- admission
-    def _admit(self):
-        """Plan-only admission: a request takes a free slot in ``prefill``
-        mode when the pool can hold its prompt above the watermark."""
-        while self.queue:
-            free = [i for i, s in enumerate(self.slots) if s.req is None]
-            if not free:
+    # ------------------------------------------------------ prefix hits
+    def _plan_prefix_hits(self, req: Request, prompt: np.ndarray):
+        """(chain hashes of the prompt's full pages, the longest chain of
+        pages that hit).  A peek: moves no page and counts nothing, since a
+        head-of-line request is planned again every tick; the hashes are
+        memoized on the request."""
+        if not self.prefix_caching:
+            hashes = []
+        elif req._hash_cache is not None and req._hash_cache[0] == self.ps:
+            hashes = req._hash_cache[1]
+        else:
+            hashes = chunk_hashes(prompt, self.ps)
+            req._hash_cache = (self.ps, hashes)
+        hits = []
+        for h in hashes:
+            pid = self.prefix.peek(h)
+            if pid is None:
                 break
-            req = self.queue[0]
-            prompt = np.asarray(req.prompt, np.int64)
-            need = pages_needed(len(prompt), self.ps)
-            if self.pool_mgr.available() < need + self.watermark:
-                break  # head-of-line waits for pages
-            self._grow_tables(pages_needed(len(prompt) + req.max_new + 1, self.ps))
-            self.queue.popleft()
-            self.slots[free[0]] = _PagedSlot(req=req, pos=0, mode="prefill", pending=prompt)
+            hits.append(pid)
+        return hashes, hits
 
-    def _start_decode(self, i: int, tok: int, finite: bool, margin: float, launch: int):
-        """The prompt of slot i is done: emit its first token."""
+    def _claim_hits(self, hashes, hits, n_cacheable: int, table: np.ndarray) -> int:
+        """Take a reference on each planned hit page (reviving parked
+        ones) into ``table``; count hits, and misses over the
+        ``n_cacheable`` pages that could have hit."""
+        for i, (h, pid) in enumerate(zip(hashes, hits)):
+            if self.prefix.lookup(h) != pid:
+                raise RuntimeError("prefix cache changed between plan and claim")
+            if self.pool_mgr.refcount[pid] == 0:
+                self.pool_mgr.revive(pid)
+            else:
+                self.pool_mgr.ref(pid)
+            table[i] = pid
+        self.stats["prefix_hits"] += len(hits)
+        self.stats["prefix_misses"] += max(0, n_cacheable - len(hits))
+        return len(hits)
+
+    # -------------------------------------------------------- admission
+    def _try_admit(self, req: Request, slot_idx: int) -> bool:
+        prompt = np.asarray(req.prompt, np.int64)
+        plen = len(prompt)
+        if self.chunked:
+            return self._try_admit_chunked(req, prompt, plen, slot_idx)
+        if plen >= self.max_len:
+            raise PromptTooLongError(self._too_long_msg(plen))
+        n_prompt_pages = pages_needed(plen, self.ps)
+        n_full = plen // self.ps
+        hashes, hits = self._plan_prefix_hits(req, prompt)
+        need = n_prompt_pages - len(hits)
+        if self._available_pages() < need + self.watermark:
+            return False  # admission control: keep decode headroom
+
+        table = np.full((self.tables.shape[1],), NULL_PAGE, np.int32)
+        scatter_ids = np.full((self.maxp,), NULL_PAGE, np.int32)
+        try:
+            n_claimed = self._claim_hits(hashes, hits, n_full, table)
+            for i in range(n_claimed, n_prompt_pages):
+                pid = self._alloc_page()
+                if pid is None:
+                    raise PagePoolExhaustedError(
+                        f"allocator dry mid-admission (watermark={self.watermark} "
+                        f"should have reserved {need} pages)")
+                table[i] = scatter_ids[i] = pid
+            # the whole prompt over a max_len slab, then only the pages
+            # that missed go into the pool; shared pages are never written
+            t0 = time.perf_counter()
+            tokens = torch.from_numpy(prompt.astype(np.int32))[None].to(self.device)
+            logits, cache1 = self.api.prefill_fn(self.params, {"tokens": tokens}, self.max_len)
+            scatter_prefill_pages(self.pool, cache1, torch.from_numpy(scatter_ids).to(self.device))
+            stats = [t.cpu() for t in _row_stats(logits)]
+            self.stats["t_prefill_s"] += time.perf_counter() - t0
+            self.stats["prefill_launches"] += 1
+            self.stats["prefill_tokens"] += plen
+            launch = self._next_launch()
+            if self.prefix_caching:
+                for i in range(n_claimed, n_full):
+                    self.prefix.register(hashes[i], int(table[i]))
+        except BaseException:
+            for pid in table:  # the pages live only in the local table
+                self._drop_page(int(pid))
+            raise
+
+        self.tables[slot_idx] = table
+        self.slots[slot_idx] = _PagedSlot(req=req, pos=plen, admit_seq=self._admit_counter)
+        self._admit_counter += 1
+        self._start_decode(slot_idx, logits[0, -1], *(t[0].item() for t in stats), launch)
+        return True
+
+    def _try_admit_chunked(self, req: Request, prompt, plen: int, slot_idx: int) -> bool:
+        """Plan-only admission: claim the prefix-hit pages and mark the slot
+        ``prefill``; the chunk ticks run the rest of the prompt."""
+        n_prompt_pages = pages_needed(plen, self.ps)
+        hashes, hits = self._plan_prefix_hits(req, prompt)
+        # keep ≥ 1 suffix token: the prompt's last-position logits (the
+        # first generated token) come out of its final chunk
+        hits = hits[: min(len(hits), (plen - 1) // self.ps)]
+        need = n_prompt_pages - len(hits)
+        if self._available_pages() < need + self.watermark:
+            return False  # the same memory policy; only compute is deferred
+
+        self._grow_tables(pages_needed(plen + req.max_new + 1, self.ps))
+        table = np.full((self.tables.shape[1],), NULL_PAGE, np.int32)
+        # cacheable: the full pages, less the hit trimmed above
+        n_claimed = self._claim_hits(hashes, hits, (plen - 1) // self.ps, table)
+        self.stats["prefill_tokens_skipped"] += n_claimed * self.ps
+        self.tables[slot_idx] = table
+        self.slots[slot_idx] = _PagedSlot(
+            req=req, pos=n_claimed * self.ps, admit_seq=self._admit_counter,
+            mode="prefill", pending=prompt, hashes=hashes,
+        )
+        self._admit_counter += 1
+        if req.n_samples > 1:
+            # hold the sibling slots until the fork; _free_slot releases
+            # them if this parent is preempted before it forks
+            others = [j for j, s in enumerate(self.slots)
+                      if s.req is None and s.reserved_by is None and j != slot_idx]
+            for j in others[: req.n_samples - 1]:
+                self.slots[j].reserved_by = slot_idx
+        return True
+
+    def _admit(self) -> int:
+        """Admit from the head of the queue while a slot (n sibling slots
+        for a forking request) and the pages are there."""
+        admitted = 0
+        while self.queue:
+            free = [i for i, s in enumerate(self.slots) if s.req is None and s.reserved_by is None]
+            req = self.queue[0]
+            if not free or req.n_samples > len(free):
+                break
+            if not self._try_admit(req, free[0]):
+                break  # head-of-line waits for pages
+            self.queue.popleft()
+            admitted += 1
+        return admitted
+
+    def _finish_if_budget_spent(self, i: int) -> bool:
+        """Retire a slot whose first token already spent the budget (a
+        recomputed request whose output had reached max_new).  No EOS check
+        here, as in the reference."""
         req = self.slots[i].req
-        if not finite:
-            raise NonFiniteLogitsError(f"non-finite logits at prefill end (rid={req.rid})")
-        req.out.append(tok)
-        req.margins.append(margin)
-        req.launch_ids.append(launch)
-        self._next_tok[i] = tok
         if len(req.out) >= req.max_new + 1:
             req.done = True
             self.finished.append(req)
             self._free_slot(i)
+            return True
+        return False
+
+    def _start_decode(self, i: int, row, greedy_tok: int, finite: bool, margin: float,
+                      launch: int):
+        """The prompt of slot i is done (``row``: its last-position logits
+        (V,)): emit the first token(s).  A request with ``n_samples > 1``
+        forks here into n sibling slots that share every prompt page by
+        refcount; the submitted Request becomes sibling 0 with its
+        ``n_samples`` demoted to 1, so a later preemption never re-forks
+        it."""
+        slot = self.slots[i]
+        parent = slot.req
+        if not finite:
+            raise NonFiniteLogitsError(f"non-finite logits at prefill end (rid={parent.rid})")
+        children = [(i, parent)]
+        n = parent.n_samples
+        if n > 1:
+            res = [j for j, s in enumerate(self.slots) if s.req is None and s.reserved_by == i]
+            free = [j for j, s in enumerate(self.slots)
+                    if s.req is None and s.reserved_by is None and j != i]
+            sibs = (res + free)[: n - 1]
+            if len(sibs) != n - 1:
+                raise RuntimeError("fork found too few sibling slots")
+            shared = live_pages(self.tables[i])
+            parent.n_samples, parent.sample_idx = 1, 0
+            for s_idx, j in enumerate(sibs, start=1):
+                child = Request(rid=parent.rid, prompt=parent.prompt, max_new=parent.max_new,
+                                sampling=parent.sampling, sample_idx=s_idx)
+                for pid in shared:
+                    self.pool_mgr.ref(pid)  # one reference per sibling and page
+                self.tables[j] = self.tables[i]
+                self.slots[j] = _PagedSlot(req=child, pos=slot.pos, admit_seq=self._admit_counter)
+                self._admit_counter += 1
+                children.append((j, child))
+            self.stats["forks"] += 1
+            self.stats["shared_pages"] += len(shared) * (n - 1)
+        # first tokens only once every sibling holds its references: a
+        # sibling that retires here must not free pages the others share
+        for j, child in children:
+            tok, m = pick_token(row, greedy_tok, margin, child, self.slots[j].pos)
+            self._emit(child, tok, m, launch)
+            self._next_tok[j] = tok
+            self._finish_if_budget_spent(j)
+
+    # ------------------------------------------------------- preemption
+    def _preempt_one(self, exclude: Optional[int]) -> Optional[int]:
+        """Requeue the youngest active sequence (≠ exclude if possible) at
+        the head of the queue as prompt + the output not yet folded in.
+        Returns the victim slot."""
+        cands = [i for i, s in enumerate(self.slots) if s.req is not None and i != exclude]
+        if not cands and exclude is not None and self.slots[exclude].req is not None:
+            cands = [exclude]
+        if not cands:
+            return None
+        victim = max(cands, key=lambda i: self.slots[i].admit_seq)
+        req = self.slots[victim].req
+        orig_plen = req._orig_plen if req._orig_plen is not None else len(req.prompt)
+        folded = len(req.prompt) - orig_plen
+        resumed = Request(
+            rid=req.rid,
+            prompt=np.concatenate([np.asarray(req.prompt, np.int64),
+                                   np.asarray(req.out[folded:], np.int64)]),
+            max_new=req.max_new, out=req.out, margins=req.margins, launch_ids=req.launch_ids,
+            sampling=req.sampling, n_samples=req.n_samples, sample_idx=req.sample_idx,
+            _orig_plen=orig_plen,
+        )
+        req._resumed_as = resumed
+        self._free_slot(victim)
+        self.queue.appendleft(resumed)
+        self.stats["preemptions"] += 1
+        return victim
+
+    def _alloc_page_preempting(self, i: int) -> Optional[int]:
+        """``_alloc_page``, preempting (youngest ≠ i first) while dry.
+        None iff slot i itself was preempted or nothing is left."""
+        pid = self._alloc_page()
+        while pid is None:
+            if self._preempt_one(exclude=i) is None or self.slots[i].req is None:
+                return None
+            pid = self._alloc_page()
+        return pid
+
+    def _ensure_tail_page(self, i: int) -> bool:
+        """Give slot i's next write position a private page: a fresh one at
+        a page boundary, a copy of a shared tail page (copy-on-write)."""
+        slot = self.slots[i]
+        if slot.req is None or slot.mode != "decode":
+            return False  # preempted earlier in this sweep
+        pi = slot.pos // self.ps
+        pid = int(self.tables[i][pi])
+        if slot.pos % self.ps == 0 and pid == NULL_PAGE:
+            pid = self._alloc_page_preempting(i)
+            if pid is None:
+                return False
+            self.tables[i][pi] = pid
+            return True
+        if pid != NULL_PAGE and self.pool_mgr.refcount[pid] > 1:
+            new = self._alloc_page_preempting(i)
+            if new is None:
+                return False
+            copy_page(self.pool, pid, new)
+            self.stats["cow_copies"] += 1
+            self._drop_page(pid)
+            self.tables[i][pi] = new
+        return True
 
     # --------------------------------------------------- chunked prefill
     def _chunk_bucket(self, c: int) -> int:
@@ -189,7 +527,10 @@ class PagedEngine:
         return _pow2_bucket(c, self.prefill_chunk)
 
     def _prefill_tick_all(self) -> int:
-        """Advance every prefilling slot by one chunk in ONE launch."""
+        """Advance every prefilling slot by one chunk in ONE launch.  Each
+        slot's chunk pages are allocated first, preempting if dry (a slot
+        preempted by a later slot's allocation drops out); the full pages
+        a chunk completes are registered."""
         plans = {}
         for i, slot in enumerate(self.slots):
             if slot.req is None or slot.mode != "prefill":
@@ -198,12 +539,16 @@ class PagedEngine:
             c = min(self.prefill_chunk, len(slot.pending) - start)
             ids = np.full((pages_needed(c, self.ps),), NULL_PAGE, np.int32)
             for k in range(len(ids)):
-                ids[k] = self._alloc_page()
-                self.tables[i][start // self.ps + k] = ids[k]
-            plans[i] = (start, c, ids)
-        if not plans:
+                pid = self._alloc_page_preempting(i)
+                if pid is None:
+                    break  # slot i was preempted
+                self.tables[i][start // self.ps + k] = ids[k] = pid
+            else:
+                plans[i] = (start, c, ids)
+        batch = [i for i in plans
+                 if self.slots[i].req is not None and self.slots[i].mode == "prefill"]
+        if not batch:
             return 0
-        batch = list(plans)
         c_bucket = self._chunk_bucket(max(plans[i][1] for i in batch))
         n_cp = pages_needed(c_bucket, self.ps)
         bb = _pow2_bucket(len(batch), self.n_slots)
@@ -233,27 +578,41 @@ class PagedEngine:
             torch.cuda.synchronize(self.device)
         self.stats["t_prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_launches"] += 1
-        launch, self._launches = self._launches, self._launches + 1
+        launch = self._next_launch()
         for r, i in enumerate(batch):
             start, c, _ = plans[i]
             slot = self.slots[i]
             slot.pos = start + c
+            self.stats["prefill_chunks"] += 1
             self.stats["prefill_tokens"] += c
+            if self.prefix_caching:
+                for p in range(start // self.ps, min(slot.pos // self.ps, len(slot.hashes))):
+                    self.prefix.register(slot.hashes[p], int(self.tables[i][p]))
             if i in done:
-                slot.mode, slot.pending = "decode", None
-                self._start_decode(i, int(nxt[r]), bool(fin[r]), float(margin[r]), launch)
+                slot.mode, slot.pending, slot.hashes = "decode", None, None
+                self._start_decode(i, logits[r, -1], int(nxt[r]), bool(fin[r]),
+                                   float(margin[r]), launch)
         return len(batch)
 
     # ------------------------------------------------------------- ticks
     def _active(self):
         return [i for i, s in enumerate(self.slots) if s.req is not None]
 
-    def _ensure_tail_page(self, i: int):
-        """Give slot i's next write position a page."""
-        slot = self.slots[i]
-        pi = slot.pos // self.ps
-        if slot.pos % self.ps == 0 and self.tables[i][pi] == NULL_PAGE:
-            self.tables[i][pi] = self._alloc_page()
+    def _overlay_samples(self, logits, nxt, margin, rows: list):
+        """Draw the sampled rows' tokens in one batched call and overlay
+        them (and their margins) on the launch's greedy vectors, on the
+        device.  A decode token is keyed at ``pos + 1``: the cache holds
+        ``pos`` tokens and this tick writes the consumed one at ``pos``
+        (keying it at ``pos`` would reuse the first token's key)."""
+        meta = np.array([[i, r.sampling.seed, r.sample_idx, self.slots[i].pos + 1,
+                          r.sampling.top_k] for i, r in rows], np.int64)
+        temp = np.array([r.sampling.temperature for _, r in rows], np.float32)
+        m = torch.from_numpy(meta).to(self.device)
+        tok, mg = sample_row(logits[m[:, 0], -1, :], sampling_keys(m[:, 1:4]),
+                             torch.from_numpy(temp).to(self.device), m[:, 4],
+                             k_max=int(meta[:, 4].max()))
+        return (nxt.index_put((m[:, 0],), tok.to(nxt.dtype)),
+                margin.index_put((m[:, 0],), mg.to(margin.dtype)))
 
     def _decode_tick(self, active: list):
         """ONE fused decode launch over all n_slots rows, then book tokens.
@@ -265,15 +624,19 @@ class PagedEngine:
         for i in active:
             pk[i, 1] = self.slots[i].pos
             pk[i, 2:] = self.tables[i]
+        sampled = [(i, self.slots[i].req) for i in active if not self.slots[i].req.sampling.greedy]
         t0 = time.perf_counter()
         dev = torch.from_numpy(pk).to(self.device)
         logits, self.pool = self.api.paged_decode_fn(
             self.params, self.pool, dev[:, :1], dev[:, 2:], dev[:, 1]
         )
-        nxt, fin, margin = (t.cpu().numpy() for t in _row_stats(logits))
+        nxt, fin, margin = _row_stats(logits)
+        if sampled:
+            nxt, margin = self._overlay_samples(logits, nxt, margin, sampled)
+        nxt, fin, margin = (t.cpu().numpy() for t in (nxt, fin, margin))
         self.stats["t_decode_s"] += time.perf_counter() - t0
         self.stats["decode_ticks"] += 1
-        launch, self._launches = self._launches, self._launches + 1
+        launch = self._next_launch()
         cap = self._seq_capacity()
         for i in active:
             slot = self.slots[i]
@@ -282,10 +645,8 @@ class PagedEngine:
             if not fin[i]:
                 raise NonFiniteLogitsError(f"non-finite decode logits (rid={req.rid}, slot={i})")
             tok = int(nxt[i])
-            req.out.append(tok)
-            req.margins.append(float(margin[i]))
-            req.launch_ids.append(launch)
-            if sequence_finished(len(req.out), req.max_new, slot.pos, cap):
+            self._emit(req, tok, float(margin[i]), launch)
+            if sequence_finished(tok, len(req.out), req.max_new, slot.pos, cap, self.eos):
                 req.done = True
                 self.finished.append(req)
                 self._free_slot(i)
@@ -297,9 +658,10 @@ class PagedEngine:
         launch for every decoding slot.  Returns the slots served."""
         self._admit()
         served = self._prefill_tick_all()
-        active = [i for i, s in enumerate(self.slots) if s.req is not None and s.mode == "decode"]
-        for i in active:
-            self._ensure_tail_page(i)
+        decoding = [i for i, s in enumerate(self.slots) if s.req is not None and s.mode == "decode"]
+        active = [i for i in decoding if self._ensure_tail_page(i)]
+        # a later slot's tail page may have preempted an earlier one
+        active = [i for i in active if self.slots[i].req is not None]
         if active:
             self._decode_tick(active)
         return served + len(active)
@@ -309,11 +671,12 @@ class PagedEngine:
         the pool can never admit raises PagePoolExhaustedError."""
         ticks = 0
         while (self.queue or self._active()) and ticks < max_ticks:
-            served = self.step()
+            launches = self._launches
+            self.step()
             ticks += 1
-            if served == 0 and self.queue and not self._active():
+            if self._launches == launches and self.queue and not self._active():
                 raise PagePoolExhaustedError(
                     f"pool too small to admit a {len(self.queue[0].prompt)}-token prompt "
-                    f"(free={self.pool_mgr.available()}, watermark={self.watermark})"
+                    f"(free={self._available_pages()}, watermark={self.watermark})"
                 )
         return self.finished, ticks

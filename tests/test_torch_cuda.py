@@ -233,12 +233,14 @@ def test_smoke_serving_writes_pages_through_the_kernel(cuda):
     cfg = get_smoke("gpt3_126m")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n) for n in (9, 30, 17)]
+    kw = dict(page_size=8, prefill_chunk=16, device=cuda, chunked_prefill=True,
+              prefix_caching=False)
     build.reset_counts()
-    _, eng = serve(cfg, prompts, 5, page_size=8, prefill_chunk=16, device=cuda, kernels=True)
+    _, eng = serve(cfg, prompts, 5, kernels=True, **kw)
     passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
     assert build.counts()["bcq_page_write"] == cfg.n_layers * passes
     build.reset_counts()
-    serve(cfg, prompts, 5, page_size=8, prefill_chunk=16, device=cuda, kernels=False)
+    serve(cfg, prompts, 5, kernels=False, **kw)
     assert build.counts().get("bcq_page_write", 0) == 0
 
 
@@ -424,11 +426,89 @@ def test_smoke_serving_kernels_match_plain_paths(cuda):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 37, 12, 20)]
     build.reset_counts()
-    fin_k, eng = serve(cfg, prompts, 6, page_size=8, prefill_chunk=16, device=cuda, kernels=True)
+    kw = dict(page_size=8, prefill_chunk=16, device=cuda, chunked_prefill=True,
+              prefix_caching=False)
+    fin_k, eng = serve(cfg, prompts, 6, kernels=True, **kw)
     counts = build.counts()
-    fin_p, _ = serve(cfg, prompts, 6, page_size=8, prefill_chunk=16, device=cuda, kernels=False)
+    fin_p, _ = serve(cfg, prompts, 6, kernels=False, **kw)
     passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
     assert counts["bcq_linear"] == cfg.n_layers * 6 * passes
     assert counts["page_gather"] == cfg.n_layers * passes
     agree = greedy_agreement({r.rid: r for r in fin_p}, {r.rid: r for r in fin_k}, 1e-3)
     assert agree["ok"], agree
+
+
+# ------------------------------------------------------------ serving core
+@pytest.mark.cuda
+def test_prng_bits_and_uniforms_on_cuda_equal_cpu(cuda):
+    from repro_torch.serving import generate, prng
+
+    rows = torch.tensor([[0, 0, 0], [1234, 2, 333], [2**31 - 1, 1, 4095]])
+    keys = generate.sampling_keys(rows)
+    keys_dev = generate.sampling_keys(rows.to(cuda))
+    assert torch.equal(keys_dev.cpu(), keys)
+    assert torch.equal(prng.random_bits(keys_dev, 50_257).cpu(), prng.random_bits(keys, 50_257))
+    u, u_dev = (prng.uniform(k, 50_257, prng.F32_TINY, 1.0) for k in (keys, keys_dev))
+    assert torch.equal(u_dev.cpu().view(torch.int32), u.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "bcq4"])
+def test_page_moves_on_cuda_equal_cpu(cuda, kind):
+    from repro_torch.models import transformer
+    from repro_torch.serving import pages
+
+    cfg = get_smoke("gpt3_126m")
+    rt = layers.Runtime(cache_kind=kind)
+    g = torch.Generator().manual_seed(3)
+
+    def filled(n_pages, ps):
+        tree = transformer.cache_init_stacked(cfg, rt, n_pages, ps)
+        for n, leaf in tree.items():
+            if leaf.ndim >= 3:
+                leaf.copy_((torch.rand(leaf.shape, generator=g) * 200 - 100).to(leaf.dtype))
+        return tree
+
+    pool, cache1 = filled(7, 8), filled(1, 32)
+    dev = {n: t.to(cuda) for n, t in pool.items()}
+    dev1 = {n: t.to(cuda) for n, t in cache1.items()}
+    ids = torch.tensor([0, 3, 0, 5], dtype=torch.int32)
+    for tree, c1, i in ((pool, cache1, ids), (dev, dev1, ids.to(cuda))):
+        pages.copy_page(tree, 2, 6)
+        pages.scatter_prefill_pages(tree, c1, i)
+    for n in pool:
+        assert torch.equal(dev[n].cpu(), pool[n]), n
+
+
+@pytest.mark.cuda
+def test_smoke_engine_serving_core_on_card(cuda):
+    """Prefix hits, a sampled fork with copy-on-write and preemption through
+    the kernels on the card; the page accounting ends clean."""
+    from repro_torch.models import zoo
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.generate import Request, SamplingParams
+
+    cfg = get_smoke("gpt3_126m")
+    rt = layers.Runtime(quant_mode="packed", compute_dtype=torch.float32, cache_kind="bcq4",
+                        paged_kernel=True)
+    api = zoo.build(cfg, rt, device=cuda)
+    eng = PagedEngine(api, api.init(0), n_slots=4, max_len=64, page_size=8, n_pages=14,
+                      watermark=1, chunked_prefill=True, prefill_chunk=16, device=cuda)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab, 24)
+    for rid in range(4):
+        eng.submit(Request(rid=rid, prompt=np.concatenate([shared, rng.integers(0, cfg.vocab, 5)]),
+                           max_new=24, n_samples=2 if rid == 1 else 1,
+                           sampling=SamplingParams(0.8, 40, 1234) if rid == 1 else SamplingParams()))
+    build.reset_counts()
+    finished, _ = eng.run_to_completion()
+    passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
+    assert build.counts()["page_gather"] == cfg.n_layers * passes
+    assert sorted((r.rid, r.sample_idx) for r in finished) == [(0, 0), (1, 0), (1, 1), (2, 0),
+                                                               (3, 0)]
+    for key in ("prefix_hits", "forks", "cow_copies", "preemptions"):
+        assert eng.stats[key] > 0, (key, eng.stats)
+    assert (eng.pool_mgr.refcount == 0).all()
+    free, parked = set(eng.pool_mgr.free), set(eng.prefix.reclaimable)
+    assert not free & parked and free | parked == set(range(1, 14))
+    assert parked == set(eng.prefix.hash_of)

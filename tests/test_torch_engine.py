@@ -4,7 +4,9 @@ weights, bcq4 pool).
 
 Reference settings: ``chunked_prefill=True``, ``prefix_caching=False``,
 ``pipeline_depth=1``, ``paged_kernel=False``; both engines get the same
-``n_slots`` and the same requests.  The request mix has one prompt
+``n_slots`` and the same requests.  (The serving-core features — prefix
+caching, forking, preemption, sampling, EOS, slab admission — are held
+to the reference in tests/test_torch_serving_core.py.)  The request mix has one prompt
 shorter than a page, one longer than a chunk, and different budgets, so
 slots go idle at different ticks and ride later decode launches at
 length 0 on the null page with different stale tokens.
@@ -79,7 +81,8 @@ def _port_run(packed, kernels: bool):
     api = tzoo.build(TCFG, rt, device="cpu")
     params = from_numpy_tree(jax.tree.map(np.asarray, packed))
     eng = PagedEngine(api, params, n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PS,
-                      prefill_chunk=CHUNK, device="cpu")
+                      prefill_chunk=CHUNK, chunked_prefill=True, prefix_caching=False,
+                      device="cpu")
     for i, (p, n) in enumerate(zip(_prompts(), BUDGETS)):
         eng.submit(Request(rid=i, prompt=p, max_new=n))
     finished, ticks = eng.run_to_completion()
@@ -106,7 +109,8 @@ def _tiny_engine(n_pages=None, max_len=32):
     rt = TRuntime(quant_mode="none", compute_dtype=torch.float32, cache_kind="bf16")
     api = tzoo.build(TCFG, rt, device="cpu")
     return PagedEngine(api, api.init(0), n_slots=2, max_len=max_len, page_size=PS,
-                       n_pages=n_pages, prefill_chunk=CHUNK, device="cpu")
+                       n_pages=n_pages, prefill_chunk=CHUNK, chunked_prefill=True,
+                       device="cpu")
 
 
 def test_pool_that_cannot_admit_raises():
@@ -117,19 +121,31 @@ def test_pool_that_cannot_admit_raises():
 
 
 def test_pool_dry_mid_decode_raises_instead_of_preempting():
+    """A lone sequence that outgrows the pool has no one else to preempt:
+    it preempts itself, its recomputed prompt no longer fits above the
+    watermark, and the engine raises."""
     eng = _tiny_engine(n_pages=5)  # admits a 1-page prompt, runs dry decoding
     eng.submit(Request(rid=0, prompt=np.arange(3), max_new=40))
     with pytest.raises(PagePoolExhaustedError):
         eng.run_to_completion()
+    assert eng.stats["preemptions"] >= 1
 
 
 def test_sampling_is_refused():
+    """A sampled request is served now; what submit refuses is a request
+    it cannot serve, and it finishes it with a typed error instead of
+    raising."""
     from repro_torch.serving.generate import SamplingParams
 
     eng = _tiny_engine()
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid=0, prompt=np.arange(3), max_new=2,
-                           sampling=SamplingParams(temperature=0.7)))
+    bad = Request(rid=0, prompt=np.arange(3), max_new=2, n_samples=3,
+                  sampling=SamplingParams(temperature=0.7))
+    eng.submit(bad)
+    assert bad.done and bad.error.kind == "invalid" and not eng.queue
+    eng.submit(Request(rid=1, prompt=np.arange(3), max_new=2,
+                       sampling=SamplingParams(temperature=0.7)))
+    finished, _ = eng.run_to_completion()
+    assert [len(r.out) for r in finished if r.rid == 1] == [3]
 
 
 def test_pow2_buckets():

@@ -46,6 +46,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.ops, repro_torch.kernels.paged_attention\n"
         "import repro_torch.kernels.chunked_prefill, repro_torch.core.ptq\n"
         "import repro_torch.kernels.flash_attention, repro_torch.data.pipeline\n"
+        "import repro_torch.serving.prefix, repro_torch.serving.prng\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -69,6 +70,15 @@ def test_entry_points_default_to_the_card():
         PagedEngine(api, api.init(0), n_slots=1, max_len=16, page_size=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--smoke", "--paged", "--chunked-prefill", "--batch", "1", "--gen", "2"])
+    from repro_torch.serving.generate import greedy_generate
+
+    params = api.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        greedy_generate(api, params, np.zeros((1, 4), np.int32), 2, 16)
+    # the slab functions run where their model was built: the CPU only when asked
+    logits, caches = api.prefill_fn(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 16)
+    logits2, _ = api.decode_fn(params, caches, torch.zeros((1, 1), dtype=torch.int32), 4)
+    assert {t.device.type for t in [logits, logits2, *caches.values()]} == {"cpu"}
 
 
 def test_chip_smoke_fails_without_card_or_repository(tmp_path):
