@@ -17,8 +17,10 @@ success):
 4. serving: full-width gpt3_126m (12 layers, seeded random weights packed
    to W4 by the port's pack_params) through PagedEngine — bcq4 pool,
    page 16, prefill chunk 64, 8 slots, 8 requests of 48–500 prompt
-   tokens, 32 new tokens each — once through the kernels and once
-   through the plain paths.  Every kernel must have launched layers ×
+   tokens, 32 new tokens each — once through the kernels on the
+   production tick (the decode step as one CUDA graph, pipeline depth 2,
+   launches counted per replay) and once through the plain paths eagerly
+   at depth 1.  Every kernel must have launched layers ×
    per-layer × forward passes times in the kernel run (the fused linear
    6 a layer, the page gather and the KV-page writer 1) and none in the
    plain run; every writer launch of the first engine step (a prefill
@@ -94,9 +96,24 @@ success):
     under the margin rule, whole runs and launch by launch.  Prints ms
     per decode tick, prefill tokens/s, the counters and the sampler
     overlay's device time.  Its launches join the ``kernels`` line
-    (``serving_core``).  Then the ``kernels`` JSON line (launches, error,
-    times, bound), the card's name and power limit, and the device line
-    as the last line.
+    (``serving_core``).  Phase 4's checks of single launches and phase
+    11 run the engine eagerly at depth 1.
+12. the production tick: phase 4's workload three ways — eager depth 1,
+    the decode step as a CUDA graph at depth 1, and at depth 2 — and
+    phase 11's two (eager depth 1, its kernel run; graph depth 2), each
+    way equal to the first bit for bit: tokens, margins, launch
+    indices, engine counters, pool bytes and kernel launch counts.  A
+    fresh engine captures one graph per block-table width, a warmed
+    engine none; a steady greedy graph tick makes one ``cudaGraphLaunch``
+    and no kernel launch from the host.  For each way: wall
+    ms/tick of steady ticks (8 rows), device busy, idle share, host
+    kernel and graph launches and CUDA kernels a tick (torch.profiler
+    over 3 ticks); for phase 11's workload the same over its decode-only
+    steps with sampled rows.  Phase 11's graph depth 2 run is held launch
+    by launch to the plain paths (``check_shadow``).  Its graph depth 2
+    launches join the ``kernels`` line (``production_tick``).  Then the
+    ``kernels`` JSON line (launches, error, times, bound), the card's name
+    and power limit, and the device line as the last line.
 
 Needs the repository's ``src/`` beside it: run alone, it fails.
 """
@@ -288,22 +305,27 @@ GEN = 32
 
 
 def run_serving(cfg, kernels: bool, prompts):
+    """The kernel run serves through ``serve``'s defaults, the production
+    tick (the decode step as a CUDA graph, depth 2: its launch counts are
+    counted per replay); the plain run eagerly at depth 1."""
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.launch.serve import serve
 
+    mode = {} if kernels else {"pipeline_depth": 1, "cuda_graphs": False}
     build.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     finished, eng = serve(cfg, prompts, GEN, cache="bcq4", packed=True, page_size=16,
                           prefill_chunk=64, device="cuda", seed=0, kernels=kernels,
-                          chunked_prefill=True, prefix_caching=False)
+                          chunked_prefill=True, prefix_caching=False, **mode)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = build.counts()
     st = eng.stats
-    label = "kernels" if kernels else "plain  "
+    label = (f"kernels, graph depth {eng.pipeline_depth}" if kernels
+             else "plain, eager depth 1")
     print(f"serving [{label}]: {wall:.2f}s wall (incl. weight init/pack), "
           f"decode {1e3 * st['t_decode_s'] / max(st['decode_ticks'], 1):.2f} ms/tick over "
           f"{st['decode_ticks']} ticks, prefill {st['prefill_tokens'] / max(st['t_prefill_s'], 1e-9):.0f} "
@@ -352,13 +374,16 @@ def phase_serving():
 
 
 def _fresh_engine(eng_done, prompts):
-    """A new engine on ``eng_done``'s model with every prompt submitted."""
+    """A new engine on ``eng_done``'s model with every prompt submitted,
+    eager at depth 1 (the checks that wrap the layers' functions need the
+    eager step)."""
     from repro_torch.serving.engine import PagedEngine
     from repro_torch.serving.generate import Request
 
     eng = PagedEngine(eng_done.api, eng_done.params, n_slots=len(prompts),
                       max_len=eng_done.max_len, page_size=16, prefill_chunk=64,
-                      chunked_prefill=True, prefix_caching=False, device="cuda")
+                      chunked_prefill=True, prefix_caching=False, device="cuda",
+                      pipeline_depth=1, cuda_graphs=False)
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new=GEN - 1))
     return eng
@@ -1029,34 +1054,55 @@ def core_requests(cfg):
     return out
 
 
-def drive_core(api, params, reqs, chunked=True, eos_id=-1, n_pages=CORE_PAGES, setup=None):
-    """A fresh 8-slot engine (page 16, chunk 64, prefix caching on; ``setup``
-    called on it first) serves ``reqs`` to completion, one ``step()`` at a
-    time.  Returns (finished by (rid, sample_idx), engine, [(launches
-    after the step, counters)] per step, launch counts of the run)."""
+def drive_core(api, params, reqs, chunked=True, eos_id=-1, n_pages=CORE_PAGES, setup=None,
+               prof_steps=0, **mode):
+    """A fresh 8-slot engine (page 16, chunk 64, prefix caching on; eager
+    at depth 1 unless ``mode`` — ``pipeline_depth``, ``cuda_graphs`` — says
+    otherwise; ``setup`` called on it first) serves ``reqs`` to
+    completion, one ``step()`` at a time, then drains.  The host clock of
+    every step that launched a decode tick and no prefill, with sampled
+    rows, lands in ``eng.sampled_step_s``; the first ``prof_steps`` such
+    steps after the first 4 run under torch.profiler instead
+    (``eng.sampled_prof``: ``_tick_profile`` of each).  Returns (finished by
+    (rid, sample_idx), engine, [(launches after the step, counters)] per
+    step, launch counts of the run)."""
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.serving.engine import PagedEngine
 
+    mode = {"pipeline_depth": 1, "cuda_graphs": False, **mode}
     eng = PagedEngine(api, params, n_slots=8, max_len=512, page_size=16, n_pages=n_pages,
                       eos_id=eos_id, prefix_caching=True, chunked_prefill=chunked,
-                      prefill_chunk=64, device="cuda")
+                      prefill_chunk=64, device="cuda", **mode)
     if setup is not None:
         setup(eng)
     for r in reqs:
         eng.submit(r)
-    trace = []
+    trace, eng.sampled_step_s, eng.sampled_prof = [], [], []
     torch.cuda.synchronize()
     build.reset_counts()
     while eng.queue or eng._active():
-        launches = eng._launches
-        eng.step()
+        launches, ticks = eng._launches, eng.stats["decode_ticks"]
+        sampled = any(s.req is not None and s.mode == "decode" and not s.req.sampling.greedy
+                      for s in eng.slots)
+        n_seen = len(eng.sampled_step_s) + len(eng.sampled_prof)
+        profiled = sampled and n_seen >= 4 and len(eng.sampled_prof) < prof_steps
+        t0 = time.perf_counter()
+        prof = _tick_profile(eng.step, 1) if profiled else eng.step()
+        dt = time.perf_counter() - t0
         if eng._launches == launches or len(trace) > 2000:
             fail("phase 11: the engine stopped launching with requests left")
+        if sampled and eng._launches == launches + 1 and eng.stats["decode_ticks"] == ticks + 1:
+            if profiled:
+                eng.sampled_prof.append(prof)
+            else:
+                eng.sampled_step_s.append(dt)
         trace.append((eng._launches, {k: eng.stats[k] for k in CORE_STATS}))
+    eng.drain()
     torch.cuda.synchronize()
     counts = build.counts()
+    eng.final_pool = {n: t.clone() for n, t in eng.pool.items()}
     if any(r.error is not None for r in eng.finished):
         fail(f"phase 11: requests finished with errors: {[r.error for r in eng.finished]}")
     return {(r.rid, r.sample_idx): r for r in eng.finished}, eng, trace, counts
@@ -1176,8 +1222,16 @@ def shadow_setup(api_p, log):
     sample_idx), kernel choice, plain choice, features)] per token the
     launch books, COW copies so far).  A chunk or slab prefill books
     a token for each request it finishes (each sibling of a fork); a
-    decode tick one for each decoding slot, keyed at ``pos + 1``."""
+    decode tick one for each decoding slot, keyed at ``pos + 1``.  With
+    the decode step as a CUDA graph the decode launch is held at the
+    engine's ``_run_decode`` instead (a capture must not see the plain
+    path): the plain step gets the tokens the graph selects, on the row it
+    was staged.  A decode launch's rows are read when the launch is made,
+    so at depth 2 the record syncs on it (the booking stays one launch
+    later)."""
     import dataclasses
+
+    import torch
 
     def setup(eng):
         api_k = eng.api
@@ -1196,13 +1250,24 @@ def shadow_setup(api_p, log):
                                  _choice(lp[r, -1], req.sampling, k, pos), feats))
             log.append((eng._launches, kind, diff, toks, eng.stats["cow_copies"]))
 
+        def decoding():
+            return [(i, s.req, s.pos + 1) for i, s in enumerate(eng.slots)
+                    if s.req is not None and s.mode == "decode"]
+
         def decode(params, pool, tokens, tables, lengths):
             lp, _ = api_p.paged_decode_fn(params, {n: t.clone() for n, t in pool.items()},
                                           tokens, tables, lengths)
             lk, pool = api_k.paged_decode_fn(params, pool, tokens, tables, lengths)
-            record("decode", lk, lp, [(i, s.req, s.pos + 1) for i, s in enumerate(eng.slots)
-                                      if s.req is not None and s.mode == "decode"])
+            record("decode", lk, lp, decoding())
             return lk, pool
+
+        def run_decode(packed, real=eng._run_decode):
+            tok = torch.where(packed[:, 1] == 1, packed[:, 0], eng._chain_tok)
+            lp, _ = api_p.paged_decode_fn(eng.params, {n: t.clone() for n, t in eng.pool.items()},
+                                          tok[:, None], packed[:, 3:], packed[:, 2])
+            out = real(packed)
+            record("decode", out[0], lp, decoding())
+            return out
 
         def chunk(params, tokens, pool, tables, n_past, ids, chunk_len=None):
             lp, _ = api_p.prefill_from_pages_fn(
@@ -1222,8 +1287,12 @@ def shadow_setup(api_p, log):
             record("slab", lk, lp, [(0, req, len(req.prompt))])
             return lk, cache
 
-        eng.api = dataclasses.replace(api_k, paged_decode_fn=decode, prefill_from_pages_fn=chunk,
-                                      prefill_fn=slab)
+        if eng._graphs is None:
+            eng.api = dataclasses.replace(api_k, paged_decode_fn=decode,
+                                          prefill_from_pages_fn=chunk, prefill_fn=slab)
+        else:
+            eng.api = dataclasses.replace(api_k, prefill_from_pages_fn=chunk, prefill_fn=slab)
+            eng._run_decode = run_decode
 
     return setup
 
@@ -1302,7 +1371,7 @@ def phase_core(eng4, tol):
     api_k = eng4.api
     api_p = zoo.build(cfg, dataclasses.replace(api_k.rt, paged_kernel=False, fused_linear=False),
                       device="cuda")
-    fin_k, eng_k, trace_k, counts_k = drive_core(api_k, params, core_requests(cfg))
+    fin_k, eng_k, trace_k, counts_k = drive_core(api_k, params, core_requests(cfg), prof_steps=3)
     fin_p, eng_p, trace_p, counts_p = drive_core(api_p, params, core_requests(cfg))
     for fin in (fin_k, fin_p):
         want = sorted([(r, 0) for r in range(CORE_REQUESTS)] + [(CORE_FORK, 1)]
@@ -1408,7 +1477,8 @@ def phase_core(eng4, tol):
           f"launches {expect_s}, prefill {ss['prefill_tokens'] / ss['t_prefill_s']:.0f} tok/s, "
           f"hits {ss['prefix_hits']} misses {ss['prefix_misses']}", flush=True)
     core_plain_work(eng_k, api_k, params, slab[1].prompt, eng_e.overlay_prof)
-    return {n: counts_k[n] + counts_sk.get(n, 0) for n in expect}, err
+    return ({n: counts_k[n] + counts_sk.get(n, 0) for n in expect}, err,
+            (api_p, fin_k, eng_k, trace_k, counts_k))
 
 
 def core_plain_work(eng, api, params, prompt, overlay):
@@ -1438,6 +1508,202 @@ def core_plain_work(eng, api, params, prompt, overlay):
           f"{ms_copy:.4f} ms ({page_bytes} B a page over {n_layers} layers), scatter_prefill_pages of a "
           f"{len(prompt)}-token slab {ms_scatter:.4f} ms, one slab prefill at M={len(prompt)} "
           f"{ms_prefill:.2f} ms, sampler overlay of one decode tick {ov}", flush=True)
+
+
+# ------------------------------------------------------------------ phase 12
+HOST_KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                        "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+COUNTED = ("bcq_linear", "page_gather", "bcq_page_write")
+
+
+def _tick_profile(fn, n):
+    """``fn`` called ``n`` times under torch.profiler: (CUDA kernels, device
+    busy ms, host kernel launches, host ``cudaGraphLaunch`` calls) per call,
+    or None where the profiler saw no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return None
+    host = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    return (len(kern) / n, sum(e.time_range.elapsed_us() for e in kern) / n / 1e3,
+            sum(h in HOST_KERNEL_LAUNCHES for h in host) / n, host.count("cudaGraphLaunch") / n)
+
+
+def _outcome(eng, fin=None):
+    """What two ways of one workload must give bit for bit: each request's
+    tokens, margins and launch indices, every engine counter but the
+    clocks."""
+    from repro_torch.serving.engine import ENGINE_STAT_KEYS
+
+    fin = {(r.rid, r.sample_idx): r for r in eng.finished} if fin is None else fin
+    return ({k: (list(r.out), list(r.margins), list(r.launch_ids)) for k, r in fin.items()},
+            {k: eng.stats[k] for k in ENGINE_STAT_KEYS if not k.startswith("t_")})
+
+
+def _same_pool(a: dict, b: dict) -> bool:
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def _way_name(graphs, depth):
+    return f"{'graph' if graphs else 'eager'} depth {depth}"
+
+
+def _profile_txt(prof, wall):
+    if prof is None:
+        return "the profiler saw no device kernels (device busy not measured)"
+    kern, busy, launches, graphs = prof
+    return (f"device busy {busy:.3f} ms/tick, idle share {max(0.0, 1 - busy / wall):.3f}, "
+            f"{kern:.0f} CUDA kernels/tick, host launches/tick: {launches:.0f} kernel "
+            f"launches + {graphs:.0f} cudaGraphLaunch")
+
+
+def production_way(eng4, prompts, graphs, depth, n_time):
+    """Phase 4's workload on a fresh engine in one way (``graphs``,
+    ``depth``): served to completion (what it gives, its pool, launch
+    counts and captures), then served again by the warmed engine, which
+    must capture nothing new, with ``n_time`` steady ticks (8 rows
+    decoding) timed on the host clock and 3 more profiled."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.generate import Request
+
+    eng = PagedEngine(eng4.api, eng4.params, n_slots=len(prompts), max_len=eng4.max_len,
+                      page_size=16, prefill_chunk=64, chunked_prefill=True,
+                      prefix_caching=False, device="cuda", pipeline_depth=depth,
+                      cuda_graphs=graphs)
+
+    def submit():
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=GEN - 1))
+
+    submit()
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = build.counts()
+    out = _outcome(eng)
+    pool = {n: t.clone() for n, t in eng.pool.items()}
+    captures = eng.trace_counts()["decode"]
+    buckets = len(eng._graphs.buckets) if graphs else 0
+    if captures != buckets or (graphs and not captures):
+        fail(f"phase 12 [{_way_name(graphs, depth)}]: {captures} decode captures on a fresh "
+             f"engine over {buckets} block-table widths")
+    submit()
+    while eng.queue or any(s.mode == "prefill" for s in eng.slots if s.req is not None):
+        eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_time):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_time * 1e3
+    if sum(s.req is not None for s in eng.slots) != len(prompts):
+        fail("phase 12: the steady window lost a decoding row")
+    prof = _tick_profile(eng.step, 3)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    again = eng.trace_counts()["decode"] - captures
+    if again:
+        fail(f"phase 12 [{_way_name(graphs, depth)}]: the warmed engine captured {again} more")
+    print(f"phase 12 [{_way_name(graphs, depth)}] phase 4's workload: run {run_s:.2f} s "
+          f"({out[1]['decode_ticks']} decode ticks, {out[1]['prefill_launches']} prefill "
+          f"launches), captures {captures} fresh / {again} warmed; steady tick (8 rows, "
+          f"{n_time} ticks): wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}", flush=True)
+    return {"out": out, "pool": pool, "counts": counts, "wall": wall, "prof": prof,
+            "captures": captures}
+
+
+def _hold_ways(ways, what):
+    """Every way of one workload equal to the first, bit for bit."""
+    (name0, ref), rest = ways[0], ways[1:]
+    for name, w in rest:
+        for part, a, b in (("tokens, margins and launch indices", w["out"][0], ref["out"][0]),
+                           ("engine counters", w["out"][1], ref["out"][1]),
+                           ("kernel launch counts", w["counts"], ref["counts"])):
+            if a != b:
+                fail(f"phase 12 {what}: {name} and {name0} differ in their {part}")
+        if not _same_pool(w["pool"], ref["pool"]):
+            fail(f"phase 12 {what}: {name} and {name0} leave different pool bytes")
+
+
+def _sampled_txt(eng):
+    walls = eng.sampled_step_s
+    if not walls:
+        fail("phase 12: no decode-only step with sampled rows was timed")
+    wall = 1e3 * float(np.mean(walls))
+    profs = [p for p in eng.sampled_prof if p is not None]
+    prof = tuple(float(np.mean([p[i] for p in profs])) for i in range(4)) if profs else None
+    return wall, (f"wall {wall:.2f} ms/step over {len(walls)} decode-only steps with sampled "
+                  f"rows; over {len(profs)} profiled such steps {_profile_txt(prof, wall)}")
+
+
+def phase_production(eng4, tol, core):
+    """Phase 12: the production tick — the decode step as one CUDA graph
+    per block-table width, at pipeline depth 2 — against the eager step.
+    Phase 4's workload three ways (eager depth 1, graph depth 1, graph
+    depth 2) and phase 11's two (eager depth 1: phase 11's kernel run;
+    graph depth 2) must give the same tokens, margins, launch indices,
+    counters, pool bytes and kernel launch counts; phase 11's graph depth
+    2 run is held launch by launch to the plain paths (``check_shadow``).
+    Returns the graph depth 2 runs' launch counts."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch("gpt3_126m")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    ways = [(_way_name(g, d), production_way(eng4, prompts, g, d, n))
+            for g, d, n in ((False, 1, 3), (True, 1, 10), (True, 2, 10))]
+    _hold_ways(ways, "phase 4's workload")
+    for name, w in ways[1:]:
+        if w["prof"] is not None and (w["prof"][3] != 1 or w["prof"][2] != 0):
+            fail(f"phase 12 [{name}]: a steady greedy tick made {w['prof'][3]} cudaGraphLaunch "
+                 f"and {w['prof'][2]} kernel launches from the host")
+    eager = ways[0][1]
+    print(f"phase 12 phase 4's workload: eager depth 1, graph depth 1 and graph depth 2 equal bit "
+          f"for bit (tokens, margins, launch indices, counters, pool bytes, launch counts "
+          f"{eager['counts']}); steady tick wall "
+          + ", ".join(f"{n} {w['wall']:.2f}" for n, w in ways) + " ms", flush=True)
+
+    api_p, fin_k, eng_k, trace_k, counts_k = core
+    api_k, params = eng4.api, eng4.params
+    fin_g, eng_g, trace_g, counts_g = drive_core(api_k, params, core_requests(cfg), prof_steps=3,
+                                                 cuda_graphs=True, pipeline_depth=2)
+    core_ways = [("eager depth 1", {"out": _outcome(eng_k, fin_k), "counts": counts_k,
+                                    "pool": eng_k.final_pool}),
+                 ("graph depth 2", {"out": _outcome(eng_g, fin_g), "counts": counts_g,
+                                    "pool": eng_g.final_pool})]
+    _hold_ways(core_ways, "phase 11's workload")
+    if trace_g != trace_k:
+        fail("phase 12 phase 11's workload: the graph depth 2 run's steps differ from eager's")
+    caps = eng_g.trace_counts()["decode"]
+    if caps != len(eng_g._graphs.buckets) or not caps:
+        fail(f"phase 12: {caps} captures over {len(eng_g._graphs.buckets)} widths")
+    core_clean(eng_g, "graph depth 2")
+    wall_k, txt_k = _sampled_txt(eng_k)
+    wall_g, txt_g = _sampled_txt(eng_g)
+    print(f"phase 12 phase 11's workload: eager depth 1 and graph depth 2 equal bit for bit "
+          f"({len(trace_g)} steps, {eng_g.stats['decode_ticks']} decode ticks, {caps} capture); "
+          f"sampled decode steps — eager depth 1: {txt_k}; graph depth 2: {txt_g}; graph "
+          f"depth 2 takes {wall_g / wall_k:.3f} of eager's wall", flush=True)
+    check_shadow(api_k, api_p, params, core_requests(cfg), fin_k, tol, "chunked, graph depth 2",
+                 ("sampled", "resumed", "fork", "cow"), cuda_graphs=True, pipeline_depth=2)
+    g2 = ways[2][1]["counts"]
+    return {n: g2.get(n, 0) + counts_g.get(n, 0) for n in COUNTED}
 
 
 # ------------------------------------------------------------------ phase 10
@@ -1843,10 +2109,12 @@ def main() -> int:
     ]
     # phase 11 after the timings: a profiler window after its runs has read
     # kernels short (device times below their bounds)
-    counts_core, err_slab = phase_core(eng4, tol)
+    counts_core, err_slab, core = phase_core(eng4, tol)
+    counts_prod = phase_production(eng4, tol, core)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
+            entry["launches_by_path"]["production_tick"] = counts_prod[counter]
             entry["launches"] = sum(entry["launches_by_path"].values())
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab)
     check_bounds(kernels)

@@ -42,14 +42,23 @@ class PackedOperand:
     k: int  # reduction length
 
 
+def decode_inv_scale(pk: dict) -> torch.Tensor:
+    """The dequant scales 1/(ŝ_A·s_W) of one packed (N, K) weight from its
+    E4M3 scale bits (zero where never written)."""
+    ratio = formats.bits_to_e4m3(pk["scale"])
+    return torch.where(ratio > 0, 1.0 / (ratio * pk["s_x"]), torch.zeros_like(ratio))
+
+
 def packed_operand(pk: dict) -> PackedOperand:
     """View a packed weight dict (``layers.pack_weight`` layout: idx / sel /
-    E4M3 scale bits / s_x) as a PackedOperand with the dequant scales
-    inverted (zero where never written)."""
+    E4M3 scale bits / s_x) as a PackedOperand.  Its dequant scales are the
+    ``inv_scale`` the tree carries where they were decoded once
+    (``ptq.decode_scales``), else decoded here (``decode_inv_scale``)."""
     if pk["idx"].ndim != 2:
         raise ValueError("packed_operand takes one (N, K) weight")
-    ratio = formats.bits_to_e4m3(pk["scale"])
-    inv = torch.where(ratio > 0, 1.0 / (ratio * pk["s_x"]), torch.zeros_like(ratio))
+    inv = pk.get("inv_scale")
+    if inv is None:
+        inv = decode_inv_scale(pk)
     return PackedOperand(pk["idx"], pk["sel"], inv, pk["idx"].shape[1] * 2)
 
 

@@ -8,11 +8,15 @@ slab prefill unless ``--chunked-prefill``; prefix caching is on unless
 ``--no-prefix-cache``; ``--best-of N`` forks every prompt into N siblings
 sharing its pages, and ``--temperature`` / ``--top-k`` / ``--seed`` turn
 on seeded sampling (deterministic per seed, sample index and position).
-Runs on the card by default (``--device cuda``)::
+The engine runs the pipelined tick at ``--pipeline-depth`` (2 by
+default, as the reference's CLI: launch tick t, then sync tick t−1).
+Runs on the card by default (``--device cuda``), where each decode tick
+is one CUDA graph replay per block-table width; ``--device cpu`` runs
+the plain versions eagerly::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_126m \\
         --paged --chunked-prefill --packed --cache bcq4 --batch 8 --gen 32 \\
-        --best-of 2 --temperature 0.8 --top-k 40 --seed 1234
+        --best-of 2 --temperature 0.8 --top-k 40 --seed 1234 --pipeline-depth 2
 """
 from __future__ import annotations
 
@@ -33,14 +37,16 @@ from repro_torch.serving.generate import GREEDY, Request, SamplingParams
 def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
           page_size: int = 16, prefill_chunk: int = 0, device="cuda", seed: int = 0,
           kernels: bool = True, chunked_prefill: bool = False, prefix_caching: bool = True,
-          best_of: int = 1, sampling: SamplingParams = GREEDY):
+          best_of: int = 1, sampling: SamplingParams = GREEDY, pipeline_depth: int = 2,
+          cuda_graphs=None):
     """Serve ``prompts`` (a list of 1-D token arrays) for ``gen`` tokens
     each (the prefill's token plus gen-1 decode tokens), ``best_of``
     forked siblings each, one slot per sibling.  ``seed`` draws the
     weights; ``kernels`` selects the fused linear, the page-gather kernel
     and the KV-page writer (``Runtime(fused_linear, paged_kernel)``); off,
     the plain decode+matmul, gather+softmax and encode+scatter paths run.
-    Returns (finished requests, engine)."""
+    ``pipeline_depth`` and ``cuda_graphs`` (None: on for a CUDA device)
+    go to the engine.  Returns (finished requests, engine)."""
     rt = Runtime(
         quant_mode="packed" if packed else "none", bcq_cfg=BCQConfig(),
         compute_dtype=torch.float32, cache_kind=cache,
@@ -52,7 +58,8 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
     eng = PagedEngine(
         api, params, n_slots=len(prompts) * best_of, max_len=max_len, page_size=page_size,
         prefix_caching=prefix_caching, chunked_prefill=chunked_prefill,
-        prefill_chunk=prefill_chunk or 2 * page_size, device=device,
+        prefill_chunk=prefill_chunk or 2 * page_size, pipeline_depth=pipeline_depth,
+        cuda_graphs=cuda_graphs, device=device,
     )
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new=gen - 1, n_samples=best_of,
@@ -86,6 +93,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="sampling seed: tokens are deterministic per (seed, sample index, "
                          "position)")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="decode launches in flight (1: sync each tick before the next)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.paged:
@@ -98,6 +107,7 @@ def main(argv=None):
         cfg, list(prompts), args.gen, args.cache, args.packed, args.page_size, args.prefill_chunk,
         args.device, chunked_prefill=args.chunked_prefill,
         prefix_caching=not args.no_prefix_cache, best_of=args.best_of, sampling=sampling,
+        pipeline_depth=args.pipeline_depth,
     )
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -106,7 +116,8 @@ def main(argv=None):
     where = torch.cuda.get_device_name(eng.device) if eng.device.type == "cuda" else "cpu"
     print(f"arch={cfg.name} device={where} cache={args.cache} packed={args.packed} "
           f"{toks} tokens in {dt:.3f}s ({toks / dt:.1f} tok/s incl. set-up) "
-          f"decode ticks {eng.stats['decode_ticks']} prefill launches {eng.stats['prefill_launches']}")
+          f"decode ticks {eng.stats['decode_ticks']} prefill launches {eng.stats['prefill_launches']} "
+          f"pipeline depth {eng.pipeline_depth} decode graphs {eng.trace_counts()['decode']}")
     keys = ("prefix_hits", "prefix_misses", "prefill_tokens_skipped", "forks", "shared_pages",
             "cow_copies", "preemptions", "prefix_evictions")
     print("serving core: " + ", ".join(f"{k} {eng.stats[k]}" for k in keys))

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.calibrate import default_universal_codebooks
-from repro_torch.core.ptq import pack_params
+from repro_torch.core.ptq import decode_scales, pack_params
 from repro_torch.models import transformer
 from repro_torch.models.layers import Runtime
 
@@ -41,13 +41,19 @@ class ModelAPI:
     prefill_from_pages_fn: Callable[..., Any]
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
+    # captures of the serving step functions over every engine on this
+    # api (``PagedEngine.trace_counts``): the decode step's CUDA graphs;
+    # the prefills run eagerly and capture nothing
+    trace_counts: dict = dataclasses.field(
+        default_factory=lambda: {"prefill": 0, "decode": 0, "chunk": 0})
 
 
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     """The model API of a dense decoder.  ``init(seed)`` draws random
     weights from a seeded ``torch.Generator`` (on the CPU, then moved to
     ``device``); with ``quant_mode="packed"`` they are packed to W4 with
-    the frozen universal codebooks, which ride in ``params["codebooks"]``."""
+    the frozen universal codebooks, which ride in ``params["codebooks"]``,
+    and their dequant scales decoded once (``ptq.decode_scales``)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"the port serves dense decoders only, not {cfg.family!r}")
     device = resolve_device(device)
@@ -58,7 +64,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         if rt.quant_mode != "none" or rt.cache_kind == "bcq4":
             cb = default_universal_codebooks(rt.bcq_cfg).as_tensor(device)
             if rt.quant_mode == "packed":
-                params = pack_params(params, cb, rt.bcq_cfg)
+                params = decode_scales(pack_params(params, cb, rt.bcq_cfg))
             params["codebooks"] = cb
         return params
 

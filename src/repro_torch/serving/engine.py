@@ -1,6 +1,5 @@
 """PagedEngine: continuous batching over a paged, quantized KV pool
-(counterpart of ``repro/serving/engine.PagedEngine`` at
-``pipeline_depth=1``).
+(counterpart of ``repro/serving/engine.PagedEngine``).
 
 Each ``step()``: admit queued requests into free slots; advance EVERY
 prefilling slot by one ``prefill_chunk`` in ONE ``prefill_from_pages``
@@ -43,11 +42,53 @@ over the whole launch batch — a different batch gives different tokens:
   zero rows and columns (``_pow2_bucket``, ``_chunk_bucket``); block
   tables grow by doubling.
 
-Left out (ROADMAP queue A): the depth-2 pipelined tick, fault injection
-and containment (a failing admission or a non-finite row raises instead
-of quarantining one request), audits, telemetry, load shedding and the
-host tier.  A head-of-line request the pool can never admit raises
-``PagePoolExhaustedError`` (the reference's ``shed_stuck=False``).
+**The fused decode launch** (``fused_decode``, the reference's
+``_make_fused_decode``): ONE ``(n_slots, 3+W)`` int32 host→device row per
+tick — next token, a ``use_host`` flag, the kv length, the block table
+(rows of slots not decoding masked to ``NULL_PAGE``) — and in the same
+step the token select ``where(use_host, host_tok, chain_tok)``, the
+forward, and each row's argmax, finite mask and top-1 − top-2 margin.  A
+sampled row's draw is overlaid after it on the same stream
+(``_overlay_samples``).  On a CUDA device the step is one CUDA graph per
+block-table width (``serving/graphs.py``; ``cuda_graphs=False`` runs it
+eagerly); the chunk and slab prefills run eagerly (``trace_counts``).
+
+**The pipelined tick** (``pipeline_depth=2``, the serving CLI's
+default): ``step()`` launches tick t, THEN syncs tick t−1, so the host's
+bookkeeping for the next tick overlaps the device's work on this one.
+What keeps every depth bit-equal to depth 1 (and to ``profile_sync``,
+which forces depth 1):
+
+* the consumed token chains launch to launch on the device (the
+  ``_chain_tok`` vector; ``_chained[i]`` says slot i's token lives there),
+  so no host round trip sits between two decode launches;
+* a launch's record (``_InFlight``) keeps its rows as (slot, request,
+  position after the launch) and its own copies of the token, finite
+  mask and margin; the position advances at launch, the tokens are booked
+  at sync with the launch's index and margin, and rows whose slot was
+  retired or re-assigned since are skipped (a row launched after an EOS);
+* a slot whose in-flight row is certain to retire it — budget or
+  capacity, which do not depend on the token (``_retire_pending``) — is
+  freed at the end of the step that launched it, exactly when depth 1
+  frees it, and its request is finished when that row is synced; so
+  admission, page reuse and the idle rows' tokens (which enter every
+  linear's per-launch activation scale) follow depth 1's schedule;
+* preemption, a tick without a decode launch and ``run_to_completion``'s
+  exit drain the in-flight launches first (``drain()``), so a requeued
+  prompt and the final outputs hold every launched token.
+
+Only an EOS is speculative: the row launched after it is dropped at
+sync.  With ``eos_id`` set, depth 2 may therefore launch rows that depth
+1 does not and free the slot a step later, and since a launch's rows
+share each linear's activation scale, the launches after an EOS may
+differ from depth 1's in tokens as well as in counters and pages.
+
+Left out (ROADMAP queue A): fault injection and containment (a failing
+admission raises instead of quarantining one request; a non-finite row
+raises ``NonFiniteLogitsError`` when its launch is synced), audits,
+telemetry, load shedding and the host tier.  A head-of-line request the
+pool can never admit raises ``PagePoolExhaustedError`` (the reference's
+``shed_stuck=False``).
 """
 from __future__ import annotations
 
@@ -59,6 +100,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.ptq import decode_scales
 from repro_torch.models.zoo import resolve_device
 from repro_torch.serving.generate import (
     Request,
@@ -76,6 +118,7 @@ from repro_torch.serving.pages import (
     pages_needed,
     scatter_prefill_pages,
 )
+from repro_torch.serving.graphs import DecodeGraphs
 from repro_torch.serving.prefix import PrefixCache, chunk_hashes
 
 # the reference's ``serving.telemetry.ENGINE_STAT_KEYS``
@@ -120,6 +163,37 @@ def _row_stats(logits: torch.Tensor):
     )
 
 
+def fused_decode(decode_fn, params, pool, packed, chain_tok):
+    """The decode step with everything the tick needs in one launch
+    (a CUDA graph on the card): ``packed`` (B, 3+W) int32 is the next
+    host token, the ``use_host`` flag, the kv length and the block table;
+    the consumed token is the host's where ``use_host`` is 1, else the
+    previous launch's ``chain_tok`` on the device.  Returns (logits,
+    greedy token, finite mask, top-1 − top-2 margin) of each row's last
+    position; the pool is written in place."""
+    tok = torch.where(packed[:, 1] == 1, packed[:, 0], chain_tok)
+    logits, _ = decode_fn(params, pool, tok[:, None], packed[:, 3:], packed[:, 2])
+    return (logits, *_row_stats(logits))
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One enqueued, not yet synced decode launch.  ``rows`` snapshots
+    (slot, request, position after the launch) at launch time; at sync a
+    row whose slot holds another request (or none) was speculative and is
+    skipped, unless its request was retired early (``_retiring``).
+    ``nxt`` / ``fin`` / ``margin`` are the launch's own copies of the
+    merged tokens, finite mask and margins (pinned host memory on the card,
+    ready once ``ready`` has fired)."""
+
+    launch: int  # the engine launch index every booked token records
+    rows: list
+    nxt: torch.Tensor
+    fin: torch.Tensor
+    margin: torch.Tensor
+    ready: Optional[object] = None  # torch.cuda.Event, None on the CPU
+
+
 @dataclasses.dataclass
 class _PagedSlot:
     req: Optional[Request] = None
@@ -140,7 +214,12 @@ class PagedEngine:
     def __init__(self, api, params, n_slots: int, max_len: int, page_size: int = 16,
                  n_pages: Optional[int] = None, eos_id: int = -1, prefix_caching: bool = True,
                  watermark: Optional[int] = None, chunked_prefill: bool = False,
-                 prefill_chunk: int = 16, device="cuda"):
+                 prefill_chunk: int = 16, profile_sync: bool = False, pipeline_depth: int = 1,
+                 cuda_graphs: Optional[bool] = None, device="cuda"):
+        """``pipeline_depth``: decode launches in flight after a step (1 syncs
+        each launch in its own step; ``profile_sync`` forces 1).
+        ``cuda_graphs``: the decode step as one CUDA graph per block-table
+        width; on by default on a CUDA device, unavailable on the CPU."""
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"model built for {api.device}, engine asked for {self.device}")
@@ -148,8 +227,14 @@ class PagedEngine:
             raise ValueError("page_size must divide max_len")
         if chunked_prefill and prefill_chunk % page_size:
             raise ValueError("prefill_chunk must be a page multiple")
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError("cuda_graphs needs a CUDA device")
         self.api = api
-        self.params = params
+        self.params = decode_scales(params)  # each weight's scales decoded once
         self.n_slots = n_slots
         self.max_len = max_len
         self.ps = page_size
@@ -173,11 +258,35 @@ class PagedEngine:
         self._next_tok = np.zeros((n_slots,), np.int32)
         self._admit_counter = 0
         self._launches = 0  # prefill + decode launches so far
-        # t_prefill_s / t_decode_s: host clock around each launch up to its
-        # results (a prefill launch syncs the device for this; the decode
-        # launch syncs anyway to fetch its tokens)
+        # t_prefill_s: host clock around each prefill launch up to its
+        # results (it syncs the device for this); t_decode_s: at depth 1
+        # from a decode launch to its synced results, deeper the launch's
+        # dispatch and, apart, the wait at its sync
         self.stats = {k: 0 for k in ENGINE_STAT_KEYS}
         self.stats["t_prefill_s"] = self.stats["t_decode_s"] = 0.0
+
+        self.pipeline_depth = 1 if profile_sync else pipeline_depth
+        self._inflight: deque[_InFlight] = deque()
+        self._chain_tok = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        self._chained = np.zeros((n_slots,), bool)
+        # id(request) → launch of its final row, for requests whose slot was
+        # freed before that row was synced (``_retire_early``)
+        self._retiring: dict[int, int] = {}
+        self._packed = np.zeros((n_slots, 3 + self.tables.shape[1]), np.int32)
+        # two pinned staging rows in turn; each event fires once the copy
+        # that read its row has landed
+        self._staging = [[None, None], [None, None]] if self.device.type == "cuda" else []
+        self._trace_base = dict(api.trace_counts)
+        self._graphs = None
+        if cuda_graphs:
+            if api.rt.paged_kernel or api.rt.fused_linear:
+                from repro_torch.kernels import build
+
+                build.library()  # built and loaded before any capture
+            self._graphs = DecodeGraphs(
+                lambda packed, chain: fused_decode(self.api.paged_decode_fn, self.params,
+                                                   self.pool, packed, chain),
+                self._chain_tok, self._count_capture)
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request):
@@ -244,6 +353,7 @@ class PagedEngine:
             self._drop_page(int(pid))
         self.tables[i] = NULL_PAGE
         self.slots[i] = _PagedSlot()
+        self._chained[i] = False  # any in-flight row of slot i is now dead
         for s in self.slots:
             if s.reserved_by == i:
                 s.reserved_by = None
@@ -456,6 +566,7 @@ class PagedEngine:
             tok, m = pick_token(row, greedy_tok, margin, child, self.slots[j].pos)
             self._emit(child, tok, m, launch)
             self._next_tok[j] = tok
+            self._chained[j] = False  # a host-known token: the prefill just set it
             self._finish_if_budget_spent(j)
 
     # ------------------------------------------------------- preemption
@@ -488,8 +599,15 @@ class PagedEngine:
 
     def _alloc_page_preempting(self, i: int) -> Optional[int]:
         """``_alloc_page``, preempting (youngest ≠ i first) while dry.
-        None iff slot i itself was preempted or nothing is left."""
+        None iff slot i itself was preempted or nothing is left.  In-flight
+        launches are drained first: a preemption folds ``req.out`` into the
+        requeued prompt, which must hold every launched token."""
         pid = self._alloc_page()
+        if pid is None and self._inflight:
+            self.drain()
+            if self.slots[i].req is None:
+                return None  # the drain retired slot i itself
+            pid = self._alloc_page()
         while pid is None:
             if self._preempt_one(exclude=i) is None or self.slots[i].req is None:
                 return None
@@ -566,7 +684,7 @@ class PagedEngine:
             packed[r, c_bucket + 2 + n_cp :] = self.tables[i]
         t0 = time.perf_counter()
         dev = torch.from_numpy(packed).to(self.device)
-        logits, self.pool = self.api.prefill_from_pages_fn(
+        logits, _ = self.api.prefill_from_pages_fn(  # the pool is written in place
             self.params, dev[:, :c_bucket], self.pool, dev[:, c_bucket + 2 + n_cp :],
             dev[:, c_bucket], dev[:, c_bucket + 1 : c_bucket + 1 + n_cp],
             chunk_len=dev[:, c_bucket + 1 + n_cp],
@@ -598,6 +716,15 @@ class PagedEngine:
     def _active(self):
         return [i for i, s in enumerate(self.slots) if s.req is not None]
 
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the device without waiting for the stream:
+        through pinned memory on the card (the caching host allocator keeps
+        the pinned block until the copy has landed)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _overlay_samples(self, logits, nxt, margin, rows: list):
         """Draw the sampled rows' tokens in one batched call and overlay
         them (and their margins) on the launch's greedy vectors, on the
@@ -607,55 +734,178 @@ class PagedEngine:
         meta = np.array([[i, r.sampling.seed, r.sample_idx, self.slots[i].pos + 1,
                           r.sampling.top_k] for i, r in rows], np.int64)
         temp = np.array([r.sampling.temperature for _, r in rows], np.float32)
-        m = torch.from_numpy(meta).to(self.device)
+        m = self._to_device(meta)
         tok, mg = sample_row(logits[m[:, 0], -1, :], sampling_keys(m[:, 1:4]),
-                             torch.from_numpy(temp).to(self.device), m[:, 4],
-                             k_max=int(meta[:, 4].max()))
+                             self._to_device(temp), m[:, 4], k_max=int(meta[:, 4].max()))
         return (nxt.index_put((m[:, 0],), tok.to(nxt.dtype)),
                 margin.index_put((m[:, 0],), mg.to(margin.dtype)))
 
-    def _decode_tick(self, active: list):
-        """ONE fused decode launch over all n_slots rows, then book tokens.
-        Rows not in ``active`` ride along at length 0 with NULL tables and
-        their stale token, exactly as the reference stages them."""
+    def trace_counts(self, since_init: bool = True) -> dict:
+        """Captures of the serving step functions on this engine's api, by
+        the reference's keys: ``decode`` counts the decode step's CUDA
+        graphs (one per block-table width and engine); ``prefill`` and
+        ``chunk`` stay 0, since the slab and chunk prefills run eagerly.
+        ``since_init`` subtracts the counts seen when this engine was built."""
+        counts = dict(self.api.trace_counts)
+        if since_init:
+            counts = {k: v - self._trace_base.get(k, 0) for k, v in counts.items()}
+        return counts
+
+    def _count_capture(self):
+        self.api.trace_counts["decode"] += 1
+
+    def _stage(self, pk: np.ndarray) -> torch.Tensor:
+        """The packed row on the device: through one of two pinned rows in
+        turn and a ``non_blocking`` copy on the card (into the bucket's
+        static input with graphs on), a copy of it on the CPU."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(pk.copy())
+        slot = self._staging[0]
+        self._staging.reverse()
+        if slot[0] is None or slot[0].shape != pk.shape:
+            slot[0] = torch.empty(pk.shape, dtype=torch.int32, pin_memory=True)
+            slot[1] = torch.cuda.Event()
+        slot[1].synchronize()  # the copy that last read this row has landed
+        slot[0].numpy()[:] = pk
+        if self._graphs is not None:
+            dev = self._graphs.packed_input(pk.shape[1] - 3)
+        else:
+            dev = torch.empty(pk.shape, dtype=torch.int32, device=self.device)
+        dev.copy_(slot[0], non_blocking=True)
+        slot[1].record()
+        return dev
+
+    def _run_decode(self, packed: torch.Tensor):
+        """The fused decode step on the staged row: a graph replay (the
+        bucket's first tick captures it) or an eager call."""
+        if self._graphs is not None:
+            return self._graphs.run(packed.shape[1] - 3)
+        return fused_decode(self.api.paged_decode_fn, self.params, self.pool, packed,
+                            self._chain_tok)
+
+    def _keep(self, launch: int, rows: list, nxt, fin, margin) -> _InFlight:
+        """The launch's record with its own copies of the row results: a
+        ``non_blocking`` copy into pinned memory and an event on the card
+        (a graph's outputs are overwritten by its next replay)."""
+        if self.device.type != "cuda":
+            return _InFlight(launch, rows, nxt, fin, margin)
+        host = []
+        for t in (nxt, fin, margin):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        ready = torch.cuda.Event()
+        ready.record()
+        return _InFlight(launch, rows, *host, ready=ready)
+
+    def _launch_decode(self, active: list) -> float:
+        """Enqueue ONE fused decode launch over all n_slots rows and push its
+        record; no host/device sync.  A slot takes its token from the host
+        row when freshly (re)started, else from the device chain of its
+        previous launch — the same value either way.  Rows not in ``active``
+        ride along at length 0 with NULL tables and their stale token,
+        exactly as the reference stages them.  Returns the launch's start
+        on the host clock."""
         w = self.tables.shape[1]
-        pk = np.zeros((self.n_slots, 2 + w), np.int32)
+        if self._packed.shape[1] != 3 + w:
+            self._packed = np.zeros((self.n_slots, 3 + w), np.int32)
+        pk = self._packed
         pk[:, 0] = self._next_tok
+        pk[:, 1] = ~self._chained
+        pk[:, 2] = 0
+        pk[:, 3:] = NULL_PAGE  # rows not decoding write (and read) the null page
         for i in active:
-            pk[i, 1] = self.slots[i].pos
-            pk[i, 2:] = self.tables[i]
+            pk[i, 2] = self.slots[i].pos
+            pk[i, 3:] = self.tables[i]
         sampled = [(i, self.slots[i].req) for i in active if not self.slots[i].req.sampling.greedy]
         t0 = time.perf_counter()
-        dev = torch.from_numpy(pk).to(self.device)
-        logits, self.pool = self.api.paged_decode_fn(
-            self.params, self.pool, dev[:, :1], dev[:, 2:], dev[:, 1]
-        )
-        nxt, fin, margin = _row_stats(logits)
-        if sampled:
+        logits, nxt, fin, margin = self._run_decode(self._stage(pk))
+        if sampled:  # keyed at launch time, on the same stream
             nxt, margin = self._overlay_samples(logits, nxt, margin, sampled)
-        nxt, fin, margin = (t.cpu().numpy() for t in (nxt, fin, margin))
-        self.stats["t_decode_s"] += time.perf_counter() - t0
-        self.stats["decode_ticks"] += 1
-        launch = self._next_launch()
-        cap = self._seq_capacity()
+        rows = []
         for i in active:
             slot = self.slots[i]
-            req = slot.req
-            slot.pos += 1
+            slot.pos += 1  # the position advances at launch; tokens book at sync
+            rows.append((i, slot.req, slot.pos))
+            self._chained[i] = True
+        self._inflight.append(self._keep(self._next_launch(), rows, nxt, fin, margin))
+        self._chain_tok.copy_(nxt)
+        self.stats["decode_ticks"] += 1
+        if self.pipeline_depth > 1:
+            self.stats["t_decode_s"] += time.perf_counter() - t0
+        return t0
+
+    def _sync_one(self, merge_from: Optional[float] = None):
+        """Sync the OLDEST in-flight launch and book its tokens: append,
+        retire at a stop, or skip a speculative row.  ``merge_from``
+        (depth 1) times the launch and its sync as one span."""
+        rec = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if rec.ready is not None:
+            rec.ready.synchronize()
+        nxt, fin, margin = (t.numpy() for t in (rec.nxt, rec.fin, rec.margin))
+        self.stats["t_decode_s"] += time.perf_counter() - (t0 if merge_from is None else merge_from)
+        cap = self._seq_capacity()
+        # slots with a NEWER launch in flight: their freshest token is on
+        # the device, so booking this older one must not hand it to the host
+        newer = {j for r in self._inflight for (j, rq, _) in r.rows if self.slots[j].req is rq}
+        for i, req, pos in rec.rows:
+            final = self._retiring.get(id(req))
+            if req.done or (final is None and self.slots[i].req is not req):
+                continue  # speculative: the slot retired or changed hands since
             if not fin[i]:
                 raise NonFiniteLogitsError(f"non-finite decode logits (rid={req.rid}, slot={i})")
             tok = int(nxt[i])
-            self._emit(req, tok, float(margin[i]), launch)
-            if sequence_finished(tok, len(req.out), req.max_new, slot.pos, cap, self.eos):
+            self._emit(req, tok, float(margin[i]), rec.launch)
+            stop = sequence_finished(tok, len(req.out), req.max_new, pos, cap, self.eos)
+            if final is not None:  # its slot was freed in the step that launched the row
+                if stop or final == rec.launch:
+                    del self._retiring[id(req)]
+                    req.done = True
+                    self.finished.append(req)
+            elif stop:
                 req.done = True
                 self.finished.append(req)
                 self._free_slot(i)
             else:
                 self._next_tok[i] = tok
+                if i not in newer:
+                    self._chained[i] = False
+
+    def drain(self):
+        """Sync and book every in-flight decode launch.  Callers reading
+        ``req.out`` between manual ``step()`` calls on a deeper engine drain
+        first (``run_to_completion`` drains on exit)."""
+        while self._inflight:
+            self._sync_one()
+
+    def _retire_pending(self, i: int) -> bool:
+        """True when slot i's in-flight launches are certain to retire it
+        whatever tokens come back: the budget and capacity stops do not
+        depend on the token (only EOS does)."""
+        if not self._chained[i]:
+            return False  # nothing in flight: the host state is current
+        slot = self.slots[i]
+        pending = sum(1 for r in self._inflight for (j, rq, _) in r.rows
+                      if j == i and rq is slot.req)
+        return (len(slot.req.out) + pending >= slot.req.max_new + 1
+                or slot.pos >= self._seq_capacity() - 1)
+
+    def _retire_early(self):
+        """Free, at the end of the step that launched it, each slot whose
+        newest in-flight row will retire it — where a depth-1 sync frees it
+        — and finish its request when that row is synced."""
+        rec = self._inflight[-1]
+        for i, req, _ in rec.rows:
+            if self.slots[i].req is req and self._retire_pending(i):
+                self._retiring[id(req)] = rec.launch
+                self._free_slot(i)
 
     def step(self) -> int:
         """Admit, ONE chunk launch for every prefilling slot, ONE decode
-        launch for every decoding slot.  Returns the slots served."""
+        launch for every decoding slot.  Depth 1 syncs its launch before
+        returning; depth 2 launches tick t, then syncs tick t−1.  A step
+        with no decode launch drains.  Returns the slots served."""
         self._admit()
         served = self._prefill_tick_all()
         decoding = [i for i, s in enumerate(self.slots) if s.req is not None and s.mode == "decode"]
@@ -663,12 +913,19 @@ class PagedEngine:
         # a later slot's tail page may have preempted an earlier one
         active = [i for i in active if self.slots[i].req is not None]
         if active:
-            self._decode_tick(active)
+            t0 = self._launch_decode(active)
+            while len(self._inflight) >= self.pipeline_depth:
+                self._sync_one(t0 if len(self._inflight) == 1 else None)
+            if self._inflight:
+                self._retire_early()
+        else:
+            self.drain()
         return served + len(active)
 
     def run_to_completion(self, max_ticks: int = 10_000):
-        """Tick until the queue and the slots drain.  A head-of-line request
-        the pool can never admit raises PagePoolExhaustedError."""
+        """Tick until the queue and the slots drain, then drain the
+        in-flight launches.  A head-of-line request the pool can never admit
+        raises PagePoolExhaustedError."""
         ticks = 0
         while (self.queue or self._active()) and ticks < max_ticks:
             launches = self._launches
@@ -679,4 +936,5 @@ class PagedEngine:
                     f"pool too small to admit a {len(self.queue[0].prompt)}-token prompt "
                     f"(free={self._available_pages()}, watermark={self.watermark})"
                 )
+        self.drain()
         return self.finished, ticks
