@@ -111,9 +111,32 @@ success):
     over 3 ticks); for phase 11's workload the same over its decode-only
     steps with sampled rows.  Phase 11's graph depth 2 run is held launch
     by launch to the plain paths (``check_shadow``).  Its graph depth 2
-    launches join the ``kernels`` line (``production_tick``).  Then the
-    ``kernels`` JSON line (launches, error, times, bound), the card's name
-    and power limit, and the device line as the last line.
+    launches join the ``kernels`` line (``production_tick``).
+13. containment on the card: phase 11's model, pool and requests plus
+    request 3 with ``max_output_stall_ticks`` 7 (preempted, it expires in
+    the queue), two more with ``deadline_s`` 0.0 and request 4 cancelled
+    mid-decode, under a pinned ``FaultInjector`` schedule that fires every
+    non-swap site (a launch delay, a sampler fault on a sampled fork's
+    sibling, non-finite logits on a decoding slot, a dropped prefix claim,
+    a dry allocator query in a chunk tick) and an audit every 4 ticks —
+    through the kernels at graph depth 2 and eagerly at depth 1, and
+    through the plain paths eagerly at depth 1.  No exception escapes,
+    every request ends clean or with its expected typed error, no page
+    stays referenced, the audits are clean; the two kernel ways equal bit
+    for bit (tokens, margins, launch indices, error kinds, engine and
+    health counters, pool bytes, launch counts), kernels and plain equal
+    in error kinds and under the margin rule in tokens, the kernels
+    launched layers × per-layer × passes times.  The serving CLI's chaos
+    run (``launch.serve.run_chaos`` at its default rate) at graph depth 2
+    writes ``build/chaos_report.json``, which ``tools/check_chaos.py``
+    must accept, and equals an eager depth 1 rerun.  The default engine
+    with an audit every 8 ticks keeps phase 12's steady greedy graph tick
+    (kernels a tick, one ``cudaGraphLaunch``, no host kernel launch) and
+    its bits; its wall ms/tick is printed beside phase 12's and an earlier run's
+    with the card's name and power limit.  Its kernel runs' launches join
+    the ``kernels`` line (``containment``).  Then the ``kernels`` JSON line
+    (launches, error, times, bound), the card's name and power limit, and
+    the device line as the last line.
 
 Needs the repository's ``src/`` beside it: run alone, it fails.
 """
@@ -1566,12 +1589,12 @@ def _profile_txt(prof, wall):
             f"launches + {graphs:.0f} cudaGraphLaunch")
 
 
-def production_way(eng4, prompts, graphs, depth, n_time):
+def production_way(eng4, prompts, graphs, depth, n_time, label="phase 12", **extra):
     """Phase 4's workload on a fresh engine in one way (``graphs``,
-    ``depth``): served to completion (what it gives, its pool, launch
-    counts and captures), then served again by the warmed engine, which
-    must capture nothing new, with ``n_time`` steady ticks (8 rows
-    decoding) timed on the host clock and 3 more profiled."""
+    ``depth``; ``extra`` engine arguments): served to completion (what it
+    gives, its pool, launch counts and captures), then served again by the
+    warmed engine, which must capture nothing new, with ``n_time`` steady
+    ticks (8 rows decoding) timed on the host clock and 3 more profiled."""
     import torch
 
     from repro_torch.kernels import build
@@ -1581,7 +1604,7 @@ def production_way(eng4, prompts, graphs, depth, n_time):
     eng = PagedEngine(eng4.api, eng4.params, n_slots=len(prompts), max_len=eng4.max_len,
                       page_size=16, prefill_chunk=64, chunked_prefill=True,
                       prefix_caching=False, device="cuda", pipeline_depth=depth,
-                      cuda_graphs=graphs)
+                      cuda_graphs=graphs, **extra)
 
     def submit():
         for i, p in enumerate(prompts):
@@ -1600,7 +1623,7 @@ def production_way(eng4, prompts, graphs, depth, n_time):
     captures = eng.trace_counts()["decode"]
     buckets = len(eng._graphs.buckets) if graphs else 0
     if captures != buckets or (graphs and not captures):
-        fail(f"phase 12 [{_way_name(graphs, depth)}]: {captures} decode captures on a fresh "
+        fail(f"{label} [{_way_name(graphs, depth)}]: {captures} decode captures on a fresh "
              f"engine over {buckets} block-table widths")
     submit()
     while eng.queue or any(s.mode == "prefill" for s in eng.slots if s.req is not None):
@@ -1613,32 +1636,35 @@ def production_way(eng4, prompts, graphs, depth, n_time):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_time * 1e3
     if sum(s.req is not None for s in eng.slots) != len(prompts):
-        fail("phase 12: the steady window lost a decoding row")
+        fail(f"{label}: the steady window lost a decoding row")
     prof = _tick_profile(eng.step, 3)
     eng.run_to_completion()
     torch.cuda.synchronize()
     again = eng.trace_counts()["decode"] - captures
     if again:
-        fail(f"phase 12 [{_way_name(graphs, depth)}]: the warmed engine captured {again} more")
-    print(f"phase 12 [{_way_name(graphs, depth)}] phase 4's workload: run {run_s:.2f} s "
+        fail(f"{label} [{_way_name(graphs, depth)}]: the warmed engine captured {again} more")
+    print(f"{label} [{_way_name(graphs, depth)}] phase 4's workload: run {run_s:.2f} s "
           f"({out[1]['decode_ticks']} decode ticks, {out[1]['prefill_launches']} prefill "
           f"launches), captures {captures} fresh / {again} warmed; steady tick (8 rows, "
           f"{n_time} ticks): wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}", flush=True)
+    nodes = {w: eng._graphs.node_count(w) for w in eng._graphs.buckets} if graphs else {}
     return {"out": out, "pool": pool, "counts": counts, "wall": wall, "prof": prof,
-            "captures": captures}
+            "captures": captures, "nodes": nodes, "engine": eng}
 
 
-def _hold_ways(ways, what):
-    """Every way of one workload equal to the first, bit for bit."""
+def _hold_ways(ways, what, label="phase 12"):
+    """Every way of one workload equal to the first, bit for bit (and in
+    the parts ``out`` holds beyond tokens and counters)."""
     (name0, ref), rest = ways[0], ways[1:]
     for name, w in rest:
         for part, a, b in (("tokens, margins and launch indices", w["out"][0], ref["out"][0]),
                            ("engine counters", w["out"][1], ref["out"][1]),
+                           ("error kinds and health counters", w["out"][2:], ref["out"][2:]),
                            ("kernel launch counts", w["counts"], ref["counts"])):
             if a != b:
-                fail(f"phase 12 {what}: {name} and {name0} differ in their {part}")
+                fail(f"{label} {what}: {name} and {name0} differ in their {part}")
         if not _same_pool(w["pool"], ref["pool"]):
-            fail(f"phase 12 {what}: {name} and {name0} leave different pool bytes")
+            fail(f"{label} {what}: {name} and {name0} leave different pool bytes")
 
 
 def _sampled_txt(eng):
@@ -1703,7 +1729,223 @@ def phase_production(eng4, tol, core):
     check_shadow(api_k, api_p, params, core_requests(cfg), fin_k, tol, "chunked, graph depth 2",
                  ("sampled", "resumed", "fork", "cow"), cuda_graphs=True, pipeline_depth=2)
     g2 = ways[2][1]["counts"]
-    return {n: g2.get(n, 0) + counts_g.get(n, 0) for n in COUNTED}
+    return {n: g2.get(n, 0) + counts_g.get(n, 0) for n in COUNTED}, ways[2][1]
+
+
+# ------------------------------------------------------------------ phase 13
+# The pinned fault schedule of phase 13, chosen from a CPU rehearsal of its
+# schedule (which does not depend on the tokens): the decode launch of tick
+# 10 delayed; the sampler raising for slot 6 at tick 12 (a sibling of the
+# sampled fork, request 5); the logits of slot 2 at tick 15 read non-finite
+# (request 1, decoding); request 8's planned prefix hits dropped at tick 21
+# (its whole prompt recomputes); the 165th allocator query, the first of
+# tick 23, dry (request 8's chunk pages: a preemption).
+CONTAIN_SCHEDULE = [(10, "launch", 1), (12, "sampler", 6), (15, "logits", 2),
+                    (21, "prefix_claim"), (23, "alloc", 165)]
+CONTAIN_CANCEL = (4, 20)  # request 4 cancelled after tick 20, mid-decode
+# request 3 is preempted while it prefills and waits in the queue: no token
+# for more than 7 ticks (without the preemption its first token comes at 6)
+CONTAIN_STALL = (3, 7)
+CONTAIN_DEADLINE = (12, 13)  # two more requests, deadline_s 0.0: expired in the queue
+CONTAIN_AUDIT_EVERY = 4
+# what the schedule must do, by (rid, sample_idx); every other request clean
+CONTAIN_KINDS = {(1, 0): "quarantined", (3, 0): "expired", (4, 0): "cancelled",
+                 (5, 1): "quarantined", (12, 0): "expired", (13, 0): "expired"}
+CONTAIN_SITES = {"alloc", "prefix_claim", "launch", "logits", "sampler"}
+# a steady greedy graph depth 2 tick of phase 4's workload in an earlier run of
+# this script, before the engine had containment (PERF.md §5; NVIDIA H100
+# 80GB HBM3 at 700 W): CUDA kernels a tick (torch.profiler), wall ms
+EARLIER_TICK = (1492, 3.52)
+
+
+def contain_requests(cfg):
+    """Phase 11's 12 requests, request 3 with ``max_output_stall_ticks``, and
+    two more on the shared prefix with ``deadline_s`` 0.0."""
+    from repro_torch.serving.generate import Request
+
+    reqs = core_requests(cfg)
+    reqs[CONTAIN_STALL[0]].max_output_stall_ticks = CONTAIN_STALL[1]
+    rng = np.random.default_rng(5)
+    for rid in CONTAIN_DEADLINE:
+        reqs.append(Request(rid=rid, max_new=GEN - 1, deadline_s=0.0, prompt=np.concatenate(
+            [reqs[0].prompt[:CORE_PREFIX], rng.integers(0, cfg.vocab, 20)])))
+    return reqs
+
+
+def drive_contained(api, params, what, **mode):
+    """A fresh phase 11 engine (eager at depth 1 unless ``mode`` says
+    otherwise) with the pinned fault schedule, an audit every 4 ticks, and
+    phase 13's requests; request 4 cancelled between two steps.  Every
+    check of what it leaves: no exception escaped, every request finished
+    clean or with the expected typed error, every fault site fired, page
+    accounting and the final audit clean.  Returns (finished by (rid,
+    sample_idx), engine, the way's record for ``_hold_ways``)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.serving.audit import audit_engine
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.faults import FaultInjector
+
+    mode = {"pipeline_depth": 1, "cuda_graphs": False, **mode}
+    faults = FaultInjector(seed=0, schedule=CONTAIN_SCHEDULE)
+    eng = PagedEngine(api, params, n_slots=8, max_len=512, page_size=16, n_pages=CORE_PAGES,
+                      prefix_caching=True, chunked_prefill=True, prefill_chunk=64,
+                      device="cuda", fault_injector=faults, audit_every=CONTAIN_AUDIT_EVERY,
+                      **mode)
+    reqs = contain_requests(api.cfg)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    try:
+        for r in reqs:
+            eng.submit(r)
+        while eng.queue or eng._active():
+            eng.step()
+            if eng._tick == CONTAIN_CANCEL[1]:
+                next(r for r in reqs if r.rid == CONTAIN_CANCEL[0]).cancel()
+            if eng._tick > 1000:
+                fail(f"phase 13 [{what}]: the engine did not drain in 1000 ticks")
+        eng.drain()
+    except Exception as exc:  # what containment must never let through
+        fail(f"phase 13 [{what}]: an exception escaped the engine: {type(exc).__name__}: {exc}")
+    torch.cuda.synchronize()
+    counts = build.counts()
+    fin = {(r.rid, r.sample_idx): r for r in eng.finished}
+    kinds = {k: r.error.kind for k, r in fin.items() if r.error is not None}
+    want = sorted([(r, 0) for r in range(CORE_REQUESTS)] + [(CORE_FORK, 1), (CORE_SAMPLED, 1),
+                  (CORE_SAMPLED, 2)] + [(r, 0) for r in CONTAIN_DEADLINE])
+    if sorted(fin) != want or kinds != CONTAIN_KINDS:
+        fail(f"phase 13 [{what}]: finished {sorted(fin)} with errors {kinds}, expected {want} "
+             f"with {CONTAIN_KINDS}")
+    for k, r in fin.items():
+        if r.error is None and (len(r.out) != GEN or not all(0 <= t < api.cfg.vocab_padded
+                                                             for t in r.out)):
+            fail(f"phase 13 [{what}]: clean request {k}: {len(r.out)} tokens, expected {GEN}")
+    fired = {e.site for e in faults.log}
+    health = eng.health()
+    audit = audit_engine(eng)
+    if fired != CONTAIN_SITES or not audit.ok or health["counters"]["audit_failures"] \
+            or eng._last_audit is None or not eng._last_audit.ok:
+        fail(f"phase 13 [{what}]: faults fired at {fired} (expected {CONTAIN_SITES}), final "
+             f"audit {audit.violations}, health {health}")
+    core_clean(eng, f"phase 13 {what}")
+    pool = {n: t.clone() for n, t in eng.pool.items()}
+    out = (*_outcome(eng, fin), kinds, health["counters"])
+    return fin, eng, {"out": out, "counts": counts, "pool": pool}
+
+
+def _chaos_runs(api, params, cfg):
+    """The serving CLI's chaos smoke (``launch.serve.run_chaos``, the CLI's
+    defaults: 4 prompts of 32 tokens, 16 tokens each, rate 0.05, seed 0)
+    at graph depth 2, its report checked by ``tools/check_chaos.py``, and
+    again eagerly at depth 1: the two outcomes equal.  Returns the graph
+    depth 2 run's launch counts."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    prompts = list(np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)))
+    path = os.path.join(ROOT, "build", "chaos_report.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    rep = serve.run_chaos(api, params, prompts, 16, report_path=path)
+    torch.cuda.synchronize()
+    counts = build.counts()
+    check = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "check_chaos.py"), path],
+                           capture_output=True, text=True, timeout=120)
+    print(f"phase 13 tools/check_chaos.py (exit {check.returncode}): "
+          f"{(check.stdout + check.stderr).strip()}", flush=True)
+    if check.returncode != 0 or rep["faults"]["total"] == 0:
+        fail("phase 13: the chaos report fails tools/check_chaos.py (or no fault fired)")
+    rep1 = serve.run_chaos(api, params, prompts, 16, pipeline_depth=1, cuda_graphs=False)
+    key = lambda r: (sorted((o["rid"], o["sample_idx"], o["error_kind"], o["n_out"])  # noqa: E731
+                            for o in r["requests"]), r["faults"]["by_site"], r["ticks"],
+                     r["health"]["counters"])
+    if key(rep) != key(rep1):
+        fail(f"phase 13: the chaos run at graph depth 2 and eagerly at depth 1 differ: "
+             f"{key(rep)} vs {key(rep1)}")
+    print(f"phase 13 chaos run (rate 0.05, seed 0): graph depth 2 and eager depth 1 equal in "
+          f"outcomes, faults {rep['faults']['by_site']} and counters "
+          f"{rep['health']['counters']}", flush=True)
+    return counts
+
+
+def phase_containment(eng4, tol, core, g2, smi):
+    """Phase 13: containment on the card.  Phase 13's requests under the
+    pinned fault schedule through the kernels at graph depth 2 and eagerly
+    at depth 1, and through the plain paths eagerly at depth 1: the two
+    kernel ways bit-equal (tokens, margins, launch indices, error kinds,
+    engine and health counters, pool bytes, launch counts), the kernel and
+    plain runs equal in error kinds and under the margin rule in tokens,
+    the kernels launched layers × per-layer × passes times; the CLI's
+    chaos run and its report; the default engine with an audit every 8
+    ticks on phase 12's steady greedy graph tick.  Returns the kernel
+    runs' launch counts."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch("gpt3_126m")
+    api_p = core[0]
+    api_k, params = eng4.api, eng4.params
+    runs = {}
+    for name, api, mode in (("graph depth 2", api_k, {"cuda_graphs": True, "pipeline_depth": 2}),
+                            ("eager depth 1", api_k, {}), ("plain eager depth 1", api_p, {})):
+        t0 = time.perf_counter()
+        runs[name] = drive_contained(api, params, name, **mode)
+        print(f"phase 13 [{name}]: {time.perf_counter() - t0:.2f} s, "
+              f"{runs[name][1].stats['decode_ticks']} decode ticks, "
+              f"{runs[name][1].stats['prefill_launches']} prefill launches, "
+              f"{runs[name][1]._tick} ticks; errors {CONTAIN_KINDS}; health counters "
+              f"{runs[name][2]['out'][3]}", flush=True)
+    _hold_ways([(n, runs[n][2]) for n in ("eager depth 1", "graph depth 2")],
+               "pinned schedule", "phase 13")
+    fin_k, eng_k, way_k = runs["eager depth 1"]
+    fin_p, eng_p, way_p = runs["plain eager depth 1"]
+    if way_p["out"][2:] != way_k["out"][2:]:
+        fail("phase 13: the kernel and plain runs differ in error kinds or health counters")
+    core_agreement(fin_p, fin_k, tol, "containment")
+    for name in ("graph depth 2", "eager depth 1"):
+        core_counts(runs[name][1], runs[name][2]["counts"], f"phase 13 {name}")
+    if any(way_p["counts"].get(n, 0) for n in COUNTED):
+        fail(f"phase 13: kernels launched in the plain run: {way_p['counts']}")
+    print("phase 13 pinned schedule: graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins, "
+          "launch indices, error kinds, counters, pool bytes, launch counts "
+          f"{runs['graph depth 2'][2]['counts']}); plain ≡ kernels in error kinds; 0 leaked "
+          "pages, final audit clean", flush=True)
+    counts_chaos = _chaos_runs(api_k, params, cfg)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    w = production_way(eng4, prompts, True, 2, 10, label="phase 13", audit_every=8)
+    _hold_ways([("phase 12 graph depth 2", g2), ("audit every 8", w)], "phase 4's workload",
+               "phase 13")
+    # the graph's node count is exact; the profiler's kernels a tick may
+    # lose or gain a few events in a window
+    prof = w["prof"]
+    if w["nodes"] != g2["nodes"] or not w["nodes"] or prof is None or prof[2] != 0 \
+            or prof[3] != 1:
+        fail(f"phase 13: the default engine's steady greedy graph tick with audit_every=8 "
+             f"(graph nodes {w['nodes']}; kernels, busy, host kernel launches, cudaGraphLaunch "
+             f"a tick {prof}) is not phase 12's (graph nodes {g2['nodes']}; {g2['prof']})")
+    eng_a = w["engine"]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng_a.audit()
+    audit_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"phase 13 default engine, audit every 8 ticks: steady greedy graph depth 2 tick wall "
+          f"{w['wall']:.2f} ms (phase 12's default engine in this run {g2['wall']:.2f} ms; an "
+          f"earlier run without containment {EARLIER_TICK[1]} ms); one audit of its "
+          f"{eng_a.pool_mgr.n_pages}-page pool and {eng_a.n_slots} slots takes {audit_ms:.3f} ms "
+          f"of host time (host clock, 20 calls); decode graph nodes {w['nodes']} (phase 12's "
+          f"{g2['nodes']}); torch.profiler: {prof[0]:.2f} CUDA kernels/tick (phase 12's "
+          f"{g2['prof'][0]:.2f}; the earlier run {EARLIER_TICK[0]}), {prof[3]:.0f} cudaGraphLaunch "
+          f"and {prof[2]:.0f} host kernel launches a tick; card {smi}", flush=True)
+    total = {}
+    for c in (runs["graph depth 2"][2]["counts"], way_k["counts"], counts_chaos, w["counts"]):
+        for n in COUNTED:
+            total[n] = total.get(n, 0) + c.get(n, 0)
+    return total
 
 
 # ------------------------------------------------------------------ phase 10
@@ -2110,11 +2352,13 @@ def main() -> int:
     # phase 11 after the timings: a profiler window after its runs has read
     # kernels short (device times below their bounds)
     counts_core, err_slab, core = phase_core(eng4, tol)
-    counts_prod = phase_production(eng4, tol, core)
+    counts_prod, g2 = phase_production(eng4, tol, core)
+    counts_contain = phase_containment(eng4, tol, core, g2, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
             entry["launches_by_path"]["production_tick"] = counts_prod[counter]
+            entry["launches_by_path"]["containment"] = counts_contain[counter]
             entry["launches"] = sum(entry["launches_by_path"].values())
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab)
     check_bounds(kernels)

@@ -17,10 +17,20 @@ the plain versions eagerly::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_126m \\
         --paged --chunked-prefill --packed --cache bcq4 --batch 8 --gen 32 \\
         --best-of 2 --temperature 0.8 --top-k 40 --seed 1234 --pipeline-depth 2
+
+``--chaos`` runs the reference's chaos smoke instead (``run_chaos``): the
+W4A4 batch through a paged engine with every fault seam armed
+(``serving/faults.py``), periodic audits, a bounded queue and two
+submission waves; ``--chaos-report PATH`` writes the report that
+``tools/check_chaos.py`` validates::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_126m --chaos \\
+        --chaos-seed 0 --chaos-report chaos.json && python tools/check_chaos.py chaos.json
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -30,8 +40,24 @@ from repro_torch.configs.base import get_arch, get_smoke
 from repro_torch.core.bcq import BCQConfig
 from repro_torch.models import zoo
 from repro_torch.models.layers import Runtime
+from repro_torch.serving.audit import audit_engine
 from repro_torch.serving.engine import PagedEngine
+from repro_torch.serving.faults import SITES, FaultInjector
 from repro_torch.serving.generate import GREEDY, Request, SamplingParams
+
+
+def build_model(cfg, cache: str = "bcq4", packed: bool = True, device="cuda", seed: int = 0,
+                kernels: bool = True):
+    """(api, params): seeded random weights (packed to W4 with ``packed``)
+    on ``device``; ``kernels`` selects the fused linear, the page-gather
+    kernel and the KV-page writer, else the plain paths."""
+    rt = Runtime(
+        quant_mode="packed" if packed else "none", bcq_cfg=BCQConfig(),
+        compute_dtype=torch.float32, cache_kind=cache,
+        paged_kernel=kernels, fused_linear=kernels,
+    )
+    api = zoo.build(cfg, rt, device=device)
+    return api, api.init(seed)
 
 
 def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
@@ -47,13 +73,7 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
     the plain decode+matmul, gather+softmax and encode+scatter paths run.
     ``pipeline_depth`` and ``cuda_graphs`` (None: on for a CUDA device)
     go to the engine.  Returns (finished requests, engine)."""
-    rt = Runtime(
-        quant_mode="packed" if packed else "none", bcq_cfg=BCQConfig(),
-        compute_dtype=torch.float32, cache_kind=cache,
-        paged_kernel=kernels, fused_linear=kernels,
-    )
-    api = zoo.build(cfg, rt, device=device)
-    params = api.init(seed)
+    api, params = build_model(cfg, cache, packed, device, seed, kernels)
     max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
     eng = PagedEngine(
         api, params, n_slots=len(prompts) * best_of, max_len=max_len, page_size=page_size,
@@ -66,6 +86,70 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
                            sampling=sampling))
     finished, _ = eng.run_to_completion()
     return finished, eng
+
+
+def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk: int = 0,
+              seed: int = 0, rate: float = 0.05, report_path=None, audit_every: int = 0,
+              deadline_s=None, degrade_after=None, pipeline_depth: int = 2, cuda_graphs=None,
+              arch: str = "gpt3_126m", cache: str = "bcq4") -> dict:
+    """The chaos smoke (the reference's ``run_chaos``): ``prompts`` served
+    twice over (two waves, the second queued behind the first; odd rids
+    fork in 2) by a chunked-prefill engine of one slot per prompt with a
+    ``FaultInjector`` at every site — ``rate`` for the transient sites,
+    a fifth of it for ``logits`` and ``sampler`` (each roll kills a
+    request) — an audit every ``audit_every`` ticks (4 if 0) and a queue
+    bounded at twice the batch.  The run must end with no exception
+    escaping the engine, no page referenced and a clean audit.  Returns
+    the report (the reference's schema 1, written to ``report_path`` if
+    given)."""
+    batch = len(prompts)
+    rates = {s: (rate / 5 if s in ("logits", "sampler") else rate) for s in SITES}
+    faults = FaultInjector(seed=seed, rates=rates)
+    max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
+    eng = PagedEngine(api, params, n_slots=batch, max_len=max_len, page_size=page_size,
+                      chunked_prefill=True, prefill_chunk=prefill_chunk or 2 * page_size,
+                      fault_injector=faults, audit_every=audit_every or 4, max_queue=2 * batch,
+                      degrade_after=degrade_after, pipeline_depth=pipeline_depth,
+                      cuda_graphs=cuda_graphs, device=api.device)
+    reqs = [Request(rid=wave * batch + i, prompt=prompts[i], max_new=gen - 1,
+                    n_samples=2 if (wave * batch + i) % 2 else 1, deadline_s=deadline_s)
+            for wave in range(2) for i in range(batch)]
+    unhandled, ticks = None, 0
+    try:
+        for r in reqs:
+            eng.submit(r)
+        _, ticks = eng.run_to_completion(max_ticks=10_000)
+    except Exception as exc:  # what the containment must never let happen
+        unhandled = f"{type(exc).__name__}: {exc}"
+    audit = audit_engine(eng)
+    leaked = int((eng.pool_mgr.refcount > 0).sum())
+    outcomes = [{"rid": int(r.rid), "sample_idx": int(r.sample_idx),
+                 "error_kind": None if r.error is None else getattr(r.error, "kind", None),
+                 "n_out": len(r.out)} for r in eng.finished]
+    report = {
+        "schema": 1, "arch": arch, "cache": cache, "page_layout": "kv", "host_tier": False,
+        "host_pages": 0, "recompress_after": 0, "chaos_seed": seed, "chaos_rate": rate,
+        "deadline_s": deadline_s, "n_requests": len(reqs),
+        "all_finished": {o["rid"] for o in outcomes} == {r.rid for r in reqs},
+        "ticks": ticks, "unhandled_exception": unhandled, "leaked_pages": leaked,
+        # live (allocated or parked) pages by kind: the port's pool holds KV pages only
+        "pages_by_kind": {"kv": eng.pool_mgr.used(), "state": 0, "shared_ro": 0},
+        "final_audit": audit.to_dict(), "health": eng.health(), "faults": faults.summary(),
+        "requests": outcomes,
+    }
+    errs: dict = {}
+    for o in outcomes:
+        if o["error_kind"]:
+            errs[o["error_kind"]] = errs.get(o["error_kind"], 0) + 1
+    print(f"chaos  : seed={seed} rate={rate} cache={cache} pipeline depth {eng.pipeline_depth} — "
+          f"{len(outcomes)} finished over {ticks} ticks, {report['faults']['total']} faults "
+          f"injected {report['faults']['by_site']}, errors {errs or '{}'}; leaked pages {leaked}, "
+          f"audit {'clean' if audit.ok else 'DIRTY'}, unhandled {unhandled or 'none'}")
+    if report_path:
+        with open(report_path, "w") as f:
+            json.dump(report, f, indent=1)
+        print(f"chaos  : report -> {report_path}")
+    return report
 
 
 def main(argv=None):
@@ -95,12 +179,38 @@ def main(argv=None):
                          "position)")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="decode launches in flight (1: sync each tick before the next)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="chaos smoke: serve the W4A4 batch through a paged engine with "
+                         "seeded fault injection at every seam and periodic audits, then "
+                         "report containment (validated by tools/check_chaos.py); runs "
+                         "instead of the serving run and implies --paged")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="fault-injection seed: faults are a pure function of (seed, site, "
+                         "tick, key), so a run replays bit for bit")
+    ap.add_argument("--chaos-rate", type=float, default=0.05,
+                    help="per-site fault probability per injection point")
+    ap.add_argument("--chaos-report", default=None, metavar="PATH",
+                    help="write the chaos report JSON (faults, health, final audit, outcomes)")
+    ap.add_argument("--audit-every", type=int, default=0,
+                    help="run the page-ownership audit every N ticks (0: chaos mode's 4)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="chaos mode: each request's deadline in seconds (kind 'expired')")
+    ap.add_argument("--degrade-after", type=int, default=None,
+                    help="chaos mode: enter degraded mode after N ticks at the admission "
+                         "watermark (default: off)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not args.paged:
+    if not (args.paged or args.chaos):
         ap.error("the port serves the paged engine only: pass --paged")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    if args.chaos:  # W4A4 packed weights, as the reference's chaos smoke
+        api, params = build_model(cfg, args.cache, True, args.device)
+        rep = run_chaos(api, params, list(prompts), args.gen, args.page_size, args.prefill_chunk,
+                        args.chaos_seed, args.chaos_rate, args.chaos_report, args.audit_every,
+                        args.deadline_s, args.degrade_after, args.pipeline_depth,
+                        arch=cfg.name, cache=args.cache)
+        return 0 if rep["unhandled_exception"] is None else 1
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, seed=args.seed)
     t0 = time.perf_counter()
     finished, eng = serve(
@@ -126,4 +236,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -1,0 +1,154 @@
+"""Invariant auditor for the paged serving engine (counterpart of the KV
+half of ``repro/serving/audit.py``; the port has neither the
+state-checkpoint layout nor the host page tier yet).
+
+The allocator, the prefix cache and the engine's block tables are three
+views of one ownership story; a page leak or a double free is a
+disagreement between the views, so it can be checked mechanically.
+``audit_engine`` walks all three and checks the laws the serving design
+rests on:
+
+* **refcount ≡ table references** — every non-null page's refcount
+  equals the number of active block-table rows holding it (a row carries
+  one reference per page: prefix claims, fork references and
+  copy-on-write replacements all keep this), so a page no table reaches
+  but whose refcount is positive is a leak, named;
+* **partition** — every non-null page is exactly one of: free (refcount
+  0), referenced (refcount > 0), or parked reclaimable in the prefix LRU
+  (refcount 0, contents kept);
+* **no dangling references** — no live slot references a freed page,
+  empty slots hold all-NULL rows, sibling reservations point at live
+  parents;
+* **prefix-chain consistency** — hash ↔ page registration is a
+  bijection, registered refcount-0 pages are parked, no free page stays
+  registered;
+* **slot geometry** — a slot's live pages are a contiguous prefix of its
+  row covering its position (one more for a freshly ensured tail page).
+
+``AuditReport`` collects every violation; ``engine.audit(strict=True)``
+(or an engine built with ``strict=True``) raises ``AuditError`` on a
+dirty report.  The walk reads host-side numpy and dicts only, no device
+work, so ``audit_every=N`` can ride production ticks.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.serving.pages import NULL_PAGE, pages_needed
+
+
+class AuditError(RuntimeError):
+    """The engine's page-ownership invariants do not hold.  The message
+    carries every violation found."""
+
+
+@dataclasses.dataclass
+class AuditReport:
+    """Outcome of one invariant sweep."""
+
+    ok: bool
+    violations: list
+    pages_checked: int
+    slots_checked: int
+    tick: int
+
+    def raise_if_dirty(self) -> "AuditReport":
+        if not self.ok:
+            raise AuditError(
+                f"{len(self.violations)} invariant violation(s) at tick {self.tick}: "
+                + "; ".join(self.violations))
+        return self
+
+    def to_dict(self) -> dict:
+        return {"ok": self.ok, "violations": list(self.violations),
+                "pages_checked": self.pages_checked, "slots_checked": self.slots_checked,
+                "tick": self.tick}
+
+
+def pool_refcount(engine, pid: int) -> int:
+    return int(engine.pool_mgr.refcount[pid])
+
+
+def _gather_kv_refs(engine, free_set, bad) -> dict:
+    """References = live block-table entries, plus the contiguous-prefix
+    geometry check (live pages exactly cover pos)."""
+    table_refs: dict[int, int] = {}
+    for i, slot in enumerate(engine.slots):
+        row = engine.tables[i]
+        live = [int(p) for p in row if int(p) != NULL_PAGE]
+        if slot.req is None:
+            if live:
+                bad.append(f"empty slot {i} still references pages {live[:4]}")
+            if slot.reserved_by is not None and engine.slots[slot.reserved_by].req is None:
+                bad.append(f"slot {i} reserved by empty slot {slot.reserved_by} "
+                           "(abandoned fork reservation)")
+            continue
+        for pid in live:
+            table_refs[pid] = table_refs.get(pid, 0) + 1
+            if pid in free_set:
+                bad.append(f"slot {i} references FREED page {pid}")
+            if pool_refcount(engine, pid) <= 0:
+                bad.append(f"slot {i} references page {pid} with refcount "
+                           f"{pool_refcount(engine, pid)}")
+        n_live = len(live)
+        if any(int(p) != NULL_PAGE for p in row[n_live:]):
+            bad.append(f"slot {i} block-table row has a NULL hole before a live page")
+        need = pages_needed(slot.pos, engine.ps)
+        if n_live not in (need, need + 1):
+            bad.append(f"slot {i} holds {n_live} pages for pos={slot.pos} "
+                       f"(expected {need} or {need + 1})")
+    return table_refs
+
+
+def audit_engine(engine) -> AuditReport:
+    """One full consistency sweep over the PagePool, the PrefixCache and
+    the engine's block tables."""
+    pool, prefix = engine.pool_mgr, engine.prefix
+    bad: list[str] = []
+    free = list(pool.free)
+    free_set = set(free)
+    parked = set(prefix.reclaimable)
+    if len(free) != len(free_set):
+        bad.append("free list contains duplicate page ids")
+    if NULL_PAGE in free_set:
+        bad.append("null page on the free list")
+    if pool.refcount[NULL_PAGE] != 0:
+        bad.append(f"null page refcount {int(pool.refcount[NULL_PAGE])} != 0")
+
+    table_refs = _gather_kv_refs(engine, free_set, bad)
+
+    # per-page conservation
+    for pid in range(1, pool.n_pages):
+        rc = int(pool.refcount[pid])
+        refs = table_refs.get(pid, 0)
+        if rc < 0:
+            bad.append(f"page {pid} refcount {rc} < 0")
+        if rc != refs:
+            bad.append(f"page {pid} refcount {rc} != {refs} block-table references")
+        is_free, is_parked = pid in free_set, pid in parked
+        states = int(is_free) + int(is_parked) + int(rc > 0)
+        if states == 0:
+            bad.append(f"page {pid} LEAKED: refcount 0, not free, not parked reclaimable")
+        elif states > 1:
+            bad.append(f"page {pid} in {states} states at once "
+                       f"(free={is_free}, parked={is_parked}, refcount={rc})")
+
+    # prefix-cache registration chain
+    if len(prefix.by_hash) != len(prefix.hash_of):
+        bad.append(f"prefix registration not a bijection: {len(prefix.by_hash)} "
+                   f"hashes vs {len(prefix.hash_of)} pages")
+    for h, pid in prefix.by_hash.items():
+        if prefix.hash_of.get(pid) != h:
+            bad.append(f"prefix hash↔page maps disagree on page {pid}")
+    for pid in prefix.hash_of:
+        if pid in free_set:
+            bad.append(f"free page {pid} still registered in the prefix cache")
+        if pool.refcount[pid] == 0 and pid not in parked:
+            bad.append(f"registered page {pid} at refcount 0 is not parked reclaimable "
+                       "(unevictable orphan)")
+    for pid in parked:
+        if pid not in prefix.hash_of:
+            bad.append(f"parked page {pid} has no prefix registration")
+
+    return AuditReport(ok=not bad, violations=bad, pages_checked=pool.n_pages - 1,
+                       slots_checked=len(engine.slots), tick=getattr(engine, "_tick", 0))

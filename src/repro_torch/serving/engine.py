@@ -83,12 +83,47 @@ sync.  With ``eos_id`` set, depth 2 may therefore launch rows that depth
 share each linear's activation scale, the launches after an EOS may
 differ from depth 1's in tokens as well as in counters and pages.
 
-Left out (ROADMAP queue A): fault injection and containment (a failing
-admission raises instead of quarantining one request; a non-finite row
-raises ``NonFiniteLogitsError`` when its launch is synced), audits,
-telemetry, load shedding and the host tier.  A head-of-line request the
-pool can never admit raises ``PagePoolExhaustedError`` (the reference's
-``shed_stuck=False``).
+**Fault containment** (the reference's): one poisoned, expired,
+cancelled or shed request ends as a finished request with a typed
+``RequestError`` while the tick completes for everyone else.
+
+* *lifecycle guard* — ``Request.deadline_s`` / ``max_output_stall_ticks``
+  / ``cancel()`` are enforced at every tick boundary, tearing the request
+  down (pages, fork reservations, queue entry) wherever it lives; a slot
+  with a launch in flight is drained first, so the teardown sees what
+  depth 1 sees;
+* *quarantine* — a non-finite row (at prefill end or at a decode sync),
+  a raising sampler and a failing admission (after three retries of a
+  transient failure) finish only the offending request with
+  ``"quarantined"``; ``strict=True`` re-raises, ``nan_guard=False`` reads
+  no finite flag at all;
+* *audits* — ``audit()`` (``serving/audit.py``), every ``audit_every``
+  ticks if asked; ``health()`` sums it all up, the robustness counters
+  in ``health()["counters"]`` (``stats`` keeps the reference's pinned
+  keys);
+* *degradation* — a bounded queue (``max_queue``) sheds the request with
+  the least deadline slack; ``degrade_after`` pressured ticks enter a
+  degraded mode (forks refused at submit, parked prefix pages shrunk to
+  ``degraded_prefix_target``), ``recover_after`` relieved ticks leave it;
+  a head-of-line request the pool can never admit is shed
+  (``shed_stuck``; False raises ``PagePoolExhaustedError``);
+* *fault injection* — a ``serving.faults.FaultInjector`` behind the
+  allocator, prefix-claim, launch, logits and sampler seams, keyed as the
+  reference keys them.  A decode row's ``logits`` and ``sampler`` faults
+  are rolled for the launch's tick: at its sync at depth 1 (the
+  reference's order), at its launch deeper, where a row certain to be
+  quarantined frees its slot at the end of the step that launched it, as
+  ``_retire_early`` does for a budget stop — so depth 2 demotes the same
+  requests as depth 1 and stays bit-equal to it.  A real non-finite row
+  is known only at sync: deeper, its slot is freed a tick later (with
+  W4A4 every row of such a launch is non-finite anyway, since each
+  linear's activation scale is one amax over the launch).  The logits
+  seam flips the host copy of a row's finite flag; the decode graph does
+  not change, and an engine without an injector or audits adds no device
+  work to a tick.
+
+Left out (ROADMAP queue A): telemetry (the registry, the trace journal)
+and the host page tier, whose swap seams therefore never fire.
 """
 from __future__ import annotations
 
@@ -102,6 +137,7 @@ import torch
 
 from repro_torch.core.ptq import decode_scales
 from repro_torch.models.zoo import resolve_device
+from repro_torch.serving.audit import AuditReport, audit_engine
 from repro_torch.serving.generate import (
     Request,
     RequestError,
@@ -128,6 +164,16 @@ ENGINE_STAT_KEYS = (
     "prefill_tokens_skipped", "prefill_launches", "forks", "cow_copies",
     "shared_pages", "t_prefill_s", "t_decode_s",
 )
+# ``serving.telemetry.ROBUSTNESS_STAT_KEYS`` and ``SWAP_STAT_KEYS``: kept out
+# of ``stats`` (its keys are pinned), read through ``health()``; the swap
+# counters stay 0 until the port has a host page tier
+ROBUSTNESS_STAT_KEYS = (
+    "quarantined", "shed", "expired", "cancelled", "audit_failures", "degraded_ticks",
+)
+SWAP_STAT_KEYS = (
+    "swap_outs", "swap_ins", "verified_swapins", "corrupt_swapins", "swap_bytes",
+    "swap_skips", "recompressed_pages",
+)
 
 
 class PromptTooLongError(ValueError):
@@ -140,7 +186,8 @@ class PagePoolExhaustedError(RuntimeError):
 
 
 class NonFiniteLogitsError(RuntimeError):
-    """A request's last-position logits came back NaN/Inf."""
+    """A request's last-position logits came back NaN/Inf.  The NaN guard
+    quarantines the request; ``strict=True`` re-raises."""
 
 
 def _pow2_bucket(n: int, cap: int) -> int:
@@ -184,14 +231,17 @@ class _InFlight:
     skipped, unless its request was retired early (``_retiring``).
     ``nxt`` / ``fin`` / ``margin`` are the launch's own copies of the
     merged tokens, finite mask and margins (pinned host memory on the card,
-    ready once ``ready`` has fired)."""
+    ready once ``ready`` has fired).  ``faults``: slot → the injected
+    fault of its row (rolled at launch deeper than depth 1)."""
 
     launch: int  # the engine launch index every booked token records
+    tick: int  # the engine tick that launched it (fault seams key on it)
     rows: list
     nxt: torch.Tensor
     fin: torch.Tensor
     margin: torch.Tensor
     ready: Optional[object] = None  # torch.cuda.Event, None on the CPU
+    faults: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -215,11 +265,26 @@ class PagedEngine:
                  n_pages: Optional[int] = None, eos_id: int = -1, prefix_caching: bool = True,
                  watermark: Optional[int] = None, chunked_prefill: bool = False,
                  prefill_chunk: int = 16, profile_sync: bool = False, pipeline_depth: int = 1,
-                 cuda_graphs: Optional[bool] = None, device="cuda"):
+                 cuda_graphs: Optional[bool] = None, device="cuda", fault_injector=None,
+                 strict: bool = False, nan_guard: bool = True, audit_every: int = 0,
+                 max_queue: Optional[int] = None, shed_stuck: bool = True,
+                 degrade_after: Optional[int] = None, recover_after: int = 16,
+                 degraded_prefix_target: int = 0):
         """``pipeline_depth``: decode launches in flight after a step (1 syncs
         each launch in its own step; ``profile_sync`` forces 1).
         ``cuda_graphs``: the decode step as one CUDA graph per block-table
-        width; on by default on a CUDA device, unavailable on the CPU."""
+        width; on by default on a CUDA device, unavailable on the CPU.
+
+        Containment, the reference's arguments and defaults:
+        ``fault_injector`` (a ``serving.faults.FaultInjector``, None in
+        production); ``strict`` re-raises contained faults and makes
+        ``audit()`` raise; ``nan_guard`` quarantines a request whose
+        logits are non-finite; ``audit_every`` runs ``audit()`` every N
+        ticks; ``max_queue`` bounds the admission queue; ``shed_stuck``
+        sheds a head-of-line request the pool can never admit (else
+        ``run_to_completion`` raises); ``degrade_after`` /
+        ``recover_after`` / ``degraded_prefix_target``: the degraded
+        mode's hysteresis (off by default)."""
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"model built for {api.device}, engine asked for {self.device}")
@@ -265,6 +330,22 @@ class PagedEngine:
         self.stats = {k: 0 for k in ENGINE_STAT_KEYS}
         self.stats["t_prefill_s"] = self.stats["t_decode_s"] = 0.0
 
+        self.faults = fault_injector
+        self.strict = strict
+        self.nan_guard = nan_guard
+        self.audit_every = audit_every
+        self.max_queue = max_queue
+        self.shed_stuck = shed_stuck
+        self.degrade_after = degrade_after
+        self.recover_after = recover_after
+        self.degraded_prefix_target = degraded_prefix_target
+        self.degraded = False
+        self._tick = 0
+        self._pressure_ticks = 0
+        self._relief_ticks = 0
+        self._last_audit: Optional[AuditReport] = None
+        self._cr = {k: 0 for k in ROBUSTNESS_STAT_KEYS}
+
         self.pipeline_depth = 1 if profile_sync else pipeline_depth
         self._inflight: deque[_InFlight] = deque()
         self._chain_tok = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
@@ -292,20 +373,173 @@ class PagedEngine:
     def submit(self, req: Request):
         """Queue a request, or finish it at once with a ``RequestError``
         when it cannot be served: ``n_samples`` outside [1, n_slots]
-        (``invalid``), or a slab prompt of at least ``max_len`` tokens
-        (``too_long``)."""
+        (``invalid``), a slab prompt of at least ``max_len`` tokens
+        (``too_long``), a request cancelled before it came (``cancelled``),
+        a fork in degraded mode (``shed``).  A full bounded queue sheds the
+        request with the least deadline slack, the newcomer on a tie."""
+        now = time.perf_counter()
+        if req._t_submit is None:
+            req._t_submit = now
+        req._progress_tick = self._tick
+        kind = msg = None
         if not 1 <= req.n_samples <= self.n_slots:
-            self._finish_error(req, "invalid",
-                               f"n_samples={req.n_samples} outside [1, n_slots={self.n_slots}]")
+            kind, msg = "invalid", f"n_samples={req.n_samples} outside [1, n_slots={self.n_slots}]"
         elif not self.chunked and len(req.prompt) >= self.max_len:
-            self._finish_error(req, "too_long", self._too_long_msg(len(req.prompt)))
-        else:
-            self.queue.append(req)
+            kind, msg = "too_long", self._too_long_msg(len(req.prompt))
+        elif req.cancelled:
+            kind, msg = "cancelled", "cancelled before admission"
+        elif self.degraded and req.n_samples > 1:
+            kind, msg = "shed", (f"degraded mode rejects forking requests (n_samples="
+                                 f"{req.n_samples}); resubmit with n_samples=1 or retry later")
+        if kind is not None:
+            self._finish_error(req, kind, msg)
+            return
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            victim = self._shed_choice(req, now)
+            full = f"admission queue full (max_queue={self.max_queue})"
+            if victim is req:
+                self._finish_error(req, "shed", full)
+                return
+            # by identity: ``deque.remove`` compares Requests by value, and
+            # two with one rid would compare their numpy prompts
+            del self.queue[next(k for k, r in enumerate(self.queue) if r is victim)]
+            self._finish_error(victim, "shed", f"{full}; least deadline slack")
+        self.queue.append(req)
 
-    def _finish_error(self, req: Request, kind: str, msg: str):
+    def _shed_choice(self, newcomer: Request, now: float) -> Request:
+        """The queued request with the least deadline slack, unless the
+        newcomer has no more (an unbounded request never outranks a
+        bounded one; a tie sheds the newcomer)."""
+
+        def slack(r: Request) -> float:
+            if r.deadline_s is None or r._t_submit is None:
+                return float("inf")
+            return r.deadline_s - (now - r._t_submit)
+
+        victim = min(self.queue, key=slack)
+        return victim if slack(victim) < slack(newcomer) else newcomer
+
+    # ------------------------------------------------------ containment
+    def _finish_error(self, req: Request, kind: str, msg: str, slot: Optional[int] = None):
+        """The end of every guard: free the request's slot if it holds one,
+        stamp the typed error, count it, finish."""
+        if slot is not None:
+            self._free_slot(slot)
         req.error = RequestError(kind, msg)
         req.done = True
+        if kind in self._cr:
+            self._cr[kind] += 1
         self.finished.append(req)
+
+    def _quarantine(self, i: int, exc: BaseException):
+        """Finish slot i's request with ``quarantined`` (its pages and
+        reservations released); the tick goes on for everyone else."""
+        if self.slots[i].req is not None:
+            self._finish_error(self.slots[i].req, "quarantined",
+                               f"{type(exc).__name__}: {exc}", slot=i)
+
+    def _quarantine_row(self, i: int, req: Request, exc: BaseException):
+        """``_quarantine`` at a decode sync: a request whose slot was freed
+        when its row was launched (``_retiring``) has no slot to free."""
+        if self._retiring.pop(id(req), None) is not None:
+            self._finish_error(req, "quarantined", f"{type(exc).__name__}: {exc}")
+        else:
+            self._quarantine(i, exc)
+
+    def _lifecycle_violation(self, req: Request, now: float) -> Optional[tuple]:
+        """(kind, message) when the request must be torn down, else None."""
+        if req.cancelled:
+            return "cancelled", f"cancelled by caller after {len(req.out)} tokens"
+        if req.deadline_s is not None and req._t_submit is not None \
+                and now - req._t_submit > req.deadline_s:
+            return "expired", (f"deadline_s={req.deadline_s} exceeded "
+                               f"({now - req._t_submit:.3f}s since submit)")
+        if req.max_output_stall_ticks is not None \
+                and self._tick - req._progress_tick > req.max_output_stall_ticks:
+            return "expired", (f"no token for {self._tick - req._progress_tick} ticks "
+                               f"> max_output_stall_ticks={req.max_output_stall_ticks}")
+        return None
+
+    def _enforce_lifecycle(self):
+        """The tick-boundary sweep of the queue and the slots: cancelled,
+        over-deadline and stalled requests are torn down wherever they are.
+        A slot with a launch in flight (depth 2) is drained first and judged
+        again, so it is judged on the tokens depth 1 would have booked."""
+        now = time.perf_counter()
+        if self.queue:
+            kept: deque[Request] = deque()
+            for req in self.queue:
+                why = self._lifecycle_violation(req, now)
+                if why is None:
+                    kept.append(req)
+                else:
+                    self._finish_error(req, *why)
+            self.queue = kept
+        due = [i for i, s in enumerate(self.slots)
+               if s.req is not None and self._lifecycle_violation(s.req, now) is not None]
+        if any(self._chained[i] for i in due) and self._inflight:
+            self.drain()
+        for i in due:
+            req = self.slots[i].req
+            why = None if req is None else self._lifecycle_violation(req, now)
+            if why is not None:
+                self._finish_error(req, *why, slot=i)
+
+    def _update_pressure(self):
+        """Degraded-mode hysteresis: ``degrade_after`` consecutive ticks at
+        or below the admission watermark enter it, ``recover_after``
+        relieved ticks leave it.  While degraded, parked prefix pages are
+        evicted down to ``degraded_prefix_target`` (and ``submit`` refuses
+        forks)."""
+        if self.degrade_after is None:
+            return
+        if self._available_pages() <= self.watermark:
+            self._pressure_ticks += 1
+            self._relief_ticks = 0
+        else:
+            self._relief_ticks += 1
+            self._pressure_ticks = 0
+        if not self.degraded and self._pressure_ticks >= self.degrade_after:
+            self.degraded = True
+        elif self.degraded and self._relief_ticks >= self.recover_after:
+            self.degraded = False
+        if self.degraded:
+            self._cr["degraded_ticks"] += 1
+            while self.prefix.reclaimable_count() > self.degraded_prefix_target:
+                if self._evict_parked_page() is None:
+                    break
+
+    def audit(self, strict: Optional[bool] = None) -> AuditReport:
+        """The ``serving/audit.py`` sweep now; ``strict`` (the engine's by
+        default) raises ``AuditError`` on a dirty report."""
+        report = audit_engine(self)
+        self._last_audit = report
+        if not report.ok:
+            self._cr["audit_failures"] += 1
+        if self.strict if strict is None else strict:
+            report.raise_if_dirty()
+        return report
+
+    def health(self) -> dict:
+        """One JSON-able liveness and pressure summary, in the reference's
+        shape (the swap counters are 0: no host tier)."""
+        return {
+            "status": "degraded" if self.degraded else "ok",
+            "degraded": self.degraded,
+            "tick": self._tick,
+            "pipeline_depth": self.pipeline_depth,
+            "pipeline_inflight": len(self._inflight),
+            "queue_depth": len(self.queue),
+            "active_slots": len(self._active()),
+            "watermark_headroom": self._available_pages() - self.watermark,
+            "pressure_ticks": self._pressure_ticks,
+            "relief_ticks": self._relief_ticks,
+            "counters": dict(self._cr),
+            "host_tier": None,
+            "swap": {k: 0 for k in SWAP_STAT_KEYS},
+            "last_audit": None if self._last_audit is None else self._last_audit.to_dict(),
+            "faults_injected": None if self.faults is None else self.faults.counts(),
+        }
 
     def _too_long_msg(self, plen: int) -> str:
         return (f"prompt of {plen} tokens does not fit the slab prefill (max_len="
@@ -323,17 +557,25 @@ class PagedEngine:
     # ------------------------------------------------------------ pages
     def _alloc_page(self) -> Optional[int]:
         """A free page, evicting parked prefix pages LRU-first; None when
-        neither is left."""
+        neither is left (or the ``alloc`` seam fires)."""
+        if self.faults is not None and self.faults.alloc_fails(self._tick):
+            return None
         pid = self.pool_mgr.alloc()
         while pid is None:
-            popped = self.prefix.pop_lru()
-            if popped is None:
+            if self._evict_parked_page() is None:
                 return None
-            self.stats["prefix_evictions"] += 1
-            self.pool_mgr.release(popped[1])
             pid = self.pool_mgr.alloc()
         self.stats["peak_pages"] = max(self.stats["peak_pages"], self.pool_mgr.used())
         return pid
+
+    def _evict_parked_page(self) -> Optional[int]:
+        """Evict the least recently parked prefix page to the free list."""
+        popped = self.prefix.pop_lru()
+        if popped is None:
+            return None
+        self.stats["prefix_evictions"] += 1
+        self.pool_mgr.release(popped[1])
+        return popped[1]
 
     def _drop_page(self, pid: int):
         """One owner lets go of ``pid``: a registered page is parked when
@@ -398,6 +640,9 @@ class PagedEngine:
             if pid is None:
                 break
             hits.append(pid)
+        if hits and self.faults is not None and self.faults.drop_prefix_claim(
+                self._tick, key=int(req.rid)):
+            hits = []  # a racing eviction: the whole prompt recomputes
         return hashes, hits
 
     def _claim_hits(self, hashes, hits, n_cacheable: int, table: np.ndarray) -> int:
@@ -444,6 +689,8 @@ class PagedEngine:
                 table[i] = scatter_ids[i] = pid
             # the whole prompt over a max_len slab, then only the pages
             # that missed go into the pool; shared pages are never written
+            if self.faults is not None:
+                self.faults.delay_launch(self._tick, key=0)
             t0 = time.perf_counter()
             tokens = torch.from_numpy(prompt.astype(np.int32))[None].to(self.device)
             logits, cache1 = self.api.prefill_fn(self.params, {"tokens": tokens}, self.max_len)
@@ -464,7 +711,12 @@ class PagedEngine:
         self.tables[slot_idx] = table
         self.slots[slot_idx] = _PagedSlot(req=req, pos=plen, admit_seq=self._admit_counter)
         self._admit_counter += 1
-        self._start_decode(slot_idx, logits[0, -1], *(t[0].item() for t in stats), launch)
+        try:
+            self._start_decode(slot_idx, logits[0, -1], *(t[0].item() for t in stats), launch)
+        except Exception as exc:  # admitted: the slot is torn down, not rolled back
+            if self.strict:
+                raise
+            self._quarantine(slot_idx, exc)
         return True
 
     def _try_admit_chunked(self, req: Request, prompt, plen: int, slot_idx: int) -> bool:
@@ -501,14 +753,30 @@ class PagedEngine:
 
     def _admit(self) -> int:
         """Admit from the head of the queue while a slot (n sibling slots
-        for a forking request) and the pages are there."""
+        for a forking request) and the pages are there.  An admission that
+        raises (its pages already rolled back) is retried from the head
+        three times, then the request is quarantined."""
         admitted = 0
         while self.queue:
             free = [i for i, s in enumerate(self.slots) if s.req is None and s.reserved_by is None]
             req = self.queue[0]
             if not free or req.n_samples > len(free):
                 break
-            if not self._try_admit(req, free[0]):
+            try:
+                ok = self._try_admit(req, free[0])
+            except Exception as exc:
+                if self.strict:
+                    raise
+                self.queue.popleft()
+                req._admit_retries += 1
+                if req._admit_retries <= 3:
+                    self.queue.appendleft(req)
+                else:
+                    self._finish_error(req, "quarantined",
+                                       f"admission failed after {req._admit_retries - 1} "
+                                       f"retries: {type(exc).__name__}: {exc}")
+                break
+            if not ok:
                 break  # head-of-line waits for pages
             self.queue.popleft()
             admitted += 1
@@ -533,11 +801,15 @@ class PagedEngine:
         forks here into n sibling slots that share every prompt page by
         refcount; the submitted Request becomes sibling 0 with its
         ``n_samples`` demoted to 1, so a later preemption never re-forks
-        it."""
+        it.  Non-finite logits raise (the caller quarantines slot i); a
+        sampler fault quarantines only its sibling."""
         slot = self.slots[i]
         parent = slot.req
-        if not finite:
-            raise NonFiniteLogitsError(f"non-finite logits at prefill end (rid={parent.rid})")
+        if self.nan_guard:
+            if self.faults is not None and self.faults.poison_logits(self._tick, i):
+                finite = False
+            if not finite:
+                raise NonFiniteLogitsError(f"non-finite logits at prefill end (rid={parent.rid})")
         children = [(i, parent)]
         n = parent.n_samples
         if n > 1:
@@ -561,12 +833,22 @@ class PagedEngine:
             self.stats["forks"] += 1
             self.stats["shared_pages"] += len(shared) * (n - 1)
         # first tokens only once every sibling holds its references: a
-        # sibling that retires here must not free pages the others share
+        # sibling that retires (or is quarantined) here must not free pages
+        # the others share
         for j, child in children:
-            tok, m = pick_token(row, greedy_tok, margin, child, self.slots[j].pos)
+            try:
+                if self.faults is not None:
+                    self.faults.sampler_raises(self._tick, j)
+                tok, m = pick_token(row, greedy_tok, margin, child, self.slots[j].pos)
+            except Exception as exc:
+                if self.strict:
+                    raise
+                self._quarantine(j, exc)
+                continue
             self._emit(child, tok, m, launch)
             self._next_tok[j] = tok
             self._chained[j] = False  # a host-known token: the prefill just set it
+            child._progress_tick = self._tick
             self._finish_if_budget_spent(j)
 
     # ------------------------------------------------------- preemption
@@ -590,6 +872,12 @@ class PagedEngine:
             max_new=req.max_new, out=req.out, margins=req.margins, launch_ids=req.launch_ids,
             sampling=req.sampling, n_samples=req.n_samples, sample_idx=req.sample_idx,
             _orig_plen=orig_plen,
+            # the lifecycle guard survives preemption: the original submit
+            # anchors the deadline, a cancel still lands, the stall clock
+            # and the admission retries go on
+            deadline_s=req.deadline_s, max_output_stall_ticks=req.max_output_stall_ticks,
+            cancelled=req.cancelled, _t_submit=req._t_submit,
+            _progress_tick=req._progress_tick, _admit_retries=req._admit_retries,
         )
         req._resumed_as = resumed
         self._free_slot(victim)
@@ -601,13 +889,17 @@ class PagedEngine:
         """``_alloc_page``, preempting (youngest ≠ i first) while dry.
         None iff slot i itself was preempted or nothing is left.  In-flight
         launches are drained first: a preemption folds ``req.out`` into the
-        requeued prompt, which must hold every launched token."""
+        requeued prompt, which must hold every launched token.  The pool is
+        asked again after the drain only if the drain freed pages, so the
+        ``alloc`` seam sees depth 1's sequence of queries."""
         pid = self._alloc_page()
         if pid is None and self._inflight:
+            before = self._available_pages()
             self.drain()
             if self.slots[i].req is None:
                 return None  # the drain retired slot i itself
-            pid = self._alloc_page()
+            if self._available_pages() > before:
+                pid = self._alloc_page()
         while pid is None:
             if self._preempt_one(exclude=i) is None or self.slots[i].req is None:
                 return None
@@ -682,6 +974,8 @@ class PagedEngine:
             packed[r, c_bucket + 1 : c_bucket + 1 + len(ids)] = ids
             packed[r, c_bucket + 1 + n_cp] = c
             packed[r, c_bucket + 2 + n_cp :] = self.tables[i]
+        if self.faults is not None:
+            self.faults.delay_launch(self._tick, key=2)
         t0 = time.perf_counter()
         dev = torch.from_numpy(packed).to(self.device)
         logits, _ = self.api.prefill_from_pages_fn(  # the pool is written in place
@@ -708,8 +1002,13 @@ class PagedEngine:
                     self.prefix.register(slot.hashes[p], int(self.tables[i][p]))
             if i in done:
                 slot.mode, slot.pending, slot.hashes = "decode", None, None
-                self._start_decode(i, logits[r, -1], int(nxt[r]), bool(fin[r]),
-                                   float(margin[r]), launch)
+                try:
+                    self._start_decode(i, logits[r, -1], int(nxt[r]), bool(fin[r]),
+                                       float(margin[r]), launch)
+                except Exception as exc:
+                    if self.strict:
+                        raise
+                    self._quarantine(i, exc)
         return len(batch)
 
     # ------------------------------------------------------------- ticks
@@ -788,7 +1087,7 @@ class PagedEngine:
         ``non_blocking`` copy into pinned memory and an event on the card
         (a graph's outputs are overwritten by its next replay)."""
         if self.device.type != "cuda":
-            return _InFlight(launch, rows, nxt, fin, margin)
+            return _InFlight(launch, self._tick, rows, nxt, fin, margin)
         host = []
         for t in (nxt, fin, margin):
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -796,7 +1095,21 @@ class PagedEngine:
             host.append(h)
         ready = torch.cuda.Event()
         ready.record()
-        return _InFlight(launch, rows, *host, ready=ready)
+        return _InFlight(launch, self._tick, rows, *host, ready=ready)
+
+    def _roll_row_fault(self, rec: _InFlight, i: int, req: Request, finite: bool):
+        """Consult the ``logits`` and ``sampler`` seams for slot i's row of
+        ``rec`` at the launch's tick, in the reference's order (the logits
+        seam first; the sampler only for a row still finite), and record
+        the fault the row's sync will raise."""
+        if self.nan_guard and self.faults.poison_logits(rec.tick, i):
+            rec.faults[i] = NonFiniteLogitsError(
+                f"non-finite decode logits (rid={req.rid}, slot={i})")
+        elif finite or not self.nan_guard:
+            try:
+                self.faults.sampler_raises(rec.tick, i)
+            except Exception as exc:
+                rec.faults[i] = exc
 
     def _launch_decode(self, active: list) -> float:
         """Enqueue ONE fused decode launch over all n_slots rows and push its
@@ -818,6 +1131,8 @@ class PagedEngine:
             pk[i, 2] = self.slots[i].pos
             pk[i, 3:] = self.tables[i]
         sampled = [(i, self.slots[i].req) for i in active if not self.slots[i].req.sampling.greedy]
+        if self.faults is not None:
+            self.faults.delay_launch(self._tick, key=1)
         t0 = time.perf_counter()
         logits, nxt, fin, margin = self._run_decode(self._stage(pk))
         if sampled:  # keyed at launch time, on the same stream
@@ -828,7 +1143,11 @@ class PagedEngine:
             slot.pos += 1  # the position advances at launch; tokens book at sync
             rows.append((i, slot.req, slot.pos))
             self._chained[i] = True
-        self._inflight.append(self._keep(self._next_launch(), rows, nxt, fin, margin))
+        rec = self._keep(self._next_launch(), rows, nxt, fin, margin)
+        if self.faults is not None and self.pipeline_depth > 1:
+            for i, req, _ in rows:  # rolled now: _retire_early frees a doomed row's slot
+                self._roll_row_fault(rec, i, req, True)
+        self._inflight.append(rec)
         self._chain_tok.copy_(nxt)
         self.stats["decode_ticks"] += 1
         if self.pipeline_depth > 1:
@@ -837,8 +1156,10 @@ class PagedEngine:
 
     def _sync_one(self, merge_from: Optional[float] = None):
         """Sync the OLDEST in-flight launch and book its tokens: append,
-        retire at a stop, or skip a speculative row.  ``merge_from``
-        (depth 1) times the launch and its sync as one span."""
+        retire at a stop, skip a speculative row, or quarantine a row whose
+        logits are non-finite or whose sampler raised (only that request;
+        the sync goes on for the others).  ``merge_from`` (depth 1) times
+        the launch and its sync as one span."""
         rec = self._inflight.popleft()
         t0 = time.perf_counter()
         if rec.ready is not None:
@@ -853,10 +1174,22 @@ class PagedEngine:
             final = self._retiring.get(id(req))
             if req.done or (final is None and self.slots[i].req is not req):
                 continue  # speculative: the slot retired or changed hands since
-            if not fin[i]:
-                raise NonFiniteLogitsError(f"non-finite decode logits (rid={req.rid}, slot={i})")
+            try:
+                if self.faults is not None and self.pipeline_depth == 1:
+                    self._roll_row_fault(rec, i, req, bool(fin[i]))
+                if self.nan_guard and not fin[i]:
+                    raise NonFiniteLogitsError(
+                        f"non-finite decode logits (rid={req.rid}, slot={i})")
+                if i in rec.faults:
+                    raise rec.faults[i]
+            except Exception as exc:
+                if self.strict:
+                    raise
+                self._quarantine_row(i, req, exc)
+                continue
             tok = int(nxt[i])
             self._emit(req, tok, float(margin[i]), rec.launch)
+            req._progress_tick = rec.tick  # the launch's tick, as depth 1 books it
             stop = sequence_finished(tok, len(req.out), req.max_new, pos, cap, self.eos)
             if final is not None:  # its slot was freed in the step that launched the row
                 if stop or final == rec.launch:
@@ -897,7 +1230,8 @@ class PagedEngine:
         — and finish its request when that row is synced."""
         rec = self._inflight[-1]
         for i, req, _ in rec.rows:
-            if self.slots[i].req is req and self._retire_pending(i):
+            doomed = i in rec.faults and not self.strict
+            if self.slots[i].req is req and (doomed or self._retire_pending(i)):
                 self._retiring[id(req)] = rec.launch
                 self._free_slot(i)
 
@@ -905,7 +1239,13 @@ class PagedEngine:
         """Admit, ONE chunk launch for every prefilling slot, ONE decode
         launch for every decoding slot.  Depth 1 syncs its launch before
         returning; depth 2 launches tick t, then syncs tick t−1.  A step
-        with no decode launch drains.  Returns the slots served."""
+        with no decode launch drains.  Before the serving work: the
+        lifecycle guard and the degraded mode's bookkeeping; after it, the
+        periodic audit.  Returns the slots served (chunks and decode
+        rows)."""
+        self._tick += 1
+        self._enforce_lifecycle()
+        self._update_pressure()
         self._admit()
         served = self._prefill_tick_all()
         decoding = [i for i, s in enumerate(self.slots) if s.req is not None and s.mode == "decode"]
@@ -920,21 +1260,37 @@ class PagedEngine:
                 self._retire_early()
         else:
             self.drain()
+        if self.audit_every and self._tick % self.audit_every == 0:
+            self.audit()
         return served + len(active)
 
     def run_to_completion(self, max_ticks: int = 10_000):
         """Tick until the queue and the slots drain, then drain the
-        in-flight launches.  A head-of-line request the pool can never admit
-        raises PagePoolExhaustedError."""
-        ticks = 0
+        in-flight launches.  A head-of-line request the pool can never
+        admit (a tick that served nothing, with nothing active) is shed
+        once it stays so for two ticks without an injected fault, and the
+        rest is served; ``shed_stuck=False`` raises
+        PagePoolExhaustedError at the first such tick."""
+        ticks = stuck = 0
+        n_faults = len(self.faults.log) if self.faults is not None else 0
         while (self.queue or self._active()) and ticks < max_ticks:
-            launches = self._launches
-            self.step()
+            served = self.step()
             ticks += 1
-            if self._launches == launches and self.queue and not self._active():
-                raise PagePoolExhaustedError(
-                    f"pool too small to admit a {len(self.queue[0].prompt)}-token prompt "
-                    f"(free={self._available_pages()}, watermark={self.watermark})"
-                )
+            if self.faults is not None and len(self.faults.log) > n_faults:
+                n_faults, stuck = len(self.faults.log), 0  # chaos, not a stuck request
+                continue
+            if served == 0 and self.queue and not self._active():
+                head = self.queue[0]
+                msg = (f"pool too small to admit a {len(head.prompt)}-token prompt "
+                       f"(free={self._available_pages()}, watermark={self.watermark})")
+                if not self.shed_stuck:
+                    raise PagePoolExhaustedError(msg)
+                stuck += 1
+                if stuck >= 2:
+                    self.queue.popleft()
+                    self._finish_error(head, "shed", msg)
+                    stuck = 0
+            else:
+                stuck = 0
         self.drain()
         return self.finished, ticks

@@ -44,9 +44,19 @@ GREEDY = SamplingParams()
 
 class RequestError(str):
     """Typed terminal error of a Request: a ``str`` (the message) with a
-    ``kind`` — ``"invalid"`` (rejected at submit, e.g. ``n_samples``
-    outside [1, n_slots]) or ``"too_long"`` (the slab prefill cannot hold
-    the prompt)."""
+    ``kind``:
+
+    * ``"invalid"``     — rejected at submit (``n_samples`` outside
+                          [1, n_slots]);
+    * ``"too_long"``    — the slab prefill cannot hold the prompt;
+    * ``"cancelled"``   — ``Request.cancel()`` honoured by the engine;
+    * ``"expired"``     — ``deadline_s`` exceeded, or no token for more
+                          than ``max_output_stall_ticks`` ticks;
+    * ``"shed"``        — dropped by load shedding (a full admission
+                          queue, a head-of-line request the pool can never
+                          admit, or a fork refused in degraded mode);
+    * ``"quarantined"`` — a fault (non-finite logits, a raising sampler, a
+                          failing admission) contained to this request."""
 
     __slots__ = ("kind",)
 
@@ -74,7 +84,17 @@ class Request:
     prefill into that many siblings sharing every prompt page; each is
     finished as its own Request with this ``rid`` and its own
     ``sample_idx``, the submitted object being sibling 0.  ``error`` marks
-    a request the engine finished without serving it."""
+    a request the engine finished without serving it.
+
+    **Lifecycle guard.**  ``deadline_s`` bounds the time from the ORIGINAL
+    submit to the finish on the monotonic ``time.perf_counter`` clock; the
+    anchor is stamped once at ``submit()`` and carried through every
+    preemption, so a resumed request spends the same budget.
+    ``max_output_stall_ticks`` bounds the engine ticks without a token
+    from this request.  ``cancel()`` asks for a teardown at the next tick
+    boundary.  A request over either bound, or cancelled, is torn down
+    wherever it is (queued, prefilling, decoding) and finished with a
+    typed error."""
 
     rid: int
     prompt: np.ndarray  # (S,) int
@@ -87,6 +107,9 @@ class Request:
     n_samples: int = 1
     sample_idx: int = 0
     error: Optional[RequestError] = None
+    deadline_s: Optional[float] = None  # None: unbounded
+    max_output_stall_ticks: Optional[int] = None
+    cancelled: bool = False
     # engine-private: (page_size, chunk_hashes(prompt)) — a request held at
     # the admission watermark is re-planned every tick without re-hashing
     _hash_cache: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
@@ -94,8 +117,25 @@ class Request:
     # output into the prompt, and a second one must append only what was
     # generated since (None: nothing folded yet)
     _orig_plen: Optional[int] = dataclasses.field(default=None, repr=False, compare=False)
-    # the Request a preemption requeued this one as
+    # the Request a preemption requeued this one as (``cancel`` follows it)
     _resumed_as: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
+    # engine-private lifecycle anchors: the submit time on the monotonic
+    # clock (kept through preemption) and the tick of the last token
+    _t_submit: Optional[float] = dataclasses.field(default=None, repr=False, compare=False)
+    _progress_tick: int = dataclasses.field(default=0, repr=False, compare=False)
+    # failed admissions so far (a transient failure is retried three times)
+    _admit_retries: int = dataclasses.field(default=0, repr=False, compare=False)
+
+    def cancel(self) -> None:
+        """Ask the engine to tear this request down at the next tick
+        boundary (every page reference and fork reservation released,
+        ``error.kind == "cancelled"``).  Follows the preemption chain, so
+        the handle the caller submitted keeps working after a requeue.  A
+        request cancelled before ``submit()`` is rejected there."""
+        r = self
+        while r is not None:
+            r.cancelled = True
+            r = r._resumed_as
 
 
 def sequence_finished(tok: int, n_out: int, max_new: int, pos: int, max_len: int,

@@ -34,7 +34,9 @@ outputs are the tick's; then the graph is captured from the same inputs
 without running.  Each later tick of the bucket is one replay.  Every
 capture draws on one memory pool shared across buckets, so the
 workspaces (B1's encode codes and scales, B2's split partials) do not
-grow with each W.
+grow with each W.  A captured graph is kept (``keep_graph``, instantiated
+at its first replay), so that ``node_count`` can count the nodes a tick
+launches (``cuGraphGetNodes``).
 """
 from __future__ import annotations
 
@@ -72,6 +74,18 @@ class DecodeGraphs:
         self.mem = torch.cuda.graph_pool_handle()
         self.buckets: dict[int, _Bucket] = {}
 
+    def node_count(self, width: int) -> int:
+        """Nodes (kernels and copies) of bucket ``width``'s captured graph
+        (``cuGraphGetNodes`` of libcuda)."""
+        import ctypes
+
+        n = ctypes.c_size_t(0)
+        handle = ctypes.c_void_p(self.buckets[width].graph.raw_cuda_graph())
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(handle, None, ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
+        return n.value
+
     def packed_input(self, width: int) -> torch.Tensor:
         """The static packed row of bucket ``width``, to be filled before
         ``run(width)``."""
@@ -103,7 +117,7 @@ class DecodeGraphs:
         for t in outs:
             t.record_stream(cur)
         before = build.counts()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             with torch.cuda.graph(graph, pool=self.mem):
                 b.outputs = self.fn(b.packed, self.chain_tok)

@@ -105,16 +105,18 @@ def test_greedy_tokens_match_reference_engine(reference, kernels):
     assert eng.stats["prefill_tokens"] == sum(PLENS)
 
 
-def _tiny_engine(n_pages=None, max_len=32):
+def _tiny_engine(n_pages=None, max_len=32, **kw):
     rt = TRuntime(quant_mode="none", compute_dtype=torch.float32, cache_kind="bf16")
     api = tzoo.build(TCFG, rt, device="cpu")
     return PagedEngine(api, api.init(0), n_slots=2, max_len=max_len, page_size=PS,
                        n_pages=n_pages, prefill_chunk=CHUNK, chunked_prefill=True,
-                       device="cpu")
+                       device="cpu", **kw)
 
 
 def test_pool_that_cannot_admit_raises():
-    eng = _tiny_engine(n_pages=3)  # 2 usable pages < prompt pages + watermark
+    # shed_stuck=False: the fail-stop of capacity planning (the default
+    # sheds the request instead, tests/test_torch_faults.py)
+    eng = _tiny_engine(n_pages=3, shed_stuck=False)  # 2 usable pages < prompt pages + watermark
     eng.submit(Request(rid=0, prompt=np.arange(20), max_new=2))
     with pytest.raises(PagePoolExhaustedError):
         eng.run_to_completion()
@@ -124,7 +126,7 @@ def test_pool_dry_mid_decode_raises_instead_of_preempting():
     """A lone sequence that outgrows the pool has no one else to preempt:
     it preempts itself, its recomputed prompt no longer fits above the
     watermark, and the engine raises."""
-    eng = _tiny_engine(n_pages=5)  # admits a 1-page prompt, runs dry decoding
+    eng = _tiny_engine(n_pages=5, shed_stuck=False)  # admits a 1-page prompt, runs dry decoding
     eng.submit(Request(rid=0, prompt=np.arange(3), max_new=40))
     with pytest.raises(PagePoolExhaustedError):
         eng.run_to_completion()

@@ -419,3 +419,30 @@ def test_warmed_engine_captures_nothing_new(cuda):
     assert eng.trace_counts() == before
     assert len(eng.finished) == 2 * len(out)
     assert build.counts() == counts
+
+
+@pytest.mark.cuda
+def test_containment_adds_no_graph_node(cuda):
+    """The decode graph of an engine with containment at its defaults has
+    exactly the nodes of one with every containment option on (a fault
+    injector, an audit every tick, a bounded queue, the degraded mode, the
+    NaN guard off): the guard reads the finite mask the step computes
+    anyway, so containment adds no node."""
+    from repro_torch.serving.faults import FaultInjector
+
+    trt = TRuntime(quant_mode="packed", compute_dtype=torch.float32, cache_kind="bcq4",
+                   paged_kernel=True, fused_linear=True)
+    api = tzoo.build(TCFG, trt, device=cuda)
+    params = api.init(0)
+    nodes = []
+    for extra in ({}, dict(fault_injector=FaultInjector(seed=0), audit_every=1, nan_guard=False,
+                           max_queue=16, degrade_after=4)):
+        eng = PagedEngine(api, params, device=cuda, pipeline_depth=2, cuda_graphs=True,
+                          chunked_prefill=True, prefix_caching=False, **ENGINE, **extra)
+        for spec in _specs():
+            eng.submit(_request(tgen, *spec))
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        assert all(r.error is None for r in eng.finished)
+        nodes.append({w: eng._graphs.node_count(w) for w in eng._graphs.buckets})
+    assert nodes[0] == nodes[1] and nodes[0] and min(nodes[0].values()) > 0, nodes
