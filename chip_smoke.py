@@ -134,7 +134,30 @@ success):
     (kernels a tick, one ``cudaGraphLaunch``, no host kernel launch) and
     its bits; its wall ms/tick is printed beside phase 12's and an earlier run's
     with the card's name and power limit.  Its kernel runs' launches join
-    the ``kernels`` line (``containment``).  Then the ``kernels`` JSON line
+    the ``kernels`` line (``containment``).
+14. telemetry on the card: phase 11's workload at graph depth 2 with the
+    telemetry at its ``"counters"`` level equals phase 12's run (the
+    ``"default"`` level: histograms, timelines, journal) bit for bit —
+    tokens, margins, launch indices, counters, pool bytes, launch counts —
+    with equal ``device_syncs``; that run's TTFT count equals its finished
+    requests and its ITL count the tokens after each request's first; its
+    metrics and Chrome trace (``build/telemetry_*.json``) pass
+    ``tools/check_telemetry.py``.  Phase 4's workload on a counters-level
+    engine beside phase 12's default one: the same decode-graph nodes,
+    bits and ``device_syncs``, 1 ``cudaGraphLaunch`` and no host kernel
+    launch a steady tick, the two walls printed.  The quant-error probes
+    (``--quant-probes``: a ``QuantProbeRecorder`` in the model's Runtime):
+    phase 11's workload eagerly at depth 1 — every probe launch of B3 held
+    to the plain ``encode_stats`` on the same activation (NMSE within
+    1e-6, occupancy equal but on codebook ties, each tie checked) — and
+    at graph depth 2: the two probe reports equal bit for bit, the tokens
+    and pool bytes of phase 12, 48 B3 launches a pass (4 sites × 12
+    layers), the metrics with the probe report accepted by the tool; the
+    probe engine's graph nodes and steady tick on phase 4's workload; B3's
+    probe form (``encode_stats`` at decode, K 768 and 3072) timed.  Its
+    runs' launches join the ``kernels`` line (``telemetry``; B3's probe
+    launches as ``probes``, its probe form as ``probe_form``).  Then the
+    ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
 
@@ -1589,19 +1612,20 @@ def _profile_txt(prof, wall):
             f"launches + {graphs:.0f} cudaGraphLaunch")
 
 
-def production_way(eng4, prompts, graphs, depth, n_time, label="phase 12", **extra):
+def production_way(eng4, prompts, graphs, depth, n_time, label="phase 12", api=None, **extra):
     """Phase 4's workload on a fresh engine in one way (``graphs``,
-    ``depth``; ``extra`` engine arguments): served to completion (what it
-    gives, its pool, launch counts and captures), then served again by the
-    warmed engine, which must capture nothing new, with ``n_time`` steady
-    ticks (8 rows decoding) timed on the host clock and 3 more profiled."""
+    ``depth``; ``extra`` engine arguments; ``api`` instead of phase 4's, on
+    its weights): served to completion (what it gives, its pool, launch
+    counts and captures), then served again by the warmed engine, which
+    must capture nothing new, with ``n_time`` steady ticks (8 rows
+    decoding) timed on the host clock and 3 more profiled."""
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.serving.engine import PagedEngine
     from repro_torch.serving.generate import Request
 
-    eng = PagedEngine(eng4.api, eng4.params, n_slots=len(prompts), max_len=eng4.max_len,
+    eng = PagedEngine(api or eng4.api, eng4.params, n_slots=len(prompts), max_len=eng4.max_len,
                       page_size=16, prefill_chunk=64, chunked_prefill=True,
                       prefix_caching=False, device="cuda", pipeline_depth=depth,
                       cuda_graphs=graphs, **extra)
@@ -1729,7 +1753,8 @@ def phase_production(eng4, tol, core):
     check_shadow(api_k, api_p, params, core_requests(cfg), fin_k, tol, "chunked, graph depth 2",
                  ("sampled", "resumed", "fork", "cow"), cuda_graphs=True, pipeline_depth=2)
     g2 = ways[2][1]["counts"]
-    return {n: g2.get(n, 0) + counts_g.get(n, 0) for n in COUNTED}, ways[2][1]
+    return ({n: g2.get(n, 0) + counts_g.get(n, 0) for n in COUNTED}, ways[2][1],
+            (core_ways[1][1], eng_g))
 
 
 # ------------------------------------------------------------------ phase 13
@@ -1946,6 +1971,311 @@ def phase_containment(eng4, tol, core, g2, smi):
         for n in COUNTED:
             total[n] = total.get(n, 0) + c.get(n, 0)
     return total
+
+
+# ------------------------------------------------------------------ phase 14
+PROBE_SITES = ("attn_qkv", "attn_out", "mlp_in", "mlp_out")  # B3 launches a layer and pass
+PROBE_NMSE_RTOL = 1e-6  # probe NMSE, kernel encode vs plain encode of one x (f32 sums)
+TIE_RTOL = 2e-6  # a block's two codebook errors this close are a tie (f32 sum of 8 squares)
+# phase 12's default decode graph in an earlier run of this script (PERF.md
+# §5; NVIDIA H100 80GB HBM3 at 700 W): graph nodes, wall ms of a
+# steady greedy graph depth 2 tick
+EARLIER_DEFAULT_TICK = (1490, 3.50)
+
+
+def probe_model(api):
+    """``api``'s model with a quant-error probe (the weights stay the
+    caller's): (api, recorder)."""
+    import dataclasses
+
+    from repro_torch.models import zoo
+    from repro_torch.serving.telemetry import QuantProbeRecorder
+
+    rec = QuantProbeRecorder(None)
+    return zoo.build(api.cfg, dataclasses.replace(api.rt, quant_probe=rec), device=api.device), rec
+
+
+def attach_sink(rec, cfg):
+    """A fresh ``QuantProbeSink`` behind ``rec``, as ``--quant-probes`` makes
+    it, and the log of every emission it gets: (sink, log)."""
+    from repro_torch.serving.telemetry import QuantProbeSink
+
+    sink, log = QuantProbeSink(n_layers=cfg.n_layers), []
+
+    def feed(site, nmse, occ):
+        log.append((site, nmse, occ.tolist()))
+        sink(site, nmse, occ)
+
+    rec.sink = feed
+    return sink, log
+
+
+def probe_ties(x, cb, cfg):
+    """The blocks of x where the quantize kernel and ``bcq.encode`` select
+    other codebooks, each checked to be a tie (its two block errors, in
+    f64 from the normalized values, within TIE_RTOL).  Returns their
+    number."""
+    from repro_torch.core import bcq
+    from repro_torch.kernels.bcq_quantize import bcq_quantize
+
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    s_x = bcq.tensor_scale(x2, cfg)
+    xp, _ = bcq.pad_to_multiple(x2, cfg.array_len)
+    ksel = bcq.unpack_nibbles(bcq_quantize(xp.contiguous(), cb, s_x, cfg)[1])
+    psel = bcq.unpack_nibbles(bcq.encode(x2, cb, cfg, s_x).packed_sel)
+    arrays = xp.reshape(xp.shape[0], -1, cfg.array_len)
+    _, scale = bcq._array_scales(arrays, cfg, s_x)
+    y = (arrays * scale[..., None]).reshape(xp.shape[0], -1, cfg.block_len)
+    diff = (ksel[:, : y.shape[1]] != psel[:, : y.shape[1]]).nonzero().tolist()
+    for r, b in diff:
+        errs = []
+        for c in (int(ksel[r, b]), int(psel[r, b])):
+            q = cb[c][bcq.nearest_level_idx(y[r, b].contiguous(), cb[c].contiguous())]
+            errs.append(float(((y[r, b].double() - q.double()) ** 2).sum()))
+        if abs(errs[0] - errs[1]) > TIE_RTOL * max(errs):
+            fail(f"phase 14: the probe's kernel and plain encodes select codebooks "
+                 f"{int(ksel[r, b])} and {int(psel[r, b])} for block ({r}, {b}), no tie: {errs}")
+    return len(diff)
+
+
+def hold_probe_launches(rec):
+    """From here on every probe launch of B3 (one a site: ``rec.record``) is
+    held to the plain ``encode_stats`` on the same x: NMSE within
+    PROBE_NMSE_RTOL, occupancy equal except on codebook ties
+    (``probe_ties``).  Returns the running tally; ``del rec.record`` ends
+    it.  It reads each launch back at once: for an eager check run."""
+    from repro_torch.core import bcq
+
+    tally = {"launches": 0, "tie_blocks": 0, "worst_nmse_rel": 0.0}
+    real = rec.record
+
+    def record(site, x, codebooks, cfg):
+        k = rec._k
+        real(site, x, codebooks, cfg)
+        pn, po = bcq.encode_stats_plain(x, codebooks, cfg)
+        kn, pn = float(rec.nmse[k]), float(pn)
+        rel = abs(kn - pn) / max(pn, 1e-30)
+        tally["launches"] += 1
+        tally["worst_nmse_rel"] = max(tally["worst_nmse_rel"], rel)
+        if rel > PROBE_NMSE_RTOL:
+            fail(f"phase 14: probe launch {tally['launches']} ({site}): kernel NMSE {kn!r}, "
+                 f"plain {pn!r}")
+        if rec.occupancy[k].tolist() != po.tolist():
+            n = probe_ties(x, codebooks, cfg)
+            if n == 0:
+                fail(f"phase 14: probe launch {tally['launches']} ({site}): occupancy "
+                     f"{rec.occupancy[k].tolist()} vs plain {po.tolist()} with equal selectors")
+            tally["tie_blocks"] += n
+
+    rec.record = record
+    return tally
+
+
+def check_telemetry_files(*paths):
+    """``tools/check_telemetry.py`` on a metrics dump (and a trace)."""
+    check = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "check_telemetry.py"),
+                            *paths], capture_output=True, text=True, timeout=120)
+    print(f"phase 14 tools/check_telemetry.py (exit {check.returncode}): "
+          f"{(check.stdout + check.stderr).strip()}", flush=True)
+    if check.returncode != 0:
+        fail(f"phase 14: tools/check_telemetry.py rejects {paths}")
+
+
+def time_probe(cb):
+    """B3's probe form: ``bcq.encode_stats`` at decode (8 rows: the slots)
+    for K 768 (attn_qkv, attn_out, mlp_in) and 3072 (mlp_out) — event-loop
+    ms of the whole probe, B3's device time in it (the mean of the profiler
+    events it got) and the probe's device ms, the plain ``encode_stats`` and
+    the bound of B3's encode at that shape."""
+    from repro_torch.core import bcq
+
+    cfg = bcq.BCQConfig()
+    out = {}
+    for m, k, seed in ((8, 768, 71), (8, 3072, 72)):
+        x = activation(m, k, seed)
+        ms = cuda_ms(lambda: bcq.encode_stats(x, cb, cfg))
+        plain_ms = cuda_ms(lambda: bcq.encode_stats_plain(x, cb, cfg), iters=10)
+        nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
+        bound, by = _bound(nbytes, (ENCODE_OPS * m * k, F32_FLOPS))
+        iters = 20
+        for _ in range(3):
+            got = _device_kernels(lambda: bcq.encode_stats(x, cb, cfg), iters)
+            if got is None:
+                continue
+            n_kern, probe_dev, by_name, seen = got
+            enc = [nm for nm in by_name if "encode_kernel" in nm]
+            if len(enc) == 1 and seen[enc[0]] >= iters / 2:
+                dev = by_name[enc[0]] * iters / seen[enc[0]]
+                if dev >= bound:
+                    break
+        else:
+            fail(f"phase 14: torch.profiler lost B3's probe launches at M={m} K={k}")
+        out[k] = {"shape": f"M {m} K {k} (decode probe)", "ms": ms, "device_ms": dev,
+                  "probe_device_ms": probe_dev, "probe_kernels": n_kern, "plain_ms": plain_ms,
+                  "bound_ms": bound, "bound_by": by, "library_ms": None}
+        print(f"B3 probe form (encode_stats) at M={m} K={k}: {ms:.4f} ms a probe (event loop), "
+              f"B3's encode {dev:.4f} ms device, the probe's {n_kern:.0f} kernels {probe_dev:.4f} ms "
+              f"device (torch.profiler), plain encode_stats {plain_ms:.4f} ms, B3 bound "
+              f"{bound:.5f} ms by {by}", flush=True)
+    return {**out[768], "at_k3072": out[3072]}
+
+
+def phase_telemetry(eng4, cb, g2, core_g2, smi):
+    """Phase 14: telemetry on the card.  Phase 11's workload at graph depth
+    2 at the "counters" level, held bit for bit to phase 12's run (which
+    has the default level: histograms, timelines, journal): equal
+    device_syncs; that run's TTFT and ITL counts, and its metrics and
+    trace accepted by ``tools/check_telemetry.py``.  Phase 4's workload on
+    a counters-level engine beside phase 12's default one: the same graph
+    nodes, bits and device_syncs, 1 ``cudaGraphLaunch`` and 0 host kernel
+    launches a steady tick.  Quant-error probes (``--quant-probes``): phase
+    11's workload eagerly at depth 1, every probe launch of B3 held to the
+    plain ``encode_stats``, and at graph depth 2 — equal probe reports bit
+    for bit, the tokens of phase 12, 48 B3 launches a pass; the probe
+    engine's graph and steady tick on phase 4's workload; B3's probe form
+    timed.  Returns (launch counts of the phase's runs, B3's probe-form
+    entry)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.serving.telemetry import Telemetry
+
+    cfg = get_arch("gpt3_126m")
+    api_k, params = eng4.api, eng4.params
+    way12, eng12 = core_g2
+    total = {}
+
+    def add(counts):
+        for n in COUNTED + ("bcq_quantize",):
+            total[n] = total.get(n, 0) + counts.get(n, 0)
+
+    def syncs(eng):
+        return eng.telemetry.registry.counter("device_syncs").value
+
+    # the counters level against phase 12's default level, phase 11's workload
+    fin_c, eng_c, _, counts_c = drive_core(api_k, params, core_requests(cfg), cuda_graphs=True,
+                                           pipeline_depth=2, telemetry=Telemetry("counters"))
+    way_c = {"out": _outcome(eng_c, fin_c), "counts": counts_c, "pool": eng_c.final_pool}
+    _hold_ways([("phase 12 graph depth 2 (default level)", way12), ("counters level", way_c)],
+               "phase 11's workload", "phase 14")
+    if syncs(eng12) != syncs(eng_c) or not syncs(eng12):
+        fail(f"phase 14: device_syncs {syncs(eng12)} at the default level, {syncs(eng_c)} at "
+             "the counters level")
+    if len(eng_c.telemetry.timelines) or len(eng_c.telemetry.journal):
+        fail("phase 14: the counters level recorded timelines or journal events")
+    tel = eng12.telemetry
+    n_fin, n_tok = len(eng12.finished), sum(len(r.out) for r in eng12.finished)
+    if tel.h_ttft.count != n_fin or tel.h_itl.count != n_tok - n_fin:
+        fail(f"phase 14: TTFT count {tel.h_ttft.count} for {n_fin} finished requests, ITL count "
+             f"{tel.h_itl.count} for {n_tok - n_fin} tokens after each request's first")
+    metrics = os.path.join(ROOT, "build", "telemetry_metrics.json")
+    trace = os.path.join(ROOT, "build", "telemetry_trace.json")
+    tel.dump_metrics(metrics, engine=eng12)
+    tel.dump_trace(trace)
+    check_telemetry_files(metrics, trace)
+    hs = tel.registry.snapshot()["histograms"]
+    ms = lambda h: f"mean {hs[h]['mean'] * 1e3:.3f} ms (n={hs[h]['count']})"  # noqa: E731
+    print(f"phase 14 phase 11's workload, graph depth 2: the counters level ≡ phase 12's default "
+          f"level bit for bit (tokens, margins, launch indices, counters, pool bytes, launch "
+          f"counts); device_syncs {syncs(eng12)} at both levels; default level: TTFT "
+          f"{ms('ttft_s')}, ITL {ms('itl_s')}, queue {ms('queue_time_s')}, prefill launch "
+          f"{ms('prefill_launch_s')}, decode tick {ms('decode_tick_s')}, decode sync "
+          f"{ms('decode_sync_s')}, decode host gap {ms('decode_host_gap_s')}; journal "
+          f"{len(tel.journal)} events ({tel.journal.dropped} dropped): "
+          f"{tel.journal.counts()}", flush=True)
+    add(counts_c)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    wc = production_way(eng4, prompts, True, 2, 10, label="phase 14 counters level",
+                        telemetry=Telemetry("counters"))
+    _hold_ways([("phase 12 graph depth 2 (default level)", g2), ("counters level", wc)],
+               "phase 4's workload", "phase 14")
+    for name, w in (("default", g2), ("counters", wc)):
+        if w["prof"] is None or w["prof"][2] != 0 or w["prof"][3] != 1:
+            fail(f"phase 14: the {name} level's steady greedy tick: {w['prof']}")
+    if wc["nodes"] != g2["nodes"] or not wc["nodes"] or syncs(wc["engine"]) != syncs(g2["engine"]):
+        fail(f"phase 14: the counters level's decode graph ({wc['nodes']} nodes, "
+             f"{syncs(wc['engine'])} syncs) is not the default level's ({g2['nodes']}, "
+             f"{syncs(g2['engine'])})")
+    print(f"phase 14 phase 4's workload, graph depth 2: default level (phase 12's engine) and "
+          f"counters level equal bit for bit; decode graph nodes {g2['nodes']} at both (an "
+          f"earlier run: {EARLIER_DEFAULT_TICK[0]}); 1 cudaGraphLaunch and 0 host kernel launches "
+          f"a steady tick at both; device_syncs {syncs(g2['engine'])} at both; steady tick wall "
+          f"default {g2['wall']:.2f} ms, counters {wc['wall']:.2f} ms (an earlier run: "
+          f"{EARLIER_DEFAULT_TICK[1]} ms); card {smi}", flush=True)
+    add(wc["counts"])
+
+    api_p, rec = probe_model(api_k)
+    passes = lambda eng: eng.stats["decode_ticks"] + eng.stats["prefill_launches"]  # noqa: E731
+    per_pass = len(PROBE_SITES) * cfg.n_layers
+    sink_e, log_e = attach_sink(rec, cfg)
+    tally = hold_probe_launches(rec)
+    try:
+        fin_e, eng_e, _, counts_e = drive_core(api_p, params, core_requests(cfg))
+    finally:
+        del rec.record
+    sink_g, log_g = attach_sink(rec, cfg)
+    fin_g, eng_g, _, counts_g = drive_core(api_p, params, core_requests(cfg), cuda_graphs=True,
+                                           pipeline_depth=2)
+    for name, eng, counts in (("eager depth 1", eng_e, counts_e),
+                              ("graph depth 2", eng_g, counts_g)):
+        core_counts(eng, counts, f"phase 14 probes {name}")
+        if counts.get("bcq_quantize", 0) != per_pass * passes(eng):
+            fail(f"phase 14: B3 launched {counts.get('bcq_quantize', 0)} times for the probes of "
+                 f"{passes(eng)} passes ({name}), expected {per_pass} a pass")
+    if tally["launches"] != per_pass * passes(eng_e):
+        fail(f"phase 14: {tally['launches']} probe launches held, expected {per_pass * passes(eng_e)}")
+    rep_e, rep_g = sink_e.report(), sink_g.report()
+    if rep_e != rep_g or log_e != log_g:
+        fail("phase 14: the probe reports of graph depth 2 and eager depth 1 differ")
+    if set(rep_g["sites"]) != set(PROBE_SITES) or any(
+            set(per) != {str(i) for i in range(cfg.n_layers)} or
+            any(a["count"] != passes(eng_g) for a in per.values())
+            for per in rep_g["sites"].values()):
+        fail(f"phase 14: probe report sites/layers/counts: {rep_g['sites'].keys()}")
+    strip = lambda c: {n: c.get(n, 0) for n in COUNTED}  # noqa: E731
+    _hold_ways([("phase 12 graph depth 2", dict(way12, counts=strip(way12["counts"]))),
+                ("probes eager depth 1", {"out": _outcome(eng_e, fin_e), "pool": eng_e.final_pool,
+                                          "counts": strip(counts_e)}),
+                ("probes graph depth 2", {"out": _outcome(eng_g, fin_g), "pool": eng_g.final_pool,
+                                          "counts": strip(counts_g)})],
+               "phase 11's workload with probes", "phase 14")
+    pmetrics = os.path.join(ROOT, "build", "telemetry_probe_metrics.json")
+    eng_g.telemetry.dump_metrics(pmetrics, engine=eng_g, probe_sink=sink_g)
+    check_telemetry_files(pmetrics)
+    means = sorted(((a["nmse_mean"], s, la) for s, per in rep_g["sites"].items()
+                    for la, a in per.items()), reverse=True)
+    occ = np.sum([a["cluster_occupancy"] for per in rep_g["sites"].values()
+                  for a in per.values()], axis=0)
+    print(f"phase 14 quant-error probes, phase 11's workload: eager depth 1 and graph depth 2 "
+          f"reports equal bit for bit ({rep_g['emissions']} emissions, {len(rep_g['sites'])} sites "
+          f"× {rep_g['n_layers']} layers); B3 launched {per_pass} times a pass "
+          f"({counts_g['bcq_quantize']} at graph depth 2); every one of the {tally['launches']} "
+          f"eager probe launches held to the plain encode_stats (worst NMSE rel. difference "
+          f"{tally['worst_nmse_rel']:.2e}, tol {PROBE_NMSE_RTOL}; {tally['tie_blocks']} tie "
+          f"blocks); tokens, margins, launch indices, counters and pool bytes of phase 12; "
+          f"NMSE means {means[-1][0]:.3e}–{means[0][0]:.3e} over (site, layer), worst "
+          + ", ".join(f"{s}/L{la} {m:.3e}" for m, s, la in means[:3])
+          + f"; codebook occupancy over the run {occ.tolist()}", flush=True)
+    add(counts_e)
+    add(counts_g)
+
+    attach_sink(rec, cfg)
+    wp = production_way(eng4, prompts, True, 2, 10, label="phase 14 probes", api=api_p)
+    if wp["out"] != g2["out"] or not _same_pool(wp["pool"], g2["pool"]):
+        fail("phase 14: the probe engine's tokens or pool bytes differ from phase 12's")
+    if wp["prof"] is None or wp["prof"][2] != 0 or wp["prof"][3] != 1:
+        fail(f"phase 14: the probe engine's steady tick: {wp['prof']}")
+    wp_passes = wp["out"][1]["decode_ticks"] + wp["out"][1]["prefill_launches"]
+    if wp["counts"].get("bcq_quantize", 0) != per_pass * wp_passes:
+        fail(f"phase 14: B3 launched {wp['counts'].get('bcq_quantize', 0)} times for the probes "
+             "of phase 4's workload")
+    print(f"phase 14 probes on phase 4's workload, graph depth 2: decode graph nodes {wp['nodes']} "
+          f"(default {g2['nodes']}); steady tick wall {wp['wall']:.2f} ms (default "
+          f"{g2['wall']:.2f}), {_profile_txt(wp['prof'], wp['wall'])}; card {smi}", flush=True)
+    add(wp["counts"])
+    return total, time_probe(cb)
 
 
 # ------------------------------------------------------------------ phase 10
@@ -2352,14 +2682,19 @@ def main() -> int:
     # phase 11 after the timings: a profiler window after its runs has read
     # kernels short (device times below their bounds)
     counts_core, err_slab, core = phase_core(eng4, tol)
-    counts_prod, g2 = phase_production(eng4, tol, core)
+    counts_prod, g2, core_g2 = phase_production(eng4, tol, core)
     counts_contain = phase_containment(eng4, tol, core, g2, smi)
+    counts_tel, probe_form = phase_telemetry(eng4, cb, g2, core_g2, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
             entry["launches_by_path"]["production_tick"] = counts_prod[counter]
             entry["launches_by_path"]["containment"] = counts_contain[counter]
+            entry["launches_by_path"]["telemetry"] = counts_tel[counter]
             entry["launches"] = sum(entry["launches_by_path"].values())
+    kernels[3]["launches_by_path"]["probes"] = counts_tel["bcq_quantize"]
+    kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
+    kernels[3]["probe_form"] = probe_form
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab)
     check_bounds(kernels)
     print(smi, flush=True)

@@ -238,3 +238,64 @@ def fake_quant(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig, s_x=Non
         *lead, na * cfg.array_len
     )
     return out[..., : x.shape[-1]].to(dt)
+
+
+# --------------------------------------------------------- encode statistics
+def encode_stats(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig, s_x=None):
+    """Online quantization-error stats of encoding ``x`` (the quant-error
+    probe, ``serving.telemetry.QuantProbeRecorder``): the NMSE of the
+    quantize-dequantize round trip and the per-codebook selector occupancy
+    (how often each cluster wins the per-block argmin of Eq. 4).  Returns
+    (nmse f32 0-d, occupancy (N_c,) int64), on x's device.  Padding to a
+    whole array is excluded from the NMSE, but its (all-zero) blocks count
+    toward the occupancy, as in the stored encoding.
+
+    A CUDA tensor is encoded by the quantize kernel
+    (``kernels.bcq_quantize``, x as (M, K)), then decoded and reduced with
+    torch ops on the device, without a host sync (so a CUDA graph can
+    capture it); a CPU tensor takes ``encode_stats_plain``."""
+    if x.device.type == "cpu":
+        return encode_stats_plain(x, codebooks, cfg, s_x)
+    from repro_torch.kernels.bcq_quantize import bcq_quantize
+
+    xf = x.float()
+    if s_x is None:
+        s_x = tensor_scale(xf, cfg)
+    x2, _ = pad_to_multiple(xf.reshape(-1, xf.shape[-1]), cfg.array_len)
+    idx, sel, ratio = bcq_quantize(x2.contiguous(), codebooks, s_x, cfg)
+    return _stats(xf, idx, sel, ratio, s_x, codebooks, cfg)
+
+
+def encode_stats_plain(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig, s_x=None):
+    """``encode_stats`` through ``encode`` on any device (the reference's
+    ``bcq.encode_stats``)."""
+    xf = x.float()
+    if s_x is None:
+        s_x = tensor_scale(xf, cfg)
+    enc = encode(xf, codebooks, cfg, s_x)
+    return _stats(xf, enc.packed_idx, enc.packed_sel, formats.bits_to_e4m3(enc.scale_code),
+                  s_x, codebooks, cfg)
+
+
+def _stats(xf, packed_idx, packed_sel, ratio, s_x, codebooks, cfg: BCQConfig):
+    """NMSE and selector occupancy of an encoding of ``xf`` (packed idx and
+    sel of its padded arrays, their E4M3 ratios)."""
+    idx = unpack_nibbles(packed_idx).long()
+    kp = idx.shape[-1]
+    na = kp // cfg.array_len
+    sel = unpack_nibbles(packed_sel).long()[..., : na * cfg.blocks_per_array]
+    vals = codebooks.reshape(-1)[torch.repeat_interleave(sel, cfg.block_len, -1) * cfg.n_entries
+                                 + idx]
+    scale = ratio * s_x  # ŝ_A · s_X per array
+    xq = (vals.reshape(*idx.shape[:-1], na, cfg.array_len) / scale[..., None]).reshape(
+        *idx.shape[:-1], kp)[..., : xf.shape[-1]]
+    occupancy = torch.zeros((cfg.n_codebooks,), dtype=torch.int64, device=xf.device)
+    occupancy.index_add_(0, sel.reshape(-1), torch.ones_like(sel.reshape(-1)))
+    return quantization_nmse(xf, xq.reshape(xf.shape)), occupancy
+
+
+def quantization_nmse(x: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Σ(x − x̂)² / max(Σx², 1e-12) in f32."""
+    x = x.float()
+    d = x - xq.float()
+    return torch.sum(d * d) / torch.clamp_min(torch.sum(x * x), 1e-12)

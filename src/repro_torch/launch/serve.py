@@ -18,6 +18,19 @@ the plain versions eagerly::
         --paged --chunked-prefill --packed --cache bcq4 --batch 8 --gen 32 \\
         --best-of 2 --temperature 0.8 --top-k 40 --seed 1234 --pipeline-depth 2
 
+Telemetry, with the reference's flags (each implies ``--paged``):
+``--metrics-json PATH`` dumps the engine's ``snapshot()`` (counters,
+gauges, histograms, timelines), ``--trace-out PATH`` its tick journal as
+Chrome-trace JSON (open it in Perfetto, ui.perfetto.dev, or
+chrome://tracing), and ``--quant-probes`` attaches the LO-BCQ activation
+quant-error probes (per-site, per-layer NMSE and codebook occupancy, in
+the metrics dump) to the W4A4 model; ``tools/check_telemetry.py`` validates
+the two files::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --paged \\
+        --packed --chunked-prefill --quant-probes --metrics-json m.json --trace-out t.json \\
+        && python tools/check_telemetry.py m.json t.json
+
 ``--chaos`` runs the reference's chaos smoke instead (``run_chaos``): the
 W4A4 batch through a paged engine with every fault seam armed
 (``serving/faults.py``), periodic audits, a bounded queue and two
@@ -44,17 +57,19 @@ from repro_torch.serving.audit import audit_engine
 from repro_torch.serving.engine import PagedEngine
 from repro_torch.serving.faults import SITES, FaultInjector
 from repro_torch.serving.generate import GREEDY, Request, SamplingParams
+from repro_torch.serving.telemetry import QuantProbeRecorder, QuantProbeSink
 
 
 def build_model(cfg, cache: str = "bcq4", packed: bool = True, device="cuda", seed: int = 0,
-                kernels: bool = True):
+                kernels: bool = True, quant_probe=None):
     """(api, params): seeded random weights (packed to W4 with ``packed``)
     on ``device``; ``kernels`` selects the fused linear, the page-gather
-    kernel and the KV-page writer, else the plain paths."""
+    kernel and the KV-page writer, else the plain paths; ``quant_probe``: a
+    ``QuantProbeRecorder`` for the activation quant-error probes."""
     rt = Runtime(
         quant_mode="packed" if packed else "none", bcq_cfg=BCQConfig(),
         compute_dtype=torch.float32, cache_kind=cache,
-        paged_kernel=kernels, fused_linear=kernels,
+        paged_kernel=kernels, fused_linear=kernels, quant_probe=quant_probe,
     )
     api = zoo.build(cfg, rt, device=device)
     return api, api.init(seed)
@@ -64,7 +79,7 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
           page_size: int = 16, prefill_chunk: int = 0, device="cuda", seed: int = 0,
           kernels: bool = True, chunked_prefill: bool = False, prefix_caching: bool = True,
           best_of: int = 1, sampling: SamplingParams = GREEDY, pipeline_depth: int = 2,
-          cuda_graphs=None):
+          cuda_graphs=None, quant_probe=None):
     """Serve ``prompts`` (a list of 1-D token arrays) for ``gen`` tokens
     each (the prefill's token plus gen-1 decode tokens), ``best_of``
     forked siblings each, one slot per sibling.  ``seed`` draws the
@@ -72,8 +87,9 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
     and the KV-page writer (``Runtime(fused_linear, paged_kernel)``); off,
     the plain decode+matmul, gather+softmax and encode+scatter paths run.
     ``pipeline_depth`` and ``cuda_graphs`` (None: on for a CUDA device)
-    go to the engine.  Returns (finished requests, engine)."""
-    api, params = build_model(cfg, cache, packed, device, seed, kernels)
+    go to the engine; ``quant_probe`` (a ``QuantProbeRecorder``) to the
+    model.  Returns (finished requests, engine)."""
+    api, params = build_model(cfg, cache, packed, device, seed, kernels, quant_probe)
     max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
     eng = PagedEngine(
         api, params, n_slots=len(prompts) * best_of, max_len=max_len, page_size=page_size,
@@ -179,6 +195,15 @@ def main(argv=None):
                          "position)")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="decode launches in flight (1: sync each tick before the next)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="dump the paged engine's metrics snapshot (histograms / gauges / "
+                         "timelines) as JSON; implies --paged")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the tick journal as Chrome-trace JSON (Perfetto / "
+                         "chrome://tracing); implies --paged")
+    ap.add_argument("--quant-probes", action="store_true",
+                    help="attach online LO-BCQ activation-quant probes (per-layer/site NMSE + "
+                         "codebook-cluster occupancy) to the W4A4 model; implies --paged")
     ap.add_argument("--chaos", action="store_true",
                     help="chaos smoke: serve the W4A4 batch through a paged engine with "
                          "seeded fault injection at every seam and periodic audits, then "
@@ -200,6 +225,8 @@ def main(argv=None):
                          "watermark (default: off)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.metrics_json or args.trace_out or args.quant_probes:
+        args.paged = True
     if not (args.paged or args.chaos):
         ap.error("the port serves the paged engine only: pass --paged")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
@@ -212,12 +239,14 @@ def main(argv=None):
                         arch=cfg.name, cache=args.cache)
         return 0 if rep["unhandled_exception"] is None else 1
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, seed=args.seed)
+    probe_sink = QuantProbeSink(n_layers=cfg.n_layers) if args.quant_probes else None
     t0 = time.perf_counter()
     finished, eng = serve(
         cfg, list(prompts), args.gen, args.cache, args.packed, args.page_size, args.prefill_chunk,
         args.device, chunked_prefill=args.chunked_prefill,
         prefix_caching=not args.no_prefix_cache, best_of=args.best_of, sampling=sampling,
         pipeline_depth=args.pipeline_depth,
+        quant_probe=None if probe_sink is None else QuantProbeRecorder(probe_sink),
     )
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -233,6 +262,34 @@ def main(argv=None):
     print("serving core: " + ", ".join(f"{k} {eng.stats[k]}" for k in keys))
     for r in sorted(finished, key=lambda r: (r.rid, r.sample_idx)):
         print(f"  rid {r.rid} sample {r.sample_idx}: {r.out}")
+    if args.metrics_json or args.trace_out or args.quant_probes:
+        report_telemetry(eng, args.metrics_json, args.trace_out, probe_sink)
+
+
+def report_telemetry(eng, metrics_json=None, trace_out=None, probe_sink=None):
+    """The reference CLI's telemetry epilogue: write the metrics snapshot
+    (with the probe report) and the Chrome trace where asked, and print
+    the latency histograms' means and the probes' worst sites."""
+    tel = eng.telemetry
+    if metrics_json:
+        tel.dump_metrics(metrics_json, engine=eng, probe_sink=probe_sink)
+        print(f"telemetry: metrics snapshot -> {metrics_json}")
+    if trace_out:
+        tel.dump_trace(trace_out)
+        print(f"telemetry: Chrome trace ({len(tel.journal)} events, {tel.journal.dropped} "
+              f"dropped) -> {trace_out}")
+    hs = tel.registry.snapshot()["histograms"]
+    ttft, itl, qt = hs["ttft_s"], hs["itl_s"], hs["queue_time_s"]
+    print(f"telemetry: ttft mean {ttft['mean'] * 1e3:.2f} ms (n={ttft['count']}), itl mean "
+          f"{itl['mean'] * 1e3:.2f} ms (n={itl['count']}), queue mean {qt['mean'] * 1e3:.2f} ms "
+          f"(n={qt['count']})")
+    if probe_sink is not None:
+        rep = probe_sink.report()
+        worst = sorted(((d["nmse_mean"], site, layer) for site, per in rep["sites"].items()
+                        for layer, d in per.items()), reverse=True)[:3]
+        print(f"quant-probes: {rep['emissions']} emissions over {len(rep['sites'])} sites × "
+              f"{rep['n_layers']} layers; worst NMSE: "
+              + ", ".join(f"{s}/L{la}={m:.2e}" for m, s, la in worst))
 
 
 if __name__ == "__main__":

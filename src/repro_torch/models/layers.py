@@ -10,6 +10,7 @@ the pool is the one large mutable state of a server.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -33,7 +34,8 @@ class Runtime:
     evaluation forward) goes through the flash kernel
     (kernels/flash_attention.py) instead of the masked softmax.
     logit_chunk: the loss takes its logits this many positions at a time
-    (0: all at once)."""
+    (0: all at once).  quant_probe: the quant-error probe's recorder
+    (``serving.telemetry.QuantProbeRecorder``), None for no probe."""
 
     quant_mode: str = "none"
     bcq_cfg: BCQConfig = BCQConfig()
@@ -44,6 +46,7 @@ class Runtime:
     fused_linear: bool = True
     flash_kernel: bool = False
     logit_chunk: int = 0
+    quant_probe: Any = None
 
 
 # ------------------------------------------------------------------ norms
@@ -88,18 +91,35 @@ def pack_weight(w: torch.Tensor, cfg: BCQConfig, cb: torch.Tensor) -> dict:
             "s_x": enc.s_x}
 
 
-def qdense_shared(x, ps: list, rt: Runtime, cb):
+def _emit_quant_probe(x, rt: Runtime, cb, tag) -> None:
+    """Report the activation-quant error at one GEMM site: the encode stats
+    of the RAW activation x (..., K) — the x the site's linear encodes, all
+    of the launch's rows — into the next row of the recorder's device
+    buffer (``rt.quant_probe.record``).  Only with packed weights (W4A4: the
+    BCQ activation format) and a tagged site; ``qdense_shared`` tags once
+    for its head group, so the probe never double-counts."""
+    if rt.quant_probe is None or tag is None or cb is None or rt.quant_mode != "packed":
+        return
+    rt.quant_probe.record(tag, x.reshape(-1, x.shape[-1]), cb, rt.bcq_cfg)
+
+
+def qdense_shared(x, ps: list, rt: Runtime, cb, tag=None):
     """Several linear heads over the SAME input (QKV): the unfused packed
     path quantizes the activation once and reuses it; the fused kernel
-    encodes the raw input itself (bit-identical: same x, same s_X)."""
+    encodes the raw input itself (bit-identical: same x, same s_X).
+    ``tag`` names the group for the quant-error probe, emitted once here."""
+    _emit_quant_probe(x, rt, cb, tag)
     if rt.quant_mode == "packed" and cb is not None and not rt.fused_linear:
         xq = bcq.fake_quant(x.float(), cb, rt.bcq_cfg)
         return [qdense(xq, p, rt, cb, pre_quantized=True) for p in ps]
     return [qdense(x, p, rt, cb) for p in ps]
 
 
-def qdense(x, p, rt: Runtime, cb, pre_quantized: bool = False):
-    """Linear layer honoring rt.quant_mode.  x: (..., K); kernel (K, N)."""
+def qdense(x, p, rt: Runtime, cb, pre_quantized: bool = False, tag=None):
+    """Linear layer honoring rt.quant_mode.  x: (..., K); kernel (K, N).
+    ``tag`` names the site for the quant-error probe."""
+    if not pre_quantized:
+        _emit_quant_probe(x, rt, cb, tag)
     dt = rt.compute_dtype
     if rt.quant_mode == "none" or cb is None:
         y = x.to(dt) @ p["kernel"].to(dt)
@@ -381,7 +401,7 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
     Returns (out, pool or cache) — updated in place (None without one)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = qdense_shared(x, [p["wq"], p["wk"], p["wv"]], rt, cb)
+    q, k, v = qdense_shared(x, [p["wq"], p["wk"], p["wv"]], rt, cb, tag="attn_qkv")
     q = rope(q.reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
@@ -427,17 +447,17 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
         else:
             kf, vf = paged_gather_kv(pool, block_tables, kind, rt.bcq_cfg, cb, rt.compute_dtype)
             out = _attend_chunked(q, kf, vf, positions, valid.reshape(b, 1, 1, 1))
-    out = qdense(out.reshape(b, s, cfg.n_heads * hd), p["wo"], rt, cb)
+    out = qdense(out.reshape(b, s, cfg.n_heads * hd), p["wo"], rt, cb, tag="attn_out")
     return out, pool
 
 
 # ------------------------------------------------------------------- MLPs
 def mlp(x, p, act, rt: Runtime, cb):
     if act == "swiglu":
-        h, g = qdense_shared(x, [p["wi"], p["wg"]], rt, cb)
+        h, g = qdense_shared(x, [p["wi"], p["wg"]], rt, cb, tag="mlp_in")
         h = torch.nn.functional.silu(g.float()).to(h.dtype) * h
     else:
-        h = qdense(x, p["wi"], rt, cb)
+        h = qdense(x, p["wi"], rt, cb, tag="mlp_in")
         # jax.nn.gelu defaults to the tanh approximation
         h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return qdense(h, p["wo"], rt, cb)
+    return qdense(h, p["wo"], rt, cb, tag="mlp_out")

@@ -122,8 +122,25 @@ cancelled or shed request ends as a finished request with a typed
   not change, and an engine without an injector or audits adds no device
   work to a tick.
 
-Left out (ROADMAP queue A): telemetry (the registry, the trace journal)
-and the host page tier, whose swap seams therefore never fire.
+**Telemetry** (the reference's, ``serving/telemetry.py``): a
+``Telemetry`` (``telemetry=``, ``"default"`` level unless given) holds
+the metrics registry — every engine counter, ``stats`` being a read-only
+``StatsView`` over the pinned ``ENGINE_STAT_KEYS``, the robustness and
+(zero) swap counters, ``device_syncs`` — the TTFT / ITL / queue / launch
+histograms, the request timelines and the Chrome-trace journal, fed by
+the reference's hooks at the reference's points.  Every timestamp is
+taken where the engine already reads the clock or syncs, so the default
+level adds no device work and no sync to a tick: ``device_syncs`` counts
+one per prefill launch that waits for its results (all of them on the
+card, where ``t_prefill_s`` is synced; those that finish a prompt or run
+under ``profile_sync`` on the CPU, as the reference) and one per decode
+sync, at either level.  ``snapshot()`` dumps it all.  With a
+``QuantProbeRecorder`` in ``Runtime.quant_probe`` every launch's probe
+rows are fetched with its results and fed to the sink after its sync,
+launches in their order, at every depth.
+
+Left out (ROADMAP queue A): the host page tier, whose swap seams
+therefore never fire (its counters stay 0).
 """
 from __future__ import annotations
 
@@ -156,23 +173,12 @@ from repro_torch.serving.pages import (
 )
 from repro_torch.serving.graphs import DecodeGraphs
 from repro_torch.serving.prefix import PrefixCache, chunk_hashes
-
-# the reference's ``serving.telemetry.ENGINE_STAT_KEYS``
-ENGINE_STAT_KEYS = (
-    "prefix_hits", "prefix_misses", "preemptions", "prefix_evictions",
-    "peak_pages", "decode_ticks", "prefill_chunks", "prefill_tokens",
-    "prefill_tokens_skipped", "prefill_launches", "forks", "cow_copies",
-    "shared_pages", "t_prefill_s", "t_decode_s",
-)
-# ``serving.telemetry.ROBUSTNESS_STAT_KEYS`` and ``SWAP_STAT_KEYS``: kept out
-# of ``stats`` (its keys are pinned), read through ``health()``; the swap
-# counters stay 0 until the port has a host page tier
-ROBUSTNESS_STAT_KEYS = (
-    "quarantined", "shed", "expired", "cancelled", "audit_failures", "degraded_ticks",
-)
-SWAP_STAT_KEYS = (
-    "swap_outs", "swap_ins", "verified_swapins", "corrupt_swapins", "swap_bytes",
-    "swap_skips", "recompressed_pages",
+from repro_torch.serving.telemetry import (
+    ENGINE_STAT_KEYS,
+    ROBUSTNESS_STAT_KEYS,
+    SWAP_STAT_KEYS,
+    StatsView,
+    Telemetry,
 )
 
 
@@ -210,6 +216,14 @@ def _row_stats(logits: torch.Tensor):
     )
 
 
+def _host_row_stats(logits: torch.Tensor):
+    """``_row_stats`` on the host in ONE device→host fetch: (greedy token,
+    finite flag, margin) numpy vectors."""
+    nxt, fin, margin = _row_stats(logits)
+    host = torch.stack([nxt, fin.to(torch.int32), margin.view(torch.int32)]).cpu().numpy()
+    return host[0], host[1].astype(bool), host[2].view(np.float32)
+
+
 def fused_decode(decode_fn, params, pool, packed, chain_tok):
     """The decode step with everything the tick needs in one launch
     (a CUDA graph on the card): ``packed`` (B, 3+W) int32 is the next
@@ -231,8 +245,9 @@ class _InFlight:
     skipped, unless its request was retired early (``_retiring``).
     ``nxt`` / ``fin`` / ``margin`` are the launch's own copies of the
     merged tokens, finite mask and margins (pinned host memory on the card,
-    ready once ``ready`` has fired).  ``faults``: slot → the injected
-    fault of its row (rolled at launch deeper than depth 1)."""
+    ready once ``ready`` has fired), ``probe`` its quant-probe rows
+    (``QuantProbeRecorder.fetch``) or None.  ``faults``: slot → the
+    injected fault of its row (rolled at launch deeper than depth 1)."""
 
     launch: int  # the engine launch index every booked token records
     tick: int  # the engine tick that launched it (fault seams key on it)
@@ -241,6 +256,7 @@ class _InFlight:
     fin: torch.Tensor
     margin: torch.Tensor
     ready: Optional[object] = None  # torch.cuda.Event, None on the CPU
+    probe: Optional[tuple] = None
     faults: dict = dataclasses.field(default_factory=dict)
 
 
@@ -269,7 +285,7 @@ class PagedEngine:
                  strict: bool = False, nan_guard: bool = True, audit_every: int = 0,
                  max_queue: Optional[int] = None, shed_stuck: bool = True,
                  degrade_after: Optional[int] = None, recover_after: int = 16,
-                 degraded_prefix_target: int = 0):
+                 degraded_prefix_target: int = 0, telemetry: Optional[Telemetry] = None):
         """``pipeline_depth``: decode launches in flight after a step (1 syncs
         each launch in its own step; ``profile_sync`` forces 1).
         ``cuda_graphs``: the decode step as one CUDA graph per block-table
@@ -284,7 +300,9 @@ class PagedEngine:
         sheds a head-of-line request the pool can never admit (else
         ``run_to_completion`` raises); ``degrade_after`` /
         ``recover_after`` / ``degraded_prefix_target``: the degraded
-        mode's hysteresis (off by default)."""
+        mode's hysteresis (off by default).  ``telemetry``: the registry,
+        histograms, timelines and journal (a default-level ``Telemetry``
+        if None)."""
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"model built for {api.device}, engine asked for {self.device}")
@@ -323,12 +341,26 @@ class PagedEngine:
         self._next_tok = np.zeros((n_slots,), np.int32)
         self._admit_counter = 0
         self._launches = 0  # prefill + decode launches so far
-        # t_prefill_s: host clock around each prefill launch up to its
-        # results (it syncs the device for this); t_decode_s: at depth 1
-        # from a decode launch to its synced results, deeper the launch's
-        # dispatch and, apart, the wait at its sync
-        self.stats = {k: 0 for k in ENGINE_STAT_KEYS}
-        self.stats["t_prefill_s"] = self.stats["t_decode_s"] = 0.0
+        # the registry's counters; ``stats`` is a read-only view of the
+        # pinned keys (peak_pages: the pool's high-water mark).  t_prefill_s:
+        # host clock around each prefill launch up to its results (synced on
+        # the card); t_decode_s: at depth 1 from a decode launch to its
+        # synced results, deeper the launch's dispatch and, apart, the wait
+        # at its sync
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        reg = self.telemetry.registry
+        self._c = {k: reg.counter(k) for k in ENGINE_STAT_KEYS if k != "peak_pages"}
+        self._c["t_prefill_s"].unit = self._c["t_decode_s"].unit = "s"
+        self._c_syncs = reg.counter("device_syncs")  # one per wait for the device
+        self._cr = {k: reg.counter(k) for k in ROBUSTNESS_STAT_KEYS}
+        self._cs_swap = {k: reg.counter(k) for k in SWAP_STAT_KEYS}  # 0: no host tier
+        self._cs_swap["swap_bytes"].unit = "bytes"
+        self.stats = StatsView(self)
+        # the quant-error probe's recorder, if the model has one; launches'
+        # rows wait in ``_probe_wait`` until every earlier launch was fed
+        self._probe = getattr(api.rt, "quant_probe", None)
+        self._probe_wait: dict[int, tuple] = {}
+        self._probe_next = 0
 
         self.faults = fault_injector
         self.strict = strict
@@ -344,8 +376,8 @@ class PagedEngine:
         self._pressure_ticks = 0
         self._relief_ticks = 0
         self._last_audit: Optional[AuditReport] = None
-        self._cr = {k: 0 for k in ROBUSTNESS_STAT_KEYS}
 
+        self.profile_sync = profile_sync
         self.pipeline_depth = 1 if profile_sync else pipeline_depth
         self._inflight: deque[_InFlight] = deque()
         self._chain_tok = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
@@ -354,6 +386,11 @@ class PagedEngine:
         # freed before that row was synced (``_retire_early``)
         self._retiring: dict[int, int] = {}
         self._packed = np.zeros((n_slots, 3 + self.tables.shape[1]), np.int32)
+        # the decode host gap: launch-to-launch wall clock less the sync
+        # waits in between
+        self._last_launch_end: Optional[float] = None
+        self._gap_sync_s = 0.0
+        self._quiet = False  # this step admitted and prefilled nothing
         # two pinned staging rows in turn; each event fires once the copy
         # that read its row has landed
         self._staging = [[None, None], [None, None]] if self.device.type == "cuda" else []
@@ -364,10 +401,7 @@ class PagedEngine:
                 from repro_torch.kernels import build
 
                 build.library()  # built and loaded before any capture
-            self._graphs = DecodeGraphs(
-                lambda packed, chain: fused_decode(self.api.paged_decode_fn, self.params,
-                                                   self.pool, packed, chain),
-                self._chain_tok, self._count_capture)
+            self._graphs = DecodeGraphs(self._decode_step, self._chain_tok, self._count_capture)
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request):
@@ -404,6 +438,7 @@ class PagedEngine:
             # two with one rid would compare their numpy prompts
             del self.queue[next(k for k, r in enumerate(self.queue) if r is victim)]
             self._finish_error(victim, "shed", f"{full}; least deadline slack")
+        self.telemetry.on_submit(req, now)
         self.queue.append(req)
 
     def _shed_choice(self, newcomer: Request, now: float) -> Request:
@@ -428,7 +463,9 @@ class PagedEngine:
         req.error = RequestError(kind, msg)
         req.done = True
         if kind in self._cr:
-            self._cr[kind] += 1
+            self._cr[kind].inc()
+            self.telemetry.instant(kind, rid=int(req.rid))
+        self.telemetry.on_finish(req, time.perf_counter())
         self.finished.append(req)
 
     def _quarantine(self, i: int, exc: BaseException):
@@ -501,10 +538,12 @@ class PagedEngine:
             self._pressure_ticks = 0
         if not self.degraded and self._pressure_ticks >= self.degrade_after:
             self.degraded = True
+            self.telemetry.instant("degraded_enter", tick=self._tick)
         elif self.degraded and self._relief_ticks >= self.recover_after:
             self.degraded = False
+            self.telemetry.instant("degraded_exit", tick=self._tick)
         if self.degraded:
-            self._cr["degraded_ticks"] += 1
+            self._cr["degraded_ticks"].inc()
             while self.prefix.reclaimable_count() > self.degraded_prefix_target:
                 if self._evict_parked_page() is None:
                     break
@@ -515,14 +554,16 @@ class PagedEngine:
         report = audit_engine(self)
         self._last_audit = report
         if not report.ok:
-            self._cr["audit_failures"] += 1
+            self._cr["audit_failures"].inc()
+            self.telemetry.instant("audit_fail", violations=len(report.violations))
         if self.strict if strict is None else strict:
             report.raise_if_dirty()
         return report
 
     def health(self) -> dict:
         """One JSON-able liveness and pressure summary, in the reference's
-        shape (the swap counters are 0: no host tier)."""
+        shape (the swap counters are 0: no host tier); ``snapshot()`` is the
+        full metrics dump."""
         return {
             "status": "degraded" if self.degraded else "ok",
             "degraded": self.degraded,
@@ -534,9 +575,9 @@ class PagedEngine:
             "watermark_headroom": self._available_pages() - self.watermark,
             "pressure_ticks": self._pressure_ticks,
             "relief_ticks": self._relief_ticks,
-            "counters": dict(self._cr),
+            "counters": {k: c.value for k, c in self._cr.items()},
             "host_tier": None,
-            "swap": {k: 0 for k in SWAP_STAT_KEYS},
+            "swap": {k: c.value for k, c in self._cs_swap.items()},
             "last_audit": None if self._last_audit is None else self._last_audit.to_dict(),
             "faults_injected": None if self.faults is None else self.faults.counts(),
         }
@@ -565,7 +606,6 @@ class PagedEngine:
             if self._evict_parked_page() is None:
                 return None
             pid = self.pool_mgr.alloc()
-        self.stats["peak_pages"] = max(self.stats["peak_pages"], self.pool_mgr.used())
         return pid
 
     def _evict_parked_page(self) -> Optional[int]:
@@ -573,7 +613,8 @@ class PagedEngine:
         popped = self.prefix.pop_lru()
         if popped is None:
             return None
-        self.stats["prefix_evictions"] += 1
+        self._c["prefix_evictions"].inc()
+        self.telemetry.instant("prefix_evict", page=int(popped[1]))
         self.pool_mgr.release(popped[1])
         return popped[1]
 
@@ -657,8 +698,8 @@ class PagedEngine:
             else:
                 self.pool_mgr.ref(pid)
             table[i] = pid
-        self.stats["prefix_hits"] += len(hits)
-        self.stats["prefix_misses"] += max(0, n_cacheable - len(hits))
+        self._c["prefix_hits"].inc(len(hits))
+        self._c["prefix_misses"].inc(max(0, n_cacheable - len(hits)))
         return len(hits)
 
     # -------------------------------------------------------- admission
@@ -692,14 +733,23 @@ class PagedEngine:
             if self.faults is not None:
                 self.faults.delay_launch(self._tick, key=0)
             t0 = time.perf_counter()
+            self.telemetry.on_admit(req, t0)
+            if self._probe is not None:
+                self._probe.begin()
             tokens = torch.from_numpy(prompt.astype(np.int32))[None].to(self.device)
             logits, cache1 = self.api.prefill_fn(self.params, {"tokens": tokens}, self.max_len)
             scatter_prefill_pages(self.pool, cache1, torch.from_numpy(scatter_ids).to(self.device))
-            stats = [t.cpu() for t in _row_stats(logits)]
-            self.stats["t_prefill_s"] += time.perf_counter() - t0
-            self.stats["prefill_launches"] += 1
-            self.stats["prefill_tokens"] += plen
+            probed = None if self._probe is None else self._probe.fetch()
+            nxt, fin, margin = _host_row_stats(logits)
+            self._c_syncs.inc()
+            t1 = time.perf_counter()
+            self._c["t_prefill_s"].inc(t1 - t0)
+            self._c["prefill_launches"].inc()
+            self._c["prefill_tokens"].inc(plen)
+            self.telemetry.prefill_launch(t0, t1, slots=1, tokens=plen)
+            self.telemetry.on_chunk(req, t0, t1, plen)  # the whole prompt, one chunk
             launch = self._next_launch()
+            self._probe_done(launch, probed)
             if self.prefix_caching:
                 for i in range(n_claimed, n_full):
                     self.prefix.register(hashes[i], int(table[i]))
@@ -712,7 +762,8 @@ class PagedEngine:
         self.slots[slot_idx] = _PagedSlot(req=req, pos=plen, admit_seq=self._admit_counter)
         self._admit_counter += 1
         try:
-            self._start_decode(slot_idx, logits[0, -1], *(t[0].item() for t in stats), launch)
+            self._start_decode(slot_idx, logits[0, -1], int(nxt[0]), bool(fin[0]), float(margin[0]),
+                               launch)
         except Exception as exc:  # admitted: the slot is torn down, not rolled back
             if self.strict:
                 raise
@@ -735,7 +786,8 @@ class PagedEngine:
         table = np.full((self.tables.shape[1],), NULL_PAGE, np.int32)
         # cacheable: the full pages, less the hit trimmed above
         n_claimed = self._claim_hits(hashes, hits, (plen - 1) // self.ps, table)
-        self.stats["prefill_tokens_skipped"] += n_claimed * self.ps
+        self._c["prefill_tokens_skipped"].inc(n_claimed * self.ps)
+        self.telemetry.on_admit(req, time.perf_counter())
         self.tables[slot_idx] = table
         self.slots[slot_idx] = _PagedSlot(
             req=req, pos=n_claimed * self.ps, admit_seq=self._admit_counter,
@@ -771,6 +823,8 @@ class PagedEngine:
                 req._admit_retries += 1
                 if req._admit_retries <= 3:
                     self.queue.appendleft(req)
+                    self.telemetry.instant("admit_retry", rid=int(req.rid),
+                                           attempt=req._admit_retries)
                 else:
                     self._finish_error(req, "quarantined",
                                        f"admission failed after {req._admit_retries - 1} "
@@ -789,6 +843,7 @@ class PagedEngine:
         req = self.slots[i].req
         if len(req.out) >= req.max_new + 1:
             req.done = True
+            self.telemetry.on_finish(req, time.perf_counter())
             self.finished.append(req)
             self._free_slot(i)
             return True
@@ -805,6 +860,7 @@ class PagedEngine:
         sampler fault quarantines only its sibling."""
         slot = self.slots[i]
         parent = slot.req
+        now = time.perf_counter()
         if self.nan_guard:
             if self.faults is not None and self.faults.poison_logits(self._tick, i):
                 finite = False
@@ -824,14 +880,15 @@ class PagedEngine:
             for s_idx, j in enumerate(sibs, start=1):
                 child = Request(rid=parent.rid, prompt=parent.prompt, max_new=parent.max_new,
                                 sampling=parent.sampling, sample_idx=s_idx)
+                self.telemetry.on_fork_child(parent, child, now)
                 for pid in shared:
                     self.pool_mgr.ref(pid)  # one reference per sibling and page
                 self.tables[j] = self.tables[i]
                 self.slots[j] = _PagedSlot(req=child, pos=slot.pos, admit_seq=self._admit_counter)
                 self._admit_counter += 1
                 children.append((j, child))
-            self.stats["forks"] += 1
-            self.stats["shared_pages"] += len(shared) * (n - 1)
+            self._c["forks"].inc()
+            self._c["shared_pages"].inc(len(shared) * (n - 1))
         # first tokens only once every sibling holds its references: a
         # sibling that retires (or is quarantined) here must not free pages
         # the others share
@@ -849,6 +906,7 @@ class PagedEngine:
             self._next_tok[j] = tok
             self._chained[j] = False  # a host-known token: the prefill just set it
             child._progress_tick = self._tick
+            self.telemetry.on_first_token(child, now)
             self._finish_if_budget_spent(j)
 
     # ------------------------------------------------------- preemption
@@ -872,6 +930,7 @@ class PagedEngine:
             max_new=req.max_new, out=req.out, margins=req.margins, launch_ids=req.launch_ids,
             sampling=req.sampling, n_samples=req.n_samples, sample_idx=req.sample_idx,
             _orig_plen=orig_plen,
+            timeline=req.timeline,  # one timeline: one submit, an admit per admission
             # the lifecycle guard survives preemption: the original submit
             # anchors the deadline, a cancel still lands, the stall clock
             # and the admission retries go on
@@ -882,7 +941,10 @@ class PagedEngine:
         req._resumed_as = resumed
         self._free_slot(victim)
         self.queue.appendleft(resumed)
-        self.stats["preemptions"] += 1
+        self._c["preemptions"].inc()
+        now = time.perf_counter()
+        self.telemetry.on_preempt(resumed, now)
+        self.telemetry.instant("preempt", now, rid=int(req.rid), slot=victim)
         return victim
 
     def _alloc_page_preempting(self, i: int) -> Optional[int]:
@@ -925,7 +987,8 @@ class PagedEngine:
             if new is None:
                 return False
             copy_page(self.pool, pid, new)
-            self.stats["cow_copies"] += 1
+            self._c["cow_copies"].inc()
+            self.telemetry.instant("cow_copy", src=int(pid), dst=int(new))
             self._drop_page(pid)
             self.tables[i][pi] = new
         return True
@@ -977,26 +1040,38 @@ class PagedEngine:
         if self.faults is not None:
             self.faults.delay_launch(self._tick, key=2)
         t0 = time.perf_counter()
+        if self._probe is not None:
+            self._probe.begin()
         dev = torch.from_numpy(packed).to(self.device)
         logits, _ = self.api.prefill_from_pages_fn(  # the pool is written in place
             self.params, dev[:, :c_bucket], self.pool, dev[:, c_bucket + 2 + n_cp :],
             dev[:, c_bucket], dev[:, c_bucket + 1 : c_bucket + 1 + n_cp],
             chunk_len=dev[:, c_bucket + 1 + n_cp],
         )
+        probed = None if self._probe is None else self._probe.fetch()
         done = [i for i in batch if plans[i][0] + plans[i][1] == len(self.slots[i].pending)]
+        # the results a finished prompt needs come in one fetch; otherwise the
+        # card still waits (t_prefill_s is synced), the CPU under profile_sync
         if done:
-            nxt, fin, margin = (t.cpu().numpy() for t in _row_stats(logits))
+            nxt, fin, margin = _host_row_stats(logits)
         elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.stats["t_prefill_s"] += time.perf_counter() - t0
-        self.stats["prefill_launches"] += 1
+        if done or self.profile_sync or self.device.type == "cuda":
+            self._c_syncs.inc()
+        t1 = time.perf_counter()
+        self._c["t_prefill_s"].inc(t1 - t0)
+        self._c["prefill_launches"].inc()
+        self.telemetry.prefill_launch(t0, t1, slots=len(batch),
+                                      tokens=int(sum(plans[i][1] for i in batch)))
         launch = self._next_launch()
+        self._probe_done(launch, probed)
         for r, i in enumerate(batch):
             start, c, _ = plans[i]
             slot = self.slots[i]
             slot.pos = start + c
-            self.stats["prefill_chunks"] += 1
-            self.stats["prefill_tokens"] += c
+            self._c["prefill_chunks"].inc()
+            self._c["prefill_tokens"].inc(c)
+            self.telemetry.on_chunk(slot.req, t0, t1, c)
             if self.prefix_caching:
                 for p in range(start // self.ps, min(slot.pos // self.ps, len(slot.hashes))):
                     self.prefix.register(slot.hashes[p], int(self.tables[i][p]))
@@ -1074,20 +1149,39 @@ class PagedEngine:
         slot[1].record()
         return dev
 
+    def _decode_step(self, packed: torch.Tensor, chain_tok: torch.Tensor):
+        """``fused_decode`` on this engine's model and pool (what a graph
+        captures); a probe's rows start over with it."""
+        if self._probe is not None:
+            self._probe.begin()
+        return fused_decode(self.api.paged_decode_fn, self.params, self.pool, packed, chain_tok)
+
     def _run_decode(self, packed: torch.Tensor):
         """The fused decode step on the staged row: a graph replay (the
         bucket's first tick captures it) or an eager call."""
         if self._graphs is not None:
             return self._graphs.run(packed.shape[1] - 3)
-        return fused_decode(self.api.paged_decode_fn, self.params, self.pool, packed,
-                            self._chain_tok)
+        return self._decode_step(packed, self._chain_tok)
+
+    def _probe_done(self, launch: int, fetched) -> None:
+        """A launch's probe rows, ready after its sync: feed the sink, every
+        launch in launch order (at depth 2 a prefill launch syncs before the
+        decode launch in flight ahead of it)."""
+        if fetched is None:
+            return
+        self._probe_wait[launch] = fetched
+        while self._probe_next in self._probe_wait:
+            self._probe.feed(self._probe_wait.pop(self._probe_next))
+            self._probe_next += 1
 
     def _keep(self, launch: int, rows: list, nxt, fin, margin) -> _InFlight:
-        """The launch's record with its own copies of the row results: a
-        ``non_blocking`` copy into pinned memory and an event on the card
-        (a graph's outputs are overwritten by its next replay)."""
+        """The launch's record with its own copies of the row results and
+        probe rows: a ``non_blocking`` copy into pinned memory and an event
+        on the card (a graph's outputs and the probe buffers are overwritten
+        by the next launch)."""
+        probe = None if self._probe is None else self._probe.fetch()
         if self.device.type != "cuda":
-            return _InFlight(launch, self._tick, rows, nxt, fin, margin)
+            return _InFlight(launch, self._tick, rows, nxt, fin, margin, probe=probe)
         host = []
         for t in (nxt, fin, margin):
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -1095,7 +1189,7 @@ class PagedEngine:
             host.append(h)
         ready = torch.cuda.Event()
         ready.record()
-        return _InFlight(launch, self._tick, rows, *host, ready=ready)
+        return _InFlight(launch, self._tick, rows, *host, ready=ready, probe=probe)
 
     def _roll_row_fault(self, rec: _InFlight, i: int, req: Request, finite: bool):
         """Consult the ``logits`` and ``sampler`` seams for slot i's row of
@@ -1117,8 +1211,10 @@ class PagedEngine:
         row when freshly (re)started, else from the device chain of its
         previous launch — the same value either way.  Rows not in ``active``
         ride along at length 0 with NULL tables and their stale token,
-        exactly as the reference stages them.  Returns the launch's start
-        on the host clock."""
+        exactly as the reference stages them.  In a step that admitted and
+        prefilled nothing (``_quiet``) the time since the last launch, less
+        the sync waits, is pure host time: the decode host gap.  Returns the
+        launch's start on the host clock."""
         w = self.tables.shape[1]
         if self._packed.shape[1] != 3 + w:
             self._packed = np.zeros((self.n_slots, 3 + w), np.int32)
@@ -1134,6 +1230,8 @@ class PagedEngine:
         if self.faults is not None:
             self.faults.delay_launch(self._tick, key=1)
         t0 = time.perf_counter()
+        if self._quiet and self._last_launch_end is not None:
+            self.telemetry.decode_gap(max(0.0, t0 - self._last_launch_end - self._gap_sync_s))
         logits, nxt, fin, margin = self._run_decode(self._stage(pk))
         if sampled:  # keyed at launch time, on the same stream
             nxt, margin = self._overlay_samples(logits, nxt, margin, sampled)
@@ -1149,9 +1247,14 @@ class PagedEngine:
                 self._roll_row_fault(rec, i, req, True)
         self._inflight.append(rec)
         self._chain_tok.copy_(nxt)
-        self.stats["decode_ticks"] += 1
-        if self.pipeline_depth > 1:
-            self.stats["t_decode_s"] += time.perf_counter() - t0
+        self._c["decode_ticks"].inc()
+        t1 = time.perf_counter()
+        self.telemetry.pipeline_gauge(len(self._inflight))
+        if self.pipeline_depth > 1:  # depth 1 times the launch with its sync
+            self._c["t_decode_s"].inc(t1 - t0)
+            self.telemetry.decode_tick(t0, t1, n_active=len(active))
+        self._last_launch_end = t1
+        self._gap_sync_s = 0.0
         return t0
 
     def _sync_one(self, merge_from: Optional[float] = None):
@@ -1165,7 +1268,16 @@ class PagedEngine:
         if rec.ready is not None:
             rec.ready.synchronize()
         nxt, fin, margin = (t.numpy() for t in (rec.nxt, rec.fin, rec.margin))
-        self.stats["t_decode_s"] += time.perf_counter() - (t0 if merge_from is None else merge_from)
+        self._c_syncs.inc()
+        t1 = time.perf_counter()
+        self._gap_sync_s += t1 - t0
+        if merge_from is not None:
+            self._c["t_decode_s"].inc(t1 - merge_from)
+            self.telemetry.decode_tick(merge_from, t1, n_active=len(rec.rows))
+        else:
+            self._c["t_decode_s"].inc(t1 - t0)
+            self.telemetry.decode_sync(t0, t1, tick=rec.tick)
+        self._probe_done(rec.launch, rec.probe)
         cap = self._seq_capacity()
         # slots with a NEWER launch in flight: their freshest token is on
         # the device, so booking this older one must not hand it to the host
@@ -1190,14 +1302,17 @@ class PagedEngine:
             tok = int(nxt[i])
             self._emit(req, tok, float(margin[i]), rec.launch)
             req._progress_tick = rec.tick  # the launch's tick, as depth 1 books it
+            self.telemetry.on_token(req, t1)
             stop = sequence_finished(tok, len(req.out), req.max_new, pos, cap, self.eos)
             if final is not None:  # its slot was freed in the step that launched the row
                 if stop or final == rec.launch:
                     del self._retiring[id(req)]
                     req.done = True
+                    self.telemetry.on_finish(req, t1)
                     self.finished.append(req)
             elif stop:
                 req.done = True
+                self.telemetry.on_finish(req, t1)
                 self.finished.append(req)
                 self._free_slot(i)
             else:
@@ -1211,6 +1326,7 @@ class PagedEngine:
         first (``run_to_completion`` drains on exit)."""
         while self._inflight:
             self._sync_one()
+        self.telemetry.pipeline_gauge(0)
 
     def _retire_pending(self, i: int) -> bool:
         """True when slot i's in-flight launches are certain to retire it
@@ -1246,13 +1362,14 @@ class PagedEngine:
         self._tick += 1
         self._enforce_lifecycle()
         self._update_pressure()
-        self._admit()
+        admitted = self._admit()
         served = self._prefill_tick_all()
         decoding = [i for i, s in enumerate(self.slots) if s.req is not None and s.mode == "decode"]
         active = [i for i in decoding if self._ensure_tail_page(i)]
         # a later slot's tail page may have preempted an earlier one
         active = [i for i in active if self.slots[i].req is not None]
         if active:
+            self._quiet = served == 0 and admitted == 0
             t0 = self._launch_decode(active)
             while len(self._inflight) >= self.pipeline_depth:
                 self._sync_one(t0 if len(self._inflight) == 1 else None)
@@ -1294,3 +1411,10 @@ class PagedEngine:
                 stuck = 0
         self.drain()
         return self.finished, ticks
+
+    # ------------------------------------------------------------ metrics
+    def snapshot(self) -> dict:
+        """One JSON-able dump of what the engine knows about itself: registry
+        counters, gauges and histograms, trace counts, the journal's health
+        and the request timelines (the ``--metrics-json`` payload)."""
+        return self.telemetry.snapshot(engine=self)

@@ -110,6 +110,11 @@ class Request:
     deadline_s: Optional[float] = None  # None: unbounded
     max_output_stall_ticks: Optional[int] = None
     cancelled: bool = False
+    # the telemetry timeline (serving.telemetry.RequestTimeline): attached at
+    # submit, carried through preemption (a resumed request keeps its
+    # original submit, so TTFT spans the preemption); None at the
+    # "counters" level
+    timeline: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
     # engine-private: (page_size, chunk_hashes(prompt)) — a request held at
     # the admission watermark is re-planned every tick without re-hashing
     _hash_cache: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)

@@ -28,6 +28,15 @@ Rules the graph relies on:
   KV-page writer's ``__trap`` on an out-of-range page, say) shows at the
   next synchronization, as an asynchronous CUDA error.
 
+With a quant-error probe on the model (``Runtime.quant_probe``) the
+capture also holds every probe site's encode (the quantize kernel, through
+``bcq.encode_stats``) and its in-place writes into the recorder's two
+buffers, which are static outputs like the others: the engine copies them
+to pinned memory with the rest before the next replay
+(``QuantProbeRecorder.fetch``).  A probe engine's buckets are therefore
+graphs of their own, with more nodes than a default engine's
+(``node_count`` counts either).
+
 The first tick of a bucket is its warm-up: the tick runs eagerly on a
 side stream (as ``torch.cuda.graphs`` asks before a capture) and its
 outputs are the tick's; then the graph is captured from the same inputs

@@ -49,6 +49,7 @@ class PagePool:
             raise ValueError("need at least the null page + one real page")
         self.free: list[int] = list(range(self.n_pages - 1, 0, -1))
         self.refcount = np.zeros(self.n_pages, np.int32)
+        self.peak = 0  # high-water mark of used(): only alloc() raises it
 
     def available(self) -> int:
         return len(self.free)
@@ -59,6 +60,7 @@ class PagePool:
             return None
         pid = self.free.pop()
         self.refcount[pid] = 1
+        self.peak = max(self.peak, self.used())
         return pid
 
     def ref(self, pid: int) -> None:
@@ -87,6 +89,11 @@ class PagePool:
 
     def used(self) -> int:
         return self.n_pages - 1 - len(self.free)
+
+    def used_by_kind(self) -> dict[str, int]:
+        """Live (allocated or parked) pages per kind, the reference's kinds:
+        the port's pool holds KV pages only."""
+        return {"kv": self.used(), "state": 0, "shared_ro": 0}
 
 
 # ------------------------------------------------------- device page moves

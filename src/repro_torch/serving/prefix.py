@@ -108,3 +108,8 @@ class PrefixCache:
 
     def reclaimable_count(self) -> int:
         return len(self.reclaimable)
+
+    def snapshot(self) -> dict:
+        """The telemetry gauges' values (no host tier: no host pages)."""
+        return {"registered_pages": len(self.by_hash),
+                "reclaimable_pages": len(self.reclaimable), "host_pages": 0}
