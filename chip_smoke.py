@@ -156,8 +156,33 @@ success):
     probe engine's graph nodes and steady tick on phase 4's workload; B3's
     probe form (``encode_stats`` at decode, K 768 and 3072) timed.  Its
     runs' launches join the ``kernels`` line (``telemetry``; B3's probe
-    launches as ``probes``, its probe form as ``probe_form``).  Then the
-    ``kernels`` JSON line
+    launches as ``probes``, its probe form as ``probe_form``).
+15. the host page tier on the card: phase 11's engine with 32 host pages
+    (``host_pages``) over phase 11's requests, then 6 unrelated 224-token
+    prompts whose pages push the shared prefix's parked pages out to the
+    tier, then the shared prefix again thrice (host prefix hits); one
+    preempted request is carried to host and resumed from it without a
+    prefill; the tier's own LRU eviction fires.  Through the kernels at
+    graph depth 2 — every swap-in's page bytes held to those fetched at
+    its swap-out, each swap's copies (CUDA events) and host work (digest +
+    put, take + verify) timed — and eagerly at depth 1: the two equal bit
+    for bit (tokens, margins, launch indices, counters, swap counters, the
+    tier's snapshot, pool bytes, launch counts).  Every launch of a graph
+    depth 2 run held to the plain paths (``check_shadow``), the first
+    decode launch after the resume among them.  A pinned ``swap_corrupt``
+    on the resume quarantines that request alone (every request's tokens
+    before that launch equal the clean run's); a pinned ``swap_out`` on
+    the carry makes the request recompute.  Audits strict and clean, the
+    cross-tier partition included.  The CLI's chaos run with the tier
+    (seed 1) passes ``tools/check_chaos.py`` and equals an eager depth 1
+    rerun.  An idle tier keeps phase 12's steady graph tick (nodes, one
+    ``cudaGraphLaunch``, no host kernel launch).  On a bf16 pool at full
+    width, every page the ladder recompresses equals the CPU's
+    ``_fake_quant`` of its bytes.  The resumed request's re-admission time
+    beside its recompute in phase 12's tier-off run; one page's swap
+    timed on an idle stream beside the copy's bound at 64 GB/s.  Its
+    kernel runs' launches join the ``kernels`` line (``host_tier``).
+    Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
 
@@ -207,7 +232,9 @@ EARLIER_MS = {"bcq_linear": {(8, 768, 3072): 0.0538, (8192, 768, 3072): 0.2431,
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only the end of one still sees why
     print(f"chip_smoke: FAILED: {msg}", flush=True)
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1101,11 +1128,13 @@ def core_requests(cfg):
 
 
 def drive_core(api, params, reqs, chunked=True, eos_id=-1, n_pages=CORE_PAGES, setup=None,
-               prof_steps=0, **mode):
+               prof_steps=0, waves=(), allow_errors=False, **mode):
     """A fresh 8-slot engine (page 16, chunk 64, prefix caching on; eager
-    at depth 1 unless ``mode`` — ``pipeline_depth``, ``cuda_graphs`` — says
-    otherwise; ``setup`` called on it first) serves ``reqs`` to
-    completion, one ``step()`` at a time, then drains.  The host clock of
+    at depth 1 unless ``mode`` — ``pipeline_depth``, ``cuda_graphs``,
+    ``host_pages``, … — says otherwise; ``setup`` called on it first)
+    serves ``reqs`` to completion, one ``step()`` at a time, then drains;
+    then each of ``waves`` (lists of requests) the same way; a request
+    finished with an error fails the run unless ``allow_errors``.  The host clock of
     every step that launched a decode tick and no prefill, with sampled
     rows, lands in ``eng.sampled_step_s``; the first ``prof_steps`` such
     steps after the first 4 run under torch.profiler instead
@@ -1123,33 +1152,34 @@ def drive_core(api, params, reqs, chunked=True, eos_id=-1, n_pages=CORE_PAGES, s
                       prefill_chunk=64, device="cuda", **mode)
     if setup is not None:
         setup(eng)
-    for r in reqs:
-        eng.submit(r)
     trace, eng.sampled_step_s, eng.sampled_prof = [], [], []
     torch.cuda.synchronize()
     build.reset_counts()
-    while eng.queue or eng._active():
-        launches, ticks = eng._launches, eng.stats["decode_ticks"]
-        sampled = any(s.req is not None and s.mode == "decode" and not s.req.sampling.greedy
-                      for s in eng.slots)
-        n_seen = len(eng.sampled_step_s) + len(eng.sampled_prof)
-        profiled = sampled and n_seen >= 4 and len(eng.sampled_prof) < prof_steps
-        t0 = time.perf_counter()
-        prof = _tick_profile(eng.step, 1) if profiled else eng.step()
-        dt = time.perf_counter() - t0
-        if eng._launches == launches or len(trace) > 2000:
-            fail("phase 11: the engine stopped launching with requests left")
-        if sampled and eng._launches == launches + 1 and eng.stats["decode_ticks"] == ticks + 1:
-            if profiled:
-                eng.sampled_prof.append(prof)
-            else:
-                eng.sampled_step_s.append(dt)
-        trace.append((eng._launches, {k: eng.stats[k] for k in CORE_STATS}))
-    eng.drain()
+    for wave in (reqs, *waves):
+        for r in wave:
+            eng.submit(r)
+        while eng.queue or eng._active():
+            launches, ticks = eng._launches, eng.stats["decode_ticks"]
+            sampled = any(s.req is not None and s.mode == "decode" and not s.req.sampling.greedy
+                          for s in eng.slots)
+            n_seen = len(eng.sampled_step_s) + len(eng.sampled_prof)
+            profiled = sampled and n_seen >= 4 and len(eng.sampled_prof) < prof_steps
+            t0 = time.perf_counter()
+            prof = _tick_profile(eng.step, 1) if profiled else eng.step()
+            dt = time.perf_counter() - t0
+            if eng._launches == launches or len(trace) > 2000:
+                fail("phase 11: the engine stopped launching with requests left")
+            if sampled and eng._launches == launches + 1 and eng.stats["decode_ticks"] == ticks + 1:
+                if profiled:
+                    eng.sampled_prof.append(prof)
+                else:
+                    eng.sampled_step_s.append(dt)
+            trace.append((eng._launches, {k: eng.stats[k] for k in CORE_STATS}))
+        eng.drain()
     torch.cuda.synchronize()
     counts = build.counts()
     eng.final_pool = {n: t.clone() for n, t in eng.pool.items()}
-    if any(r.error is not None for r in eng.finished):
+    if not allow_errors and any(r.error is not None for r in eng.finished):
         fail(f"phase 11: requests finished with errors: {[r.error for r in eng.finished]}")
     return {(r.rid, r.sample_idx): r for r in eng.finished}, eng, trace, counts
 
@@ -1353,7 +1383,8 @@ def check_shadow(api_k, api_p, params, reqs, fin_ref, tol, what, need, **kw):
     equal or a flip under the margin rule; the run's tokens equal
     ``fin_ref``'s bit for bit (the kernels are deterministic).  ``need``:
     the features whose tokens the run must have compared (``sampled``,
-    ``resumed``, ``fork``, ``cow``)."""
+    ``resumed``, ``fork``, ``cow``).  Returns the per-launch log (see
+    ``shadow_setup``)."""
     log = []
     fin, eng, _, _ = drive_core(api_k, params, reqs, setup=shadow_setup(api_p, log), **kw)
     if {k: (r.out, r.launch_ids) for k, r in fin.items()} != {
@@ -1401,6 +1432,7 @@ def check_shadow(api_k, api_p, params, reqs, fin_ref, tol, what, need, **kw):
           f"sampled, {got['resumed']} of resumed requests, {got['fork']} of forks at their "
           f"prefill, {got['cow']} in decode launches after a COW copy; booked tokens equal "
           f"their sampler on their own logits", flush=True)
+    return log
 
 
 def phase_core(eng4, tol):
@@ -1582,6 +1614,25 @@ def _tick_profile(fn, n):
             sum(h in HOST_KERNEL_LAUNCHES for h in host) / n, host.count("cudaGraphLaunch") / n)
 
 
+def _steady_profile(eng, label, rows, n=3, tries=3):
+    """``_tick_profile`` of ``n`` steady ticks of ``eng`` (``rows`` rows
+    decoding).  The ticks of a window are alike, so a window with no
+    device kernel, or with a host launch count that is not a whole number
+    a tick, is one where the profiler dropped events: it is profiled
+    again, up to ``tries`` windows, and the last one stands (the caller's
+    checks then judge it)."""
+    for _ in range(tries):
+        if sum(s.req is not None for s in eng.slots) != rows:
+            fail(f"{label}: the steady window lost a decoding row")
+        prof = _tick_profile(eng.step, n)
+        if prof is not None and all(abs(prof[i] * n - round(prof[i] * n)) < 1e-6
+                                    for i in (2, 3)):
+            return prof
+        print(f"  ({label}: torch.profiler dropped events of a steady window of {n} ticks "
+              f"{prof}; profiled again)", flush=True)
+    return prof
+
+
 def _outcome(eng, fin=None):
     """What two ways of one workload must give bit for bit: each request's
     tokens, margins and launch indices, every engine counter but the
@@ -1659,9 +1710,7 @@ def production_way(eng4, prompts, graphs, depth, n_time, label="phase 12", api=N
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_time * 1e3
-    if sum(s.req is not None for s in eng.slots) != len(prompts):
-        fail(f"{label}: the steady window lost a decoding row")
-    prof = _tick_profile(eng.step, 3)
+    prof = _steady_profile(eng, label, len(prompts))
     eng.run_to_completion()
     torch.cuda.synchronize()
     again = eng.trace_counts()["decode"] - captures
@@ -2278,6 +2327,513 @@ def phase_telemetry(eng4, cb, g2, core_g2, smi):
     return total, time_probe(cb)
 
 
+# ------------------------------------------------------------------ phase 15
+# The host tier on phase 11's engine, its schedule chosen in a CPU rehearsal
+# (the schedule does not depend on the tokens; PERF.md §6 has the predicted
+# counts): 32 host pages, few enough that the tier's own LRU eviction fires,
+# and two more waves once phase 11's requests have drained — 6 prompts of 224
+# unrelated tokens (16 tokens each), whose pages push the parked pages of
+# the shared prefix out to the tier, then the shared 320-token prefix again
+# with 20, 30 and 40 new suffix tokens, which finds it there.
+TIER_PAGES = 32
+TIER_FILL = (6, 224, 16)  # filler prompts: count, tokens, tokens generated
+TIER_AGAIN = (20, 30, 40)  # suffix tokens of the prefix resubmissions
+TIER_SEED = 15
+TIER_CHAOS_SEED = 1  # the CLI chaos run with --host-tier: a corrupt swap-in among its faults
+PAGE_BYTES = 12 * 2 * 16 * 12 * (32 + 4 + 1)  # a bcq4 page: layers × (K, V) × tokens × heads × bytes
+PCIE_BPS = 64e9  # the host link, PCIe Gen5 x16: nominal bytes/s each direction
+LADDER_ROUNDS, LADDER_BUDGET = 3, 8  # forced ladder ticks, pages a tick
+
+
+def tier_waves(cfg):
+    """Phase 15's two later waves (rids 20–25, then 30–32)."""
+    from repro_torch.serving.generate import Request
+
+    rng = np.random.default_rng(TIER_SEED)
+    prefix = core_requests(cfg)[0].prompt[:CORE_PREFIX]
+    n, plen, gen = TIER_FILL
+    fill = [Request(rid=20 + i, prompt=rng.integers(0, cfg.vocab, plen), max_new=gen - 1)
+            for i in range(n)]
+    again = [Request(rid=30 + i, prompt=np.concatenate([prefix, rng.integers(0, cfg.vocab, k)]),
+                     max_new=GEN - 1) for i, k in enumerate(TIER_AGAIN)]
+    return [fill, again]
+
+
+def _bits(t):
+    return t.contiguous().reshape(-1).view(__import__("torch").uint8)
+
+
+def tier_probe(rec):
+    """A ``drive_core`` setup on a host-tier engine: each swap-out's copy
+    (CUDA events) and digest + put (host clock) timed and its fetched
+    arrays kept by handle; each swap-in's take + verify (host clock) and
+    copy (events) timed, and the page's bytes after the insert held to the
+    arrays fetched at its swap-out, bit for bit; the tick and launch of
+    every carry and of every resume from host."""
+    import torch
+
+    from repro_torch.serving import pages as pages_lib
+
+    for k in ("out_copy_ms", "out_put_ms", "in_take_ms", "in_copy_ms", "carry", "resume",
+              "corrupt"):
+        rec[k] = []
+    rec["fetched"], rec["held"] = {}, 0
+
+    def setup(eng):
+        tier, pending = eng.host_tier, {}
+        fetch, put, take, corrupt = eng._fetch_page_arrays, tier.put, tier.take, tier.corrupt
+        insert, carry, resume = (eng._insert_page_arrays, eng._carry_resume_state,
+                                 eng._try_resume_from_host)
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def _fetch(pid):
+            a = event()
+            out = fetch(pid)
+            b = event()
+            b.synchronize()
+            rec["out_copy_ms"].append(a.elapsed_time(b))
+            pending["arrays"] = [t.clone() for t in out]
+            return out
+
+        def _put(arrays, *a, **kw):
+            t0 = time.perf_counter()
+            handle = put(arrays, *a, **kw)
+            rec["out_put_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["fetched"][handle] = pending.pop("arrays")
+            return handle
+
+        def _take(handle, *a, **kw):
+            pending["handle"] = handle
+            t0 = time.perf_counter()
+            try:
+                return take(handle, *a, **kw)
+            finally:
+                rec["in_take_ms"].append((time.perf_counter() - t0) * 1e3)
+
+        def _insert(pid, entry):
+            a = event()
+            insert(pid, entry)
+            b = event()
+            b.synchronize()
+            rec["in_copy_ms"].append(a.elapsed_time(b))
+            want = rec["fetched"].pop(pending.pop("handle"))
+            got = pages_lib.kv_page_fetch(eng.pool, pid)
+            if len(got) != len(want) or not all(torch.equal(_bits(g), _bits(w))
+                                                for g, w in zip(got, want)):
+                fail(f"phase 15: page {pid} after its swap-in differs from the bytes fetched "
+                     "at its swap-out")
+            rec["held"] += 1
+
+        def _corrupt(handle, *a, **kw):
+            rec["corrupt"].append((eng._tick, eng._launches))
+            return corrupt(handle, *a, **kw)
+
+        def _carry(i, resumed):
+            carry(i, resumed)
+            if resumed._host_resume is not None:
+                rec["carry"].append((eng._tick, int(resumed.rid), eng._launches,
+                                     len(resumed._host_resume[0])))
+
+        def _resume(req, slot_idx, hr):
+            res = resume(req, slot_idx, hr)
+            if res:
+                rec["resume"].append((eng._tick, int(req.rid), eng._launches, len(hr[0])))
+            return res
+
+        eng._fetch_page_arrays, eng._insert_page_arrays = _fetch, _insert
+        eng._carry_resume_state, eng._try_resume_from_host = _carry, _resume
+        tier.put, tier.take, tier.corrupt = _put, _take, _corrupt
+
+    return setup
+
+
+def resume_timer(rec):
+    """A ``drive_core`` setup that only times each resume from host, on the
+    host clock with the stream synchronized before and after (no other
+    wrapper: the swaps themselves run as in production)."""
+    import torch
+
+    rec["resume"] = []
+
+    def setup(eng):
+        resume = eng._try_resume_from_host
+
+        def _resume(req, slot_idx, hr):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = resume(req, slot_idx, hr)
+            torch.cuda.synchronize()
+            if res:
+                rec["resume"].append((int(req.rid), (time.perf_counter() - t0) * 1e3, len(hr[0])))
+            return res
+
+        eng._try_resume_from_host = _resume
+
+    return setup
+
+
+def _instants(eng, name):
+    return [args for kind, nm, _, _, _, _, args, _ in eng.telemetry.journal._buf
+            if kind == "instant" and nm == name]
+
+
+def drive_tier(api, params, what, setup=None, faults=None, allow_errors=False, **mode):
+    """Phase 11's engine with a host tier of ``TIER_PAGES`` pages over phase
+    11's requests and phase 15's two later waves (eager at depth 1 unless
+    ``mode`` says otherwise).  Checks every request finished, the swap
+    accounting, a clean strict audit (the cross-tier partition included)
+    and the page accounting after the drain.  Returns (finished by (rid,
+    sample_idx), engine, the way's record for ``_hold_ways``, launch
+    counts, the step trace)."""
+    cfg = api.cfg
+    fin, eng, trace, counts = drive_core(api, params, core_requests(cfg), setup=setup,
+                                         waves=tier_waves(cfg), allow_errors=allow_errors,
+                                         host_pages=TIER_PAGES, fault_injector=faults, **mode)
+    want = sorted([(r, 0) for r in range(CORE_REQUESTS)] + [(CORE_FORK, 1), (CORE_SAMPLED, 1),
+                  (CORE_SAMPLED, 2)] + [(20 + i, 0) for i in range(TIER_FILL[0])]
+                  + [(30 + i, 0) for i in range(len(TIER_AGAIN))])
+    if sorted(fin) != want:
+        fail(f"phase 15 [{what}]: finished {sorted(fin)}, expected {want}")
+    sw = {k: c.value for k, c in eng._cs_swap.items()}
+    if sw["swap_ins"] != sw["verified_swapins"] + sw["corrupt_swapins"]:
+        fail(f"phase 15 [{what}]: swap accounting {sw}")
+    eng.audit(strict=True)
+    core_clean(eng, f"phase 15 {what}")
+    kinds = {k: r.error.kind for k, r in fin.items() if r.error is not None}
+    out = (*_outcome(eng, fin), kinds, sw, eng.host_tier.snapshot(), eng.prefix.host_hits)
+    return fin, eng, {"out": out, "counts": counts, "pool": eng.final_pool}, counts, trace
+
+
+def _recompute_ms(req):
+    """The recompute of a preempted request in a tier-off run: (the summed
+    prefill launches its prompt rode after its last admission, the wall from
+    that admission to the end of the last), ms."""
+    tl = req.timeline
+    spans = [(t0, t1) for t0, t1 in tl.prefill_spans if t0 >= tl.admits[-1]]
+    if not spans:
+        return None
+    return (1e3 * sum(t1 - t0 for t0, t1 in spans), 1e3 * (spans[-1][1] - tl.admits[-1]))
+
+
+def _ms(v):
+    return f"{np.mean(v):.4f} (min {np.min(v):.4f}, n {len(v)})" if v else "none"
+
+
+def time_swap(eng, smi):
+    """One bcq4 page's swap-out and swap-in on an idle stream, 50 times
+    each: the copies by CUDA events, the host's digest + put and take +
+    verify by the host clock; beside the copy's bound at PCIe Gen5 x16."""
+    import torch
+
+    from repro_torch.serving import pages as pages_lib
+
+    pid = 1
+    tier = pages_lib.HostPageTier(2)
+    d2h, h2d, put, take = [], [], [], []
+    for _ in range(50):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        arrays = pages_lib.kv_page_fetch(eng.pool, pid)
+        b.record()
+        b.synchronize()
+        d2h.append(a.elapsed_time(b))
+        t0 = time.perf_counter()
+        handle = tier.put(arrays, "kv")
+        t1 = time.perf_counter()
+        entry = tier.take(handle)
+        t2 = time.perf_counter()
+        put.append((t1 - t0) * 1e3)
+        take.append((t2 - t1) * 1e3)
+        a.record()
+        pages_lib.kv_page_insert(eng.pool, entry.arrays, pid, flat=entry.flat)
+        b.record()
+        b.synchronize()
+        h2d.append(a.elapsed_time(b))
+    # the copies' own device time: torch.profiler over 10 calls of each
+    dev_out = _device_kernels(lambda: pages_lib.kv_page_fetch(eng.pool, pid), 10)
+    dev_in = _device_kernels(lambda: pages_lib.kv_page_insert(eng.pool, entry.arrays, pid,
+                                                              flat=entry.flat), 10)
+    bound = PAGE_BYTES / PCIE_BPS * 1e3
+
+    def dev_txt(d):
+        if d is None:
+            return "device time not measured (the profiler saw no event)"
+        kern, busy, by_name, _ = d
+        move = sum(ms for nm, ms in by_name.items() if nm.startswith("Memcpy"))
+        return (f"{busy:.4f} ms of device time a call in {kern:.0f} events: the transfer "
+                f"{move:.4f}, the slices' copy kernels {busy - move:.4f}")
+
+    print(f"phase 15 one bcq4 page ({entry.nbytes} B) on an idle stream, 50 times: swap-out "
+          f"copy (gather + device→host) {_ms(d2h)} ms between CUDA events (host-paced), "
+          f"{dev_txt(dev_out)}; digest + put (host) {_ms(put)} ms; swap-in take + verify "
+          f"(host) {_ms(take)} ms, copy (host→device + scatter) {_ms(h2d)} ms between events, "
+          f"{dev_txt(dev_in)}; the copy's bound at 64 GB/s (PCIe Gen5 x16, nominal) "
+          f"{bound * 1e3:.2f} µs; card {smi}", flush=True)
+    if entry.nbytes != PAGE_BYTES:
+        fail(f"phase 15: a bcq4 page is {entry.nbytes} B, expected {PAGE_BYTES}")
+    return {"d2h_ms": float(np.mean(d2h)), "h2d_ms": float(np.mean(h2d)),
+            "d2h_device_ms": None if dev_out is None else dev_out[1],
+            "h2d_device_ms": None if dev_in is None else dev_in[1],
+            "put_ms": float(np.mean(put)), "take_ms": float(np.mean(take)), "bound_ms": bound}
+
+
+def ladder_probe(rec):
+    """A ``drive_core`` setup: every recompressed page's bytes after the
+    ladder step held to the CPU's ``_fake_quant`` of the bytes fetched just
+    before it, bit for bit (integer leaves unchanged)."""
+    import torch
+
+    from repro_torch.serving import pages as pages_lib
+
+    rec["pages"], rec["stages"] = 0, {}
+
+    def setup(eng):
+        real = eng._recompress_page
+
+        def _recompress(pid, stage):
+            before = pages_lib.kv_page_fetch(eng.pool, pid)
+            real(pid, stage)
+            after = pages_lib.kv_page_fetch(eng.pool, pid)
+            levels = pages_lib._STAGE_LEVELS[stage]
+            for b, a in zip(before, after):
+                want = pages_lib._fake_quant(b.clone(), levels) if b.is_floating_point() else b
+                if not torch.equal(_bits(a), _bits(want)):
+                    fail(f"phase 15: page {pid} at stage {stage} differs from the CPU "
+                         "_fake_quant of its bytes")
+            rec["pages"] += 1
+            rec["stages"][stage] = rec["stages"].get(stage, 0) + 1
+
+        eng._recompress_page = _recompress
+
+    return setup
+
+
+def phase_host_tier(eng4, tol, core, g2, core_g2, smi):
+    """Phase 15: the host tier on the card — phase 11's engine with 32 host
+    pages over phase 11's requests and two later waves.  Through the
+    kernels at graph depth 2 (every swap-in held bit for bit to the bytes
+    of its swap-out, the swaps timed) and eagerly at depth 1: equal bit
+    for bit (tokens, margins, launch indices, counters, swap counters, tier
+    snapshot, pool bytes, launch counts); every launch of a graph depth 2
+    run held to the plain paths (``check_shadow``), the first decode
+    launch after each resume from host among them; a corrupt swap-in
+    quarantines its owner alone; a refused carry recomputes; audits clean;
+    the CLI's chaos run with the tier passes ``tools/check_chaos.py``; an
+    idle tier keeps phase 12's steady tick; the ladder on a bf16 pool
+    equals the CPU's ``_fake_quant``.  Returns the launch counts of its
+    kernel runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import zoo
+    from repro_torch.serving.faults import FaultInjector
+
+    cfg = get_arch("gpt3_126m")
+    api_p = core[0]
+    api_k, params = eng4.api, eng4.params
+    total = {}
+
+    def add(c):
+        for n in COUNTED:
+            total[n] = total.get(n, 0) + c.get(n, 0)
+
+    rec = {}
+    t0 = time.perf_counter()
+    fin_g, eng_g, way_g, counts_g, trace_g = drive_tier(
+        api_k, params, "graph depth 2", setup=tier_probe(rec), cuda_graphs=True, pipeline_depth=2)
+    run_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fin_e, eng_e, way_e, counts_e, trace_e = drive_tier(api_k, params, "eager depth 1")
+    run_e = time.perf_counter() - t0
+    _hold_ways([("eager depth 1", way_e), ("graph depth 2", way_g)], "phase 15's workload",
+               "phase 15")
+    if trace_g != trace_e:
+        fail("phase 15: the graph depth 2 run's steps differ from eager depth 1's")
+    for name, eng, counts in (("graph depth 2", eng_g, counts_g), ("eager depth 1", eng_e,
+                                                                   counts_e)):
+        core_counts(eng, counts, f"phase 15 {name}")
+    add(counts_g)
+    add(counts_e)
+    sw, snap, host_hits = way_g["out"][3], way_g["out"][4], way_g["out"][5]
+    resumes = _instants(eng_g, "swap_resume")
+    st = {k: eng_g.stats[k] for k in CORE_STATS}
+    if not (sw["swap_outs"] and host_hits and resumes and _instants(eng_g, "host_evict")
+            and rec["resume"] and rec["held"] == sw["verified_swapins"] == sw["swap_ins"]):
+        fail(f"phase 15: the run must demote parked pages, hit them from host, resume a "
+             f"preempted request from host and evict from the tier: swap {sw}, host hits "
+             f"{host_hits}, resumes {resumes}, held {rec['held']}")
+    for _, rid, _, _ in rec["resume"]:
+        tl = fin_g[(rid, 0)].timeline
+        if any(t0 >= tl.admits[-1] for t0, _ in tl.prefill_spans):
+            fail(f"phase 15: request {rid} resumed from host but prefilled its prompt again")
+    print(f"phase 15 host tier ({TIER_PAGES} host pages; card {smi}): graph depth 2 "
+          f"{run_g:.2f} s (every swap timed and checked), eager depth 1 {run_e:.2f} s; "
+          f"{eng_g._tick} ticks, {eng_g.stats['decode_ticks']} decode ticks, "
+          f"{eng_g.stats['prefill_launches']} prefill launches; counters {st}; swap {sw}; tier "
+          f"{snap}; prefix host hits {host_hits}; host_evict {len(_instants(eng_g, 'host_evict'))}"
+          f", carries {rec['carry']}, resumes from host {resumes}; the two ways equal bit for "
+          f"bit (tokens, margins, launch indices, counters, swap counters, tier snapshot, pool "
+          f"bytes, launch counts {counts_g}); every one of the {rec['held']} swap-ins equal to "
+          f"the bytes of its swap-out; audits clean", flush=True)
+    print(f"phase 15 swaps in the graph depth 2 run: swap-out copy (between CUDA events, "
+          f"host-paced) {_ms(rec['out_copy_ms'])} ms, digest + put (host) "
+          f"{_ms(rec['out_put_ms'])} ms; swap-in take + verify (host) "
+          f"{_ms(rec['in_take_ms'])} ms, copy (between events) {_ms(rec['in_copy_ms'])} ms; bytes a page {PAGE_BYTES}, the copy's bound at 64 GB/s "
+          f"{PAGE_BYTES / PCIE_BPS * 1e6:.2f} µs; card {smi}", flush=True)
+
+    # the resume, timed on a run with no other wrapper, against the tier-off
+    # recompute of the same request (phase 12's graph depth 2 run of phase
+    # 11's workload)
+    rec_t = {}
+    fin_t, eng_t, way_t, counts_t, _ = drive_tier(api_k, params, "graph depth 2, timed",
+                                                  setup=resume_timer(rec_t), cuda_graphs=True,
+                                                  pipeline_depth=2)
+    add(counts_t)
+    _hold_ways([("graph depth 2", way_g), ("graph depth 2, timed", way_t)],
+               "phase 15's workload", "phase 15")
+    eng_off = core_g2[1]
+    fin_off = {(r.rid, r.sample_idx): r for r in eng_off.finished}
+    resume_vs = []
+    for rid, ms, pages in rec_t["resume"]:
+        off = _recompute_ms(fin_off[(rid, 0)]) if (rid, 0) in fin_off else None
+        resume_vs.append({"rid": rid, "pages": pages, "resume_ms": ms,
+                          "recompute_prefill_ms": None if off is None else off[0],
+                          "recompute_wall_ms": None if off is None else off[1]})
+        print(f"phase 15 request {rid}'s re-admission after its preemption: from host {ms:.3f} "
+              f"ms ({pages} pages: take + verify, copy, host clock synchronized before and "
+              f"after); in the tier-off run (phase 12's graph depth 2) "
+              + ("no recompute" if off is None else
+                 f"its recompute's prefill launches {off[0]:.3f} ms, {off[1]:.3f} ms from "
+                 "re-admission to the end of its prompt")
+              + f"; card {smi}", flush=True)
+
+    # every launch held to the plain paths on its own inputs
+    log = check_shadow(api_k, api_p, params, core_requests(cfg), fin_g, tol,
+                       "host tier, graph depth 2", ("sampled", "resumed", "fork", "cow"),
+                       cuda_graphs=True, pipeline_depth=2, host_pages=TIER_PAGES,
+                       waves=tier_waves(cfg))
+    for _, rid, launch, _ in rec["resume"]:
+        if not any(kind == "decode" and e0 >= launch and any(k == (rid, 0) for k, *_ in toks)
+                   for e0, kind, _, toks, _ in log):
+            fail(f"phase 15: no decode launch after request {rid}'s resume was shadowed")
+
+    # a corrupt swap-in quarantines its owner alone
+    tick, rid = rec["resume"][0][0], rec["resume"][0][1]
+    rec_c = {}
+    fin_c, eng_c, way_c, counts_c, _ = drive_tier(
+        api_k, params, "corrupt swap-in", setup=tier_probe(rec_c), allow_errors=True,
+        faults=FaultInjector(seed=0, schedule=[(tick, "swap_corrupt", rid)], max_faults=1),
+        cuda_graphs=True, pipeline_depth=2)
+    add(counts_c)
+    kinds = way_c["out"][2]
+    launch = rec_c["corrupt"][0][1] if rec_c["corrupt"] else None
+    if kinds != {(rid, 0): "quarantined"} or "integrity" not in str(fin_c[(rid, 0)].error) \
+            or way_c["out"][3]["corrupt_swapins"] != 1 or launch is None:
+        fail(f"phase 15: the corrupt swap-in (tick {tick}, request {rid}) gave errors {kinds}, "
+             f"swap {way_c['out'][3]}")
+    for key, r in fin_c.items():
+        ref = fin_g[key]
+        before = [(t, lid) for t, lid in zip(r.out, r.launch_ids) if lid < launch]
+        if before != [(t, lid) for t, lid in zip(ref.out, ref.launch_ids) if lid < launch]:
+            fail(f"phase 15: request {key}'s tokens before the corrupt swap-in's launch {launch} "
+                 "differ from the run without the fault")
+    print(f"phase 15 swap_corrupt at tick {tick} on request {rid}'s resume: only it quarantined "
+          f"({fin_c[(rid, 0)].error}); every request's tokens before launch {launch} equal the "
+          f"clean run's; swap {way_c['out'][3]}", flush=True)
+
+    # a refused carry recomputes
+    tick_o, rid_o = rec["carry"][0][0], rec["carry"][0][1]
+    fin_r, eng_r, way_r, counts_r, _ = drive_tier(
+        api_k, params, "refused swap-out",
+        faults=FaultInjector(seed=0, schedule=[(tick_o, "swap_out", rid_o)], max_faults=1),
+        cuda_graphs=True, pipeline_depth=2)
+    add(counts_r)
+    tl = fin_r[(rid_o, 0)].timeline
+    if way_r["out"][3]["swap_skips"] < 1 or any(a["rid"] == rid_o for a in
+                                               _instants(eng_r, "swap_resume")) \
+            or not any(t0 >= tl.admits[-1] for t0, _ in tl.prefill_spans):
+        fail(f"phase 15: the refused carry of request {rid_o} at tick {tick_o} did not "
+             f"recompute: swap {way_r['out'][3]}")
+    print(f"phase 15 swap_out refused at tick {tick_o} (request {rid_o}'s carry): it recomputed "
+          f"its prompt, every request finished clean; swap {way_r['out'][3]}", flush=True)
+
+    # the CLI's chaos run with the tier
+    prompts = list(np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)))
+    path = os.path.join(ROOT, "build", "chaos_report_host_tier.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.synchronize()
+    from repro_torch.kernels import build
+
+    build.reset_counts()
+    rep = serve.run_chaos(api_k, params, prompts, 16, seed=TIER_CHAOS_SEED, report_path=path,
+                          host_pages=256)
+    torch.cuda.synchronize()
+    add(build.counts())
+    check = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "check_chaos.py"), path],
+                           capture_output=True, text=True, timeout=120)
+    csw = rep["health"]["swap"]
+    print(f"phase 15 tools/check_chaos.py on the --host-tier chaos report (exit "
+          f"{check.returncode}): {(check.stdout + check.stderr).strip()}", flush=True)
+    if check.returncode != 0 or not rep["host_tier"] or not csw["swap_outs"] \
+            or csw["swap_ins"] != csw["verified_swapins"] + csw["corrupt_swapins"]:
+        fail(f"phase 15: the host-tier chaos report fails: {rep['host_tier']}, swap {csw}")
+    rep1 = serve.run_chaos(api_k, params, prompts, 16, seed=TIER_CHAOS_SEED, host_pages=256,
+                           pipeline_depth=1, cuda_graphs=False)
+    key = lambda r: (sorted((o["rid"], o["sample_idx"], o["error_kind"], o["n_out"])  # noqa: E731
+                            for o in r["requests"]), r["faults"]["by_site"], r["ticks"],
+                     r["health"]["counters"], r["health"]["swap"], r["health"]["host_tier"])
+    if key(rep) != key(rep1):
+        fail(f"phase 15: the host-tier chaos run at graph depth 2 and eagerly at depth 1 "
+             f"differ: {key(rep)} vs {key(rep1)}")
+
+    # an idle tier costs the steady tick nothing
+    rng = np.random.default_rng(0)
+    prompts4 = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    w = production_way(eng4, prompts4, True, 2, 10, label="phase 15", host_pages=TIER_PAGES)
+    _hold_ways([("phase 12 graph depth 2", g2), ("idle host tier", w)], "phase 4's workload",
+               "phase 15")
+    prof = w["prof"]
+    if w["nodes"] != g2["nodes"] or not w["nodes"] or prof is None or prof[2] != 0 \
+            or prof[3] != 1 or w["engine"].health()["swap"]["swap_outs"]:
+        fail(f"phase 15: the idle tier's steady tick (graph nodes {w['nodes']}; {prof}) is not "
+             f"phase 12's ({g2['nodes']}; {g2['prof']})")
+    add(w["counts"])
+    print(f"phase 15 idle tier ({TIER_PAGES} host pages, no pressure) on phase 4's workload: "
+          f"graph nodes {w['nodes']} (phase 12's {g2['nodes']}), steady tick wall {w['wall']:.2f} "
+          f"ms (phase 12's {g2['wall']:.2f}), {_profile_txt(prof, w['wall'])}; card {smi}",
+          flush=True)
+
+    # the ladder on a bf16 pool: phase 11's requests leave parked pages, then
+    # the pressure signal is held at 0 for LADDER_ROUNDS ladder ticks
+    api_b = zoo.build(cfg, dataclasses.replace(api_k.rt, cache_kind="bf16"), device="cuda")
+    rec_l = {}
+    fin_l, eng_l, _, counts_l = drive_core(api_b, params, core_requests(cfg),
+                                           setup=ladder_probe(rec_l), recompress_after=1,
+                                           cuda_graphs=True, pipeline_depth=2)
+    add({n: counts_l.get(n, 0) for n in ("bcq_linear", "page_gather")})
+    eng_l._available_pages = lambda: 0
+    for _ in range(LADDER_ROUNDS):
+        eng_l._recompress_tick(budget=LADDER_BUDGET)
+    del eng_l._available_pages
+    eng_l.audit(strict=True)
+    rc = eng_l.health()["swap"]["recompressed_pages"]
+    if rec_l["pages"] != rc or rc != LADDER_ROUNDS * LADDER_BUDGET:
+        fail(f"phase 15: the ladder recompressed {rc} pages, {rec_l['pages']} checked")
+    print(f"phase 15 ladder (bf16 pages at full width, recompress_after 1, pressure held for "
+          f"{LADDER_ROUNDS} ladder ticks of {LADDER_BUDGET} pages): {rc} parked pages "
+          f"recompressed ({rec_l['stages']}), each equal bit for bit to the CPU _fake_quant of "
+          f"its bytes fetched before", flush=True)
+    return total, {"swaps": time_swap(eng_g, smi), "resume_vs_recompute": resume_vs}
+
+
 # ------------------------------------------------------------------ phase 10
 def _bound(nbytes, *work):
     """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
@@ -2319,6 +2875,8 @@ def kernel_split_ms(fn, bound, what, iters=10, tries=3):
                 print(f"  ({what}: the profiler lost {lost} of {iters * len(seen)} kernel "
                       f"events; each kernel timed by the mean of those it saw)", flush=True)
             return ms
+        print(f"  ({what}: a profiler window read {seen} events, {sum(ms.values()):.5f} ms "
+              f"against the bound {bound:.5f}; profiled again)", flush=True)
     fail(f"torch.profiler dropped kernels of {what} in {tries} windows of {iters} calls "
          f"(last window's events by kernel: {seen}; bound {bound:.5f} ms)")
 
@@ -2685,12 +3243,14 @@ def main() -> int:
     counts_prod, g2, core_g2 = phase_production(eng4, tol, core)
     counts_contain = phase_containment(eng4, tol, core, g2, smi)
     counts_tel, probe_form = phase_telemetry(eng4, cb, g2, core_g2, smi)
+    counts_tier, _ = phase_host_tier(eng4, tol, core, g2, core_g2, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
             entry["launches_by_path"]["production_tick"] = counts_prod[counter]
             entry["launches_by_path"]["containment"] = counts_contain[counter]
             entry["launches_by_path"]["telemetry"] = counts_tel[counter]
+            entry["launches_by_path"]["host_tier"] = counts_tier[counter]
             entry["launches"] = sum(entry["launches_by_path"].values())
     kernels[3]["launches_by_path"]["probes"] = counts_tel["bcq_quantize"]
     kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())

@@ -39,6 +39,13 @@ submission waves; ``--chaos-report PATH`` writes the report that
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt3_126m --chaos \\
         --chaos-seed 0 --chaos-report chaos.json && python tools/check_chaos.py chaos.json
+
+``--host-tier`` (with ``--host-pages N``, 256 by default) adds the host-RAM
+page tier to a serving or chaos run: evicted parked prefix pages and
+preemption victims' pages move to a bounded host pool and stream back
+with their blake2b digest verified (a corrupt swap-in quarantines only
+its owner); ``--recompress-after N`` arms the cold-page recompression
+ladder (native → int8 → bcq4 value precision) after N pressured ticks.
 """
 from __future__ import annotations
 
@@ -79,7 +86,7 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
           page_size: int = 16, prefill_chunk: int = 0, device="cuda", seed: int = 0,
           kernels: bool = True, chunked_prefill: bool = False, prefix_caching: bool = True,
           best_of: int = 1, sampling: SamplingParams = GREEDY, pipeline_depth: int = 2,
-          cuda_graphs=None, quant_probe=None):
+          cuda_graphs=None, quant_probe=None, host_pages: int = 0, recompress_after: int = 0):
     """Serve ``prompts`` (a list of 1-D token arrays) for ``gen`` tokens
     each (the prefill's token plus gen-1 decode tokens), ``best_of``
     forked siblings each, one slot per sibling.  ``seed`` draws the
@@ -87,15 +94,18 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
     and the KV-page writer (``Runtime(fused_linear, paged_kernel)``); off,
     the plain decode+matmul, gather+softmax and encode+scatter paths run.
     ``pipeline_depth`` and ``cuda_graphs`` (None: on for a CUDA device)
-    go to the engine; ``quant_probe`` (a ``QuantProbeRecorder``) to the
-    model.  Returns (finished requests, engine)."""
+    go to the engine, and ``host_pages`` (a host tier of that many pages
+    if > 0) and ``recompress_after`` (the cold-page ladder if > 0);
+    ``quant_probe`` (a ``QuantProbeRecorder``) to the model.  Returns
+    (finished requests, engine)."""
     api, params = build_model(cfg, cache, packed, device, seed, kernels, quant_probe)
     max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
     eng = PagedEngine(
         api, params, n_slots=len(prompts) * best_of, max_len=max_len, page_size=page_size,
         prefix_caching=prefix_caching, chunked_prefill=chunked_prefill,
         prefill_chunk=prefill_chunk or 2 * page_size, pipeline_depth=pipeline_depth,
-        cuda_graphs=cuda_graphs, device=device,
+        cuda_graphs=cuda_graphs, device=device, host_pages=host_pages,
+        recompress_after=recompress_after,
     )
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new=gen - 1, n_samples=best_of,
@@ -107,14 +117,17 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
 def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk: int = 0,
               seed: int = 0, rate: float = 0.05, report_path=None, audit_every: int = 0,
               deadline_s=None, degrade_after=None, pipeline_depth: int = 2, cuda_graphs=None,
-              arch: str = "gpt3_126m", cache: str = "bcq4") -> dict:
+              arch: str = "gpt3_126m", cache: str = "bcq4", host_pages: int = 0,
+              recompress_after: int = 0) -> dict:
     """The chaos smoke (the reference's ``run_chaos``): ``prompts`` served
     twice over (two waves, the second queued behind the first; odd rids
     fork in 2) by a chunked-prefill engine of one slot per prompt with a
     ``FaultInjector`` at every site — ``rate`` for the transient sites,
     a fifth of it for ``logits`` and ``sampler`` (each roll kills a
     request) — an audit every ``audit_every`` ticks (4 if 0) and a queue
-    bounded at twice the batch.  The run must end with no exception
+    bounded at twice the batch; ``host_pages`` > 0 adds the host tier
+    (its swap seams armed at ``rate`` too) and ``recompress_after`` the
+    ladder.  The run must end with no exception
     escaping the engine, no page referenced and a clean audit.  Returns
     the report (the reference's schema 1, written to ``report_path`` if
     given)."""
@@ -126,7 +139,8 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
                       chunked_prefill=True, prefill_chunk=prefill_chunk or 2 * page_size,
                       fault_injector=faults, audit_every=audit_every or 4, max_queue=2 * batch,
                       degrade_after=degrade_after, pipeline_depth=pipeline_depth,
-                      cuda_graphs=cuda_graphs, device=api.device)
+                      cuda_graphs=cuda_graphs, device=api.device, host_pages=host_pages,
+                      recompress_after=recompress_after)
     reqs = [Request(rid=wave * batch + i, prompt=prompts[i], max_new=gen - 1,
                     n_samples=2 if (wave * batch + i) % 2 else 1, deadline_s=deadline_s)
             for wave in range(2) for i in range(batch)]
@@ -143,8 +157,9 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
                  "error_kind": None if r.error is None else getattr(r.error, "kind", None),
                  "n_out": len(r.out)} for r in eng.finished]
     report = {
-        "schema": 1, "arch": arch, "cache": cache, "page_layout": "kv", "host_tier": False,
-        "host_pages": 0, "recompress_after": 0, "chaos_seed": seed, "chaos_rate": rate,
+        "schema": 1, "arch": arch, "cache": cache, "page_layout": "kv",
+        "host_tier": bool(host_pages), "host_pages": host_pages,
+        "recompress_after": recompress_after, "chaos_seed": seed, "chaos_rate": rate,
         "deadline_s": deadline_s, "n_requests": len(reqs),
         "all_finished": {o["rid"] for o in outcomes} == {r.rid for r in reqs},
         "ticks": ticks, "unhandled_exception": unhandled, "leaked_pages": leaked,
@@ -157,10 +172,17 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
     for o in outcomes:
         if o["error_kind"]:
             errs[o["error_kind"]] = errs.get(o["error_kind"], 0) + 1
-    print(f"chaos  : seed={seed} rate={rate} cache={cache} pipeline depth {eng.pipeline_depth} — "
+    print(f"chaos  : seed={seed} rate={rate} cache={cache} host_tier="
+          f"{'on' if host_pages else 'off'} pipeline depth {eng.pipeline_depth} — "
           f"{len(outcomes)} finished over {ticks} ticks, {report['faults']['total']} faults "
           f"injected {report['faults']['by_site']}, errors {errs or '{}'}; leaked pages {leaked}, "
           f"audit {'clean' if audit.ok else 'DIRTY'}, unhandled {unhandled or 'none'}")
+    if host_pages:
+        sw = report["health"]["swap"]
+        print(f"chaos  : swap outs={sw['swap_outs']} ins={sw['swap_ins']} (verified "
+              f"{sw['verified_swapins']} / corrupt {sw['corrupt_swapins']}), skips="
+              f"{sw['swap_skips']}, bytes={sw['swap_bytes']}, recompressed="
+              f"{sw['recompressed_pages']}")
     if report_path:
         with open(report_path, "w") as f:
             json.dump(report, f, indent=1)
@@ -223,6 +245,15 @@ def main(argv=None):
     ap.add_argument("--degrade-after", type=int, default=None,
                     help="chaos mode: enter degraded mode after N ticks at the admission "
                          "watermark (default: off)")
+    ap.add_argument("--host-tier", action="store_true",
+                    help="the host-RAM page tier: evicted parked prefix pages and preemption "
+                         "victims' pages move to a bounded host pool (blake2b-verified "
+                         "swap-ins) instead of being recomputed")
+    ap.add_argument("--host-pages", type=int, default=256,
+                    help="host-tier capacity in pages (with --host-tier)")
+    ap.add_argument("--recompress-after", type=int, default=0,
+                    help="recompress cold parked pages (native->int8->bcq4) after N consecutive "
+                         "ticks at or below the admission watermark (0 = off)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.metrics_json or args.trace_out or args.quant_probes:
@@ -230,13 +261,15 @@ def main(argv=None):
     if not (args.paged or args.chaos):
         ap.error("the port serves the paged engine only: pass --paged")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    host_pages = args.host_pages if args.host_tier else 0
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (args.batch, args.prompt_len))
     if args.chaos:  # W4A4 packed weights, as the reference's chaos smoke
         api, params = build_model(cfg, args.cache, True, args.device)
         rep = run_chaos(api, params, list(prompts), args.gen, args.page_size, args.prefill_chunk,
                         args.chaos_seed, args.chaos_rate, args.chaos_report, args.audit_every,
                         args.deadline_s, args.degrade_after, args.pipeline_depth,
-                        arch=cfg.name, cache=args.cache)
+                        arch=cfg.name, cache=args.cache, host_pages=host_pages,
+                        recompress_after=args.recompress_after)
         return 0 if rep["unhandled_exception"] is None else 1
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, seed=args.seed)
     probe_sink = QuantProbeSink(n_layers=cfg.n_layers) if args.quant_probes else None
@@ -247,6 +280,7 @@ def main(argv=None):
         prefix_caching=not args.no_prefix_cache, best_of=args.best_of, sampling=sampling,
         pipeline_depth=args.pipeline_depth,
         quant_probe=None if probe_sink is None else QuantProbeRecorder(probe_sink),
+        host_pages=host_pages, recompress_after=args.recompress_after,
     )
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -260,6 +294,9 @@ def main(argv=None):
     keys = ("prefix_hits", "prefix_misses", "prefill_tokens_skipped", "forks", "shared_pages",
             "cow_copies", "preemptions", "prefix_evictions")
     print("serving core: " + ", ".join(f"{k} {eng.stats[k]}" for k in keys))
+    if host_pages:
+        print("host tier: " + ", ".join(f"{k} {v}" for k, v in eng.health()["swap"].items())
+              + f"; prefix host hits {eng.prefix.host_hits}")
     for r in sorted(finished, key=lambda r: (r.rid, r.sample_idx)):
         print(f"  rid {r.rid} sample {r.sample_idx}: {r.out}")
     if args.metrics_json or args.trace_out or args.quant_probes:

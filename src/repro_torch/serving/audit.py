@@ -1,6 +1,6 @@
 """Invariant auditor for the paged serving engine (counterpart of the KV
-half of ``repro/serving/audit.py``; the port has neither the
-state-checkpoint layout nor the host page tier yet).
+layout of ``repro/serving/audit.py``; the port has no state-checkpoint
+layout yet).
 
 The allocator, the prefix cache and the engine's block tables are three
 views of one ownership story; a page leak or a double free is a
@@ -23,7 +23,14 @@ rests on:
   bijection, registered refcount-0 pages are parked, no free page stays
   registered;
 * **slot geometry** — a slot's live pages are a contiguous prefix of its
-  row covering its position (one more for a freshly ensured tail page).
+  row covering its position (one more for a freshly ensured tail page);
+* **cross-tier partition** (host tier on) — a chain hash resolves to an
+  HBM pid or a host handle, never both; the tier is within its capacity
+  and ``bytes_resident`` is its entries' sum; each pinned entry is a
+  preemption carry held by exactly one queued request, each unpinned one
+  a registered prefix chunk (host registration a bijection onto them);
+  every entry has its 16-byte digest and a handle above ``_HANDLE_BASE``
+  (never a pid); no free page keeps a recompression stage.
 
 ``AuditReport`` collects every violation; ``engine.audit(strict=True)``
 (or an engine built with ``strict=True``) raises ``AuditError`` on a
@@ -34,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.serving.pages import NULL_PAGE, pages_needed
+from repro_torch.serving.pages import _HANDLE_BASE, NULL_PAGE, pages_needed
 
 
 class AuditError(RuntimeError):
@@ -100,6 +107,64 @@ def _gather_kv_refs(engine, free_set, bad) -> dict:
     return table_refs
 
 
+def _audit_host_tier(engine, prefix, bad) -> None:
+    """The cross-tier partition of the KV layout (see the module's list)."""
+    tier = getattr(engine, "host_tier", None)
+    if tier is None:
+        if prefix.host_by_hash or prefix.hash_of_handle:
+            bad.append(f"host tier disabled but {len(prefix.host_by_hash)} prefix hashes "
+                       "resolve to host handles")
+        return
+    if tier.used() > tier.capacity:
+        bad.append(f"host tier over capacity: {tier.used()} > {tier.capacity}")
+    nbytes = sum(e.nbytes for e in tier.entries.values())
+    if nbytes != tier.bytes_resident:
+        bad.append(f"host tier bytes_resident {tier.bytes_resident} != {nbytes} summed entry "
+                   "bytes")
+    carried: dict[int, int] = {}
+    for req in engine.queue:
+        for h in (req._host_resume[0] if req._host_resume is not None else ()):
+            carried[h] = carried.get(h, 0) + 1
+    for handle, n in carried.items():
+        if n != 1:
+            bad.append(f"host handle {handle} carried by {n} requests")
+        e = tier.entries.get(handle)
+        if e is None:
+            bad.append(f"queued request carries dangling host handle {handle}")
+        elif not e.pinned:
+            bad.append(f"carried host handle {handle} is not pinned")
+        if handle in prefix.hash_of_handle:
+            bad.append(f"host handle {handle} is both a preemption carry and a registered "
+                       "prefix chunk")
+    if len(prefix.host_by_hash) != len(prefix.hash_of_handle):
+        bad.append(f"host prefix registration not a bijection: {len(prefix.host_by_hash)} "
+                   f"hashes vs {len(prefix.hash_of_handle)} handles")
+    for h, handle in prefix.host_by_hash.items():
+        if prefix.hash_of_handle.get(handle) != h:
+            bad.append(f"host prefix maps disagree on handle {handle}")
+        if not tier.has(handle):
+            bad.append(f"prefix hash registered on dangling host handle {handle}")
+        if h in prefix.by_hash:
+            bad.append(f"hash resolves to BOTH HBM page {prefix.by_hash[h]} and host handle "
+                       f"{handle} (one tier per page)")
+    for handle, e in tier.entries.items():
+        if handle <= _HANDLE_BASE:
+            bad.append(f"host handle {handle} at/below the handle base (collides with HBM "
+                       "page ids)")
+        if len(e.digest) != 16:
+            bad.append(f"host handle {handle} has no integrity digest")
+        if e.kind != engine.HOST_SWAP_KIND:
+            bad.append(f"host handle {handle} holds a {e.kind!r} page but this layout swaps "
+                       f"{engine.HOST_SWAP_KIND!r}")
+        if e.pinned:
+            if carried.get(handle, 0) == 0:
+                bad.append(f"pinned host handle {handle} carried by no queued request "
+                           "(host-tier leak)")
+        elif handle not in prefix.hash_of_handle:
+            bad.append(f"unpinned host handle {handle} has no prefix registration "
+                       "(unreachable host entry)")
+
+
 def audit_engine(engine) -> AuditReport:
     """One full consistency sweep over the PagePool, the PrefixCache and
     the engine's block tables."""
@@ -149,6 +214,11 @@ def audit_engine(engine) -> AuditReport:
     for pid in parked:
         if pid not in prefix.hash_of:
             bad.append(f"parked page {pid} has no prefix registration")
+
+    _audit_host_tier(engine, prefix, bad)
+    for pid in getattr(engine, "_recompress_stage", {}):
+        if pid in free_set:
+            bad.append(f"free page {pid} still has a recompress stage marker")
 
     return AuditReport(ok=not bad, violations=bad, pages_checked=pool.n_pages - 1,
                        slots_checked=len(engine.slots), tick=getattr(engine, "_tick", 0))

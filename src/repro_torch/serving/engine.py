@@ -139,8 +139,22 @@ sync, at either level.  ``snapshot()`` dumps it all.  With a
 rows are fetched with its results and fed to the sink after its sync,
 launches in their order, at every depth.
 
-Left out (ROADMAP queue A): the host page tier, whose swap seams
-therefore never fire (its counters stay 0).
+**The host tier** (``host_pages > 0``, the reference's, docs/ROBUSTNESS.md
+"Memory tiers"): a bounded host-RAM pool (``pages.HostPageTier``) behind
+the prefix LRU and preemption.  An evicted parked prefix page's bytes
+move to host RAM under its chain hash, and a later hit streams them back
+into a fresh pid; a decoding preemption victim's pages are carried there
+(pinned entries) and its re-admission streams them back and rejoins decode
+at the carried position, with no prefill.  Every swap-in verifies the
+page's digest; a mismatch quarantines only its owner.  Any refusal (the
+``swap_out`` / ``swap_in`` seams, a tier full of carries, a dry
+allocator) falls back to recompute.  The copies ride the compute stream
+(``pages.py``): a swap-out waits for every launch in flight before it
+reads the page, a swap-in lands before the next launch reads it, and the
+pool is written in place, so a captured decode graph reads the new bytes.
+``recompress_after > 0`` arms the cold-page ladder
+(``pages.kv_page_recompress``): after that many pressured ticks the
+coldest parked pages are requantized one stage down, in place.
 """
 from __future__ import annotations
 
@@ -163,6 +177,7 @@ from repro_torch.serving.generate import (
     sampling_keys,
     sequence_finished,
 )
+from repro_torch.serving import pages as pages_lib
 from repro_torch.serving.pages import (
     NULL_PAGE,
     PagePool,
@@ -285,7 +300,8 @@ class PagedEngine:
                  strict: bool = False, nan_guard: bool = True, audit_every: int = 0,
                  max_queue: Optional[int] = None, shed_stuck: bool = True,
                  degrade_after: Optional[int] = None, recover_after: int = 16,
-                 degraded_prefix_target: int = 0, telemetry: Optional[Telemetry] = None):
+                 degraded_prefix_target: int = 0, host_pages: int = 0,
+                 recompress_after: int = 0, telemetry: Optional[Telemetry] = None):
         """``pipeline_depth``: decode launches in flight after a step (1 syncs
         each launch in its own step; ``profile_sync`` forces 1).
         ``cuda_graphs``: the decode step as one CUDA graph per block-table
@@ -300,9 +316,11 @@ class PagedEngine:
         sheds a head-of-line request the pool can never admit (else
         ``run_to_completion`` raises); ``degrade_after`` /
         ``recover_after`` / ``degraded_prefix_target``: the degraded
-        mode's hysteresis (off by default).  ``telemetry``: the registry,
-        histograms, timelines and journal (a default-level ``Telemetry``
-        if None)."""
+        mode's hysteresis (off by default).  ``host_pages > 0``: a host
+        tier of that many pages;
+        ``recompress_after > 0``: the cold-page ladder after that many
+        pressured ticks.  ``telemetry``: the registry, histograms,
+        timelines and journal (a default-level ``Telemetry`` if None)."""
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"model built for {api.device}, engine asked for {self.device}")
@@ -353,8 +371,12 @@ class PagedEngine:
         self._c["t_prefill_s"].unit = self._c["t_decode_s"].unit = "s"
         self._c_syncs = reg.counter("device_syncs")  # one per wait for the device
         self._cr = {k: reg.counter(k) for k in ROBUSTNESS_STAT_KEYS}
-        self._cs_swap = {k: reg.counter(k) for k in SWAP_STAT_KEYS}  # 0: no host tier
+        self._cs_swap = {k: reg.counter(k) for k in SWAP_STAT_KEYS}  # registered either way
         self._cs_swap["swap_bytes"].unit = "bytes"
+        self.host_tier = pages_lib.HostPageTier(host_pages) if host_pages else None
+        self.recompress_after = recompress_after
+        self._rc_pressure = 0  # consecutive pressured ticks (the ladder's clock)
+        self._recompress_stage: dict[int, int] = {}  # pid → ladder stage of its bytes
         self.stats = StatsView(self)
         # the quant-error probe's recorder, if the model has one; launches'
         # rows wait in ``_probe_wait`` until every earlier launch was fed
@@ -460,6 +482,7 @@ class PagedEngine:
         stamp the typed error, count it, finish."""
         if slot is not None:
             self._free_slot(slot)
+        self._release_carried(req)  # the host pages a queued resumed request holds
         req.error = RequestError(kind, msg)
         req.done = True
         if kind in self._cr:
@@ -527,7 +550,8 @@ class PagedEngine:
         or below the admission watermark enter it, ``recover_after``
         relieved ticks leave it.  While degraded, parked prefix pages are
         evicted down to ``degraded_prefix_target`` (and ``submit`` refuses
-        forks)."""
+        forks).  First, the cold-page ladder's tick."""
+        self._recompress_tick()
         if self.degrade_after is None:
             return
         if self._available_pages() <= self.watermark:
@@ -548,6 +572,34 @@ class PagedEngine:
                 if self._evict_parked_page() is None:
                     break
 
+    def _recompress_tick(self, budget: int = 2):
+        """The cold-page ladder (``recompress_after`` > 0): after that many
+        consecutive ticks at or below the admission watermark, requantize
+        up to ``budget`` parked pages one stage down, coldest first, in
+        place.  The stage sticks to the page's bytes: it survives a revival
+        and travels through the host tier as the entry's meta."""
+        if not self.recompress_after:
+            return
+        if self._available_pages() > self.watermark:
+            self._rc_pressure = 0
+            return
+        self._rc_pressure += 1
+        if self._rc_pressure < self.recompress_after:
+            return
+        top = len(pages_lib.RECOMPRESS_STAGES) - 1
+        for pid in list(self.prefix.reclaimable):  # LRU order: coldest first
+            if budget == 0:
+                break
+            stage = self._recompress_stage.get(pid, 0)
+            if stage >= top:
+                continue
+            self._recompress_page(pid, pages_lib.RECOMPRESS_STAGES[stage + 1])
+            self._recompress_stage[pid] = stage + 1
+            self._cs_swap["recompressed_pages"].inc()
+            self.telemetry.instant("recompress", page=int(pid),
+                                   stage=pages_lib.RECOMPRESS_STAGES[stage + 1])
+            budget -= 1
+
     def audit(self, strict: Optional[bool] = None) -> AuditReport:
         """The ``serving/audit.py`` sweep now; ``strict`` (the engine's by
         default) raises ``AuditError`` on a dirty report."""
@@ -562,8 +614,7 @@ class PagedEngine:
 
     def health(self) -> dict:
         """One JSON-able liveness and pressure summary, in the reference's
-        shape (the swap counters are 0: no host tier); ``snapshot()`` is the
-        full metrics dump."""
+        shape; ``snapshot()`` is the full metrics dump."""
         return {
             "status": "degraded" if self.degraded else "ok",
             "degraded": self.degraded,
@@ -576,7 +627,7 @@ class PagedEngine:
             "pressure_ticks": self._pressure_ticks,
             "relief_ticks": self._relief_ticks,
             "counters": {k: c.value for k, c in self._cr.items()},
-            "host_tier": None,
+            "host_tier": None if self.host_tier is None else self.host_tier.snapshot(),
             "swap": {k: c.value for k, c in self._cs_swap.items()},
             "last_audit": None if self._last_audit is None else self._last_audit.to_dict(),
             "faults_injected": None if self.faults is None else self.faults.counts(),
@@ -609,14 +660,99 @@ class PagedEngine:
         return pid
 
     def _evict_parked_page(self) -> Optional[int]:
-        """Evict the least recently parked prefix page to the free list."""
+        """Evict the least recently parked prefix page to the free list;
+        with the host tier on, its bytes are demoted to host RAM first."""
         popped = self.prefix.pop_lru()
         if popped is None:
             return None
+        h, victim = popped
         self._c["prefix_evictions"].inc()
-        self.telemetry.instant("prefix_evict", page=int(popped[1]))
-        self.pool_mgr.release(popped[1])
-        return popped[1]
+        self.telemetry.instant("prefix_evict", page=int(victim))
+        self._maybe_swap_out_parked(h, victim)
+        self._recompress_stage.pop(victim, None)  # the pid goes back to the free list
+        self.pool_mgr.release(victim)
+        return victim
+
+    def _maybe_swap_out_parked(self, h, pid: int) -> bool:
+        """Demote an evicted parked page's bytes to the host tier under its
+        chain hash.  A refusal (no tier, the ``swap_out`` seam, a tier full
+        of carries) is a plain eviction: the caller frees the pid anyway."""
+        tier = self.host_tier
+        if tier is None or h is None:
+            return False
+        if self.faults is not None and self.faults.swap_out_fails(self._tick, key=int(pid)):
+            self._cs_swap["swap_skips"].inc()
+            return False
+        if tier.full():
+            ev = tier.evict_lru()
+            if ev is None:
+                self._cs_swap["swap_skips"].inc()
+                return False  # every entry a carry: plain eviction
+            self.prefix.host_forget(ev[0])
+            self.telemetry.instant("host_evict")
+        arrays = self._fetch_page_arrays(pid)
+        stage = self._recompress_stage.get(pid, 0)
+        handle = tier.put(arrays, self.HOST_SWAP_KIND, meta={"stage": stage} if stage else None)
+        self.prefix.host_register(h, handle)
+        self._cs_swap["swap_outs"].inc()
+        self._cs_swap["swap_bytes"].inc(tier.entries[handle].nbytes)
+        self.telemetry.instant("swap_out", page=int(pid))
+        return True
+
+    # the page kind the host tier holds from this engine
+    HOST_SWAP_KIND = pages_lib.KIND_KV
+
+    def _fetch_page_arrays(self, pid: int) -> list:
+        """One page's per-page pool slices on the host (a swap-out)."""
+        return pages_lib.kv_page_fetch(self.pool, pid)
+
+    def _insert_page_arrays(self, pid: int, entry) -> None:
+        """Write a verified host entry into pool page ``pid``, in place."""
+        pages_lib.kv_page_insert(self.pool, entry.arrays, pid, flat=entry.flat)
+
+    def _recompress_page(self, pid: int, stage: str) -> None:
+        pages_lib.kv_page_recompress(self.pool, pid, stage)
+
+    def _carry_resume_state(self, i: int, resumed: Request) -> None:
+        """Preemption of slot i, before its teardown: with the host tier, a
+        decoding victim's pages are snapshotted to pinned host entries and
+        ``resumed`` carries their handles, so its re-admission streams them
+        back and rejoins decode with no prefill.  A refusal (no tier, a
+        prefilling or forking victim, the ``swap_out`` seam, no room for
+        the carry) leaves plain recompute.  The slot is named by its index:
+        ``slots.index`` would compare slots by value."""
+        tier, slot = self.host_tier, self.slots[i]
+        if tier is None or slot.mode != "decode" or slot.pos <= 0 or resumed.n_samples > 1:
+            return
+        pids = live_pages(self.tables[i])
+        if not pids:
+            return
+        if self.faults is not None and self.faults.swap_out_fails(self._tick, key=int(resumed.rid)):
+            self._cs_swap["swap_skips"].inc()
+            return
+        while tier.capacity - tier.used() < len(pids):
+            ev = tier.evict_lru()
+            if ev is None:
+                self._cs_swap["swap_skips"].inc()
+                return  # the carry does not fit: recompute
+            self.prefix.host_forget(ev[0])
+        handles, nbytes = [], 0
+        for pid in pids:
+            handles.append(tier.put(self._fetch_page_arrays(pid), self.HOST_SWAP_KIND,
+                                    pinned=True, meta={"rid": int(resumed.rid)}))
+            nbytes += tier.entries[handles[-1]].nbytes
+        resumed._host_resume = (handles, slot.pos)
+        self._cs_swap["swap_outs"].inc(len(pids))
+        self._cs_swap["swap_bytes"].inc(nbytes)
+        self.telemetry.instant("swap_out_preempt", rid=int(resumed.rid), pages=len(pids))
+
+    def _release_carried(self, req: Request) -> None:
+        """Drop the host entries a queued request carries."""
+        if req._host_resume is not None:
+            if self.host_tier is not None:
+                for handle in req._host_resume[0]:
+                    self.host_tier.drop(handle)
+            req._host_resume = None
 
     def _drop_page(self, pid: int):
         """One owner lets go of ``pid``: a registered page is parked when
@@ -665,7 +801,8 @@ class PagedEngine:
     # ------------------------------------------------------ prefix hits
     def _plan_prefix_hits(self, req: Request, prompt: np.ndarray):
         """(chain hashes of the prompt's full pages, the longest chain of
-        pages that hit).  A peek: moves no page and counts nothing, since a
+        pages that hit: a pid, or ``("host", handle)`` for a chunk the host
+        tier holds).  A peek: moves no page and counts nothing, since a
         head-of-line request is planned again every tick; the hashes are
         memoized on the request."""
         if not self.prefix_caching:
@@ -678,32 +815,172 @@ class PagedEngine:
         hits = []
         for h in hashes:
             pid = self.prefix.peek(h)
-            if pid is None:
-                break
-            hits.append(pid)
+            if pid is not None:
+                hits.append(pid)
+                continue
+            if self.host_tier is not None:
+                handle = self.prefix.host_peek(h)
+                if handle is not None:  # still a hit: a swap-in into a fresh pid
+                    hits.append(("host", handle))
+                    continue
+            break
         if hits and self.faults is not None and self.faults.drop_prefix_claim(
                 self._tick, key=int(req.rid)):
             hits = []  # a racing eviction: the whole prompt recomputes
         return hashes, hits
 
+    @staticmethod
+    def _n_hbm_hits(hits) -> int:
+        """Planned hits that hold an HBM pid (a host hit needs a fresh page)."""
+        return sum(1 for hit in hits if not isinstance(hit, tuple))
+
     def _claim_hits(self, hashes, hits, n_cacheable: int, table: np.ndarray) -> int:
         """Take a reference on each planned hit page (reviving parked
-        ones) into ``table``; count hits, and misses over the
-        ``n_cacheable`` pages that could have hit."""
-        for i, (h, pid) in enumerate(zip(hashes, hits)):
-            if self.prefix.lookup(h) != pid:
-                raise RuntimeError("prefix cache changed between plan and claim")
-            if self.pool_mgr.refcount[pid] == 0:
-                self.pool_mgr.revive(pid)
+        ones) into ``table``, a host hit swapped in to a fresh pid; count
+        hits, and misses over the ``n_cacheable`` pages that could have
+        hit.  The chain is truncated where a planned page is gone — a
+        refused swap-in, or a parked page that an earlier swap-in's
+        allocation evicted (the reference asserts there) — and the rest
+        recomputes; a corrupt swap-in raises ``PageCorruptionError``.
+        Returns the pages claimed."""
+        claimed = 0
+        for i, (h, hit) in enumerate(zip(hashes, hits)):
+            if isinstance(hit, tuple):
+                pid = self._swap_in_prefix_page(h)
+                if pid is None:
+                    break
             else:
-                self.pool_mgr.ref(pid)
+                pid = hit
+                if self.prefix.peek(h) != pid:
+                    break
+                self.prefix.lookup(h)
+                if self.pool_mgr.refcount[pid] == 0:
+                    self.pool_mgr.revive(pid)
+                else:
+                    self.pool_mgr.ref(pid)
             table[i] = pid
-        self._c["prefix_hits"].inc(len(hits))
-        self._c["prefix_misses"].inc(max(0, n_cacheable - len(hits)))
-        return len(hits)
+            claimed += 1
+        self._c["prefix_hits"].inc(claimed)
+        self._c["prefix_misses"].inc(max(0, n_cacheable - claimed))
+        return claimed
+
+    def _swap_in_prefix_page(self, h) -> Optional[int]:
+        """Stream one host-resident prefix chunk back into a fresh pid:
+        claim the handle, allocate, verify-take, insert, register the hash
+        on the new pid.  None on a refusal (a miss), or raises
+        ``PageCorruptionError`` (the entry is gone either way)."""
+        tier = self.host_tier
+        handle = self.prefix.host_peek(h)
+        if tier is None or handle is None or not tier.has(handle):
+            return None  # raced out since planning
+        key = int(handle - pages_lib._HANDLE_BASE)
+        if self.faults is not None and self.faults.swap_in_fails(self._tick, key=key):
+            self.prefix.host_forget(handle)  # the entry is unusable
+            tier.drop(handle)
+            self._cs_swap["swap_skips"].inc()
+            return None
+        self.prefix.host_claim(h)
+        tier.pin(handle)  # the allocation below may LRU-evict host entries
+        pid = self._alloc_page()
+        if pid is None:
+            tier.pin(handle, False)
+            self.prefix.host_register(h, handle)  # undo the claim
+            return None
+        if self.faults is not None and self.faults.swap_corrupts(self._tick, key=key):
+            tier.corrupt(handle)
+        self._cs_swap["swap_ins"].inc()
+        try:
+            entry = tier.take(handle, expect_kind=self.HOST_SWAP_KIND)
+        except pages_lib.PageCorruptionError:
+            self._cs_swap["corrupt_swapins"].inc()
+            self.telemetry.instant("swap_corrupt", handle=key)
+            self._drop_page(pid)  # fresh, not registered yet: freed
+            raise
+        self._cs_swap["verified_swapins"].inc()
+        self._cs_swap["swap_bytes"].inc(entry.nbytes)
+        self._insert_page_arrays(pid, entry)
+        stage = entry.meta.get("stage", 0)
+        if stage:
+            self._recompress_stage[pid] = stage
+        if self.prefix_caching:
+            self.prefix.register(h, pid)
+        self.telemetry.instant("swap_in", page=int(pid))
+        return pid
+
+    def _try_resume_from_host(self, req: Request, slot_idx: int, hr: tuple) -> Optional[bool]:
+        """Re-admit a preemption victim from its carried host pages: each
+        streamed back verified into a fresh pid, then decode rejoins at the
+        carried position — no prefill, the same KV bytes.  True (admitted),
+        False (waits for pages; the carry stays pinned), or None (fell back:
+        the carry dropped, the caller admits by recompute)."""
+        handles, pos = hr
+        if pos != len(req.prompt) - 1:
+            raise RuntimeError(f"a host carry at position {pos} for a {len(req.prompt)}-token "
+                               "resumed prompt")
+        tier = self.host_tier
+        if (tier is None or any(not tier.has(h) for h in handles)
+                # a slab recompute would raise the typed too-long error
+                or (not self.chunked and len(req.prompt) >= self.max_len)):
+            self._release_carried(req)
+            return None
+        if self.faults is not None and self.faults.swap_in_fails(self._tick, key=int(req.rid)):
+            self._cs_swap["swap_skips"].inc()
+            self._release_carried(req)
+            return None
+        need = len(handles)
+        if self._available_pages() < need + self.watermark:
+            return False
+        if self.chunked:
+            self._grow_tables(pages_needed(len(req.prompt) + req.max_new + 1, self.ps))
+        # every destination page before any entry is consumed: a dry
+        # allocator here (a flake) rolls back to recompute, which stays exact
+        table = np.full((self.tables.shape[1],), NULL_PAGE, np.int32)
+        for k in range(need):
+            pid = self._alloc_page()
+            if pid is None:
+                for p in table:
+                    self._drop_page(int(p))
+                self._cs_swap["swap_skips"].inc()
+                self._release_carried(req)
+                return None
+            table[k] = pid
+        try:
+            for k, handle in enumerate(handles):
+                if self.faults is not None and self.faults.swap_corrupts(self._tick,
+                                                                         key=int(req.rid)):
+                    tier.corrupt(handle)
+                self._cs_swap["swap_ins"].inc()
+                entry = tier.take(handle, expect_kind=self.HOST_SWAP_KIND)
+                self._cs_swap["verified_swapins"].inc()
+                self._cs_swap["swap_bytes"].inc(entry.nbytes)
+                self._insert_page_arrays(int(table[k]), entry)
+        except pages_lib.PageCorruptionError:
+            for pid in table:
+                self._drop_page(int(pid))
+            self._cs_swap["corrupt_swapins"].inc()
+            self.telemetry.instant("swap_corrupt", rid=int(req.rid))
+            self._release_carried(req)  # the entries not taken yet
+            raise
+        req._host_resume = None
+        self.telemetry.on_admit(req, time.perf_counter())
+        self.tables[slot_idx] = table
+        self.slots[slot_idx] = _PagedSlot(req=req, pos=pos, admit_seq=self._admit_counter)
+        self._admit_counter += 1
+        # the cache holds pos tokens; the one it lacks is the resumed
+        # prompt's last, which decode consumes next
+        self._next_tok[slot_idx] = int(req.prompt[-1])
+        self._chained[slot_idx] = False
+        req._progress_tick = self._tick
+        self.telemetry.instant("swap_resume", rid=int(req.rid), pages=need, pos=int(pos))
+        self._finish_if_budget_spent(slot_idx)
+        return True
 
     # -------------------------------------------------------- admission
     def _try_admit(self, req: Request, slot_idx: int) -> bool:
+        if req._host_resume is not None:
+            res = self._try_resume_from_host(req, slot_idx, req._host_resume)
+            if res is not None:
+                return res
         prompt = np.asarray(req.prompt, np.int64)
         plen = len(prompt)
         if self.chunked:
@@ -713,7 +990,7 @@ class PagedEngine:
         n_prompt_pages = pages_needed(plen, self.ps)
         n_full = plen // self.ps
         hashes, hits = self._plan_prefix_hits(req, prompt)
-        need = n_prompt_pages - len(hits)
+        need = n_prompt_pages - self._n_hbm_hits(hits)  # a host hit needs a fresh page
         if self._available_pages() < need + self.watermark:
             return False  # admission control: keep decode headroom
 
@@ -778,14 +1055,19 @@ class PagedEngine:
         # keep ≥ 1 suffix token: the prompt's last-position logits (the
         # first generated token) come out of its final chunk
         hits = hits[: min(len(hits), (plen - 1) // self.ps)]
-        need = n_prompt_pages - len(hits)
+        need = n_prompt_pages - self._n_hbm_hits(hits)
         if self._available_pages() < need + self.watermark:
             return False  # the same memory policy; only compute is deferred
 
         self._grow_tables(pages_needed(plen + req.max_new + 1, self.ps))
         table = np.full((self.tables.shape[1],), NULL_PAGE, np.int32)
-        # cacheable: the full pages, less the hit trimmed above
-        n_claimed = self._claim_hits(hashes, hits, (plen - 1) // self.ps, table)
+        try:
+            # cacheable: the full pages, less the hit trimmed above
+            n_claimed = self._claim_hits(hashes, hits, (plen - 1) // self.ps, table)
+        except BaseException:
+            for pid in table:  # a corrupt swap-in mid-claim: the pages live only here
+                self._drop_page(int(pid))
+            raise
         self._c["prefill_tokens_skipped"].inc(n_claimed * self.ps)
         self.telemetry.on_admit(req, time.perf_counter())
         self.tables[slot_idx] = table
@@ -807,7 +1089,8 @@ class PagedEngine:
         """Admit from the head of the queue while a slot (n sibling slots
         for a forking request) and the pages are there.  An admission that
         raises (its pages already rolled back) is retried from the head
-        three times, then the request is quarantined."""
+        three times, then the request is quarantined; a corrupt swap-in
+        quarantines it at once."""
         admitted = 0
         while self.queue:
             free = [i for i, s in enumerate(self.slots) if s.req is None and s.reserved_by is None]
@@ -820,6 +1103,11 @@ class PagedEngine:
                 if self.strict:
                     raise
                 self.queue.popleft()
+                if isinstance(exc, pages_lib.PageCorruptionError):
+                    # no retry, which would recompute and mask the failure:
+                    # only this request ever referenced the bad bytes
+                    self._finish_error(req, "quarantined", f"swap-in integrity failure: {exc}")
+                    break
                 req._admit_retries += 1
                 if req._admit_retries <= 3:
                     self.queue.appendleft(req)
@@ -939,6 +1227,7 @@ class PagedEngine:
             _progress_tick=req._progress_tick, _admit_retries=req._admit_retries,
         )
         req._resumed_as = resumed
+        self._carry_resume_state(victim, resumed)  # before the teardown drops the pages
         self._free_slot(victim)
         self.queue.appendleft(resumed)
         self._c["preemptions"].inc()

@@ -26,10 +26,14 @@ Sites (the engine's seams, see ``PagedEngine``):
                        which the NaN guard must quarantine;
 * ``"sampler"``      — the token pick of one slot raises
                        ``InjectedFault``;
-* ``"swap_out"``, ``"swap_in"``, ``"swap_corrupt"`` — the host page
-                       tier's seams; the port has no host tier yet, so
-                       they never fire, and stay so that reports keep the
-                       reference's site set.
+* ``"swap_out"``     — a host-tier swap-out is refused (a parked page's
+                       demotion: plain eviction; a preemption carry:
+                       recompute);
+* ``"swap_in"``      — a host-tier swap-in is refused (the entry is
+                       dropped: the chunk or the request recomputes);
+* ``"swap_corrupt"`` — a stored byte of the entry is flipped before its
+                       swap-in's integrity check, which must quarantine
+                       only the owning request.
 
 Faults fire two ways: an explicit ``schedule`` of ``(tick, site)`` /
 ``(tick, site, key)`` points, and/or a ``rates`` dict of per-site

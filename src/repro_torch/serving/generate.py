@@ -122,6 +122,9 @@ class Request:
     # output into the prompt, and a second one must append only what was
     # generated since (None: nothing folded yet)
     _orig_plen: Optional[int] = dataclasses.field(default=None, repr=False, compare=False)
+    # engine-private: (host-tier handles, cache position) of the pages a
+    # preemption carried to host RAM; re-admission streams them back
+    _host_resume: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
     # the Request a preemption requeued this one as (``cancel`` follows it)
     _resumed_as: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
     # engine-private lifecycle anchors: the submit time on the monotonic

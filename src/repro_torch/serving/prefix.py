@@ -1,5 +1,5 @@
 """Prefix caching: share immutable full KV pages across requests
-(counterpart of ``repro/serving/prefix.py`` without its host tier).
+(counterpart of ``repro/serving/prefix.py``).
 
 A prompt is cut into full pages; each is keyed by the **chain hash** of
 every token up to and including it, so a page is reused only when the
@@ -15,6 +15,11 @@ it keeps its bytes and its registration, parked in an LRU, and is either
 revived by a later hit or evicted (least recently parked first) when the
 allocator runs dry.  Shared pages are never written; a forked sibling
 copies its shared tail page before its first write (``pages.copy_page``).
+
+With the host tier on, an evicted parked page's bytes move to host RAM
+and its hash is re-homed onto the tier's handle (``host_register``); a
+later hit claims the handle and streams the page back into a fresh pid.
+A hash resolves to an HBM pid or a host handle, never both.
 """
 from __future__ import annotations
 
@@ -55,6 +60,11 @@ class PrefixCache:
         self.by_hash: dict[bytes, int] = {}
         self.hash_of: dict[int, bytes] = {}
         self.reclaimable: OrderedDict[int, None] = OrderedDict()
+        # the second tier: chain hash ↔ ``HostPageTier`` handle of parked
+        # pages demoted to host RAM, disjoint from ``by_hash``
+        self.host_by_hash: dict[bytes, int] = {}
+        self.hash_of_handle: dict[int, bytes] = {}
+        self.host_hits = 0
 
     def peek(self, h: bytes) -> Optional[int]:
         """The page holding this chunk, or None; moves nothing (admission
@@ -72,10 +82,12 @@ class PrefixCache:
 
     def register(self, h: bytes, pid: int) -> None:
         """Key page ``pid`` by ``h``.  A second page with a known hash (two
-        prompts racing on one prefix) stays private: the first is kept."""
+        prompts racing on one prefix, or a recomputed chunk whose first page
+        was demoted to host RAM) stays private: the first is kept, in either
+        tier."""
         if pid == NULL_PAGE:
             raise ValueError("the null page is never registered")
-        if h not in self.by_hash and pid not in self.hash_of:
+        if h not in self.by_hash and h not in self.host_by_hash and pid not in self.hash_of:
             self.by_hash[h] = pid
             self.hash_of[pid] = h
 
@@ -99,6 +111,38 @@ class PrefixCache:
         self.forget(pid)
         return h, pid
 
+    # ------------------------------------------------------- host tier
+    def host_register(self, h: bytes, handle: int) -> None:
+        """Re-home an evicted parked page's hash onto its host handle."""
+        if h in self.by_hash or h in self.host_by_hash:
+            raise ValueError("a chain hash lives in one tier only")
+        self.host_by_hash[h] = handle
+        self.hash_of_handle[handle] = h
+
+    def host_peek(self, h: bytes) -> Optional[int]:
+        """The host handle caching this chunk, or None; moves nothing."""
+        return self.host_by_hash.get(h)
+
+    def host_claim(self, h: bytes) -> Optional[int]:
+        """Claim a host-resident chunk for a swap-in: the mapping goes (the
+        caller registers the fresh pid once the page is restored) and a
+        host hit is counted."""
+        handle = self.host_by_hash.pop(h, None)
+        if handle is not None:
+            del self.hash_of_handle[handle]
+            self.host_hits += 1
+        return handle
+
+    def host_forget(self, handle: int) -> None:
+        """Drop a handle's registration (tier eviction, a refused or corrupt
+        entry): the chunk is cached nowhere now."""
+        h = self.hash_of_handle.pop(handle, None)
+        if h is not None:
+            self.host_by_hash.pop(h, None)
+
+    def host_count(self) -> int:
+        return len(self.host_by_hash)
+
     def forget(self, pid: int) -> None:
         """Remove a page's registration."""
         h = self.hash_of.pop(pid, None)
@@ -110,6 +154,7 @@ class PrefixCache:
         return len(self.reclaimable)
 
     def snapshot(self) -> dict:
-        """The telemetry gauges' values (no host tier: no host pages)."""
+        """The telemetry gauges' values."""
         return {"registered_pages": len(self.by_hash),
-                "reclaimable_pages": len(self.reclaimable), "host_pages": 0}
+                "reclaimable_pages": len(self.reclaimable),
+                "host_pages": len(self.host_by_hash)}

@@ -85,7 +85,7 @@ ROBUSTNESS_STAT_KEYS = (
 
 # Host-tier swap counters (docs/ROBUSTNESS.md memory-tier table).  Also
 # registry-only for the same reason as ROBUSTNESS_STAT_KEYS.  Always
-# registered (zero: the port has no host tier yet) so scrapers and
+# registered (zero with the tier off) so scrapers and
 # tools/check_telemetry.py see a stable catalogue.  Accounting invariant
 # checked by tools/check_chaos.py: swap_ins == verified_swapins +
 # corrupt_swapins.

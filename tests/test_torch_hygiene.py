@@ -171,6 +171,34 @@ def test_serve_cli_runs_on_cpu(capsys):
         main(["--smoke", "--device", "cpu"])  # only the paged chunked path is ported
 
 
+def test_host_tier_modules_import_with_jax_blocked():
+    """``serving/pages.py`` (the host tier, its movers and ladder) and
+    ``serving/prefix.py`` import and run with JAX and the JAX package
+    blocked."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.serving import pages, prefix\n"
+        "tier = pages.HostPageTier(2)\n"
+        "h = tier.put([np.arange(4, dtype=np.float32)], pages.KIND_KV)\n"
+        "c = prefix.PrefixCache(); c.host_register(b'x', h)\n"
+        "assert c.host_claim(b'x') == h and tier.take(h).nbytes == 16\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_serve_cli_host_tier_runs_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--smoke", "--paged", "--chunked-prefill", "--packed", "--batch", "2",
+          "--prompt-len", "10", "--gen", "3", "--page-size", "8", "--device", "cpu",
+          "--host-tier", "--host-pages", "4", "--recompress-after", "2"])
+    out = capsys.readouterr().out
+    assert "6 tokens" in out and "device=cpu" in out and "host tier: swap_outs" in out
+
+
 def test_page_pool_accounting():
     from repro_torch.serving.pages import NULL_PAGE, PagePool, pages_needed
 
