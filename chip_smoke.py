@@ -12,8 +12,8 @@ success):
    shapes of gpt3_126m.
 3. page-gather attention kernel (split over the KV pages, then a
    combine) vs its plain version: bf16 / int8 / bcq4 pages, C = 1 and 64,
-   d_head 64 and 32, GQA, NULL-padded tables, zero-length rows, rows of
-   up to 40 pages (five splits).
+   d_head 64, 32 and 128 (Moonlight's heads), GQA, NULL-padded tables,
+   zero-length rows, rows of up to 40 pages (five splits).
 4. serving: full-width gpt3_126m (12 layers, seeded random weights packed
    to W4 by the port's pack_params) through PagedEngine — bcq4 pool,
    page 16, prefill chunk 64, 8 slots, 8 requests of 48–500 prompt
@@ -182,6 +182,26 @@ success):
     beside its recompute in phase 12's tier-off run; one page's swap
     timed on an idle stream beside the copy's bound at 64 GB/s.  Its
     kernel runs' launches join the ``kernels`` line (``host_tier``).
+16. the MoE family: full-width, full-depth Moonlight-16B-A3B
+    (``moonshot_v1_16b``: 48 layers, d 2048, 16 heads of 128, 64 experts
+    top-6 of d_ff 1408, vocab 163840; seeded random weights drawn and
+    packed to W4 one layer at a time on the card, ~17 GB of packed
+    experts) with phase 4's settings and requests: the stacked fused
+    linear (one launch for a layer's 64 experts of wi, wg or wo) bit for
+    bit equal to its per-expert launches and held to its plain version at
+    decode, chunk and ragged shapes; the production tick (graph depth 2)
+    and eager depth 1 equal bit for bit; launches exactly 3 × 48 stacked
+    B1, 4 × 48 dense B1, 48 B2 and 48 writer launches a pass; every launch
+    of the first engine step and of a steady decode tick held to its plain
+    version on its own inputs (B2 at d_head 128); at 4 layers of the same
+    width the kernel run (graph depth 2) and the plain run (eager depth 1)
+    agree under the margin rule (the plain expert path at 48 layers would
+    cost minutes), and every launch of a graph depth 2 run of phase 11's
+    workload at 4 layers is held to the plain paths (``check_shadow``);
+    the steady tick's wall and device ms and graph nodes,
+    the stacked launch's device ms beside its bound, prefill tokens/s and
+    the phase's seconds.  Its launches join the ``kernels`` line (``moe``;
+    the stacked form as ``bcq_linear_experts``).
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -347,7 +367,7 @@ def phase_gather(cb):
     worst = 0.0
     ps, maxp, n_pages = 16, 40, 97
     for kind in ("bf16", "int8", "bcq4"):
-        for d, h, hkv in ((64, 12, 12), (32, 4, 2)):
+        for d, h, hkv in ((64, 12, 12), (32, 4, 2), (128, 16, 16)):
             pool = gather_pool(kind, n_pages, ps, hkv, d, 1, cb)
             for c in (1, 64):
                 # zero-length row, a page boundary, mid-page, near-full
@@ -700,7 +720,8 @@ def profile_decode(eng_done, prompts, label, cb):
     n_kern, busy, by_name, _ = prof
     print(f"decode tick profile [{label}] (8 rows decoding): wall {wall:.2f} ms/tick unprofiled, "
           f"{n_kern:.0f} CUDA kernels/tick, device busy {busy:.2f} ms/tick (idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}); of it the KV page write (12 layers, replayed): "
+          f"{max(0.0, 1 - busy / wall):.3f}); of it the KV page write "
+          f"({eng.api.cfg.n_layers} layers, replayed): "
           f"{kv_txt}", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:8.3f} ms/tick  {name[:90]}", flush=True)
@@ -2834,6 +2855,330 @@ def phase_host_tier(eng4, tol, core, g2, core_g2, smi):
     return total, {"swaps": time_swap(eng_g, smi), "resume_vs_recompute": resume_vs}
 
 
+# ------------------------------------------------------------------ phase 16
+MOE_ARCH = "moonshot_v1_16b"
+MOE_PLAIN_LAYERS = 4  # depth of the whole-run kernel vs plain comparison
+# (E, C, K, N) of the stacked fused linear's own checks: decode (C 1), a
+# 512-token chunk's wo (C 61), a ragged stack
+STACKED_SHAPES = [(64, 1, 2048, 1408), (64, 61, 1408, 2048), (3, 37, 192, 100)]
+# launches a layer makes in one forward pass: the stacked B1 for wi, wg and
+# wo; the dense B1 for q, k, v and out; B2; the KV-page writer
+MOE_PER_LAYER = {"bcq_linear_experts": 3, "bcq_linear": 4, "page_gather": 1, "bcq_page_write": 1}
+MOE_COUNTED = tuple(MOE_PER_LAYER)
+MOE_MAX_LEN = -(-(max(PROMPT_LENS) + GEN + 1) // 16) * 16  # serve()'s, as phase 4
+
+
+def stacked_case(e, c, k, n, seed, cb):
+    """Seeded expert rows (outlier channels, a zero padding row per expert)
+    and an (E, N, K) packed weight stack, each expert with its own s_W."""
+    import torch
+
+    from repro_torch.core import bcq, ptq
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((e, c, k), generator=g)
+    x[..., :: max(1, k // 8)] *= 12.0
+    x[:, -1] = 0.0
+    w = (torch.randn((e, k, n), generator=g) * k**-0.5).cuda()
+    pk = ptq.decode_scales({"kernel_packed": ptq.pack_stack(w, cb, bcq.BCQConfig())})
+    return x.cuda(), ops.packed_operand(pk["kernel_packed"])
+
+
+def check_stacked(cb):
+    """The stacked fused linear at ``STACKED_SHAPES``: bit for bit the E
+    per-expert launches of ``bcq_linear``, and within LINEAR_TOL of its plain
+    version (``fused_linear_experts_ref``).  Returns the worst max|err|."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_linear as bl
+    from repro_torch.kernels.ref import fused_linear_experts_ref
+
+    cfg = bcq.BCQConfig()
+    worst = 0.0
+    for i, (e, c, k, n) in enumerate(STACKED_SHAPES):
+        x, w = stacked_case(e, c, k, n, 160 + i, cb)
+        s_x = bcq.tensor_scale(x, cfg)
+        args = (w.idx_packed, w.sel_packed, w.inv_scale, cb, s_x, cfg)
+        got = bl.bcq_linear_experts(x, *args)
+        each = torch.stack([bl.bcq_linear(x[j].contiguous(), w.idx_packed[j], w.sel_packed[j],
+                                          w.inv_scale[j], cb, s_x, cfg) for j in range(e)])
+        ref = fused_linear_experts_ref(x, w.idx_packed, w.sel_packed, w.inv_scale, cb, cfg, s_x)
+        torch.cuda.synchronize()
+        ok, err = held(got, ref, LINEAR_TOL, LINEAR_TOL * float(ref.abs().max()))
+        same = torch.equal(got, each)
+        worst = max(worst, err)
+        print(f"phase 16 stacked fused linear E={e} C={c} K={k} N={n}: bit-equal to {e} "
+              f"per-expert launches: {same}; vs plain max|err| {err:.3e} (tol rtol={LINEAR_TOL} "
+              f"atol={LINEAR_TOL}·max|plain|) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not same:
+            fail(f"the stacked fused linear differs from its per-expert launches at E={e} C={c}")
+        if not ok:
+            fail(f"the stacked fused linear disagrees with its plain version at E={e} C={c}")
+    return worst
+
+
+def hold_launches(eng, n_steps):
+    """Step ``eng`` ``n_steps`` times with every launch of B1 (stacked and
+    dense) and B2 held to its plain version on the inputs it got, and every
+    KV-page write captured and held to the plain writer (``hold_writes``).
+    Returns (launches held by kernel, worst max|err| by kernel)."""
+    from repro_torch.kernels import chunked_prefill, common, ops, paged_attention
+    from repro_torch.kernels.ref import fused_linear_experts_ref, fused_linear_ref
+
+    real = {"experts": ops.bcq_linear_experts, "dense": ops.bcq_linear,
+            "decode": paged_attention.page_gather_attention,
+            "chunk": chunked_prefill.page_gather_attention}
+    n = {k: 0 for k in MOE_COUNTED}
+    worst = {k: 0.0 for k in MOE_COUNTED}
+
+    def tally(name, ok, err, what):
+        if not ok:
+            fail(f"phase 16: a {name} launch disagrees with its plain version on its own "
+                 f"inputs ({what}): max|err| {err:.3e}")
+        n[name] += 1
+        worst[name] = max(worst[name], err)
+
+    def experts(x, w_idx, w_sel, w_inv, cb, s_x, cfg):
+        out = real["experts"](x, w_idx, w_sel, w_inv, cb, s_x, cfg)
+        ref = fused_linear_experts_ref(x, w_idx, w_sel, w_inv, cb, cfg, s_x)
+        tally("bcq_linear_experts", *held(out, ref, LINEAR_TOL, LINEAR_TOL * float(ref.abs().max())),
+              f"E={x.shape[0]} C={x.shape[1]} K={x.shape[2]} N={w_idx.shape[1]}")
+        return out
+
+    def dense(x, w_idx, w_sel, w_inv, cb, s_x, cfg):
+        out = real["dense"](x, w_idx, w_sel, w_inv, cb, s_x, cfg)
+        ref = fused_linear_ref(x, w_idx, w_sel, w_inv, cb, cfg, s_x, valid_k=x.shape[1])
+        tally("bcq_linear", *held(out, ref, LINEAR_TOL, LINEAR_TOL * float(ref.abs().max())),
+              f"M={x.shape[0]} K={x.shape[1]} N={w_idx.shape[0]}")
+        return out
+
+    def gather(key):
+        def run(q, pool, bt, kv_len, kind, cfg, cb=None):
+            out = real[key](q, pool, bt, kv_len, kind, cfg, cb)
+            ref = common.page_gather_attention_plain(q, pool, bt, kv_len, kind, cfg, cb)
+            tally("page_gather", *held(out, ref, GATHER_TOL, GATHER_TOL),
+                  f"{kind} {tuple(q.shape)} maxp {bt.shape[1]}")
+            return out
+        return run
+
+    ops.bcq_linear_experts, ops.bcq_linear = experts, dense
+    paged_attention.page_gather_attention = gather("decode")
+    chunked_prefill.page_gather_attention = gather("chunk")
+    calls = []
+    try:
+        for _ in range(n_steps):
+            calls += capture_writes(eng)
+    finally:
+        ops.bcq_linear_experts, ops.bcq_linear = real["experts"], real["dense"]
+        paged_attention.page_gather_attention = real["decode"]
+        chunked_prefill.page_gather_attention = real["chunk"]
+    n["bcq_page_write"] = len(calls)
+    worst["bcq_page_write"] = hold_writes(calls, eng.params["codebooks"], "phase 16")
+    return n, worst
+
+
+def moe_launch_checks(api, params, prompts):
+    """Every launch of the first engine step (a prefill chunk of every
+    prompt, then a decode tick) and of one steady decode tick (8 rows
+    decoding) held to its plain version on its own inputs (``hold_launches``;
+    eager depth 1: a wrapper must see each launch).  Returns the worst
+    max|err| by kernel and the launches held."""
+    from types import SimpleNamespace
+
+    eng = _fresh_engine(SimpleNamespace(api=api, params=params, max_len=MOE_MAX_LEN), prompts)
+    first, worst1 = hold_launches(eng, 1)
+    passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
+    while eng.queue or any(s.mode == "prefill" for s in eng.slots if s.req is not None):
+        eng.step()
+    eng.step()
+    if sum(s.req is not None and s.mode == "decode" for s in eng.slots) != len(prompts):
+        fail("phase 16: the steady tick of the launch checks has not 8 rows decoding")
+    steady, worst2 = hold_launches(eng, 1)
+    layers = api.cfg.n_layers
+    for name, per in MOE_PER_LAYER.items():
+        if first[name] != per * layers * passes or steady[name] != per * layers:
+            fail(f"phase 16: {name}: {first[name]} launches held in the first step "
+                 f"({passes} passes), {steady[name]} in the steady tick; expected {per} a layer")
+    worst = {k: max(worst1[k], worst2[k]) for k in worst1}
+    print(f"phase 16 every launch of the first engine step ({passes} passes: a prefill chunk of "
+          f"every prompt, a decode tick) and of a steady decode tick (8 rows) vs its plain "
+          f"version on its own inputs: launches {first} + {steady}; max|err| "
+          f"{ {k: worst[k] for k in MOE_COUNTED if k != 'bcq_page_write'} } (B1 rtol={LINEAR_TOL} "
+          f"atol={LINEAR_TOL}·max|plain|, B2 atol=rtol={GATHER_TOL}); KV pages equal to the plain "
+          f"writer's ({worst['bcq_page_write']} differing idx/sel bytes, codebook ties)", flush=True)
+    return worst, {k: first[k] + steady[k] for k in first}
+
+
+def moe_counts_ok(counts, way, cfg, what):
+    passes = way["out"][1]["decode_ticks"] + way["out"][1]["prefill_launches"]
+    expect = {n: per * cfg.n_layers * passes for n, per in MOE_PER_LAYER.items()}
+    if any(counts.get(n, 0) != v for n, v in expect.items()):
+        fail(f"phase 16 {what}: launches {counts}, expected {expect} ({cfg.n_layers} layers, "
+             f"{passes} passes)")
+    return expect, passes
+
+
+def time_stacked(cb, launches, worst_err, smi):
+    """The stacked fused linear at the decode shape of moonshot's wi (E 64,
+    C 1, K 2048, N 1408) and at a 512-token chunk's wo (C 61, K 1408, N
+    2048): event-loop ms, the device time of its two kernels, the plain
+    per-expert loop's ms, ``torch.bmm`` in bf16 as the yardstick, and the
+    bound (every expert's packed weight bytes at 3.35 TB/s, or the int8
+    product)."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_linear as bl
+    from repro_torch.kernels.ref import fused_linear_experts_ref
+
+    cfg = bcq.BCQConfig()
+    out = []
+    for e, c, k, n in ((64, 1, 2048, 1408), (64, 61, 1408, 2048)):
+        x, w = stacked_case(e, c, k, n, 170 + c, cb)
+        s_x = bcq.tensor_scale(x, cfg)
+        args = (w.idx_packed, w.sel_packed, w.inv_scale, cb, s_x, cfg)
+        ms = cuda_ms(lambda: bl.bcq_linear_experts(x, *args), iters=50)
+        plain_ms = cuda_ms(lambda: fused_linear_experts_ref(
+            x, w.idx_packed, w.sel_packed, w.inv_scale, cb, cfg, s_x), iters=3, warmup=1)
+        xb = x.to(torch.bfloat16)
+        wb = torch.randn((e, k, n), device="cuda").to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.bmm(xb, wb))
+        m = e * c
+        nbytes = (m * k * 4 + e * (n * k // 2 + n * k // 16 + n * k // 64 * 4) + 8 * 16 * 4 + 4
+                  + m * n * 4)
+        bound, by = _bound(nbytes, (2 * m * n * k, INT8_OPS), (ENCODE_OPS * m * k, F32_FLOPS))
+        split = _linear_split(kernel_split_ms(lambda: bl.bcq_linear_experts(x, *args), bound,
+                                              f"bcq_linear_experts at E={e} C={c}"))
+        print(f"phase 16 stacked fused linear timing at E={e} C={c} K={k} N={n}: kernel "
+              f"{ms:.4f} ms (device {split['device_ms']:.4f} ms: encode pass "
+              f"{split['encode_ms'] or 0:.4f}, GEMM {split['gemm_ms'] or 0:.4f}, torch.profiler), "
+              f"bound {bound:.5f} ms by {by} ({nbytes} B at {HBM_BPS:.3g} B/s), device/bound "
+              f"{split['device_ms'] / bound:.2f}; plain (per-expert fused_linear_ref) "
+              f"{plain_ms:.3f} ms; torch.bmm bf16 {library_ms:.4f} ms; {smi}", flush=True)
+        out.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    "library_ms": library_ms, **split, "shape": f"E {e} C {c} K {k} N {n}"})
+    dec, chunk = out
+    return {"name": "bcq_linear_experts", "route": "cuda",
+            "source": "src/repro_torch/csrc/bcq_linear.cu",
+            "replaces": "src/repro/kernels/bcq_linear.py:81", "launches": launches,
+            "launches_by_path": {"moe": launches}, "max_abs_err": worst_err, **dec,
+            "bound_peak": W4A4_PEAKS, "at_chunk": chunk}
+
+
+def phase_moe(cb, smi):
+    """Phase 16: full-width, full-depth Moonlight-16B-A3B (``moonshot_v1_16b``:
+    48 layers, d 2048, 16 heads of 128, 64 experts top-6, d_ff_expert 1408,
+    vocab 163840; seeded random weights drawn and packed to W4 a layer at a
+    time on the card) served in W4A4 from bcq4 pages through the kernels,
+    phase 4's settings and requests: the production tick (graph depth 2)
+    and eager depth 1 equal bit for bit (tokens, margins, launch indices,
+    counters, pool bytes, launch counts), exact launch counts (the stacked
+    B1 3 × 48 a pass, the dense B1 4 × 48, B2 and the writer 48), every
+    launch of the first engine step and of a steady decode tick held to its
+    plain version; then kernels (graph depth 2) and plain paths (eager depth
+    1) at 4 layers of the same width agree under the margin rule, and every
+    launch of phase 11's workload at 4 layers is held to the plain paths
+    (``check_shadow``).  Returns
+    (the phase's launches by kernel, the stacked form's ``kernels`` entry,
+    the worst launch errors)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import build_model, serve
+    from repro_torch.serving.generate import greedy_agreement
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(MOE_ARCH)
+    err_stacked = check_stacked(cb)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api, params = build_model(cfg, "bcq4", True, "cuda", 0, True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"phase 16 {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff_expert "
+          f"{cfg.moe.d_ff_expert}, vocab {cfg.vocab}: drawn and packed a layer at a time on the "
+          f"card in {init_s:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
+          flush=True)
+    model = SimpleNamespace(api=api, params=params, max_len=MOE_MAX_LEN)
+    ways = [(_way_name(g, d), production_way(model, prompts, g, d, n, label="phase 16"))
+            for g, d, n in ((True, 2, 10), (False, 1, 3))]
+    _hold_ways(ways, f"{cfg.name}, phase 4's workload", "phase 16")
+    g2 = ways[0][1]
+    total = {n: g2["counts"].get(n, 0) for n in MOE_COUNTED}
+    expect, passes = moe_counts_ok(g2["counts"], g2, cfg, "graph depth 2")
+    st = g2["engine"].stats
+    prof = g2["prof"]
+    busy = "not measured" if prof is None else f"{prof[1]:.3f} ms"
+    print(f"phase 16 {cfg.name}: graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins, "
+          f"launch indices, counters, pool bytes, launch counts); launches {expect} over {passes} "
+          f"passes; steady tick (8 rows): wall {g2['wall']:.2f} ms/tick at graph depth 2 "
+          f"(device {busy}), {ways[1][1]['wall']:.2f} ms eager depth 1; decode graph nodes "
+          f"{g2['nodes']}; prefill {st['prefill_tokens'] / max(st['t_prefill_s'], 1e-9):.0f} "
+          f"tok/s; {smi}", flush=True)
+    for _, w in ways:
+        w.pop("engine")
+    del ways
+    profile_decode(model, prompts, f"{cfg.name}, kernels, eager depth 1", cb)  # by kernel
+    worst, _ = moe_launch_checks(api, params, prompts)
+    entry = time_stacked(cb, total["bcq_linear_experts"],
+                         max(err_stacked, worst["bcq_linear_experts"]), smi)
+    del api, params, model
+    torch.cuda.empty_cache()
+
+    # whole runs at 4 layers of the same width: kernels vs plain paths
+    cfg4 = dataclasses.replace(cfg, n_layers=MOE_PLAIN_LAYERS)
+    runs = {}
+    for kernels in (True, False):
+        mode = {} if kernels else {"pipeline_depth": 1, "cuda_graphs": False}
+        build.reset_counts()
+        fin, eng = serve(cfg4, prompts, GEN, cache="bcq4", packed=True, page_size=16,
+                         prefill_chunk=64, device="cuda", seed=0, kernels=kernels,
+                         chunked_prefill=True, prefix_caching=False, **mode)
+        torch.cuda.synchronize()
+        runs[kernels] = (fin, eng, build.counts())
+    (fin_k, eng_k, c_k), (fin_p, eng_p, c_p) = runs[True], runs[False]
+    if any(c_p.get(n) for n in MOE_COUNTED):
+        fail(f"phase 16: kernels launched in the plain run: {c_p}")
+    moe_counts_ok(c_k, {"out": _outcome(eng_k)}, cfg4, f"{MOE_PLAIN_LAYERS} layers")
+    for n in MOE_COUNTED:
+        total[n] += c_k.get(n, 0)
+    tol = phase_logits(eng_k, eng_p, prompts,
+                       [r.out[0] for r in sorted(fin_p, key=lambda r: r.rid)])
+    agree = greedy_agreement({r.rid: r for r in fin_p}, {r.rid: r for r in fin_k}, tol)
+    print(f"phase 16 {cfg.name} at {MOE_PLAIN_LAYERS} layers: greedy tokens kernels (graph depth "
+          f"2) vs plain (eager depth 1) under the margin rule (logit tol {tol:.3e}, the noise "
+          f"floor): {agree}", flush=True)
+    if not agree["ok"]:
+        fail("phase 16: the kernel and plain runs disagree beyond the margin rule")
+    # the whole-run comparison stops at the first launch whose tokens part;
+    # phase 11's workload at 4 layers holds every launch to the plain paths
+    api_k4, api_p4, params4 = eng_k.api, eng_p.api, eng_k.params
+    del runs, fin_k, eng_k, fin_p, eng_p
+    fin_c, eng_c, _, c_c = drive_core(api_k4, params4, core_requests(cfg4), cuda_graphs=True,
+                                      pipeline_depth=2)
+    moe_counts_ok(c_c, {"out": _outcome(eng_c)}, cfg4, f"{MOE_PLAIN_LAYERS} layers, phase 11's "
+                  "workload")
+    for n in MOE_COUNTED:
+        total[n] += c_c.get(n, 0)
+    check_shadow(api_k4, api_p4, params4, core_requests(cfg4), fin_c, tol,
+                 f"workload on {cfg.name} at {MOE_PLAIN_LAYERS} layers, graph depth 2",
+                 ("sampled", "resumed", "fork", "cow"), cuda_graphs=True, pipeline_depth=2)
+    del fin_c, eng_c, api_k4, api_p4, params4
+    entry["launches"] = entry["launches_by_path"]["moe"] = total["bcq_linear_experts"]
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total, entry, worst
+
+
 # ------------------------------------------------------------------ phase 10
 def _bound(nbytes, *work):
     """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
@@ -3244,6 +3589,7 @@ def main() -> int:
     counts_contain = phase_containment(eng4, tol, core, g2, smi)
     counts_tel, probe_form = phase_telemetry(eng4, cb, g2, core_g2, smi)
     counts_tier, _ = phase_host_tier(eng4, tol, core, g2, core_g2, smi)
+    counts_moe, stacked, err_moe = phase_moe(cb, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
@@ -3251,11 +3597,14 @@ def main() -> int:
             entry["launches_by_path"]["containment"] = counts_contain[counter]
             entry["launches_by_path"]["telemetry"] = counts_tel[counter]
             entry["launches_by_path"]["host_tier"] = counts_tier[counter]
+            entry["launches_by_path"]["moe"] = counts_moe[counter]
             entry["launches"] = sum(entry["launches_by_path"].values())
     kernels[3]["launches_by_path"]["probes"] = counts_tel["bcq_quantize"]
     kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
     kernels[3]["probe_form"] = probe_form
-    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab, err_moe["bcq_linear"])
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err_moe["page_gather"])
+    kernels.insert(1, stacked)
     check_bounds(kernels)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """Architecture registry: the ``ArchConfig`` dataclass and its lookup.
 
-A copy of the dense-model part of ``repro/configs/base.py``: the port
+A copy of the dense and MoE parts of ``repro/configs/base.py``: the port
 reads nothing of the JAX package, so it keeps its own config records.
 Each config module provides ``CONFIG`` (the published shape) and
 ``smoke()`` (a 2-layer reduction for CPU tests).
@@ -9,12 +9,21 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # only "dense" is served by the port so far
+    family: str  # the port serves "dense" and "moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -27,6 +36,7 @@ class ArchConfig:
     act: str = "swiglu"  # swiglu | gelu
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     tie_embeddings: bool = False
+    moe: Optional[MoESpec] = None
     source: str = ""
 
     @property

@@ -67,6 +67,14 @@ struct Operand {
   const uint8_t* sel;   // (R, K/16) codebook selectors, two nibbles a byte
   const float* inv;     // (R, K/64) dequant scales 1 / (ŝ_A · s_X)
   const float* cb;      // (NC, NE) f32 codebooks (integers) of the packed form
+
+  // The operand of GEMM z of a stack of equal GEMMs stored one after
+  // another (R rows each): every row pointer moves by z · R rows.
+  __device__ __forceinline__ Operand at(int z, int R, int K) const {
+    const size_t r = static_cast<size_t>(z) * R;
+    return {codes ? codes + r * K : nullptr, idx ? idx + r * (K / 2) : nullptr,
+            sel ? sel + r * (K / 16) : nullptr, inv + r * (K / LA), cb};
+  }
 };
 
 namespace {
@@ -183,8 +191,10 @@ __device__ __forceinline__ void stage_packed(uint8_t* idx_s, uint8_t* sel_s, flo
 
 template <bool A_CODES, int BM>
 __global__ void __launch_bounds__(THREADS, (Large<A_CODES, BM>::MIN_BLOCKS))
-    gemm_large(const Operand a, const Operand w, float* __restrict__ out, int M, int N, int K) {
+    gemm_large(const Operand a0, const Operand w0, float* __restrict__ out, int M, int N, int K) {
   using L = Large<A_CODES, BM>;
+  const Operand a = a0.at(blockIdx.z, M, K), w = w0.at(blockIdx.z, N, K);
+  out += static_cast<size_t>(blockIdx.z) * M * N;
   extern __shared__ __align__(128) uint8_t smem[];
   uint4* tab_w = reinterpret_cast<uint4*>(smem + L::TAB);
   uint4* tab_a = tab_w + NC;
@@ -343,7 +353,9 @@ __device__ __forceinline__ float row_inv(const Operand& o, int row, int R, int K
 }
 
 __global__ void __launch_bounds__(SMALL_WARPS * 32)
-    gemm_small(const Operand a, const Operand w, float* __restrict__ out, int M, int N, int K) {
+    gemm_small(const Operand a0, const Operand w0, float* __restrict__ out, int M, int N, int K) {
+  const Operand a = a0.at(blockIdx.z, M, K), w = w0.at(blockIdx.z, N, K);
+  out += static_cast<size_t>(blockIdx.z) * M * N;
   __shared__ uint4 tab_w[NC], tab_a[NC];
   __shared__ float red[SMALL_WARPS][16][SMALL_ROWS + 1];
   const int tid = threadIdx.x;
@@ -399,34 +411,40 @@ __global__ void __launch_bounds__(SMALL_WARPS * 32)
 // ------------------------------------------------------------- launch
 template <bool A_CODES, int BM>
 cudaError_t launch_large(const Operand& a, const Operand& w, float* out, int M, int N, int K,
-                         cudaStream_t stream) {
+                         int batch, cudaStream_t stream) {
   using L = Large<A_CODES, BM>;
   // above 48 KB of shared memory only after opting in, which holds per
   // device: set it at every launch (a host-side attribute write)
   const cudaError_t e = cudaFuncSetAttribute(
       gemm_large<A_CODES, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
   gemm_large<A_CODES, BM><<<grid, THREADS, L::SMEM, stream>>>(a, w, out, M, N, K);
   return cudaGetLastError();
 }
 
 // out (M, N) = A · Wᵀ on the int8 tensor cores; A as codes when
-// A_CODES, else packed.  Requires K % 64 == 0, M, N ≥ 1, 16-byte aligned
-// codes and idx rows and 4-byte aligned sel (the wrappers check).
+// A_CODES, else packed.  With ``batch`` > 1, a stack of equal GEMMs in one
+// launch (blockIdx.z the GEMM): GEMM z reads A's rows z·M … and W's rows
+// z·N … and writes out's (M, N) block z.  The tile shape is chosen by the
+// one GEMM's M, never by batch · M, so each GEMM gives the bits it gives
+// alone (a row's bits depend on whether M ≤ 16; see the top).  Requires
+// K % 64 == 0, M, N ≥ 1, 1 ≤ batch ≤ 65535, 16-byte aligned codes and
+// idx rows and 4-byte aligned sel (the wrappers check).
 template <bool A_CODES>
 cudaError_t gemm(const Operand& a, const Operand& w, float* out, int M, int N, int K,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, int batch = 1) {
   if (M <= 16) {
-    gemm_small<<<(N + SMALL_ROWS - 1) / SMALL_ROWS, SMALL_WARPS * 32, 0, stream>>>(a, w, out, M,
-                                                                                  N, K);
+    const dim3 grid((N + SMALL_ROWS - 1) / SMALL_ROWS, 1, batch);
+    gemm_small<<<grid, SMALL_WARPS * 32, 0, stream>>>(a, w, out, M, N, K);
     return cudaGetLastError();
   }
   // 128-row tiles once they fill the card (two a SM) twice over, else
   // 64-row tiles
-  const long long big = static_cast<long long>((M + 127) / 128) * ((N + BN - 1) / BN);
-  return big >= 4 * 132 ? launch_large<A_CODES, 128>(a, w, out, M, N, K, stream)
-                        : launch_large<A_CODES, 64>(a, w, out, M, N, K, stream);
+  const long long big =
+      static_cast<long long>((M + 127) / 128) * ((N + BN - 1) / BN) * batch;
+  return big >= 4 * 132 ? launch_large<A_CODES, 128>(a, w, out, M, N, K, batch, stream)
+                        : launch_large<A_CODES, 64>(a, w, out, M, N, K, batch, stream);
 }
 
 }  // namespace

@@ -30,6 +30,16 @@
 //    each 64-wide array is an exact int32 product on the int8 tensor cores
 //    (mma.sync m16n8k32), folded into f32 by one fixed expression.
 //
+// The expert-stacked form (bcq_linear_experts_launch) computes E of these
+// linears at once, one per expert of a mixture-of-experts layer, all
+// sharing the caller's s_x: x (E, C, K) rows against E packed weights
+// (E, N, K) gives out (E, C, N).  Its encode pass is the same one pass
+// over all E·C rows (a row's codes do not depend on its neighbours); its
+// GEMM is the same kernel with blockIdx.z as the expert, each expert's
+// pointers offset by its stride, and the tile shape chosen by C — so
+// every expert's output has the bits of its own launch, and a layer's
+// 64 experts cost one launch pair, not 64.
+//
 // Two launches, not one persistent cooperative launch with a grid-wide
 // barrier between the passes: the encode is a grid-stride pass over x with
 // its own block size and no shared state with the GEMM, a cooperative
@@ -91,4 +101,32 @@ extern "C" int bcq_linear_launch(const float* x, const uint8_t* w_idx, const uin
   const bcq::Operand a{codes, nullptr, nullptr, a_inv, nullptr};
   const bcq::Operand w{nullptr, w_idx, w_sel, w_inv, cb};
   return static_cast<int>(bcq::gemm<true>(a, w, out, M, N, K, st));
+}
+
+// Plain C entry of the expert-stacked form: E linears of C rows each,
+// x (E, C, K) f32 against w_idx (E, N, K/2), w_sel (E, N, K/16), w_inv
+// (E, N, K/64), one s_x for all; codes (E·C, K) and a_inv (E·C, K/64) are
+// the caller's workspace, out (E, C, N).  Returns the launch status.
+// Requires 1 ≤ E ≤ 65535 and what bcq_linear_launch requires.
+extern "C" int bcq_linear_experts_launch(const float* x, const uint8_t* w_idx,
+                                         const uint8_t* w_sel, const float* w_inv,
+                                         const float* cb, const float* s_x, int8_t* codes,
+                                         float* a_inv, float* out, int E, int C, int N, int K,
+                                         float cw_max, void* stream) {
+  if (E <= 0 || E > 65535 || C <= 0 || N <= 0 || K <= 0 || K % LA)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n_blocks = static_cast<long long>(E) * C * (K / LB);
+  CodesIo enc;
+  enc.x = x;
+  enc.s_x = s_x;
+  enc.codes = reinterpret_cast<uint2*>(codes);
+  enc.a_inv = a_inv;
+  bcq::encode_kernel<<<bcq::encode_grid<CodesIo>(n_blocks), bcq::ENC_THREADS, 0, st>>>(
+      enc, cb, n_blocks, cw_max, LA / LB);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bcq::Operand a{codes, nullptr, nullptr, a_inv, nullptr};
+  const bcq::Operand w{nullptr, w_idx, w_sel, w_inv, cb};
+  return static_cast<int>(bcq::gemm<true>(a, w, out, C, N, K, st, E));
 }

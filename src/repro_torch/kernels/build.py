@@ -35,6 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, M, N, K, cw_max, stream
     "bcq_linear_launch": (_P,) * 9 + (_I, _I, _I, _F, _P),
+    # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, E, C, N, K, cw_max, stream
+    "bcq_linear_experts_launch": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     # kind, q, k0..k2, v0..v2, k_sx, v_sx, cb, tables, kv_len, out, part,
     # B, C, H, Hkv, D, ps, maxp, la, split_pages, scale, stream
     "page_gather_launch": (_I,) + (_P,) * 14 + (_I,) * 9 + (_F, _P),

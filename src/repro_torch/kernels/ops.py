@@ -4,7 +4,9 @@ Two routes to the same linear:
 
 * ``w4a4_linear_fused`` — one call (``kernels/bcq_linear.py``) that
   encodes the raw activation to int8 codewords once and multiplies them
-  (two device kernels behind one C entry);
+  (two device kernels behind one C entry); ``w4a4_linear_fused_experts``
+  is its expert-stacked form, the E linears of a mixture-of-experts layer
+  in one call;
 * ``w4a4_linear`` — two calls, ``quantize`` (``kernels/bcq_quantize.py``)
   then ``matmul`` (``kernels/bcq_matmul.py``), the packed activation
   round-tripping through device memory.  Both routes share the encode
@@ -29,7 +31,7 @@ import torch
 
 from repro_torch.core import bcq, formats
 from repro_torch.core.bcq import BCQConfig
-from repro_torch.kernels.bcq_linear import bcq_linear
+from repro_torch.kernels.bcq_linear import bcq_linear, bcq_linear_experts
 from repro_torch.kernels.bcq_matmul import bcq_matmul
 from repro_torch.kernels.bcq_quantize import bcq_quantize
 
@@ -43,23 +45,27 @@ class PackedOperand:
 
 
 def decode_inv_scale(pk: dict) -> torch.Tensor:
-    """The dequant scales 1/(ŝ_A·s_W) of one packed (N, K) weight from its
-    E4M3 scale bits (zero where never written)."""
+    """The dequant scales 1/(ŝ_A·s_W) of a packed (..., N, K) weight from
+    its E4M3 scale bits (zero where never written); a stack's ``s_x`` has
+    its leading shape (one per layer or expert)."""
     ratio = formats.bits_to_e4m3(pk["scale"])
-    return torch.where(ratio > 0, 1.0 / (ratio * pk["s_x"]), torch.zeros_like(ratio))
+    s_x = pk["s_x"]
+    s_x = s_x.reshape(s_x.shape + (1,) * (ratio.ndim - s_x.ndim))
+    return torch.where(ratio > 0, 1.0 / (ratio * s_x), torch.zeros_like(ratio))
 
 
 def packed_operand(pk: dict) -> PackedOperand:
     """View a packed weight dict (``layers.pack_weight`` layout: idx / sel /
-    E4M3 scale bits / s_x) as a PackedOperand.  Its dequant scales are the
-    ``inv_scale`` the tree carries where they were decoded once
-    (``ptq.decode_scales``), else decoded here (``decode_inv_scale``)."""
-    if pk["idx"].ndim != 2:
-        raise ValueError("packed_operand takes one (N, K) weight")
+    E4M3 scale bits / s_x) as a PackedOperand: one (N, K) weight, or an
+    expert stack (E, N, K).  Its dequant scales are the ``inv_scale`` the
+    tree carries where they were decoded once (``ptq.decode_scales``),
+    else decoded here (``decode_inv_scale``)."""
+    if pk["idx"].ndim not in (2, 3):
+        raise ValueError("packed_operand takes one (N, K) weight or one (E, N, K) stack")
     inv = pk.get("inv_scale")
     if inv is None:
         inv = decode_inv_scale(pk)
-    return PackedOperand(pk["idx"], pk["sel"], inv, pk["idx"].shape[1] * 2)
+    return PackedOperand(pk["idx"], pk["sel"], inv, pk["idx"].shape[-1] * 2)
 
 
 def quantize(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig,
@@ -110,3 +116,23 @@ def w4a4_linear_fused(x: torch.Tensor, w: PackedOperand, codebooks: torch.Tensor
         s_x = bcq.tensor_scale(x2, cfg)
     out = bcq_linear(x2, w.idx_packed, w.sel_packed, w.inv_scale, codebooks, s_x, cfg)
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+def w4a4_linear_fused_experts(x: torch.Tensor, w: PackedOperand, codebooks: torch.Tensor,
+                              cfg: BCQConfig, s_x: torch.Tensor | None = None) -> torch.Tensor:
+    """The E fused W4A4 linears of an expert stack in one kernel call.
+    x: (E, C, K), row block e through expert e's weight; w: the stack
+    (``packed_operand`` of an (E, N, K) stack); ``s_x`` the one
+    per-tensor activation scale of every expert (default: the reduction
+    over all of x, padding rows included, as ``moe.py:65``).  Returns (E,
+    C, N) in x.dtype, expert e equal to ``w4a4_linear_fused(x[e], w[e],
+    s_x=s_x)``."""
+    e, c, k = x.shape
+    if k != w.k or k % cfg.array_len or w.idx_packed.shape[0] != e:
+        raise ValueError(f"fused expert linear: x {tuple(x.shape)} vs weight stack "
+                         f"{tuple(w.idx_packed.shape)}, L_A={cfg.array_len}")
+    xf = x.float().contiguous()
+    if s_x is None:
+        s_x = bcq.tensor_scale(xf, cfg)
+    out = bcq_linear_experts(xf, w.idx_packed, w.sel_packed, w.inv_scale, codebooks, s_x, cfg)
+    return out.to(x.dtype)

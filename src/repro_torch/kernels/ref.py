@@ -68,6 +68,18 @@ def fused_linear_ref(x, w_idx, w_sel, w_inv, codebooks, cfg: BCQConfig, s_x,
     return matmul_ref(idx_p, sel_p, a_inv, w_idx, w_sel, w_inv, codebooks, codebooks, cfg)
 
 
+def fused_linear_experts_ref(x, w_idx, w_sel, w_inv, codebooks, cfg: BCQConfig, s_x):
+    """Oracle for the expert-stacked fused linear: ``fused_linear_ref`` of
+    each expert's rows x[e] (C, K) against its weight (N, K), one shared
+    ``s_x`` — the reference's per-expert loop (``moe.py:66-73``).
+    Returns (E, C, N) f32."""
+    return torch.stack([
+        fused_linear_ref(x[e], w_idx[e], w_sel[e], w_inv[e], codebooks, cfg, s_x,
+                         valid_k=x.shape[-1])
+        for e in range(x.shape[0])
+    ])
+
+
 # ---------------------------------------------------- paged attention oracle
 def _dequant_pool_ref(pool: dict, nm: str, kind: str, cfg: BCQConfig, cb) -> torch.Tensor:
     """Dequantize the whole page pool's K or V side to f32 (P, ps, H, D)."""

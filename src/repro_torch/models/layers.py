@@ -66,13 +66,16 @@ def norm_apply(x, p, kind="rmsnorm", eps=1e-6):
 
 # ------------------------------------------------------- quantized dense
 def decode_packed_weight(pk: dict, cfg: BCQConfig, cb: torch.Tensor) -> torch.Tensor:
-    """Dequantize a packed (N, K) weight to f32 (the unfused path)."""
+    """Dequantize a packed (..., N, K) weight to f32 (the unfused path); an
+    expert stack's ``s_x`` is (E,), one per expert."""
     idx = bcq.unpack_nibbles(pk["idx"]).long()
     k = idx.shape[-1]
     sel = bcq.unpack_nibbles(pk["sel"]).long()[..., : k // cfg.block_len]
     ratio = formats.bits_to_e4m3(pk["scale"])
     vals = cb.reshape(-1)[torch.repeat_interleave(sel, cfg.block_len, -1) * cfg.n_entries + idx]
-    inv = torch.repeat_interleave(1.0 / (ratio * pk["s_x"]), cfg.array_len, -1)
+    s_x = pk["s_x"]
+    s_x = s_x.reshape(s_x.shape + (1,) * (ratio.ndim - s_x.ndim))
+    inv = torch.repeat_interleave(1.0 / (ratio * s_x), cfg.array_len, -1)
     return vals * inv
 
 
@@ -82,6 +85,15 @@ def fused_packed_linear(x, pk: dict, rt: Runtime, cb, s_x=None):
     from repro_torch.kernels import ops
 
     return ops.w4a4_linear_fused(x, ops.packed_operand(pk), cb, rt.bcq_cfg, s_x=s_x)
+
+
+def fused_packed_experts(xe, pk: dict, rt: Runtime, cb, s_x):
+    """The packed expert GEMMs of a MoE layer through the fused kernel's
+    expert-stacked form (ops.w4a4_linear_fused_experts): xe (E, C, K)
+    against the stack pk (E, N, K), one shared ``s_x``."""
+    from repro_torch.kernels import ops
+
+    return ops.w4a4_linear_fused_experts(xe, ops.packed_operand(pk), cb, rt.bcq_cfg, s_x=s_x)
 
 
 def pack_weight(w: torch.Tensor, cfg: BCQConfig, cb: torch.Tensor) -> dict:

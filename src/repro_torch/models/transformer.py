@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family (counterpart of the dense part
-of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense and MoE families (counterpart of the
+dense and MoE parts of ``repro/models/transformer.py``).
 
 Parameters are the reference's tree: per-layer leaves stacked on a
 leading layer axis (``params["layers"]``), the page pool likewise
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 from repro_torch.models.layers import Runtime
 
 
@@ -22,7 +22,14 @@ from repro_torch.models.layers import Runtime
 def init_lm(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
     """Random float parameters with the reference's shapes and scales
     (normal · 1/sqrt(d_in) for linears, 0.02 for the embedding; norms at
-    scale 1, bias 0), drawn on the CPU from ``generator``."""
+    scale 1, bias 0), drawn from ``generator`` (a dense model on the CPU;
+    a MoE model on the generator's device: ``init_top``, then
+    ``init_block`` of every layer, stacked)."""
+    if cfg.family == "moe":
+        params = init_top(cfg, rt, generator)
+        blocks = [init_block(cfg, rt, generator) for _ in range(cfg.n_layers)]
+        params["layers"] = stack_layers(blocks)
+        return params
     L, d, hd, f = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
     dt = rt.param_dtype
 
@@ -31,10 +38,7 @@ def init_lm(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
         return (torch.randn((L, d_in, d_out), generator=generator) * scale).to(dt)
 
     def norm():
-        p = {"scale": torch.ones((L, d), dtype=dt)}
-        if cfg.norm == "layernorm":
-            p["nbias"] = torch.zeros((L, d), dtype=dt)
-        return p
+        return _norm(cfg, rt, (L,), "cpu")
 
     def lin(d_in, d_out, bias=False):
         p = {"kernel": dense(d_in, d_out)}
@@ -65,6 +69,60 @@ def init_lm(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
             "kernel": (torch.randn((d, cfg.vocab_padded), generator=generator) * 0.02).to(dt)
         }
     return params
+
+
+def init_top(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
+    """The parameters outside the layer stack — embedding, final norm and
+    an untied ``lm_head`` — drawn on ``generator``'s device."""
+    d, dt, dev = cfg.d_model, rt.param_dtype, generator.device
+    params = {
+        "embed": {"kernel": (torch.randn((cfg.vocab_padded, d), generator=generator,
+                                         device=dev) * 0.02).to(dt)},
+        "ln_f": _norm(cfg, rt, (), dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"kernel": (torch.randn((d, cfg.vocab_padded), generator=generator,
+                                                    device=dev) * 0.02).to(dt)}
+    return params
+
+
+def init_block(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
+    """One MoE layer's parameters (no layer axis) on ``generator``'s
+    device: attention, the two norms and ``moe`` (``moe.init_moe``)."""
+    d, hd, dt, dev = cfg.d_model, cfg.head_dim, rt.param_dtype, generator.device
+
+    def lin(d_in, d_out, bias=False):
+        p = {"kernel": (torch.randn((d_in, d_out), generator=generator, device=dev)
+                        * d_in**-0.5).to(dt)}
+        if bias:
+            p["bias"] = torch.zeros((d_out,), dtype=dt, device=dev)
+        return p
+
+    return {
+        "ln1": _norm(cfg, rt, (), dev),
+        "attn": {
+            "wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
+            "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wo": lin(cfg.n_heads * hd, d),
+        },
+        "ln2": _norm(cfg, rt, (), dev),
+        "moe": moe_lib.init_moe(cfg, rt, generator),
+    }
+
+
+def _norm(cfg, rt: Runtime, lead: tuple, device) -> dict:
+    p = {"scale": torch.ones(lead + (cfg.d_model,), dtype=rt.param_dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["nbias"] = torch.zeros(lead + (cfg.d_model,), dtype=rt.param_dtype, device=device)
+    return p
+
+
+def stack_layers(blocks: list) -> dict:
+    """Per-layer trees (equal structure) → one tree of (L, ...) leaves."""
+    if isinstance(blocks[0], dict):
+        return {k: stack_layers([b[k] for b in blocks]) for k in blocks[0]}
+    return torch.stack(blocks)
 
 
 # ----------------------------------------------------------- shared pieces
@@ -106,12 +164,17 @@ def xent_loss(params, x, labels, rt: Runtime, mask=None):
 
 
 def block_apply(x, p, cfg, rt: Runtime, cb, positions, paged, cache=None, cache_pos=None):
+    """One layer: attention, then the MLP or, for the MoE family, the MoE
+    block.  Returns (x, the layer's auxiliary loss: 0 unless MoE)."""
     h = layers.norm_apply(x, p["ln1"], cfg.norm)
     attn_out, _ = layers.attention(h, p["attn"], cfg, rt, cb, positions, paged, cache,
                                    cache_pos)
     x = x + attn_out
     h = layers.norm_apply(x, p["ln2"], cfg.norm)
-    return x + layers.mlp(h, p["mlp"], cfg.act, rt, cb)
+    if cfg.family == "moe":
+        f, aux = moe_lib.moe_ffn(h, p["moe"], cfg, rt, cb)
+        return x + f, aux
+    return x + layers.mlp(h, p["mlp"], cfg.act, rt, cb), None
 
 
 def _layer(tree, i):
@@ -128,29 +191,40 @@ def backbone(params, x, cfg, rt: Runtime, positions, pool=None, paged_tables=Non
     (block_tables, n_past, chunk_page_ids[, chunk_len]) for chunked
     prefill (see layers.attention).  ``caches`` (layer-stacked, leaves
     (L, B, max_len, ...)) with ``cache_pos``: the slab path, caches
-    written in place.  With neither: cache-free self-attention."""
+    written in place.  With neither: cache-free self-attention.  Returns
+    (final hidden states, the layers' auxiliary loss summed in layer order
+    as a 0-d f32 tensor — None for a dense model, which has none)."""
     cb = params.get("codebooks")
+    aux = None
     for i in range(cfg.n_layers):
         paged = None if pool is None else (_layer(pool, i),) + tuple(paged_tables)
         cache = None if caches is None else _layer(caches, i)
-        x = block_apply(x, _layer(params["layers"], i), cfg, rt, cb, positions, paged, cache,
-                        cache_pos)
-    return layers.norm_apply(x, params["ln_f"], cfg.norm)
+        x, a = block_apply(x, _layer(params["layers"], i), cfg, rt, cb, positions, paged, cache,
+                           cache_pos)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return layers.norm_apply(x, params["ln_f"], cfg.norm), aux
 
 
-def forward_hidden(params, tokens, cfg: ArchConfig, rt: Runtime):
-    """Final hidden states (B, S, d) of the cache-free forward of tokens (B, S)."""
+def _forward(params, tokens, cfg: ArchConfig, rt: Runtime):
     b, s = tokens.shape
     x = embed_tokens(params, tokens, rt)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     return backbone(params, x, cfg, rt, positions)
 
 
+def forward_hidden(params, tokens, cfg: ArchConfig, rt: Runtime):
+    """Final hidden states (B, S, d) of the cache-free forward of tokens (B, S)."""
+    return _forward(params, tokens, cfg, rt)[0]
+
+
 def forward_train(params, batch, cfg: ArchConfig, rt: Runtime):
-    """batch: {'tokens', 'labels' (B, S), optional 'mask'} → scalar loss
-    (dense family: no auxiliary loss)."""
-    x = forward_hidden(params, batch["tokens"], cfg, rt)
-    return xent_loss(params, x, batch["labels"], rt, batch.get("mask"))
+    """batch: {'tokens', 'labels' (B, S), optional 'mask'} → scalar loss,
+    plus 0.01 × the MoE auxiliary loss for the MoE family (the
+    reference's ``loss + 0.01 * aux``; a dense model has none)."""
+    x, aux = _forward(params, batch["tokens"], cfg, rt)
+    loss = xent_loss(params, x, batch["labels"], rt, batch.get("mask"))
+    return loss if aux is None else loss + 0.01 * aux
 
 
 def cache_init_stacked(cfg: ArchConfig, rt: Runtime, batch, max_len, device="cpu"):
@@ -168,7 +242,7 @@ def prefill(params, batch, cfg: ArchConfig, rt: Runtime, max_len: int):
     caches = cache_init_stacked(cfg, rt, b, max_len, device=tokens.device)
     x = embed_tokens(params, tokens, rt)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = backbone(params, x, cfg, rt, positions, caches=caches, cache_pos=0)
+    x, _ = backbone(params, x, cfg, rt, positions, caches=caches, cache_pos=0)
     return lm_logits(params, x[:, -1:, :], rt), caches
 
 
@@ -179,7 +253,7 @@ def decode_step(params, caches, tokens, pos: int, cfg: ArchConfig, rt: Runtime):
     b, s = tokens.shape
     x = embed_tokens(params, tokens, rt)
     positions = pos + torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = backbone(params, x, cfg, rt, positions, caches=caches, cache_pos=pos)
+    x, _ = backbone(params, x, cfg, rt, positions, caches=caches, cache_pos=pos)
     return lm_logits(params, x, rt), caches
 
 
@@ -191,7 +265,7 @@ def paged_decode_step(params, pool, tokens, block_tables, lengths, cfg: ArchConf
     b, s = tokens.shape
     x = embed_tokens(params, tokens, rt)
     positions = lengths[:, None].long() + torch.arange(s, device=tokens.device)[None, :]
-    x = backbone(params, x, cfg, rt, positions, pool, (block_tables, lengths))
+    x, _ = backbone(params, x, cfg, rt, positions, pool, (block_tables, lengths))
     return lm_logits(params, x, rt), pool
 
 
@@ -210,7 +284,7 @@ def prefill_from_pages(params, tokens, pool, block_tables, n_past, chunk_page_id
     paged_tables = (block_tables, n_past, chunk_page_ids)
     if chunk_len is not None:
         paged_tables += (chunk_len,)
-    x = backbone(params, x, cfg, rt, positions, pool, paged_tables)
+    x, _ = backbone(params, x, cfg, rt, positions, pool, paged_tables)
     if chunk_len is None:
         x_last = x[:, -1:, :]
     else:

@@ -1,4 +1,4 @@
-"""ArchConfig → model API (counterpart of the dense branch of
+"""ArchConfig → model API (counterpart of the dense and MoE branch of
 ``repro/models/zoo.build``): random init, the loss of a batch (the
 evaluation forward), the paged decode step, the page-pool init, the
 chunked-prefill step, and the slab ``prefill`` / contiguous
@@ -48,21 +48,39 @@ class ModelAPI:
         default_factory=lambda: {"prefill": 0, "decode": 0, "chunk": 0})
 
 
+SERVED_FAMILIES = ("dense", "moe")
+TO_PORT_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
+
+
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
-    """The model API of a dense decoder.  ``init(seed)`` draws random
-    weights from a seeded ``torch.Generator`` (on the CPU, then moved to
-    ``device``); with ``quant_mode="packed"`` they are packed to W4 with
-    the frozen universal codebooks, which ride in ``params["codebooks"]``,
-    and their dequant scales decoded once (``ptq.decode_scales``)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port serves dense decoders only, not {cfg.family!r}")
+    """The model API of a dense or MoE decoder.  ``init(seed)`` draws
+    random weights from seeded ``torch.Generator``s; with
+    ``quant_mode="packed"`` they are packed to W4 with the frozen
+    universal codebooks, which ride in ``params["codebooks"]``, and their
+    dequant scales decoded once (``ptq.decode_scales``).  A dense model is
+    drawn whole on the CPU, then moved to ``device``.  A MoE model is drawn
+    on ``device`` layer by layer, each layer from its own generator seeded
+    from (seed, layer) and packed before the next is drawn, so at most one
+    layer's float experts are ever resident (full-width Moonlight's float
+    experts alone would be ~106 GB)."""
+    if cfg.family not in SERVED_FAMILIES:
+        raise NotImplementedError(
+            f"the port serves the {' and '.join(SERVED_FAMILIES)} families, not "
+            f"{cfg.family!r}; still to be ported: {', '.join(TO_PORT_FAMILIES)}")
     device = resolve_device(device)
 
+    def codebooks():
+        if rt.quant_mode != "none" or rt.cache_kind == "bcq4":
+            return default_universal_codebooks(rt.bcq_cfg).as_tensor(device)
+        return None
+
     def init(seed: int = 0) -> dict:
+        if cfg.family == "moe":
+            return _init_by_layer(cfg, rt, device, seed, codebooks())
         params = transformer.init_lm(cfg, rt, torch.Generator().manual_seed(seed))
         params = _to(params, device)
-        if rt.quant_mode != "none" or rt.cache_kind == "bcq4":
-            cb = default_universal_codebooks(rt.bcq_cfg).as_tensor(device)
+        cb = codebooks()
+        if cb is not None:
             if rt.quant_mode == "packed":
                 params = decode_scales(pack_params(params, cb, rt.bcq_cfg))
             params["codebooks"] = cb
@@ -84,6 +102,45 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         prefill_fn=lambda p, b, ml: transformer.prefill(p, b, cfg, rt, ml),
         decode_fn=lambda p, c, t, pos: transformer.decode_step(p, c, t, pos, cfg, rt),
     )
+
+
+def _generator(device, seed: int, layer: int) -> torch.Generator:
+    """The generator of one layer (``layer`` ≥ 0) or of the parameters
+    outside the stack (``layer`` -1), seeded from (seed, layer)."""
+    return torch.Generator(device=device).manual_seed(seed * 65536 + layer + 1)
+
+
+def _init_by_layer(cfg, rt: Runtime, device, seed: int, cb) -> dict:
+    """A MoE model drawn and packed one layer at a time into preallocated
+    (L, ...) leaves."""
+    params = transformer.init_top(cfg, rt, _generator(device, seed, -1))
+    stack = None
+    for i in range(cfg.n_layers):
+        block = transformer.init_block(cfg, rt, _generator(device, seed, i))
+        if rt.quant_mode == "packed":
+            block = decode_scales(pack_params(block, cb, rt.bcq_cfg))
+        if stack is None:
+            stack = _alloc_stack(block, cfg.n_layers)
+        _put_layer(stack, block, i)
+        del block
+    params["layers"] = stack
+    if cb is not None:
+        params["codebooks"] = cb
+    return params
+
+
+def _alloc_stack(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _alloc_stack(v, n) for k, v in tree.items()}
+    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype, device=tree.device)
+
+
+def _put_layer(stack, tree, i: int) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put_layer(stack[k], v, i)
+    else:
+        stack[i].copy_(tree)
 
 
 def _to(tree, device):

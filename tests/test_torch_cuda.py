@@ -328,7 +328,8 @@ def test_flash_gqa_wrapper_matches_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "int8", "bcq4"])
-@pytest.mark.parametrize("c,d,h,hkv", [(1, 64, 12, 12), (8, 32, 4, 2)])
+@pytest.mark.parametrize("c,d,h,hkv", [(1, 64, 12, 12), (8, 32, 4, 2), (1, 128, 16, 16),
+                                       (8, 128, 16, 16)])
 def test_page_gather_kernel_matches_plain(cuda, kind, c, d, h, hkv):
     ps, n_pages, maxp = 8, 9, 4
     g = torch.Generator().manual_seed(0)
