@@ -202,6 +202,24 @@ success):
     the stacked launch's device ms beside its bound, prefill tokens/s and
     the phase's seconds.  Its launches join the ``kernels`` line (``moe``;
     the stacked form as ``bcq_linear_experts``).
+17. the PTQ deploy step on full-width gpt3_126m: seeded float weights
+    saved by the port's ``CheckpointManager`` (async writer) and restored
+    bit for bit; ``python -m repro_torch.launch.quantize``'s ``main`` on
+    the card (calibration on one batch of 4 × 128 tokens, 15 LO-BCQ
+    iterations; ``codebooks.json``, the fake and packed npz, the
+    manifest; its 6 B3 launches of ``quantize_params``, held to the plain
+    encode in a second run); the fit twice, byte-equal to each other and
+    to the CLI's books, its history non-increasing, its books equal to the
+    port's CPU fit of the same samples; the held-out loss of phase 9's
+    batches (bf16, flash kernel) for the fake artifact under every
+    act_format, for ``fake_full`` and for the packed artifact, launch counts
+    per forward, every B3 launch of a fake and a fake_full forward and
+    every B1 / B5 launch of a packed forward held to plain; both artifacts
+    served on phase 4's settings and prompts, graph depth 2 ≡ eager depth
+    1 bit for bit, exact launches a pass (fake: 4 B3, B2, writer a layer;
+    packed: 6 B1, B2, writer), every launch of a prefill and a steady tick
+    held to plain; B3's fake-quant form timed.  Its launches join the
+    ``kernels`` line (``ptq``; B3's as ``ptq_fake_quant``).
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -2919,7 +2937,7 @@ def check_stacked(cb):
     return worst
 
 
-def hold_launches(eng, n_steps):
+def hold_launches(eng, n_steps, label="phase 16"):
     """Step ``eng`` ``n_steps`` times with every launch of B1 (stacked and
     dense) and B2 held to its plain version on the inputs it got, and every
     KV-page write captured and held to the plain writer (``hold_writes``).
@@ -2935,7 +2953,7 @@ def hold_launches(eng, n_steps):
 
     def tally(name, ok, err, what):
         if not ok:
-            fail(f"phase 16: a {name} launch disagrees with its plain version on its own "
+            fail(f"{label}: a {name} launch disagrees with its plain version on its own "
                  f"inputs ({what}): max|err| {err:.3e}")
         n[name] += 1
         worst[name] = max(worst[name], err)
@@ -2975,39 +2993,49 @@ def hold_launches(eng, n_steps):
         paged_attention.page_gather_attention = real["decode"]
         chunked_prefill.page_gather_attention = real["chunk"]
     n["bcq_page_write"] = len(calls)
-    worst["bcq_page_write"] = hold_writes(calls, eng.params["codebooks"], "phase 16")
+    worst["bcq_page_write"] = hold_writes(calls, eng.params["codebooks"], label)
     return n, worst
 
 
-def moe_launch_checks(api, params, prompts):
+def moe_launch_checks(api, params, prompts, per_layer=MOE_PER_LAYER, label="phase 16"):
     """Every launch of the first engine step (a prefill chunk of every
     prompt, then a decode tick) and of one steady decode tick (8 rows
-    decoding) held to its plain version on its own inputs (``hold_launches``;
-    eager depth 1: a wrapper must see each launch).  Returns the worst
-    max|err| by kernel and the launches held."""
+    decoding) held to its plain version on its own inputs (``hold_launches``,
+    and B3's fake-quant route by ``hold_fake_route`` where ``per_layer``
+    counts it; eager depth 1: a wrapper must see each launch).  Returns the
+    worst max|err| by kernel and the launches held."""
     from types import SimpleNamespace
 
+    def step():
+        return hold_launches(eng, 1, label)
+
     eng = _fresh_engine(SimpleNamespace(api=api, params=params, max_len=MOE_MAX_LEN), prompts)
-    first, worst1 = hold_launches(eng, 1)
+    (first, worst1), n_fq1, ties1 = hold_fake_route(step, label)
+    first["bcq_quantize"] = n_fq1
     passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
     while eng.queue or any(s.mode == "prefill" for s in eng.slots if s.req is not None):
         eng.step()
     eng.step()
     if sum(s.req is not None and s.mode == "decode" for s in eng.slots) != len(prompts):
-        fail("phase 16: the steady tick of the launch checks has not 8 rows decoding")
-    steady, worst2 = hold_launches(eng, 1)
+        fail(f"{label}: the steady tick of the launch checks has not 8 rows decoding")
+    (steady, worst2), n_fq2, ties2 = hold_fake_route(step, label)
+    steady["bcq_quantize"] = n_fq2
     layers = api.cfg.n_layers
-    for name, per in MOE_PER_LAYER.items():
+    for name in set(MOE_COUNTED) | {"bcq_quantize"}:
+        per = per_layer.get(name, 0)
         if first[name] != per * layers * passes or steady[name] != per * layers:
-            fail(f"phase 16: {name}: {first[name]} launches held in the first step "
+            fail(f"{label}: {name}: {first[name]} launches held in the first step "
                  f"({passes} passes), {steady[name]} in the steady tick; expected {per} a layer")
     worst = {k: max(worst1[k], worst2[k]) for k in worst1}
-    print(f"phase 16 every launch of the first engine step ({passes} passes: a prefill chunk of "
+    held_names = [k for k in MOE_COUNTED if per_layer.get(k) and k != "bcq_page_write"]
+    print(f"{label} every launch of the first engine step ({passes} passes: a prefill chunk of "
           f"every prompt, a decode tick) and of a steady decode tick (8 rows) vs its plain "
           f"version on its own inputs: launches {first} + {steady}; max|err| "
-          f"{ {k: worst[k] for k in MOE_COUNTED if k != 'bcq_page_write'} } (B1 rtol={LINEAR_TOL} "
+          f"{ {k: worst[k] for k in held_names} } (B1 rtol={LINEAR_TOL} "
           f"atol={LINEAR_TOL}·max|plain|, B2 atol=rtol={GATHER_TOL}); KV pages equal to the plain "
-          f"writer's ({worst['bcq_page_write']} differing idx/sel bytes, codebook ties)", flush=True)
+          f"writer's ({worst['bcq_page_write']} differing idx/sel bytes, codebook ties); B3's "
+          f"fake-quant launches decode to the plain encode's values ({ties1 + ties2} with a "
+          f"codebook tie)", flush=True)
     return worst, {k: first[k] + steady[k] for k in first}
 
 
@@ -3177,6 +3205,356 @@ def phase_moe(cb, smi):
     torch.cuda.empty_cache()
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return total, entry, worst
+
+
+# ------------------------------------------------------------------ phase 17
+PTQ_DIR = os.path.join(ROOT, "build", "ptq")  # under the ignored build/
+PTQ_FORMATS = ("bcq", "mx4", "mxfp4", "vsq", "int4", "none")  # Runtime.act_format
+# launches a layer makes in one forward pass of each served artifact: the
+# fake one encodes 4 activations a layer through B3 (qkv once, out, mlp
+# in, mlp out); the packed one runs 6 fused linears
+PTQ_PER_LAYER = {"fake": {"bcq_quantize": 4, "page_gather": 1, "bcq_page_write": 1},
+                 "packed": {"bcq_linear": 6, "page_gather": 1, "bcq_page_write": 1}}
+PTQ_FIT_RTOL = 2e-4  # the card's fit history vs the CPU fit's (f32 sums in another order)
+
+
+def hold_fake_route(run, label):
+    """Run ``run()`` with every launch of B3 (``bcq_quantize``: the fake-quant
+    route of ``bcq.fake_quant``) held to ``quantize_ref`` on the launch's own
+    inputs: ratios equal, and the values the route decodes,
+    C_sel[idx] / (ratio · s_X), equal bit for bit (idx / sel bytes may
+    differ on a codebook tie).  Returns (what ``run`` returned, launches
+    held, launches with a tie)."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_quantize as bq
+    from repro_torch.kernels.ref import quantize_ref
+
+    real = bq.bcq_quantize
+    n = [0, 0]
+
+    def check(x, cb, s_x, cfg):
+        idx, sel, ratio = real(x, cb, s_x, cfg)
+        r_idx, r_sel, r_ratio = quantize_ref(x, cb, cfg, s_x)
+        if not torch.equal(ratio, r_ratio):
+            fail(f"{label}: a B3 fake-quant launch's ratios differ from the plain encode's "
+                 f"(M={x.shape[0]} K={x.shape[1]})")
+        if not (torch.equal(idx, r_idx) and torch.equal(sel, r_sel)):
+            scale = r_ratio * s_x
+            if not torch.equal(bcq.dequantize(idx, sel, scale, cb, cfg),
+                               bcq.dequantize(r_idx, r_sel, scale, cb, cfg)):
+                fail(f"{label}: a B3 fake-quant launch decodes to other values than the plain "
+                     f"encode (M={x.shape[0]} K={x.shape[1]})")
+            n[1] += 1
+        n[0] += 1
+        return idx, sel, ratio
+
+    bq.bcq_quantize = check
+    try:
+        out = run()
+    finally:
+        bq.bcq_quantize = real
+    return out, n[0], n[1]
+
+
+def _counted(fn, totals):
+    """``fn()`` on counts set to 0 just before; its launches added to
+    ``totals``.  Returns (what ``fn`` returned, its launches by kernel)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = build.counts()
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, counts
+
+
+def _expect(counts, want, what):
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want or any(v for k, v in counts.items() if k not in want):
+        fail(f"phase 17 {what}: launches {counts}, expected {want} and no other")
+
+
+def ptq_fit_checks(params, cfg, calib, written):
+    """The fit on the card twice (15 LO-BCQ iterations, the quantize CLI's)
+    on the CLI's samples: byte-equal to each other and to the codebooks the
+    CLI wrote, the history non-increasing, and the codebooks equal to the
+    port's CPU fit of the same samples.  Returns (card fit s, CPU fit s)."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.core.calibrate import capture_gemm_inputs, stacked_kernels
+    from repro_torch.models.layers import Runtime
+
+    rt = Runtime(quant_mode="none", compute_dtype=torch.float32)
+    samples = capture_gemm_inputs(params, calib, cfg, rt)
+    samples += [leaf.reshape(-1)[: 1 << 16] for leaf in stacked_kernels(params["layers"])]
+    n_blocks = sum(s.numel() // 64 * 8 for s in samples)
+    fits, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append(bcq.fit_lobcq(samples, bcq.BCQConfig(), iters=15))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    a, b = fits
+    if a.levels.tobytes() != b.levels.tobytes() or a.history != b.history:
+        fail("phase 17: two LO-BCQ fits on the card differ")
+    if a.levels.tobytes() != written.levels.tobytes():
+        fail("phase 17: the quantize CLI's codebooks differ from a fit of its own samples")
+    h = a.history
+    if not all(y <= x for x, y in zip(h, h[1:])):
+        fail(f"phase 17: the fit's MSE history increases: {h}")
+    t0 = time.perf_counter()
+    cpu = bcq.fit_lobcq([s.cpu() for s in samples], bcq.BCQConfig(), iters=15)
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(cpu.levels, a.levels):
+        fail(f"phase 17: the card's fit and the CPU fit give other codebooks:\n{a.levels}\n"
+             f"{cpu.levels}")
+    rel = max(abs(x - y) / y for x, y in zip(h, cpu.history)) if len(h) == len(cpu.history) else 1
+    if not rel <= PTQ_FIT_RTOL:
+        fail(f"phase 17: the fit histories of the card and the CPU part by {rel:.2e} "
+             f"(tol {PTQ_FIT_RTOL}): {h} vs {cpu.history}")
+    print(f"phase 17 LO-BCQ fit on the card ({len(samples)} samples, {n_blocks} blocks of 8, "
+          f"{len(h)} iterations of 25 Lloyd-Max passes): {secs[0]:.2f} s, again {secs[1]:.2f} s, "
+          f"byte-equal to each other and to the CLI's codebooks; MSE history {h[0]:.6f} → "
+          f"{h[-1]:.6f}, non-increasing; the port's CPU fit of the same samples ({cpu_s:.1f} s): "
+          f"codebooks equal, history within {rel:.1e}", flush=True)
+    return secs[0], cpu_s
+
+
+def ptq_eval(cfg, floats, fake, packed, batches, totals):
+    """Held-out loss over phase 9's batches (bf16, the flash kernel) of the
+    fake artifact under every act_format, of the float weights quantized in
+    the forward (``fake_full``), and of the packed artifact; launch counts
+    per forward; every B3 launch of one fake and one fake_full forward, and
+    every B1 and B5 launch of one packed forward, held to its plain
+    version (``fake_full`` quantizes the float weights, ``floats``, in the
+    forward).  Returns (losses by name, the worst B1 / B5 errors)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    L, nb = cfg.n_layers, len(batches)
+    base = Runtime(compute_dtype=torch.bfloat16, flash_kernel=True)
+    runs = [(f"fake {f}", dataclasses.replace(base, quant_mode="fake", act_format=f), fake,
+             {"bcq_quantize": 4 * L * nb if f == "bcq" else 0, "flash_attention": L * nb})
+            for f in PTQ_FORMATS]
+    runs += [("fake_full bcq", dataclasses.replace(base, quant_mode="fake_full"), floats,
+              {"bcq_quantize": 10 * L * nb, "flash_attention": L * nb}),
+             ("packed", dataclasses.replace(base, quant_mode="packed"), packed,
+              {"bcq_linear": 6 * L * nb, "flash_attention": L * nb})]
+    losses, err = {}, {}
+    for name, rt, params, want in runs:
+        api = zoo.build(cfg, rt, device="cuda")
+        t0 = time.perf_counter()
+        (ls, ms), counts = _counted(lambda: _eval_losses(api, params, batches), totals)
+        _expect(counts, {k: v for k, v in want.items() if v}, f"evaluation [{name}]")
+        mean = sum(ls) / nb
+        if not math.isfinite(mean):
+            fail(f"phase 17: non-finite held-out loss [{name}]: {ls}")
+        losses[name] = mean
+        print(f"phase 17 eval [{name:13s}]: loss {mean:.6f} (per batch "
+              f"{', '.join(f'{x:.6f}' for x in ls)}), {ms[-1]:.1f} ms/forward of "
+              f"{EVAL_BATCH} × {EVAL_SEQ} tokens ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if name in ("fake bcq", "fake_full bcq"):
+            _, n, ties = hold_fake_route(lambda: api.loss_fn(params, batches[0]),
+                                         f"phase 17 eval [{name}]")
+            if n != want["bcq_quantize"] // nb:
+                fail(f"phase 17 eval [{name}]: {n} B3 launches held in one forward")
+            print(f"phase 17 eval [{name}]: every B3 launch of one forward ({n}) decodes to the "
+                  f"plain encode's values ({ties} with a codebook tie)", flush=True)
+        if name == "packed":
+            err = check_eval_launches(api, params, batches[0])
+    return losses, err
+
+
+def ptq_serve(artifact, cfg, params, prompts, totals, smi):
+    """One artifact served on phase 4's settings and prompts: the
+    production tick (graph depth 2) and eager depth 1 equal bit for bit,
+    launch counts per pass, and every launch of a prefill and a steady
+    tick held to its plain version.  Returns (the graph depth 2 way, the
+    worst launch errors)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    rt = Runtime(quant_mode=artifact, compute_dtype=torch.float32, cache_kind="bcq4",
+                 paged_kernel=True)
+    api = zoo.build(cfg, rt, device="cuda")
+    model = SimpleNamespace(api=api, params=params, max_len=MOE_MAX_LEN)
+    ways = [(_way_name(g, d), production_way(model, prompts, g, d, n, label="phase 17"))
+            for g, d, n in ((True, 2, 10), (False, 1, 3))]
+    _hold_ways(ways, f"{artifact} artifact, phase 4's workload", "phase 17")
+    g2 = ways[0][1]
+    passes = g2["out"][1]["decode_ticks"] + g2["out"][1]["prefill_launches"]
+    want = {k: v * cfg.n_layers * passes for k, v in PTQ_PER_LAYER[artifact].items()}
+    _expect(g2["counts"], want, f"{artifact} artifact served at graph depth 2")
+    for k, v in g2["counts"].items():
+        totals[k] = totals.get(k, 0) + v
+    worst, _ = moe_launch_checks(api, params, prompts, PTQ_PER_LAYER[artifact],
+                                 f"phase 17 [{artifact} artifact]")
+    prof = g2["prof"]
+    busy = "not measured" if prof is None else f"{prof[1]:.3f} ms"
+    print(f"phase 17 [{artifact} artifact]: graph depth 2 ≡ eager depth 1 bit for bit; launches "
+          f"{want} over {passes} passes; steady tick (8 rows): wall {g2['wall']:.2f} ms at graph "
+          f"depth 2 (device {busy}, {sum(g2['nodes'].values())} graph nodes over "
+          f"{len(g2['nodes'])} widths), {ways[1][1]['wall']:.2f} ms eager depth 1; {smi}",
+          flush=True)
+    for _, w in ways:
+        w.pop("engine")
+    return g2, worst
+
+
+def time_fake_route(cb):
+    """B3's fake-quant form: ``bcq.fake_quant`` of a CUDA tensor at decode
+    (M 8) and at the evaluation's (M 8192), K 768 — event-loop ms of the
+    whole route, B3's device time in it (the mean of the profiler events it
+    got), the plain ``fake_quant_plain``, and B3's bound at that shape."""
+    from repro_torch.core import bcq
+
+    cfg = bcq.BCQConfig()
+    out = {}
+    for m, k, seed in ((8, 768, 81), (EVAL_SEQ * EVAL_BATCH, 768, 82)):
+        x = activation(m, k, seed)
+        ms = cuda_ms(lambda: bcq.fake_quant(x, cb, cfg))
+        plain_ms = cuda_ms(lambda: bcq.fake_quant_plain(x, cb, cfg), iters=5)
+        nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
+        bound, by = _bound(nbytes, (ENCODE_OPS * m * k, F32_FLOPS))
+        iters, dev = 20, None
+        for _ in range(3):
+            got = _device_kernels(lambda: bcq.fake_quant(x, cb, cfg), iters)
+            if got is None:
+                continue
+            n_kern, route_dev, by_name, seen = got
+            enc = [nm for nm in by_name if "encode_kernel" in nm]
+            if len(enc) == 1 and seen[enc[0]] >= iters / 2:
+                dev = by_name[enc[0]] * iters / seen[enc[0]]
+                if dev >= bound:
+                    break
+        if dev is None:
+            fail(f"phase 17: torch.profiler lost B3's fake-quant launches at M={m} K={k}")
+        out[m] = {"shape": f"M {m} K {k}", "ms": ms, "device_ms": dev,
+                  "route_device_ms": route_dev, "route_kernels": n_kern, "plain_ms": plain_ms,
+                  "bound_ms": bound, "bound_by": by, "library_ms": None}
+        print(f"B3 fake-quant form (bcq.fake_quant) at M={m} K={k}: {ms:.4f} ms a call (event "
+              f"loop), B3's encode {dev:.4f} ms device, the route's {n_kern:.0f} kernels "
+              f"{route_dev:.4f} ms device (torch.profiler), plain fake_quant_plain "
+              f"{plain_ms:.4f} ms, B3 bound {bound:.5f} ms by {by}", flush=True)
+    return {**out[8], "at_eval": out[EVAL_SEQ * EVAL_BATCH]}
+
+
+def phase_ptq(cb, smi):
+    """Phase 17: the PTQ deploy step on full-width gpt3_126m.  Seeded float
+    weights on the card saved by the port's ``CheckpointManager`` and
+    restored (bytes equal); ``python -m repro_torch.launch.quantize``'s
+    ``main`` on the card (calibration: one batch of 4 × 128 tokens, 15
+    LO-BCQ iterations; the fake and packed artifacts, the manifest); the
+    fit twice byte-equal, non-increasing, equal to the port's CPU fit; the
+    held-out loss of the fake artifact under every act_format, of
+    ``fake_full`` and of the packed artifact; both artifacts served at graph
+    depth 2 ≡ eager depth 1 with every launch of a prefill and a steady
+    tick held to plain.  Returns (the phase's launches by kernel, the worst
+    B1 / B2 / B5 errors, B3's fake-quant form)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager, load_pytree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import ptq
+    from repro_torch.core.bcq import BCQConfig, CodebookSet
+    from repro_torch.data.pipeline import DataConfig, batch_at, eval_stream
+    from repro_torch.launch import quantize
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("gpt3_126m")
+    shutil.rmtree(PTQ_DIR, ignore_errors=True)
+    ck, out = os.path.join(PTQ_DIR, "ckpt"), os.path.join(PTQ_DIR, "w4")
+    params = zoo.build(cfg, Runtime(compute_dtype=torch.float32), device="cuda").init(0)
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(ck, keep=2)
+    mgr.save(1, {"params": params})  # the async writer
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, state = mgr.restore()
+    restore_s = time.perf_counter() - t0
+    flat = lambda t, p="": ([x for k in sorted(t) for x in flat(t[k], f"{p}/{k}")]  # noqa: E731
+                            if isinstance(t, dict) else [(p, t)])
+    mine, back = flat(params), flat(state["params"])
+    if step != 1 or [p for p, _ in mine] != [p for p, _ in back] or not all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(mine, back)):
+        fail("phase 17: the restored checkpoint differs from the saved weights")
+    ck_bytes = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
+    print(f"phase 17 checkpoint: {len(mine)} leaves, {ck_bytes} B on disk, saved (async writer) "
+          f"in {save_s:.2f} s, restored in {restore_s:.2f} s, every leaf equal bit for bit",
+          flush=True)
+
+    totals = {}
+    t0 = time.perf_counter()
+    manifest, counts = _counted(lambda: quantize.main(["--ckpt", ck, "--out", out]), totals)
+    quant_s = time.perf_counter() - t0
+    _expect(counts, {"bcq_quantize": 6}, "quantize CLI")  # quantize_params: 6 layer stacks
+    stats = ptq.count_quantized_bits(params, BCQConfig())
+    sizes = {n: os.path.getsize(os.path.join(out, n)) for n in sorted(os.listdir(out))}
+    packed_bytes = sum(int(np.prod(s)) for s in manifest["packed_tensors"].values()) * (
+        1 + 1 / 8 + 1 / 32)  # idx K/2, sel K/16, scale K/64 bytes a row (the shapes: idx)
+    print(f"phase 17 quantize CLI on the card: {quant_s:.2f} s; artifacts {sizes} B; GEMM "
+          f"weights {stats['gemm_params']} of {stats['params']} params at {manifest['bcq']['bits']} "
+          f"bits (Eq. 9), the packed buffers {packed_bytes:.0f} B = "
+          f"{packed_bytes * 8 / stats['gemm_params']:.4f} bits a weight (selectors stored as "
+          f"nibbles); compression vs bf16 {manifest['compression_vs_bf16']:.4f}", flush=True)
+    written = CodebookSet.load(os.path.join(out, "codebooks.json"))
+    calib = batch_at(DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=4), quantize.CALIB_STEP,
+                     device="cuda")["tokens"]
+    fit_s, cpu_fit_s = ptq_fit_checks(params, cfg, calib, written)
+    cb_fit = written.as_tensor("cuda")
+    _, n_w, ties_w = hold_fake_route(lambda: ptq.quantize_params(params, cb_fit, BCQConfig()),
+                                     "phase 17 quantize_params")
+    print(f"phase 17 quantize_params: every B3 launch ({n_w}) decodes to the plain encode's "
+          f"values ({ties_w} with a codebook tie)", flush=True)
+    del state, mine, back
+
+    to_cuda = lambda t: ({k: to_cuda(v) for k, v in t.items()} if isinstance(t, dict)  # noqa: E731
+                         else t.to("cuda"))
+    fake = to_cuda(load_pytree(os.path.join(out, "weights_w4_fake.npz")))
+    packed = ptq.packed_from_artifact(
+        fake, to_cuda(load_pytree(os.path.join(out, "weights_w4_packed.npz"))))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=EVAL_SEQ, global_batch=EVAL_BATCH)
+    batches = list(eval_stream(dc, EVAL_BATCHES, device="cuda"))
+    losses, err_ev = ptq_eval(cfg, dict(params, codebooks=fake["codebooks"]), fake, packed,
+                              batches, totals)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    served, worst = {}, {}
+    for artifact, params_a in (("fake", fake), ("packed", packed)):
+        served[artifact], w = ptq_serve(artifact, cfg, params_a, prompts, totals, smi)
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in w.items()}
+    fake_form = time_fake_route(cb)
+    print(f"phase 17 summary: fit {fit_s:.2f} s on the card ({cpu_fit_s:.1f} s on the CPU), "
+          f"quantize CLI {quant_s:.2f} s; held-out losses "
+          f"{ {k: round(v, 6) for k, v in losses.items()} }; steady decode tick at graph depth "
+          f"2: fake {served['fake']['wall']:.2f} ms, packed {served['packed']['wall']:.2f} ms; "
+          f"launches {totals}; phase 17 {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    worst["bcq_linear"] = max(worst["bcq_linear"], err_ev.get("bcq_linear", 0.0))
+    worst["flash_attention"] = err_ev.get("flash_attention", 0.0)
+    return totals, worst, fake_form
 
 
 # ------------------------------------------------------------------ phase 10
@@ -3590,6 +3968,7 @@ def main() -> int:
     counts_tel, probe_form = phase_telemetry(eng4, cb, g2, core_g2, smi)
     counts_tier, _ = phase_host_tier(eng4, tol, core, g2, core_g2, smi)
     counts_moe, stacked, err_moe = phase_moe(cb, smi)
+    counts_ptq, err_ptq, fake_form = phase_ptq(cb, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
@@ -3598,12 +3977,21 @@ def main() -> int:
             entry["launches_by_path"]["telemetry"] = counts_tel[counter]
             entry["launches_by_path"]["host_tier"] = counts_tier[counter]
             entry["launches_by_path"]["moe"] = counts_moe[counter]
+            entry["launches_by_path"]["ptq"] = counts_ptq.get(counter, 0)
             entry["launches"] = sum(entry["launches_by_path"].values())
+    kernels[2]["launches_by_path"] = {"evaluation": kernels[2]["launches"],
+                                      "ptq": counts_ptq.get("flash_attention", 0)}
+    kernels[2]["launches"] = sum(kernels[2]["launches_by_path"].values())
     kernels[3]["launches_by_path"]["probes"] = counts_tel["bcq_quantize"]
+    kernels[3]["launches_by_path"]["ptq_fake_quant"] = counts_ptq.get("bcq_quantize", 0)
     kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
     kernels[3]["probe_form"] = probe_form
-    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab, err_moe["bcq_linear"])
-    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err_moe["page_gather"])
+    kernels[3]["fake_quant_form"] = fake_form
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab, err_moe["bcq_linear"],
+                                    err_ptq["bcq_linear"])
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err_moe["page_gather"],
+                                    err_ptq["page_gather"])
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err_ptq["flash_attention"])
     kernels.insert(1, stacked)
     check_bounds(kernels)
     print(smi, flush=True)

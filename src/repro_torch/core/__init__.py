@@ -1,1 +1,2 @@
-"""LO-BCQ numerics of the port: number formats, encode/decode, PTQ."""
+"""LO-BCQ numerics of the port: number formats, encode/decode, the codebook
+fit and calibration, the baseline quantizers, PTQ."""

@@ -1,7 +1,7 @@
 """LO-BCQ: block clustered quantization (paper §2) — PyTorch reference.
 
-Counterpart of ``repro/core/bcq.py`` (encode / decode / fake-quant; the
-calibration of codebooks stays in the JAX package).  Pipeline:
+Counterpart of ``repro/core/bcq.py``: encode / decode / fake-quant, and
+the offline LO-BCQ fit of the codebooks (``fit_lobcq``, §2.2).  Pipeline:
 
   tensor X --(blocks along the last axis)--> arrays of L_A scalars
     s_X  = (2^(B_c-1)-1) / amax|X|                  per-tensor scale
@@ -18,17 +18,24 @@ midpoint thresholds, a strict ``<`` running argmin over the codebooks,
 and the block error summed left to right over its L_b scalars — the same
 order the CUDA encode (csrc/bcq_linear.cu) uses, so the two are bit
 identical.
+
+``fake_quant`` of a CUDA tensor encodes through the quantize kernel (B3,
+``kernels/bcq_quantize.py``) and decodes in torch; ``fake_quant_plain``
+is the ``encode`` route on any device, its plain version.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import formats
+from repro_torch.core.lloyd_max import (kmeanspp_seeds, lloyd_max_batched, permutation,
+                                        quantile_init, split, uniform)
+from repro_torch.serving import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,43 +65,103 @@ class BCQConfig:
     def codeword_max(self) -> float:
         return float(2 ** (self.codeword_bits - 1) - 1)
 
+    @property
+    def selector_bits(self) -> float:
+        return float(np.log2(self.n_codebooks))
+
+    def bitwidth(self, tensor_size: int | None = None) -> float:
+        """Effective bits per scalar (Eq. 9); with ``tensor_size`` the
+        codebooks' own bits are spread over that many scalars."""
+        bw = (
+            self.index_bits
+            + self.selector_bits / self.block_len
+            + self.scale_bits / self.array_len
+        )
+        if tensor_size:
+            bw += self.n_codebooks * self.n_entries * self.codeword_bits / tensor_size
+        return bw
+
     def tag(self) -> str:
         return f"g{self.array_len}_Lb{self.block_len}_Nc{self.n_codebooks}"
 
 
 @dataclasses.dataclass
 class CodebookSet:
-    """N_c frozen codebooks (sorted, INT-(B_c) integer values).
+    """N_c codebooks, levels sorted ascending per codebook: INT-(B_c)
+    integers from a fit with ``quantize_codewords=True`` (what the kernels
+    take, ``check_kernel_codebooks``), or the raw Lloyd-Max levels
+    otherwise (legitimate for ``fake`` mode, run in plain torch)."""
 
-    The premise is checked once, here, on the host: the W4A4 kernels
-    multiply codewords as int8 integers and find the nearest entry by a
-    table over floor(2y), both exact only for sorted integer levels within
-    ±codeword_max (csrc/bcq_encode.cuh, csrc/bcq_gemm.cuh)."""
-
-    levels: np.ndarray  # (N_c, 2^B) float32 holding integers
+    levels: np.ndarray  # (N_c, 2^B) float32
     cfg: BCQConfig
+    history: list | None = None  # calibration MSE trajectory
 
     def __post_init__(self):
-        lv = np.asarray(self.levels, dtype=np.float32)
-        if not np.array_equal(lv, np.round(lv)):
-            raise ValueError("codebook levels must be integers (INT codewords)")
-        if np.any(np.diff(lv, axis=-1) < 0):
+        if np.any(np.diff(np.asarray(self.levels, dtype=np.float32), axis=-1) < 0):
             raise ValueError("codebook levels must be sorted ascending")
-        if np.any(np.abs(lv) > self.cfg.codeword_max):
-            raise ValueError(f"codebook levels must lie within ±{self.cfg.codeword_max:g}")
 
     def as_tensor(self, device="cpu") -> torch.Tensor:
         return torch.as_tensor(self.levels, dtype=torch.float32, device=device)
 
+    def nbytes(self) -> float:
+        return self.levels.size * self.cfg.codeword_bits / 8.0
+
+    def save(self, path: str) -> None:
+        """The reference's JSON: levels, cfg and history."""
+        with open(path, "w") as f:
+            json.dump(
+                {
+                    "levels": np.asarray(self.levels).tolist(),
+                    "cfg": dataclasses.asdict(self.cfg),
+                    "history": list(map(float, self.history or [])),
+                },
+                f,
+            )
+
     @staticmethod
     def load(path: str) -> "CodebookSet":
-        """Read a codebook JSON (read only: the port never writes or
-        regenerates codebooks)."""
         with open(path) as f:
             d = json.load(f)
-        return CodebookSet(
-            levels=np.asarray(d["levels"], dtype=np.float32), cfg=BCQConfig(**d["cfg"])
-        )
+        return CodebookSet(levels=np.asarray(d["levels"], dtype=np.float32),
+                           cfg=BCQConfig(**d["cfg"]), history=d.get("history"))
+
+
+def check_codebook_levels(levels: np.ndarray, cfg: BCQConfig) -> None:
+    """The premise of the W4A4 kernels: they multiply codewords as int8
+    integers and find the nearest entry by a table over floor(2y), both
+    exact only for sorted integer levels within ±codeword_max
+    (csrc/bcq_encode.cuh, csrc/bcq_gemm.cuh).  Raises ValueError."""
+    lv = np.asarray(levels, dtype=np.float32)
+    if not np.array_equal(lv, np.round(lv)):
+        raise ValueError("codebook levels must be integers (INT codewords)")
+    if np.any(np.diff(lv, axis=-1) < 0):
+        raise ValueError("codebook levels must be sorted ascending")
+    if np.any(np.abs(lv) > cfg.codeword_max):
+        raise ValueError(f"codebook levels must lie within ±{cfg.codeword_max:g}")
+
+
+def check_kernel_codebooks(codebooks: torch.Tensor, cfg: BCQConfig) -> None:
+    """``check_codebook_levels`` at a kernel's entry.  The check reads the
+    values on the host, a copy that a CUDA graph capture cannot make and a
+    launch should not wait for, so a tensor that passed keeps the in-place
+    version it passed at (``_kernel_checked``): a later launch on it, a
+    captured one after its eager warm-up too, reads one attribute."""
+    if getattr(codebooks, "_kernel_checked", None) == codebooks._version:
+        return
+    check_codebook_levels(codebooks.detach().cpu().numpy(), cfg)
+    codebooks._kernel_checked = codebooks._version
+
+
+def check_kernel_config(cfg: BCQConfig, what: str) -> None:
+    """Refuse a config that B1, B3 and B4 cannot run (they are built for
+    ``BCQConfig()``'s (L_A, L_b, entries, N_c)): at their entry, and up
+    front where an entry point on the card (``what``) would reach them."""
+    got = (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks)
+    if got != (64, 8, 16, 8):
+        raise ValueError(
+            f"{what}: the CUDA kernels take only L_A 64, L_b 8, 16 entries and N_c 8 "
+            f"(BCQConfig()), not L_A {got[0]}, L_b {got[1]}, {got[2]} entries, N_c {got[3]}; "
+            "run this config on the CPU (device='cpu')")
 
 
 class Encoded(NamedTuple):
@@ -227,7 +294,43 @@ def decode(enc: Encoded, codebooks: torch.Tensor, cfg: BCQConfig, out_len: int) 
 
 
 def fake_quant(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig, s_x=None) -> torch.Tensor:
-    """Quantize-dequantize in one shot (bit-identical to decode∘encode)."""
+    """Quantize-dequantize in one shot (bit-identical to decode∘encode).
+
+    A CUDA tensor is encoded by the quantize kernel (B3,
+    ``kernels.bcq_quantize``, x as (M, K) padded to whole arrays; ``s_x``
+    a 0-d tensor) and decoded with torch ops on the device; a CPU tensor
+    takes ``fake_quant_plain``.  The decoded values are the plain
+    route's, bit for bit (a codebook tie moves a selector, not a value)."""
+    if x.device.type == "cpu":
+        return fake_quant_plain(x, codebooks, cfg, s_x)
+    from repro_torch.kernels.bcq_quantize import bcq_quantize
+
+    xf = x.float()
+    if s_x is None:
+        s_x = tensor_scale(xf, cfg)
+    k = xf.shape[-1]
+    x2, _ = pad_to_multiple(xf.reshape(-1, k), cfg.array_len)
+    idx, sel, ratio = bcq_quantize(x2.contiguous(), codebooks, s_x, cfg)
+    out = dequantize(idx, sel, ratio * s_x, codebooks, cfg)
+    return out[:, :k].reshape(x.shape).to(x.dtype)
+
+
+def dequantize(packed_idx, packed_sel, scale, codebooks, cfg: BCQConfig) -> torch.Tensor:
+    """Values of a packed encoding: C_sel[idx] / (ŝ_A·s_X), ``scale`` the
+    (..., n_arrays) products ŝ_A·s_X → (..., n_arrays·L_A) f32."""
+    idx = unpack_nibbles(packed_idx).long()
+    lead, kp = idx.shape[:-1], idx.shape[-1]
+    na = kp // cfg.array_len
+    sel = unpack_nibbles(packed_sel).long()[..., : na * cfg.blocks_per_array]
+    vals = codebooks.reshape(-1)[torch.repeat_interleave(sel, cfg.block_len, -1) * cfg.n_entries
+                                 + idx]
+    return (vals.reshape(*lead, na, cfg.array_len) / scale[..., None]).reshape(*lead, kp)
+
+
+def fake_quant_plain(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig,
+                     s_x=None) -> torch.Tensor:
+    """``fake_quant`` through the plain encode on any device (the
+    reference's ``bcq.fake_quant``)."""
     dt = x.dtype
     xf = x.float()
     if s_x is None:
@@ -280,15 +383,9 @@ def encode_stats_plain(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig,
 def _stats(xf, packed_idx, packed_sel, ratio, s_x, codebooks, cfg: BCQConfig):
     """NMSE and selector occupancy of an encoding of ``xf`` (packed idx and
     sel of its padded arrays, their E4M3 ratios)."""
-    idx = unpack_nibbles(packed_idx).long()
-    kp = idx.shape[-1]
-    na = kp // cfg.array_len
+    xq = dequantize(packed_idx, packed_sel, ratio * s_x, codebooks, cfg)[..., : xf.shape[-1]]
+    na = packed_idx.shape[-1] * 2 // cfg.array_len
     sel = unpack_nibbles(packed_sel).long()[..., : na * cfg.blocks_per_array]
-    vals = codebooks.reshape(-1)[torch.repeat_interleave(sel, cfg.block_len, -1) * cfg.n_entries
-                                 + idx]
-    scale = ratio * s_x  # ŝ_A · s_X per array
-    xq = (vals.reshape(*idx.shape[:-1], na, cfg.array_len) / scale[..., None]).reshape(
-        *idx.shape[:-1], kp)[..., : xf.shape[-1]]
     occupancy = torch.zeros((cfg.n_codebooks,), dtype=torch.int64, device=xf.device)
     occupancy.index_add_(0, sel.reshape(-1), torch.ones_like(sel.reshape(-1)))
     return quantization_nmse(xf, xq.reshape(xf.shape)), occupancy
@@ -299,3 +396,101 @@ def quantization_nmse(x: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
     x = x.float()
     d = x - xq.float()
     return torch.sum(d * d) / torch.clamp_min(torch.sum(x * x), 1e-12)
+
+
+# ----------------------------------------------------------- LO-BCQ fitting
+def calib_blocks(t, cfg: BCQConfig) -> torch.Tensor:
+    """A calibration tensor as per-array-normalized blocks (N_b, L_b): the
+    flattened tensor truncated to whole arrays (nothing padded), s_X over
+    all of it (the reference's calibration ``_normalized_blocks``)."""
+    xf = torch.as_tensor(t).reshape(-1).float()
+    n = (xf.shape[0] // cfg.array_len) * cfg.array_len
+    arrays = xf[:n].reshape(-1, cfg.array_len)
+    _, scale = _array_scales(arrays, cfg, tensor_scale(xf, cfg))
+    return (arrays * scale[:, None]).reshape(-1, cfg.block_len)
+
+
+def _assign_mse(blocks: torch.Tensor, codebooks: torch.Tensor):
+    """Cluster assignment (Eq. 4) and the resulting per-block squared
+    error: (assign (N_b,) int64, err (N_b,))."""
+    lv = torch.sort(codebooks.float(), dim=-1).values
+    nc = lv.shape[0]
+    flat = blocks.reshape(1, -1).expand(nc, -1)
+    q = torch.gather(lv, 1, nearest_level_idx(flat, lv))
+    errs = block_sq_err((flat - q).reshape((nc,) + blocks.shape))  # (N_c, N_b)
+    return torch.argmin(errs, dim=0), torch.amin(errs, dim=0)
+
+
+def _calib_setup(tensors, cfg: BCQConfig, key):
+    """The calibration blocks of ``tensors``, concatenated in the order
+    given on the first tensor's device, and the fit's key there (default
+    ``prng_key(0)``)."""
+    if isinstance(tensors, (torch.Tensor, np.ndarray)):
+        tensors = [tensors]
+    tensors = [torch.as_tensor(t) for t in tensors]
+    blocks = torch.cat([calib_blocks(t.to(tensors[0].device), cfg) for t in tensors])
+    return blocks, (prng.prng_key(0) if key is None else key).to(blocks.device)
+
+
+def _fit_loop(blocks, levels, cfg: BCQConfig, iters, lm_iters, tol):
+    """Alternate re-clustering (Eq. 4/5) and the warm-started Lloyd-Max
+    refit (Eq. 6); ``tol`` None runs every iteration.  Returns (levels,
+    history: the per-scalar MSE after each iteration)."""
+    scalars = blocks.reshape(-1)
+    history, prev = [], float("inf")
+    for _ in range(iters):
+        assign, _ = _assign_mse(blocks, levels)
+        levels = lloyd_max_batched(scalars, torch.repeat_interleave(assign, cfg.block_len),
+                                   levels, iters=lm_iters)
+        _, errs2 = _assign_mse(blocks, levels)
+        j = float(errs2.mean() / cfg.block_len)
+        history.append(j)
+        if tol is not None and prev - j < tol * max(prev, 1e-12):
+            break
+        prev = j
+    return levels, history
+
+
+def fit_lobcq(tensors: Sequence | torch.Tensor, cfg: BCQConfig, key: torch.Tensor | None = None,
+              iters: int = 30, lm_iters: int = 25, max_blocks: int = 65536, tol: float = 1e-7,
+              quantize_codewords: bool = True) -> CodebookSet:
+    """Calibrate N_c codebooks with the LO-BCQ alternating algorithm (§2.2)
+    on the first tensor's device.
+
+    ``tensors`` — calibration operands (weights and/or captured
+    activations), concatenated as blocks in the order given; ``key`` — a
+    ``jax.random`` key as ``serving.prng`` holds it (default
+    ``prng_key(0)``): the ``max_blocks`` subsample and the k-means++
+    seeds draw what the reference draws with the same key.  Returns a
+    :class:`CodebookSet` whose ``history`` is the per-iteration MSE, non-
+    increasing (§A.2)."""
+    blocks, key = _calib_setup(tensors, cfg, key)
+    if blocks.shape[0] > max_blocks:
+        key, kp = split(key)
+        blocks = blocks[permutation(kp, blocks.shape[0])[:max_blocks]]
+
+    # init: k-means++ seeds over blocks, per-cluster quantile levels
+    key, ks = split(key)
+    seeds = kmeanspp_seeds(blocks, cfg.n_codebooks, ks)
+    assign = torch.argmin(block_sq_err(blocks[:, None, :] - seeds[None, :, :]), dim=1)
+    glob = quantile_init(blocks.reshape(-1), cfg.n_entries)
+    levels = lloyd_max_batched(blocks.reshape(-1), torch.repeat_interleave(assign, cfg.block_len),
+                               glob[None, :].repeat(cfg.n_codebooks, 1), iters=lm_iters)
+    levels, history = _fit_loop(blocks, levels, cfg, iters, lm_iters, tol)
+    if quantize_codewords:
+        levels = torch.clamp(torch.round(levels), -cfg.codeword_max, cfg.codeword_max)
+    levels = torch.sort(levels, dim=-1).values
+    return CodebookSet(levels=levels.cpu().numpy(), cfg=cfg, history=history)
+
+
+def naive_init_fit(tensors, cfg: BCQConfig, key: torch.Tensor | None = None,
+                   **kw) -> CodebookSet:
+    """Ablation baseline: uniform random codebook init instead of k-means++
+    (Fig. 4); every iteration runs, and the codewords are rounded."""
+    blocks, key = _calib_setup(tensors, cfg, key)
+    levels = uniform(key, cfg.n_codebooks * cfg.n_entries, -cfg.codeword_max,
+                     cfg.codeword_max).reshape(cfg.n_codebooks, cfg.n_entries)
+    levels, history = _fit_loop(blocks, levels, cfg, kw.get("iters", 30), kw.get("lm_iters", 25),
+                                None)
+    levels = torch.clamp(torch.round(levels), -cfg.codeword_max, cfg.codeword_max)
+    return CodebookSet(torch.sort(levels, dim=-1).values.cpu().numpy(), cfg, history)

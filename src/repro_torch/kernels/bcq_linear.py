@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bcq import BCQConfig
+from repro_torch.core.bcq import BCQConfig, check_kernel_codebooks, check_kernel_config
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import fused_linear_experts_ref, fused_linear_ref
 
@@ -39,8 +39,8 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
                                 valid_k=x.shape[1])
     if x.device.type != "cuda":
         raise ValueError(f"bcq_linear: unsupported device {x.device}")
-    if (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (64, 8, 16, 8):
-        raise ValueError(f"bcq_linear kernel: unsupported BCQ config {cfg}")
+    check_kernel_config(cfg, "bcq_linear kernel")
+    check_kernel_codebooks(codebooks, cfg)
     m, k = x.shape
     n = w_idx.shape[0]
     if k % cfg.array_len:
@@ -79,8 +79,8 @@ def bcq_linear_experts(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -
         return fused_linear_experts_ref(x, w_idx, w_sel, w_inv, codebooks, cfg, s_x)
     if x.device.type != "cuda":
         raise ValueError(f"bcq_linear_experts: unsupported device {x.device}")
-    if (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (64, 8, 16, 8):
-        raise ValueError(f"bcq_linear_experts kernel: unsupported BCQ config {cfg}")
+    check_kernel_config(cfg, "bcq_linear_experts kernel")
+    check_kernel_codebooks(codebooks, cfg)
     e, c, k = x.shape
     n = w_idx.shape[1]
     if k % cfg.array_len or not 1 <= e <= 65535:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bcq import BCQConfig
+from repro_torch.core.bcq import BCQConfig, check_kernel_codebooks, check_kernel_config
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import matmul_ref
 
@@ -25,8 +25,9 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
         return matmul_ref(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_w, cfg)
     if a_idx.device.type != "cuda":
         raise ValueError(f"bcq_matmul: unsupported device {a_idx.device}")
-    if (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (64, 8, 16, 8):
-        raise ValueError(f"bcq_matmul kernel: unsupported BCQ config {cfg}")
+    check_kernel_config(cfg, "bcq_matmul kernel")
+    check_kernel_codebooks(codebooks_a, cfg)
+    check_kernel_codebooks(codebooks_w, cfg)
     m, n, k = a_idx.shape[0], w_idx.shape[0], a_idx.shape[1] * 2
     if k % cfg.array_len:
         raise ValueError(f"bcq_matmul kernel: K={k} is not a multiple of {cfg.array_len}")

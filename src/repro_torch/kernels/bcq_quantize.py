@@ -6,7 +6,10 @@ csrc/bcq_quantize.cu (one encode pass, two output forms; design notes in
 the source) for CUDA tensors:
 
 * ``bcq_quantize`` — x (M, K) → packed idx, sel, ratio; for CPU tensors
-  it runs its plain version ``ref.quantize_ref``;
+  it runs its plain version ``ref.quantize_ref``.  Besides the two-launch
+  GEMM it is the encode of ``bcq.fake_quant`` on CUDA tensors (the fake
+  modes' activations, ``fake_full``'s weights, ``ptq.quantize_params``)
+  and of ``bcq.encode_stats`` (the quant-error probe);
 * ``bcq_page_write`` — one layer's new K and V encoded into their bcq4
   page slots in place, at decode (a token per row) or chunked prefill (a
   chunk per row).  It is reached through ``layers.paged_token_write`` /
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bcq import BCQConfig
+from repro_torch.core.bcq import BCQConfig, check_kernel_codebooks, check_kernel_config
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import quantize_ref
 
@@ -34,8 +37,8 @@ def bcq_quantize(x: torch.Tensor, codebooks: torch.Tensor, s_x: torch.Tensor, cf
         return quantize_ref(x, codebooks, cfg, s_x)
     if x.device.type != "cuda":
         raise ValueError(f"bcq_quantize: unsupported device {x.device}")
-    if (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (64, 8, 16, 8):
-        raise ValueError(f"bcq_quantize kernel: unsupported BCQ config {cfg}")
+    check_kernel_config(cfg, "bcq_quantize kernel")
+    check_kernel_codebooks(codebooks, cfg)
     m, k = x.shape
     if k % cfg.array_len:
         raise ValueError(f"bcq_quantize kernel: K={k} is not a multiple of {cfg.array_len}")
@@ -77,6 +80,7 @@ def bcq_page_write(pool: dict, k, v, cfg: BCQConfig, cb, *, page_ids=None, offse
         raise ValueError(f"bcq_page_write: unsupported device {k.device}")
     if (cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (8, 16, 8):
         raise ValueError(f"bcq_page_write kernel: unsupported BCQ config {cfg}")
+    check_kernel_codebooks(cb, cfg)
     b, s, h, d = k.shape
     la = cfg.array_len if d % cfg.array_len == 0 else min(cfg.array_len, d)  # layers._cache_cfg
     if la not in (16, 32, 64) or d % la or d > 256:

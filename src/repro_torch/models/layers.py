@@ -22,8 +22,16 @@ from repro_torch.core.bcq import BCQConfig
 class Runtime:
     """Static per-run model configuration.
 
-    quant_mode: ``none`` (float weights) or ``packed`` (weights stored as
-    packed 4-bit buffers; activations LO-BCQ-encoded on the fly, W4A4).
+    quant_mode: ``none`` (float weights); ``fake`` (W4A4 serving as the
+    reference's default: weights fake-quantized offline by
+    ``ptq.quantize_params``, activations quantized on the fly per
+    ``act_format``); ``fake_full`` (the weights quantized in the forward
+    too, on every call); ``packed`` (weights stored as packed 4-bit
+    buffers; activations LO-BCQ-encoded on the fly).  act_format: the
+    activation quantizer of the fake modes — ``bcq`` (the paper's; on the
+    card through the quantize kernel, ``bcq.fake_quant``), the baselines
+    ``mx4`` / ``mxfp4`` / ``vsq`` / ``int4`` (``core/baselines.py``), or
+    ``none`` (W4A16, Table 4).
     fused_linear: packed linears go through the fused kernel
     (kernels/bcq_linear.py) instead of decode + matmul.  paged_kernel:
     paged attention goes through the page-gather kernel
@@ -46,7 +54,12 @@ class Runtime:
     fused_linear: bool = True
     flash_kernel: bool = False
     logit_chunk: int = 0
+    act_format: str = "bcq"  # bcq | mx4 | mxfp4 | vsq | int4 | none
     quant_probe: Any = None
+
+
+QUANT_MODES = ("none", "fake", "fake_full", "packed")
+ACT_FORMATS = ("bcq", "mx4", "mxfp4", "vsq", "int4", "none")
 
 
 # ------------------------------------------------------------------ norms
@@ -103,47 +116,103 @@ def pack_weight(w: torch.Tensor, cfg: BCQConfig, cb: torch.Tensor) -> dict:
             "s_x": enc.s_x}
 
 
+def packed_weight_shapes(d_in: int, d_out: int, cfg: BCQConfig) -> dict:
+    """(shape, dtype) of each buffer of a packed (d_in → d_out) kernel."""
+    n, k = d_out, d_in
+    return {
+        "idx": ((n, k // 2), torch.uint8),
+        "sel": ((n, k // (2 * cfg.block_len)), torch.uint8),
+        "scale": ((n, k // cfg.array_len), torch.uint8),
+        "s_x": ((), torch.float32),
+    }
+
+
+def _quantize_act(x, rt: Runtime, cb, plain: bool = False):
+    """On-the-fly activation quantization per ``rt.act_format`` ('none' is
+    weight-only W4A16).  ``plain`` keeps the BCQ encode off the kernel:
+    the packed modes' unfused path is the fused kernel's plain version."""
+    if rt.act_format == "none":
+        return x
+    if rt.act_format == "bcq":
+        fq = bcq.fake_quant_plain if plain else bcq.fake_quant
+        return fq(x, cb, rt.bcq_cfg)
+    from repro_torch.core import baselines as B
+
+    fn = {
+        "mx4": B.mx_quantize,
+        "mxfp4": B.mxfp4_quantize,
+        "vsq": B.vsq_quantize,
+        "int4": lambda v: B.int_pertensor(v, 4),
+    }[rt.act_format]
+    return fn(x)
+
+
 def _emit_quant_probe(x, rt: Runtime, cb, tag) -> None:
     """Report the activation-quant error at one GEMM site: the encode stats
     of the RAW activation x (..., K) — the x the site's linear encodes, all
     of the launch's rows — into the next row of the recorder's device
-    buffer (``rt.quant_probe.record``).  Only with packed weights (W4A4: the
-    BCQ activation format) and a tagged site; ``qdense_shared`` tags once
-    for its head group, so the probe never double-counts."""
-    if rt.quant_probe is None or tag is None or cb is None or rt.quant_mode != "packed":
+    buffer (``rt.quant_probe.record``).  In the W4A4 modes with the BCQ
+    activation format (the other formats have no codebooks to occupy),
+    at a tagged site; ``qdense_shared`` tags once for its head group, so
+    the probe never double-counts."""
+    if rt.quant_probe is None or tag is None or cb is None:
+        return
+    if rt.quant_mode not in ("fake", "fake_full", "packed") or rt.act_format != "bcq":
         return
     rt.quant_probe.record(tag, x.reshape(-1, x.shape[-1]), cb, rt.bcq_cfg)
 
 
 def qdense_shared(x, ps: list, rt: Runtime, cb, tag=None):
-    """Several linear heads over the SAME input (QKV): the unfused packed
-    path quantizes the activation once and reuses it; the fused kernel
-    encodes the raw input itself (bit-identical: same x, same s_X).
-    ``tag`` names the group for the quant-error probe, emitted once here."""
+    """Several linear heads over the SAME input (QKV, MLP wi/wg): quantize
+    the activation once and reuse it; the fused kernel encodes the raw
+    input itself (bit-identical: same x, same s_X), so the fused packed
+    path, which implements the BCQ activation format only, skips the
+    shared quantization.  ``tag`` names the group for the quant-error
+    probe, emitted once here."""
     _emit_quant_probe(x, rt, cb, tag)
-    if rt.quant_mode == "packed" and cb is not None and not rt.fused_linear:
-        xq = bcq.fake_quant(x.float(), cb, rt.bcq_cfg)
+    if rt.quant_mode == "packed" and rt.fused_linear and rt.act_format == "bcq" and cb is not None:
+        return [qdense(x, p, rt, cb) for p in ps]
+    if rt.quant_mode in ("fake", "fake_full", "packed") and cb is not None:
+        xq = _quantize_act(x.float(), rt, cb, plain=rt.quant_mode == "packed")
         return [qdense(xq, p, rt, cb, pre_quantized=True) for p in ps]
     return [qdense(x, p, rt, cb) for p in ps]
 
 
+def _fake_full_weight(p, rt: Runtime, cb) -> torch.Tensor:
+    """A (K, N) kernel fake-quantized in the forward (blocks along K, one
+    s_X over the matrix), in compute dtype, as (N, K)."""
+    return bcq.fake_quant(p["kernel"].float().T, cb, rt.bcq_cfg).to(rt.compute_dtype)
+
+
 def qdense(x, p, rt: Runtime, cb, pre_quantized: bool = False, tag=None):
     """Linear layer honoring rt.quant_mode.  x: (..., K); kernel (K, N).
-    ``tag`` names the site for the quant-error probe."""
+    ``pre_quantized``: x was quantized by ``qdense_shared``.  ``tag`` names
+    the site for the quant-error probe."""
     if not pre_quantized:
         _emit_quant_probe(x, rt, cb, tag)
     dt = rt.compute_dtype
-    if rt.quant_mode == "none" or cb is None:
-        y = x.to(dt) @ p["kernel"].to(dt)
-    elif rt.quant_mode == "packed":
-        if rt.fused_linear and not pre_quantized:
-            y = fused_packed_linear(x, p["kernel_packed"], rt, cb).to(dt)
+    if rt.quant_mode not in QUANT_MODES:
+        raise ValueError(f"unknown quant_mode {rt.quant_mode!r}")
+    if pre_quantized and rt.quant_mode != "none" and cb is not None:
+        if rt.quant_mode == "fake":
+            y = x.to(dt) @ p["kernel"].to(dt)
+        elif rt.quant_mode == "fake_full":
+            y = x.to(dt) @ _fake_full_weight(p, rt, cb).T
         else:
-            xq = x if pre_quantized else bcq.fake_quant(x.float(), cb, rt.bcq_cfg)
             w = decode_packed_weight(p["kernel_packed"], rt.bcq_cfg, cb).to(dt)
-            y = xq.to(dt) @ w.T
+            y = x.to(dt) @ w.T
+    elif rt.quant_mode == "none" or cb is None:
+        y = x.to(dt) @ p["kernel"].to(dt)
+    elif rt.quant_mode == "fake":
+        # weights PTQ'd offline; only the activations quantize here
+        y = _quantize_act(x.float(), rt, cb).to(dt) @ p["kernel"].to(dt)
+    elif rt.quant_mode == "fake_full":
+        y = _quantize_act(x.float(), rt, cb).to(dt) @ _fake_full_weight(p, rt, cb).T
+    elif rt.fused_linear:
+        y = fused_packed_linear(x, p["kernel_packed"], rt, cb).to(dt)
     else:
-        raise ValueError(f"quant_mode {rt.quant_mode!r} is not ported")
+        xq = bcq.fake_quant_plain(x.float(), cb, rt.bcq_cfg).to(dt)
+        y = xq @ decode_packed_weight(p["kernel_packed"], rt.bcq_cfg, cb).to(dt).T
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y

@@ -48,16 +48,26 @@ def _expert_matmul(xe, wp, rt: Runtime, cb, tag=None):
     dt = rt.compute_dtype
     if rt.quant_mode == "none" or cb is None:
         return torch.einsum("eck,ekn->ecn", xe.to(dt), wp["kernel"].to(dt))
+    if rt.quant_mode == "fake":
+        # one s_X over every expert's rows, the padding rows included
+        xq = layers._quantize_act(xe.float(), rt, cb).to(dt)
+        return torch.einsum("eck,ekn->ecn", xq, wp["kernel"].to(dt))
+    if rt.quant_mode == "fake_full":
+        # as the reference: the BCQ activation format whatever act_format
+        # says, and one s_X over the whole expert stack's weights
+        xq = bcq.fake_quant(xe.float(), cb, rt.bcq_cfg).to(dt)
+        wq = bcq.fake_quant(wp["kernel"].transpose(-1, -2).float(), cb, rt.bcq_cfg).to(dt)
+        return torch.einsum("eck,enk->ecn", xq, wq)
     if rt.quant_mode == "packed":
         if rt.fused_linear:
             # one s_X over ALL experts' rows, padding rows included, so the
             # activation quantization equals the unfused fake_quant(xe)
             s_x = bcq.tensor_scale(xe.float(), rt.bcq_cfg)
             return layers.fused_packed_experts(xe, wp["kernel_packed"], rt, cb, s_x).to(dt)
-        xq = bcq.fake_quant(xe.float(), cb, rt.bcq_cfg).to(dt)
+        xq = bcq.fake_quant_plain(xe.float(), cb, rt.bcq_cfg).to(dt)
         w = layers.decode_packed_weight(wp["kernel_packed"], rt.bcq_cfg, cb).to(dt)
         return torch.einsum("eck,enk->ecn", xq, w)
-    raise ValueError(f"quant_mode {rt.quant_mode!r} is not ported")
+    raise ValueError(f"unknown quant_mode {rt.quant_mode!r}")
 
 
 def moe_ffn(x, p, cfg, rt: Runtime, cb):

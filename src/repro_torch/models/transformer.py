@@ -195,6 +195,9 @@ def backbone(params, x, cfg, rt: Runtime, positions, pool=None, paged_tables=Non
     (final hidden states, the layers' auxiliary loss summed in layer order
     as a 0-d f32 tensor — None for a dense model, which has none)."""
     cb = params.get("codebooks")
+    if cb is None and rt.quant_mode != "none":
+        raise ValueError(f"quant_mode {rt.quant_mode!r} needs the tree's 'codebooks' (zoo.build's "
+                         "init, or a quantize artifact); this tree has none")
     aux = None
     for i in range(cfg.n_layers):
         paged = None if pool is None else (_layer(pool, i),) + tuple(paged_tables)

@@ -11,8 +11,9 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.bcq import check_kernel_config
 from repro_torch.core.calibrate import default_universal_codebooks
-from repro_torch.core.ptq import decode_scales, pack_params
+from repro_torch.core.ptq import decode_scales, pack_params, quantize_params
 from repro_torch.models import transformer
 from repro_torch.models.layers import Runtime
 
@@ -57,16 +58,22 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     random weights from seeded ``torch.Generator``s; with
     ``quant_mode="packed"`` they are packed to W4 with the frozen
     universal codebooks, which ride in ``params["codebooks"]``, and their
-    dequant scales decoded once (``ptq.decode_scales``).  A dense model is
-    drawn whole on the CPU, then moved to ``device``.  A MoE model is drawn
-    on ``device`` layer by layer, each layer from its own generator seeded
-    from (seed, layer) and packed before the next is drawn, so at most one
-    layer's float experts are ever resident (full-width Moonlight's float
+    dequant scales decoded once (``ptq.decode_scales``); with ``"fake"``
+    they are fake-quantized offline (``ptq.quantize_params``, the
+    reference's W4A4 serving tree), with ``"fake_full"`` left float.  A
+    dense model is drawn whole on the CPU, then moved to ``device``.  A
+    MoE model is drawn on ``device`` layer by layer, each layer from its
+    own generator seeded from (seed, layer) and packed before the next is
+    drawn, so at most one layer's float experts are resident in packed
+    mode (the fake modes keep the float stack; full-width Moonlight's float
     experts alone would be ~106 GB)."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"the port serves the {' and '.join(SERVED_FAMILIES)} families, not "
             f"{cfg.family!r}; still to be ported: {', '.join(TO_PORT_FAMILIES)}")
+    if torch.device(device).type == "cuda" and (
+            rt.quant_mode in ("fake", "fake_full") or (rt.quant_mode == "packed" and rt.fused_linear)):
+        check_kernel_config(rt.bcq_cfg, f"zoo.build(quant_mode={rt.quant_mode!r})")
     device = resolve_device(device)
 
     def codebooks():
@@ -83,6 +90,8 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         if cb is not None:
             if rt.quant_mode == "packed":
                 params = decode_scales(pack_params(params, cb, rt.bcq_cfg))
+            elif rt.quant_mode == "fake":
+                params = quantize_params(params, cb, rt.bcq_cfg)
             params["codebooks"] = cb
         return params
 
@@ -125,6 +134,8 @@ def _init_by_layer(cfg, rt: Runtime, device, seed: int, cb) -> dict:
         del block
     params["layers"] = stack
     if cb is not None:
+        if rt.quant_mode == "fake":  # the stack as one tensor, as ptq.quantize_params
+            params = quantize_params(params, cb, rt.bcq_cfg)
         params["codebooks"] = cb
     return params
 

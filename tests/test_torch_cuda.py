@@ -513,3 +513,84 @@ def test_smoke_engine_serving_core_on_card(cuda):
     free, parked = set(eng.pool_mgr.free), set(eng.prefix.reclaimable)
     assert not free & parked and free | parked == set(range(1, 14))
     assert parked == set(eng.prefix.hash_of)
+
+
+# ------------------------------------------------------------- PTQ on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 768), (3, 5, 200), (4096, 3072)])
+def test_fake_quant_route_through_quantize_kernel(cuda, shape):
+    """``bcq.fake_quant`` of a CUDA tensor launches B3 once and decodes to the
+    plain route's values bit for bit (K padded to whole arrays, any lead)."""
+    x = _activation(int(np.prod(shape[:-1])), shape[-1], sum(shape), cuda).reshape(shape)
+    cb = _cb(cuda)
+    before = bcq_quantize.BCQ_QUANTIZE.count
+    got = bcq.fake_quant(x, cb, CFG)
+    assert bcq_quantize.BCQ_QUANTIZE.count == before + 1
+    assert torch.equal(got, bcq.fake_quant_plain(x, cb, CFG))
+    assert torch.equal(bcq.fake_quant(x.bfloat16(), cb, CFG),
+                       bcq.fake_quant_plain(x.bfloat16(), cb, CFG))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_non_integer_codebook(cuda):
+    """The premise moved from ``CodebookSet`` to the kernels' entry: a
+    non-integer book loads (the fake modes run it in plain torch) and every
+    kernel that takes codebooks refuses it with the same message."""
+    lv = default_universal_codebooks().levels.copy()
+    lv[3, 5] += 0.5
+    bad = bcq.CodebookSet(lv, CFG).as_tensor(cuda)
+    x = _activation(8, 768, 3, cuda)
+    s_x = bcq.tensor_scale(x, CFG)
+    w = _packed(64, 768, 5, cuda)
+    with pytest.raises(ValueError, match="codebook levels must be integers"):
+        bcq_quantize.bcq_quantize(x, bad, s_x, CFG)
+    with pytest.raises(ValueError, match="codebook levels must be integers"):
+        bcq_linear.bcq_linear(x, w.idx_packed, w.sel_packed, w.inv_scale, bad, s_x, CFG)
+    with pytest.raises(ValueError, match="codebook levels must be integers"):
+        bcq.fake_quant(x, bad, CFG)  # the B3 route: no silent plain fallback
+    assert torch.isfinite(bcq.fake_quant_plain(x, bad, CFG)).all()
+
+
+@pytest.mark.cuda
+def test_lobcq_fit_on_card_is_deterministic(cuda):
+    """Two fits on the card give the same bytes (one-hot products, no atomic
+    adds), a non-increasing history, and the CPU fit's codebooks."""
+    g = torch.Generator().manual_seed(7)
+    samples = [torch.randn(200_000, generator=g),
+               torch.distributions.Laplace(0.0, 1.0).sample((100_000,)),
+               torch.randn(65_536, generator=g) * 4]
+    fits = [bcq.fit_lobcq([s.to(cuda) for s in samples], CFG, iters=6, lm_iters=10)
+            for _ in range(2)]
+    assert fits[0].levels.tobytes() == fits[1].levels.tobytes()
+    assert fits[0].history == fits[1].history
+    h = fits[0].history
+    assert all(b <= a for a, b in zip(h, h[1:])), h
+    cpu = bcq.fit_lobcq(samples, CFG, iters=6, lm_iters=10)
+    np.testing.assert_array_equal(cpu.levels, fits[0].levels)
+    np.testing.assert_allclose(cpu.history, h, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_smoke_fake_modes_through_the_quantize_kernel(cuda):
+    """The fake modes on the card (every BCQ encode through B3) against the
+    same model on the CPU (the plain encode): the loss within 1e-4."""
+    from repro_torch.models import zoo
+
+    cfg = get_smoke("gpt3_126m")
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (2, 33), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for mode in ("fake", "fake_full"):
+        rt = layers.Runtime(quant_mode=mode, compute_dtype=torch.float32)
+        api_c, api_g = zoo.build(cfg, rt, device="cpu"), zoo.build(cfg, rt, device=cuda)
+        params = api_c.init(0)
+        before = bcq_quantize.BCQ_QUANTIZE.count
+        loss_g = float(api_g.loss_fn(_tree_to(params, cuda),
+                                     {k: v.to(cuda) for k, v in batch.items()}))
+        per_layer = 4 if mode == "fake" else 10  # activations (+ the 6 weights in-graph)
+        assert bcq_quantize.BCQ_QUANTIZE.count - before == per_layer * cfg.n_layers
+        assert abs(loss_g - float(api_c.loss_fn(params, batch))) < 1e-4
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}

@@ -18,8 +18,11 @@ emulations to the JAX package:
   taken in f64 and rounded to f32 (the f64 product is exact; the f64 sum
   may round twice, far inside the tolerance).  The two routes (encode +
   GEMM, and quantize + packed GEMM) emulate to the same bits;
-* the codebook premise the integer route rests on: ``CodebookSet``
-  refuses non-integer, unsorted or out-of-range levels at load.
+* the codebook premise the integer route rests on: the kernels' entry
+  (``bcq.check_kernel_codebooks``) refuses non-integer, unsorted or
+  out-of-range levels; ``CodebookSet`` refuses unsorted ones at load and
+  loads the others (a ``fit_lobcq(quantize_codewords=False)`` set, run in
+  plain torch by the fake modes).
 
 Inputs are made with numpy from fixed seeds.
 """
@@ -245,16 +248,32 @@ def _bad_levels(kind):
 
 @pytest.mark.parametrize("kind", ["non_integer", "unsorted", "out_of_range"])
 def test_codebook_premise_is_checked_at_load(kind, tmp_path):
+    """Loading refuses unsorted levels and keeps the others; the premise
+    the kernels check at their entry refuses all three, on the host copy
+    of the codebook tensor they are given."""
     path = tmp_path / "cb.json"
     path.write_text(json.dumps({"levels": _bad_levels(kind).tolist(),
                                 "cfg": {"block_len": 8, "array_len": 64, "n_codebooks": 8}}))
+    if kind == "unsorted":
+        with pytest.raises(ValueError, match="codebook levels must be sorted"):
+            tbcq.CodebookSet.load(str(path))
+        with pytest.raises(ValueError, match="codebook levels must be sorted"):
+            tbcq.CodebookSet(levels=_bad_levels(kind), cfg=TC)
+    else:
+        cs = tbcq.CodebookSet.load(str(path))
+        np.testing.assert_array_equal(cs.levels, _bad_levels(kind))
     with pytest.raises(ValueError, match="codebook levels"):
-        tbcq.CodebookSet.load(str(path))
+        tbcq.check_kernel_codebooks(torch.from_numpy(_bad_levels(kind)), TC)
     with pytest.raises(ValueError, match="codebook levels"):
-        tbcq.CodebookSet(levels=_bad_levels(kind), cfg=TC)
+        tbcq.check_codebook_levels(_bad_levels(kind), TC)
 
 
 def test_committed_codebooks_meet_the_premise():
     cs = tbcq.CodebookSet(levels=np.array(CB, dtype=np.float32), cfg=TC)
     assert np.array_equal(cs.levels, np.round(cs.levels))
     assert np.abs(cs.levels).max() <= TC.codeword_max
+    cb = cs.as_tensor()
+    tbcq.check_kernel_codebooks(cb, TC)
+    cb.mul_(0.5)  # a tensor that passed, edited in place, is checked again
+    with pytest.raises(ValueError, match="codebook levels must be integers"):
+        tbcq.check_kernel_codebooks(cb, TC)

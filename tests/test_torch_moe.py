@@ -211,13 +211,28 @@ def test_moe_ffn_matches_reference(ref, models, arch, mode, fused):
         _close(ta, ja)
 
 
-def test_moe_fake_modes_raise(models):
+def test_moe_fake_modes_raise(ref, models):
+    """The fake modes are ported: ``moe_ffn`` in ``fake`` and ``fake_full``
+    matches the reference's layer by layer (one s_X over the dispatch
+    buffer, trash column included); only an unknown mode raises."""
     m = models["moonshot_v1_16b"]
+    x = _ffn_inputs(m, 2)
+    cb = torch.from_numpy(np.asarray(ref.cb))
     for mode in ("fake", "fake_full"):
-        with pytest.raises(ValueError, match="not ported"):
-            tmoe.moe_ffn(torch.zeros((1, 4, m.cfg.d_model)),
-                         from_numpy_tree(_sub(m.np_floats["layers"]["moe"], 0)), m.tcfg,
-                         TRuntime(quant_mode=mode), torch.zeros((8, 16)))
+        jrt = ref.Runtime(quant_mode=mode, compute_dtype=ref.jnp.float32,
+                          param_dtype=ref.jnp.float32)
+        for layer in range(m.cfg.n_layers):
+            jo, _ = ref.moe.moe_ffn(ref.jnp.asarray(x), _sub(m.floats["layers"]["moe"], layer),
+                                    m.cfg, jrt, ref.cb)
+            to, _ = tmoe.moe_ffn(torch.from_numpy(x),
+                                 from_numpy_tree(_sub(m.np_floats["layers"]["moe"], layer)),
+                                 m.tcfg, TRuntime(quant_mode=mode, compute_dtype=torch.float32),
+                                 cb)
+            _close(to, jo)
+    with pytest.raises(ValueError, match="unknown quant_mode"):
+        tmoe.moe_ffn(torch.zeros((1, 4, m.cfg.d_model)),
+                     from_numpy_tree(_sub(m.np_floats["layers"]["moe"], 0)), m.tcfg,
+                     TRuntime(quant_mode="fake_w8"), cb)
 
 
 # (arch, quant_mode) whose end-to-end packed loss parts from the
