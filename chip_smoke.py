@@ -220,6 +220,25 @@ success):
     packed: 6 B1, B2, writer), every launch of a prefill and a steady tick
     held to plain; B3's fake-quant form timed.  Its launches join the
     ``kernels`` line (``ptq``; B3's as ``ptq_fake_quant``).
+18. the state-checkpoint layout: full-width Mamba2-130m (24 layers, d
+    768, d_state 128; seeded random weights packed to W4, f32 compute)
+    served in W4A4 through StatePagedEngine on phase 4's settings and
+    prompts: graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins,
+    launch indices, counters, live tree and state pool bytes, B1 launches
+    2 a layer and pass), every B1 launch of a first step (8 exact-length
+    prefills), a steady tick and a checkpoint tick held to plain, kernel
+    vs plain logits at 2 layers of the same width (where the noise floor
+    is small); request 7 preempted and resumed from its checkpoint (≤ 16
+    tokens replayed; tokens equal to the never-preempted run at
+    ``quant_mode="none"``; at ``packed`` every B1 launch of the run, the
+    batch-1 replay's too, held to plain, the flips against the
+    never-preempted run printed) and from the host tier (no replay,
+    bit-exact at both); greedy and sampled forks; the chaos smoke through
+    ``tools/check_chaos.py``.
+    Prints the steady tick, the checkpoint's extra device time, prefill
+    tok/s, a state page's swap, resume vs recompute, and B1's times at the
+    in_proj shape (N 3352).  Its launches join the ``kernels`` line
+    (``state``).
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -1376,11 +1395,11 @@ def shadow_setup(api_p, log):
             record("decode", lk, lp, decoding())
             return lk, pool
 
-        def run_decode(packed, real=eng._run_decode):
+        def run_decode(packed, key, real=eng._run_decode):
             tok = torch.where(packed[:, 1] == 1, packed[:, 0], eng._chain_tok)
             lp, _ = api_p.paged_decode_fn(eng.params, {n: t.clone() for n, t in eng.pool.items()},
                                           tok[:, None], packed[:, 3:], packed[:, 2])
-            out = real(packed)
+            out = real(packed, key)
             record("decode", out[0], lp, decoding())
             return out
 
@@ -3557,6 +3576,548 @@ def phase_ptq(cb, smi):
     return totals, worst, fake_form
 
 
+# ------------------------------------------------------------------ phase 18
+STATE_ARCH = "mamba2_130m"
+STATE_PER_LAYER = 2  # B1 launches a layer and pass: in_proj, out_proj
+STATE_PS = 16
+STATE_MAX_LEN = -(-(max(PROMPT_LENS) + GEN + 1) // STATE_PS) * STATE_PS  # serve()'s
+STATE_PREEMPT_AT = 20  # eager ticks before the preemption (request 7, the youngest)
+STATE_HOST_PAGES = 8
+STATE_LOGIT_LAYERS = 2  # depth of the whole-model logits check: no W4A4 flip cascade yet
+STATE_FLOOR_FRAC = 1e-3  # the noise floor's bound, a fraction of max|logit|
+STATE_LOGIT_RTOL = 1e-4  # kernels vs plain logits, a fraction of max|logit| (10 × B1's rtol)
+
+
+def state_engine(api, params, graphs, depth, **kw):
+    """Phase 18's engine: a slot per request, page 16, the CLI's defaults."""
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    return StatePagedEngine(api, params, n_slots=len(PROMPT_LENS), max_len=STATE_MAX_LEN,
+                            page_size=STATE_PS, device="cuda", pipeline_depth=depth,
+                            cuda_graphs=graphs, **kw)
+
+
+def _state_submit(eng, prompts, max_new=GEN - 1, **req):
+    from repro_torch.serving.generate import Request
+
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=max_new, **req))
+
+
+def _state_outcome(eng):
+    """Tokens, margins and launch indices of every request, the engine's
+    counters but the clocks, its state and swap counters."""
+    out, stats = _outcome(eng)
+    h = eng.health()
+    return (out, stats, h["state_counters"], h["swap"])
+
+
+def _state_bits(eng):
+    from repro_torch.serving.pages import tree_leaves
+
+    return [t.clone() for t in tree_leaves(eng.live) + tree_leaves(eng.spool)]
+
+
+def _state_passes(eng):
+    """Forward passes of the layer stack: prefills, decode ticks and replayed
+    tokens (a replay is a batch-1 decode step each)."""
+    st, cs = eng.stats, eng.health()["state_counters"]
+    return st["prefill_launches"] - cs["state_restores"] + st["decode_ticks"] + cs["replay_tokens"]
+
+
+def _state_counts_ok(eng, counts, label):
+    want = STATE_PER_LAYER * eng.api.cfg.n_layers * _state_passes(eng)
+    if counts.get("bcq_linear", 0) != want:
+        fail(f"phase 18 [{label}]: B1 launched {counts.get('bcq_linear', 0)} times, expected "
+             f"{want} ({STATE_PER_LAYER} a layer, {_state_passes(eng)} passes)")
+    return want
+
+
+def state_way(api, params, prompts, graphs, depth, n_time=6):
+    """Phase 4's workload through StatePagedEngine in one way: served to
+    completion (outcome, live tree and state pool bytes, B1 launches,
+    captures), then served again by the warmed engine, which must capture
+    nothing new: the first step admits the 8 prompts, ``n_time`` steady
+    ticks (8 rows, none at a page boundary) are timed on the host clock
+    and 3 more profiled."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    label = _way_name(graphs, depth)
+    eng = state_engine(api, params, graphs, depth)
+    _state_submit(eng, prompts)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = build.counts()
+    _state_counts_ok(eng, counts, label)
+    out, bits = _state_outcome(eng), _state_bits(eng)
+    captures = eng.trace_counts()["decode"]
+    if graphs and captures != 2:
+        fail(f"phase 18 [{label}]: {captures} decode captures, expected 2 (with and without "
+             "the checkpoint scatter)")
+    # tick t ≥ 2 launches a row at position plen + t - 1: a checkpoint tick
+    # where that is 15 mod 16; the timed and profiled ticks have none
+    if any((len(p) + k) % STATE_PS == STATE_PS - 1 for p in prompts for k in range(1, n_time + 4)):
+        fail(f"phase 18 [{label}]: a timed steady tick would checkpoint")
+    _state_submit(eng, prompts)
+    eng.step()  # eight prefills and the first decode launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_time):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_time * 1e3
+    prof = _steady_profile(eng, "phase 18", len(prompts))
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    if eng.trace_counts()["decode"] != captures:
+        fail(f"phase 18 [{label}]: the warmed engine captured again")
+    st = eng.stats
+    print(f"phase 18 [{label}] phase 4's workload: run {run_s:.2f} s ({out[1]['decode_ticks']} "
+          f"decode ticks, {out[1]['prefill_launches']} prefills, "
+          f"{out[2]['state_checkpoints']} checkpoints); steady tick (8 rows, {n_time} ticks): "
+          f"wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}", flush=True)
+    nodes = {k: eng._graphs.node_count(k) for k in eng._graphs.buckets} if graphs else {}
+    return {"out": out, "bits": bits, "counts": counts, "wall": wall, "prof": prof,
+            "nodes": nodes, "engine": eng,
+            "prefill_tok_s": st["prefill_tokens"] / max(st["t_prefill_s"], 1e-9)}
+
+
+def hold_b1(run, label):
+    """Run ``run()`` with every B1 launch held to its plain version on the
+    launch's own inputs (rtol LINEAR_TOL, atol LINEAR_TOL · max|plain|).
+    Returns (what ``run`` returned, launches held by (M, K, N), worst
+    max|err|)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import fused_linear_ref
+
+    real = ops.bcq_linear
+    shapes, worst = {}, [0.0]
+
+    def dense(x, w_idx, w_sel, w_inv, cb, s_x, cfg):
+        out = real(x, w_idx, w_sel, w_inv, cb, s_x, cfg)
+        ref = fused_linear_ref(x, w_idx, w_sel, w_inv, cb, cfg, s_x, valid_k=x.shape[1])
+        ok, err = held(out, ref, LINEAR_TOL, LINEAR_TOL * float(ref.abs().max()))
+        key = (x.shape[0], x.shape[1], w_idx.shape[0])
+        if not ok:
+            fail(f"{label}: a B1 launch at (M, K, N) = {key} disagrees with its plain version "
+                 f"on its own inputs: max|err| {err:.3e}")
+        shapes[key] = shapes.get(key, 0) + 1
+        worst[0] = max(worst[0], err)
+        return out
+
+    ops.bcq_linear = dense
+    try:
+        got = run()
+    finally:
+        ops.bcq_linear = real
+    return got, shapes, worst[0]
+
+
+def _state_n_in(cfg):
+    """in_proj's N: z and x (2 · d_inner), B and C (2 · d_state), dt (heads)."""
+    d_inner = cfg.ssm.expand * cfg.d_model
+    return 2 * d_inner + 2 * cfg.ssm.d_state + d_inner // cfg.ssm.head_dim
+
+
+def state_launch_checks(api, params, prompts):
+    """Every B1 launch of the first engine step (the eight exact-length
+    prefills and a decode tick), of a steady tick without a checkpoint and
+    of one with its scatter, held to plain (eager depth 1: a wrapper must
+    see each launch).  Returns (launches held, worst max|err|)."""
+    L = api.cfg.n_layers
+    eng = state_engine(api, params, False, 1)
+    _state_submit(eng, prompts)
+    _, first, e1 = hold_b1(eng.step, "phase 18 first step")
+    _, steady, e2 = hold_b1(eng.step, "phase 18 steady tick")
+    while not any((s.pos + 1) % STATE_PS == 0 for s in eng.slots if s.req is not None):
+        eng.step()
+    ck0 = eng.health()["state_counters"]["state_checkpoints"]
+    _, ckpt, e3 = hold_b1(eng.step, "phase 18 checkpoint tick")
+    n_ck = eng.health()["state_counters"]["state_checkpoints"] - ck0
+    eng.run_to_completion()
+    want_first = STATE_PER_LAYER * L * (len(prompts) + 1)
+    for name, got, want in (("first step", first, want_first),
+                            ("steady tick", steady, STATE_PER_LAYER * L),
+                            ("checkpoint tick", ckpt, STATE_PER_LAYER * L)):
+        if sum(got.values()) != want:
+            fail(f"phase 18: {sum(got.values())} B1 launches held in the {name}, expected {want}")
+    d, n_in = api.cfg.d_model, _state_n_in(api.cfg)
+    if (8, d, n_in) not in steady or (8, 2 * d, d) not in steady \
+            or (max(PROMPT_LENS), d, n_in) not in first:
+        fail(f"phase 18: the held launches' shapes {sorted(first)} / {sorted(steady)} miss "
+             f"in_proj {d} → {n_in} or out_proj {2 * d} → {d}")
+    worst = max(e1, e2, e3)
+    n = sum(first.values()) + sum(steady.values()) + sum(ckpt.values())
+    print(f"phase 18 every B1 launch of the first step (8 prefills of 48–500 tokens + a decode "
+          f"tick: {sum(first.values())}), a steady tick ({sum(steady.values())}) and a "
+          f"checkpoint tick ({sum(ckpt.values())}, {n_ck} rows checkpointing) vs plain on its "
+          f"own inputs: {n} launches at (M, K, N) {sorted(set(first) | set(steady))}, max|err| "
+          f"{worst:.3e} (rtol={LINEAR_TOL}, atol={LINEAR_TOL}·max|plain|)", flush=True)
+    return n, worst
+
+
+def state_logits(cfg, prompts):
+    """Kernels vs plain logits on identical inputs at ``STATE_LOGIT_LAYERS``
+    layers of the full width (seeded weights packed to W4) — the
+    exact-length prefill of the shortest and the longest prompt, then one
+    8-row decode launch over the live tree — and the noise floor: the
+    plain path against itself with the embedding scaled by 1 + 2^-22 (one
+    ulp).  At full depth a 1-ulp change flips W4A4 encodings that cascade
+    through the layers (the floor is then as large as the logits, and the
+    comparison says nothing), so the floor must stay below
+    ``STATE_FLOOR_FRAC`` of max|logit|, and the kernel path within
+    ``max(2 · floor, STATE_LOGIT_RTOL · max|logit|)`` of the plain path.
+    Returns the two comparisons."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import zoo
+
+    cut = dataclasses.replace(cfg, n_layers=STATE_LOGIT_LAYERS)
+    api_k, params = build_model(cut, "bcq4", True, "cuda", 0, True)
+    api_p = zoo.build(cut, dataclasses.replace(api_k.rt, fused_linear=False), device="cuda")
+
+    def logits(api, p):
+        rows, dev = [], api.device
+        live = api.live_cache_init(len(prompts))
+        for i, pr in enumerate(prompts):
+            tokens = torch.tensor(pr, dtype=torch.int32, device=dev)[None]
+            lg, one = api.prefill_fn(p, {"tokens": tokens}, STATE_MAX_LEN)
+            for n in live:
+                live[n][:, i:i + 1].copy_(one[n])
+            if i in (0, len(prompts) - 1):
+                rows.append(lg[0, -1].float())
+        tok = torch.tensor([[int(pr[-1])] for pr in prompts], dtype=torch.int32, device=dev)
+        pos = torch.tensor([len(pr) for pr in prompts], dtype=torch.int32, device=dev)
+        ld, _ = api.state_decode_fn(p, live, tok, pos)
+        return torch.cat([torch.stack(rows), ld[:, -1].float()])
+
+    tag = f"phase 18 at {STATE_LOGIT_LAYERS} layers"
+    kp = _compare(f"{tag} kernels vs plain, W4A4", logits(api_k, params), logits(api_p, params))
+    nudged = dict(params, embed={"kernel": params["embed"]["kernel"] * (1 + 2**-22)})
+    floor = _compare(f"{tag} plain vs plain with a 1-ulp embedding nudge (noise floor)",
+                     logits(api_p, nudged), logits(api_p, params))
+    if floor["max"] > STATE_FLOOR_FRAC * floor["scale"]:
+        fail(f"{tag}: the noise floor {floor['max']:.3e} exceeds {STATE_FLOOR_FRAC} of "
+             f"max|logit| {floor['scale']:.3f}: the kernels vs plain comparison would say nothing")
+    tol = max(2 * floor["max"], STATE_LOGIT_RTOL * floor["scale"])
+    if kp["max"] > tol:
+        fail(f"{tag}: the kernel path differs from the plain path by {kp['max']:.3e}, beyond "
+             f"{tol:.3e} = max(2 · floor, {STATE_LOGIT_RTOL} · max|logit|)")
+    print(f"{tag}: kernels vs plain max|Δ| {kp['max']:.3e} within {tol:.3e}; noise floor "
+          f"{floor['max']:.3e} ≤ {STATE_FLOOR_FRAC} · max|logit| {floor['scale']:.3f}", flush=True)
+    return kp, floor
+
+
+def _timed_admits(eng):
+    """Wrap the engine's ``_try_admit`` with a synchronized host clock: a
+    list of (rid, ms) that the wrapper fills."""
+    import torch
+
+    real, log = eng._try_admit, []
+
+    def admit(req, slot_idx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = real(req, slot_idx)
+        torch.cuda.synchronize()
+        if ok:
+            log.append((int(req.rid), (time.perf_counter() - t0) * 1e3))
+        return ok
+
+    eng._try_admit = admit
+    return log
+
+
+def state_preempted(api, params, prompts, host_pages=0, graphs=False, depth=1):
+    """Phase 4's workload with request 7 (the youngest, 500 prompt tokens)
+    preempted after ``STATE_PREEMPT_AT`` ticks and resumed.  Returns (the
+    engine, its outcome, the resumed request's admission ms; a held run's
+    admission includes the plain versions' time)."""
+    import torch
+
+    eng = state_engine(api, params, graphs, depth, host_pages=host_pages)
+    _state_submit(eng, prompts)
+    for _ in range(STATE_PREEMPT_AT):
+        eng.step()
+    if eng._preempt_one(None) != len(prompts) - 1:
+        fail("phase 18: the preemption did not take request 7")
+    log = _timed_admits(eng)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    admits = [ms for rid, ms in log if rid == len(prompts) - 1]
+    if len(admits) != 1:
+        fail(f"phase 18: request 7 readmitted {len(admits)} times")
+    return eng, _state_outcome(eng), admits[0]
+
+
+def time_state_swap(eng):
+    """One state page out to the host tier and back, timed: the device
+    gather + one transfer + wait (fetch), the host copy + blake2b digest
+    (put), the digest check (take), one transfer + the in-place scatter
+    (insert), each the mean of 5; the bytes back equal.  Returns the
+    numbers."""
+    import torch
+
+    from repro_torch.serving.pages import HostPageTier, KIND_STATE
+
+    pid = 1
+    tier = HostPageTier(2)
+    ms = {"fetch": [], "put": [], "take": [], "insert": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays = eng._fetch_page_arrays(pid)
+        t1 = time.perf_counter()
+        h = tier.put(arrays, KIND_STATE)
+        t2 = time.perf_counter()
+        entry = tier.take(h, expect_kind=KIND_STATE)
+        t3 = time.perf_counter()
+        eng._insert_page_arrays(pid, entry)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, a, b in (("fetch", t0, t1), ("put", t1, t2), ("take", t2, t3), ("insert", t3, t4)):
+            ms[k].append((b - a) * 1e3)
+    back = eng._fetch_page_arrays(pid)
+    if not all(torch.equal(a, b) for a, b in zip(arrays, back)):
+        fail("phase 18: a state page came back from the host tier with other bytes")
+    nbytes = sum(a.numel() * a.element_size() for a in arrays)
+    return {k: sum(v) / len(v) for k, v in ms.items()} | {"bytes": nbytes}
+
+
+def state_replay_held(api, params, prompts, timed):
+    """The packed checkpoint resume of ``state_preempted`` again, with every
+    B1 launch held to plain on its own inputs (``hold_b1``): the batch-1
+    replay's launches at M 1 × 768 → 3352 and M 1 × 1536 → 768 (L of each
+    a replayed token) and every prefill and decode launch around them.
+    The held run's outcome must equal the unheld run's ``timed``
+    bit for bit.  Returns (launches held, of them at M 1, worst max|err|)."""
+    from repro_torch.kernels import build
+
+    L, d = api.cfg.n_layers, api.cfg.d_model
+    build.reset_counts()
+    (eng, out, _), shapes, worst = hold_b1(lambda: state_preempted(api, params, prompts),
+                                           "phase 18 [packed] checkpoint resume")
+    n, replayed = sum(shapes.values()), out[2]["replay_tokens"]
+    at_m1 = {k: v for k, v in shapes.items() if k[0] == 1}
+    want_m1 = {(1, d, _state_n_in(api.cfg)): L * replayed, (1, 2 * d, d): L * replayed}
+    if at_m1 != want_m1:
+        fail(f"phase 18 [packed] checkpoint resume: held at M 1 {at_m1}, expected {want_m1} "
+             f"({replayed} replayed tokens, {L} layers)")
+    if n != STATE_PER_LAYER * L * _state_passes(eng) or build.counts().get("bcq_linear", 0) != n:
+        fail(f"phase 18 [packed] checkpoint resume: {n} launches held, "
+             f"{build.counts().get('bcq_linear', 0)} counted, expected "
+             f"{STATE_PER_LAYER * L * _state_passes(eng)}")
+    if out != timed:
+        fail("phase 18 [packed] checkpoint resume: the held run's outcome differs from the "
+             "unheld run's")
+    eng.audit(strict=True)
+    return n, sum(at_m1.values()), worst
+
+
+def phase_state(cb, smi):
+    """Phase 18: full-width Mamba2-130m (``mamba2_130m``: 24 layers, d 768,
+    d_state 128, head_dim 64, vocab 50280; seeded random weights packed to
+    W4, f32 compute) served in W4A4 through StatePagedEngine on phase 4's
+    settings and prompts (8 slots, page 16, 48–500 prompt tokens, 32 new
+    tokens): graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins,
+    launch indices, counters, live tree and state pool bytes, B1 launch
+    counts: 2 a layer and pass); every B1 launch of a first step, a steady
+    tick and a checkpoint tick held to plain; kernels vs plain logits
+    at ``STATE_LOGIT_LAYERS`` layers (``state_logits``); request 7
+    preempted and resumed from its checkpoint (≤ page_size tokens
+    replayed: bit-exact at ``quant_mode="none"``; at ``packed`` the run
+    again with every B1 launch, the batch-1 replay's too, held to plain,
+    and the flips against the never-preempted run counted, which W4A4
+    allows: a replay launch has its own ``s_x``) and from the host tier
+    (no replay, bit-exact at both); a greedy fork identical, a sampled
+    fork reproducible; the chaos smoke at graph depth 2 through
+    ``tools/check_chaos.py``.  Prints the
+    steady tick, the checkpoint's extra device time, prefill tok/s, a
+    state page's swap and the resume times against the full recompute.
+    Returns (the phase's B1 launches, its ``kernels`` entry fields, worst
+    launch error)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serving.generate import Request, SamplingParams
+    from repro_torch.serving.pages import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(STATE_ARCH)
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api, params = build_model(cfg, "bcq4", True, "cuda", 0, True)
+    torch.cuda.synchronize()
+    probe_eng = state_engine(api, params, False, 1)
+    page_mb = sum(t[0].numel() * t.element_size() for t in tree_leaves(probe_eng.spool)) / 1e6
+    print(f"phase 18 {cfg.name}: {L} layers, d {cfg.d_model}, d_state {cfg.ssm.d_state}, "
+          f"head_dim {cfg.ssm.head_dim}, vocab {cfg.vocab}: drawn and packed in "
+          f"{time.perf_counter() - t0:.1f} s; a state page {page_mb:.2f} MB, "
+          f"{probe_eng.pool_mgr.n_pages} pages; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated", flush=True)
+    del probe_eng
+    launches = 0
+
+    # the production tick: graph depth 2 ≡ eager depth 1, bit for bit
+    ways = [(_way_name(g, d), state_way(api, params, prompts, g, d)) for g, d in
+            ((True, 2), (False, 1))]
+    (n_g, g2), (n_e, e1) = ways
+    for part in ("out", "counts"):
+        if g2[part] != e1[part]:
+            fail(f"phase 18: {n_g} and {n_e} differ in their {part}")
+    if not all(torch.equal(a, b) for a, b in zip(g2["bits"], e1["bits"])):
+        fail(f"phase 18: {n_g} and {n_e} leave different live-tree or state-pool bytes")
+    launches += 2 * g2["counts"]["bcq_linear"]
+    eng = g2["engine"]
+    by = _device_kernels(lambda: eng._graphs.run(False), 3)
+    by_ck = _device_kernels(lambda: eng._graphs.run(True), 3)
+    b1 = lambda got: None if got is None else sum(  # noqa: E731
+        ms for nm, ms in got[2].items() if "encode_kernel" in nm or "gemm_" in nm)
+    replay_ms = None if by is None else by[1]
+    extra = None if by is None or by_ck is None else by_ck[1] - by[1]
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"  # noqa: E731
+    print(f"phase 18 {cfg.name}: graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins, "
+          f"launch indices, counters, live tree and state pool bytes, "
+          f"{g2['counts'].get('bcq_linear', 0)} B1 launches: "
+          f"{STATE_PER_LAYER} a layer and pass); decode graph nodes {g2['nodes']} (False: "
+          f"no checkpoint, True: with the scatter); steady tick wall {g2['wall']:.2f} ms at graph "
+          f"depth 2, {e1['wall']:.2f} ms eager depth 1; one graph replay's device time "
+          f"{fmt(replay_ms)}, of it B1 ({STATE_PER_LAYER * L} launches) {fmt(b1(by))}; the "
+          f"checkpoint variant's extra device time {fmt(extra)}; prefill "
+          f"{g2['prefill_tok_s']:.0f} tok/s (exact-length, one prompt a launch); {smi}",
+          flush=True)
+    for _, w in ways:
+        w.pop("engine")
+    del eng, ways
+
+    n_held, worst = state_launch_checks(api, params, prompts)
+    state_logits(cfg, prompts)
+
+    # preemption and resume: from the checkpoint, then from the host tier
+    api_f, params_f = build_model(cfg, "bcq4", False, "cuda", 0, True)
+    res = {}
+    for mode, (a, p) in (("none", (api_f, params_f)), ("packed", (api, params))):
+        base = state_engine(a, p, False, 1)
+        _state_submit(base, prompts)
+        base.run_to_completion()
+        build.reset_counts()
+        ck, ck_out, ck_ms = state_preempted(a, p, prompts)
+        launches += build.counts().get("bcq_linear", 0)
+        build.reset_counts()
+        ho, ho_out, ho_ms = state_preempted(a, p, prompts, host_pages=STATE_HOST_PAGES)
+        launches += build.counts().get("bcq_linear", 0)
+        res[mode] = (_state_outcome(base)[0], ck, ck_out, ck_ms, ho, ho_out, ho_ms)
+        del base
+    n_rep, n_rep_m1, err_rep = state_replay_held(api, params, prompts, res["packed"][2])
+    worst = max(worst, err_rep)
+    # the full recompute of request 7's resumed prompt, for comparison
+    resumed = [r for r in res["packed"][1].finished if r.rid == len(prompts) - 1][0].prompt
+    recompute = state_engine(api, params, False, 1)
+    log = _timed_admits(recompute)
+    recompute.submit(Request(rid=0, prompt=resumed, max_new=0))
+    recompute.run_to_completion()
+    rec_ms = log[0][1]
+    for mode, (base, ck, ck_out, ck_ms, ho, ho_out, ho_ms) in res.items():
+        cs, sw = ck_out[2], ho_out[3]
+        if not (0 < cs["replay_tokens"] <= STATE_PS and cs["state_restores"] == 1):
+            fail(f"phase 18 [{mode}]: checkpoint resume replayed {cs['replay_tokens']} tokens "
+                 f"({cs['state_restores']} restores), expected 1..{STATE_PS}")
+        if ho_out[2]["replay_tokens"] or sw["verified_swapins"] != 1 or sw["swap_outs"] != 1:
+            fail(f"phase 18 [{mode}]: host resume {ho_out[2]}, swap {sw}")
+        if ho_out[0] != base:
+            fail(f"phase 18 [{mode}]: the host-tier resume is not bit-exact to the "
+                 "never-preempted run")
+        for e in (ck, ho):
+            e.audit(strict=True)
+        toks = {k: v[0] for k, v in ck_out[0].items()}
+        flips = sum(x != y for k in base for x, y in zip(base[k][0], toks[k]))
+        margins_equal = all(base[k][1] == ck_out[0][k][1] for k in base)
+        if mode == "none" and toks != {k: v[0] for k, v in base.items()}:
+            fail("phase 18 [none]: the checkpoint resume's tokens differ from the "
+                 "never-preempted run's")
+        print(f"phase 18 [{mode}] request 7 preempted after {STATE_PREEMPT_AT} ticks: checkpoint "
+              f"resume replayed {cs['replay_tokens']} tokens ({cs['replay_tokens'] - 1} state "
+              f"tokens recomputed past the checkpoint, ≤ {STATE_PS - 1}) in {ck_ms:.2f} ms, "
+              f"tokens vs the never-preempted run: {flips} of "
+              f"{sum(len(v[0]) for v in base.values())} differ (margins bit-equal: "
+              f"{margins_equal}); host-tier resume 0 replayed in "
+              f"{ho_ms:.2f} ms (swap {sw['swap_bytes']} B out and in), bit-exact; audits clean",
+              flush=True)
+    pk = res["packed"][1]
+    print(f"phase 18 [packed] checkpoint resume again with every B1 launch held to plain on its "
+          f"own inputs: {n_rep} launches, {n_rep_m1} of them the batch-1 replay's at (M, K, N) "
+          f"(1, {cfg.d_model}, {_state_n_in(cfg)}) and (1, {2 * cfg.d_model}, {cfg.d_model}), max|err| "
+          f"{err_rep:.3e} (rtol={LINEAR_TOL}, atol={LINEAR_TOL}·max|plain|), outcome bit-equal to "
+          f"the unheld run; full recompute of the {len(resumed)}-token resumed prompt "
+          f"{rec_ms:.2f} ms vs checkpoint {res['packed'][3]:.2f} ms vs host tier "
+          f"{res['packed'][6]:.2f} ms (unheld runs)", flush=True)
+    swap = time_state_swap(pk)
+    print(f"phase 18 one state page ({swap['bytes']} B) through the host tier: fetch (device "
+          f"gather + one transfer + wait) {swap['fetch']:.3f} ms, put (host copy + blake2b) "
+          f"{swap['put']:.3f} ms, take (blake2b check) {swap['take']:.3f} ms, insert (one "
+          f"transfer + in-place scatter, synced) {swap['insert']:.3f} ms; PCIe Gen5 x16 bound "
+          f"{swap['bytes'] / PCIE_BPS * 1e3:.3f} ms each way", flush=True)
+    del res, pk, ck, ho, recompute, api_f, params_f
+
+    # forks: greedy identical, sampled reproducible
+    build.reset_counts()
+    sp = SamplingParams(temperature=0.8, top_k=40, seed=1234)
+    outs = []
+    for _ in range(2):
+        e = state_engine(api, params, True, 2)
+        e.submit(Request(rid=0, prompt=prompts[0], max_new=GEN - 1, n_samples=2))
+        e.submit(Request(rid=1, prompt=prompts[1], max_new=GEN - 1, n_samples=3, sampling=sp))
+        e.run_to_completion()
+        e.audit(strict=True)
+        outs.append({(r.rid, r.sample_idx): r.out for r in e.finished})
+    launches += build.counts().get("bcq_linear", 0)
+    if outs[0] != outs[1] or outs[0][(0, 0)] != outs[0][(0, 1)] \
+            or len({tuple(outs[0][(1, k)]) for k in range(3)}) < 2:
+        fail(f"phase 18: forks: greedy siblings equal {outs[0][(0, 0)] == outs[0][(0, 1)]}, "
+             f"sampled reproducible {outs[0] == outs[1]}")
+    print("phase 18 forks (graph depth 2): greedy siblings identical, a sampled fork of 3 "
+          "reproducible and divergent", flush=True)
+
+    # the chaos smoke at graph depth 2
+    path = os.path.join(ROOT, "build", "chaos_state.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    build.reset_counts()
+    rep = serve.run_chaos(api, params, prompts[:4], 16, page_size=STATE_PS, report_path=path,
+                          arch=cfg.name, host_pages=STATE_HOST_PAGES)
+    launches += build.counts().get("bcq_linear", 0)
+    check = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "check_chaos.py"), path],
+                           capture_output=True, text=True, timeout=120)
+    sw = rep["health"]["swap"]
+    print(f"phase 18 tools/check_chaos.py (exit {check.returncode}): "
+          f"{(check.stdout + check.stderr).strip()}; host tier: {sw['swap_outs']} swap-outs, "
+          f"{sw['swap_ins']} swap-ins (nothing in this schedule preempts a state slot, so the "
+          f"tier's faults are not exercised here)", flush=True)
+    if check.returncode or rep["page_layout"] != "state" or not rep["final_audit"]["ok"]:
+        fail("phase 18: the state-layout chaos report fails tools/check_chaos.py")
+    torch.cuda.empty_cache()
+    entry = {"at_ssm_decode": dict(_linear_times(cb, 8, cfg.d_model, 3352, 95),
+                                   shape=f"M 8 K {cfg.d_model} N 3352 (mamba2_130m in_proj)"),
+             "at_ssm_prefill": dict(_linear_times(cb, max(PROMPT_LENS), cfg.d_model, 3352, 94),
+                                    shape=f"M {max(PROMPT_LENS)} K {cfg.d_model} N 3352")}
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, entry, worst
+
+
 # ------------------------------------------------------------------ phase 10
 def _bound(nbytes, *work):
     """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
@@ -3969,6 +4530,7 @@ def main() -> int:
     counts_tier, _ = phase_host_tier(eng4, tol, core, g2, core_g2, smi)
     counts_moe, stacked, err_moe = phase_moe(cb, smi)
     counts_ptq, err_ptq, fake_form = phase_ptq(cb, smi)
+    counts_state, state_entry, err_state = phase_state(cb, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
@@ -3987,8 +4549,11 @@ def main() -> int:
     kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
     kernels[3]["probe_form"] = probe_form
     kernels[3]["fake_quant_form"] = fake_form
+    kernels[0]["launches_by_path"]["state"] = counts_state
+    kernels[0]["launches"] = sum(kernels[0]["launches_by_path"].values())
+    kernels[0].update(state_entry)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab, err_moe["bcq_linear"],
-                                    err_ptq["bcq_linear"])
+                                    err_ptq["bcq_linear"], err_state)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err_moe["page_gather"],
                                     err_ptq["page_gather"])
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err_ptq["flash_attention"])

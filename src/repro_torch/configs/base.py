@@ -1,6 +1,6 @@
 """Architecture registry: the ``ArchConfig`` dataclass and its lookup.
 
-A copy of the dense and MoE parts of ``repro/configs/base.py``: the port
+A copy of the dense, MoE and SSM parts of ``repro/configs/base.py``: the port
 reads nothing of the JAX package, so it keeps its own config records.
 Each config module provides ``CONFIG`` (the published shape) and
 ``smoke()`` (a 2-layer reduction for CPU tests).
@@ -21,9 +21,18 @@ class MoESpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port serves "dense" and "moe"
+    family: str  # the port serves "dense", "moe" and "ssm"
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,6 +46,7 @@ class ArchConfig:
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     tie_embeddings: bool = False
     moe: Optional[MoESpec] = None
+    ssm: Optional[SSMSpec] = None
     source: str = ""
 
     @property

@@ -1,10 +1,16 @@
 """Serving CLI of the port (counterpart of ``repro/launch/serve.py``).
 
-Serves a batch of seeded random prompts through ``PagedEngine`` from
-seeded random weights (packed to W4 with ``--packed``), and prints
-throughput, the engine's serving-core counters and the tokens.  Only the
-paged engine is ported, so ``--paged`` is required.  Admission is the
-slab prefill unless ``--chunked-prefill``; prefix caching is on unless
+Serves a batch of seeded random prompts from seeded random weights
+(packed to W4 with ``--packed``), and prints throughput, the engine's
+serving-core counters and the tokens.  ``--paged`` serves through the
+engine of the family's page layout (``api.page_spec.layout``):
+``PagedEngine`` over KV pages for the dense and MoE families,
+``StatePagedEngine`` over ``state`` pages for the SSM family
+(``--arch mamba2_130m``).  Without ``--paged`` an SSM is served by the
+contiguous path (``greedy_generate`` over ``prefill_fn`` /
+``decode_fn``); for the KV families only the paged engine is ported, so
+``--paged`` is required there.  Admission is the
+slab prefill unless ``--chunked-prefill`` (KV layout only); prefix caching is on unless
 ``--no-prefix-cache``; ``--best-of N`` forks every prompt into N siblings
 sharing its pages, and ``--temperature`` / ``--top-k`` / ``--seed`` turn
 on seeded sampling (deterministic per seed, sample index and position).
@@ -63,7 +69,8 @@ from repro_torch.models.layers import Runtime
 from repro_torch.serving.audit import audit_engine
 from repro_torch.serving.engine import PagedEngine
 from repro_torch.serving.faults import SITES, FaultInjector
-from repro_torch.serving.generate import GREEDY, Request, SamplingParams
+from repro_torch.serving.generate import GREEDY, Request, SamplingParams, greedy_generate
+from repro_torch.serving.state_engine import StatePagedEngine
 from repro_torch.serving.telemetry import QuantProbeRecorder, QuantProbeSink
 
 
@@ -80,6 +87,11 @@ def build_model(cfg, cache: str = "bcq4", packed: bool = True, device="cuda", se
     )
     api = zoo.build(cfg, rt, device=device)
     return api, api.init(seed)
+
+
+def is_state_layout(api) -> bool:
+    """The family serves through StatePagedEngine (state pages)."""
+    return api.page_spec is not None and api.page_spec.layout == "state_checkpoint"
 
 
 def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
@@ -100,13 +112,23 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
     (finished requests, engine)."""
     api, params = build_model(cfg, cache, packed, device, seed, kernels, quant_probe)
     max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
-    eng = PagedEngine(
-        api, params, n_slots=len(prompts) * best_of, max_len=max_len, page_size=page_size,
-        prefix_caching=prefix_caching, chunked_prefill=chunked_prefill,
-        prefill_chunk=prefill_chunk or 2 * page_size, pipeline_depth=pipeline_depth,
-        cuda_graphs=cuda_graphs, device=device, host_pages=host_pages,
-        recompress_after=recompress_after,
-    )
+    n_slots = len(prompts) * best_of
+    if is_state_layout(api):
+        if chunked_prefill or recompress_after:
+            raise ValueError("chunked prefill and the recompression ladder are of the KV layout; "
+                             "a state-checkpoint family prefills each prompt in one launch")
+        eng = StatePagedEngine(
+            api, params, n_slots=n_slots, max_len=max_len, page_size=page_size,
+            pipeline_depth=pipeline_depth, cuda_graphs=cuda_graphs, device=device,
+            host_pages=host_pages)
+    else:
+        eng = PagedEngine(
+            api, params, n_slots=n_slots, max_len=max_len, page_size=page_size,
+            prefix_caching=prefix_caching, chunked_prefill=chunked_prefill,
+            prefill_chunk=prefill_chunk or 2 * page_size, pipeline_depth=pipeline_depth,
+            cuda_graphs=cuda_graphs, device=device, host_pages=host_pages,
+            recompress_after=recompress_after,
+        )
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new=gen - 1, n_samples=best_of,
                            sampling=sampling))
@@ -121,7 +143,8 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
               recompress_after: int = 0) -> dict:
     """The chaos smoke (the reference's ``run_chaos``): ``prompts`` served
     twice over (two waves, the second queued behind the first; odd rids
-    fork in 2) by a chunked-prefill engine of one slot per prompt with a
+    fork in 2) by an engine of one slot per prompt (a chunked-prefill
+    PagedEngine, or a StatePagedEngine for a state-checkpoint family) with a
     ``FaultInjector`` at every site — ``rate`` for the transient sites,
     a fifth of it for ``logits`` and ``sampler`` (each roll kills a
     request) — an audit every ``audit_every`` ticks (4 if 0) and a queue
@@ -135,12 +158,16 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
     rates = {s: (rate / 5 if s in ("logits", "sampler") else rate) for s in SITES}
     faults = FaultInjector(seed=seed, rates=rates)
     max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
-    eng = PagedEngine(api, params, n_slots=batch, max_len=max_len, page_size=page_size,
-                      chunked_prefill=True, prefill_chunk=prefill_chunk or 2 * page_size,
-                      fault_injector=faults, audit_every=audit_every or 4, max_queue=2 * batch,
-                      degrade_after=degrade_after, pipeline_depth=pipeline_depth,
-                      cuda_graphs=cuda_graphs, device=api.device, host_pages=host_pages,
-                      recompress_after=recompress_after)
+    common = dict(n_slots=batch, max_len=max_len, page_size=page_size, fault_injector=faults,
+                  audit_every=audit_every or 4, max_queue=2 * batch, degrade_after=degrade_after,
+                  pipeline_depth=pipeline_depth, cuda_graphs=cuda_graphs, device=api.device,
+                  host_pages=host_pages)
+    if is_state_layout(api):
+        eng = StatePagedEngine(api, params, **common)
+    else:
+        eng = PagedEngine(api, params, chunked_prefill=True,
+                          prefill_chunk=prefill_chunk or 2 * page_size,
+                          recompress_after=recompress_after, **common)
     reqs = [Request(rid=wave * batch + i, prompt=prompts[i], max_new=gen - 1,
                     n_samples=2 if (wave * batch + i) % 2 else 1, deadline_s=deadline_s)
             for wave in range(2) for i in range(batch)]
@@ -157,14 +184,13 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
                  "error_kind": None if r.error is None else getattr(r.error, "kind", None),
                  "n_out": len(r.out)} for r in eng.finished]
     report = {
-        "schema": 1, "arch": arch, "cache": cache, "page_layout": "kv",
+        "schema": 1, "arch": arch, "cache": cache, "page_layout": eng.PAGE_LAYOUT,
         "host_tier": bool(host_pages), "host_pages": host_pages,
         "recompress_after": recompress_after, "chaos_seed": seed, "chaos_rate": rate,
         "deadline_s": deadline_s, "n_requests": len(reqs),
         "all_finished": {o["rid"] for o in outcomes} == {r.rid for r in reqs},
         "ticks": ticks, "unhandled_exception": unhandled, "leaked_pages": leaked,
-        # live (allocated or parked) pages by kind: the port's pool holds KV pages only
-        "pages_by_kind": {"kv": eng.pool_mgr.used(), "state": 0, "shared_ro": 0},
+        "pages_by_kind": eng.pool_mgr.used_by_kind(),  # live (allocated or parked) pages
         "final_audit": audit.to_dict(), "health": eng.health(), "faults": faults.summary(),
         "requests": outcomes,
     }
@@ -258,11 +284,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.metrics_json or args.trace_out or args.quant_probes:
         args.paged = True
-    if not (args.paged or args.chaos):
-        ap.error("the port serves the paged engine only: pass --paged")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    if not (args.paged or args.chaos or cfg.family == "ssm"):
+        ap.error("the port serves the KV families through the paged engine only: pass --paged")
     host_pages = args.host_pages if args.host_tier else 0
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    if not (args.paged or args.chaos):
+        return serve_contiguous(cfg, prompts, args.gen, args.packed, args.device)
     if args.chaos:  # W4A4 packed weights, as the reference's chaos smoke
         api, params = build_model(cfg, args.cache, True, args.device)
         rep = run_chaos(api, params, list(prompts), args.gen, args.page_size, args.prefill_chunk,
@@ -293,7 +321,11 @@ def main(argv=None):
           f"pipeline depth {eng.pipeline_depth} decode graphs {eng.trace_counts()['decode']}")
     keys = ("prefix_hits", "prefix_misses", "prefill_tokens_skipped", "forks", "shared_pages",
             "cow_copies", "preemptions", "prefix_evictions")
-    print("serving core: " + ", ".join(f"{k} {eng.stats[k]}" for k in keys))
+    print(f"serving core ({eng.PAGE_LAYOUT} pages): "
+          + ", ".join(f"{k} {eng.stats[k]}" for k in keys))
+    if eng.PAGE_LAYOUT == "state":
+        print("state pages: " + ", ".join(f"{k} {v}" for k, v in
+                                          eng.health()["state_counters"].items()))
     if host_pages:
         print("host tier: " + ", ".join(f"{k} {v}" for k, v in eng.health()["swap"].items())
               + f"; prefix host hits {eng.prefix.host_hits}")
@@ -301,6 +333,24 @@ def main(argv=None):
         print(f"  rid {r.rid} sample {r.sample_idx}: {r.out}")
     if args.metrics_json or args.trace_out or args.quant_probes:
         report_telemetry(eng, args.metrics_json, args.trace_out, probe_sink)
+
+
+def serve_contiguous(cfg, prompts, gen: int, packed: bool, device) -> int:
+    """The contiguous path: the prompt batch (B, S) through ``greedy_generate``
+    (one batched prefill, then ``gen - 1`` decode steps over the model's
+    contiguous caches).  Prints the tokens and the rate."""
+    api, params = build_model(cfg, packed=packed, device=device)
+    t0 = time.perf_counter()
+    out = greedy_generate(api, params, prompts, gen, prompts.shape[1] + gen, device=device)
+    if api.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    where = torch.cuda.get_device_name(api.device) if api.device.type == "cuda" else "cpu"
+    print(f"arch={cfg.name} device={where} packed={packed} contiguous: {out.numel()} tokens in "
+          f"{dt:.3f}s ({out.numel() / dt:.1f} tok/s)")
+    for i, row in enumerate(out.tolist()):
+        print(f"  rid {i}: {row}")
+    return 0
 
 
 def report_telemetry(eng, metrics_json=None, trace_out=None, probe_sink=None):

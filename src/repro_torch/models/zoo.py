@@ -1,8 +1,12 @@
-"""ArchConfig → model API (counterpart of the dense and MoE branch of
-``repro/models/zoo.build``): random init, the loss of a batch (the
-evaluation forward), the paged decode step, the page-pool init, the
-chunked-prefill step, and the slab ``prefill`` / contiguous
-``decode_step`` pair, all on one device."""
+"""ArchConfig → model API (counterpart of the dense, MoE and SSM branches
+of ``repro/models/zoo.build``): random init, the loss of a batch (the
+evaluation forward), the slab ``prefill`` / contiguous ``decode_step``
+pair and what the paged engines need, all on one device.  ``page_spec``
+says what the page pool holds: a dense or MoE model serves KV pages
+(the paged decode step, the page-pool init, the chunked-prefill step) through
+``serving.engine.PagedEngine``; an SSM serves ``state`` pages (the live
+cache tree and its per-row decode) through
+``serving.state_engine.StatePagedEngine``."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,8 +18,48 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bcq import check_kernel_config
 from repro_torch.core.calibrate import default_universal_codebooks
 from repro_torch.core.ptq import decode_scales, pack_params, quantize_params
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 from repro_torch.models.layers import Runtime
+
+# the families the port builds and serves (paged or contiguous)
+SERVED_FAMILIES = ("dense", "moe", "ssm")
+# what each family still to port lacks in the port
+TO_PORT_FAMILIES = {
+    "hybrid": "the RG-LRU block, its window-KV ring and the layer-by-layer init",
+    "encdec": "the encoder, its shared_ro pages and the engine's shared-encoder branch",
+    "vlm": "the vision frontend (not paged-servable in the reference either)",
+}
+
+
+class UnsupportedModelError(RuntimeError):
+    """A model family without a paged-serving path was asked to serve
+    paged (or asked the wrong engine): names the family and the servable
+    list, so the caller can pick a servable config or engine."""
+
+    def __init__(self, name: str, family: str, reason: str = ""):
+        self.family = family
+        self.supported = SERVED_FAMILIES
+        msg = (f"model '{name}' (family '{family}') has no paged-serving path; "
+               f"paged-servable families: {', '.join(SERVED_FAMILIES)}.")
+        if reason:
+            msg += f" {reason}"
+        super().__init__(msg)
+
+
+@dataclasses.dataclass(frozen=True)
+class PageSpec:
+    """What a family's page pool holds — what the engines, the audit and
+    the telemetry read instead of assuming pages are KV.
+
+    layout: ``kv_paged`` (block-table KV pages: token position → (page,
+    slot); copy-on-write forks; prefix caching) or ``state_checkpoint``
+    (one ``state`` page checkpoints a sequence's whole O(1) recurrent state
+    at page-aligned positions; preemption replays at most page_size
+    tokens).  shared_encoder: encoder output in read-only ``shared_ro`` pages
+    (enc-dec, not ported yet)."""
+
+    layout: str
+    shared_encoder: bool = False
 
 
 def resolve_device(device) -> torch.device:
@@ -37,11 +81,21 @@ class ModelAPI:
     device: torch.device
     init: Callable[[int], Any]
     loss_fn: Callable[..., Any]
-    paged_decode_fn: Callable[..., Any]
-    pool_init: Callable[..., Any]
-    prefill_from_pages_fn: Callable[..., Any]
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
+    # what the page pool holds (None: not paged-servable)
+    page_spec: PageSpec = None
+    # kv_paged families: the paged decode step, the page-pool init and the
+    # chunked prefill against the pool
+    paged_decode_fn: Callable[..., Any] = None
+    pool_init: Callable[..., Any] = None
+    prefill_from_pages_fn: Callable[..., Any] = None
+    # state_checkpoint families: the resident live cache tree of B rows,
+    # ``live_cache_init(B, device=...)`` (``device="meta"``: shapes only),
+    # and the per-row decode over it, ``state_decode_fn(params, live,
+    # tokens (B, 1), pos (B,))`` → (logits (B, 1, V), live), in place
+    live_cache_init: Callable[..., Any] = None
+    state_decode_fn: Callable[..., Any] = None
     # captures of the serving step functions over every engine on this
     # api (``PagedEngine.trace_counts``): the decode step's CUDA graphs;
     # the prefills run eagerly and capture nothing
@@ -49,19 +103,18 @@ class ModelAPI:
         default_factory=lambda: {"prefill": 0, "decode": 0, "chunk": 0})
 
 
-SERVED_FAMILIES = ("dense", "moe")
-TO_PORT_FAMILIES = ("ssm", "hybrid", "encdec", "vlm")
-
 
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
-    """The model API of a dense or MoE decoder.  ``init(seed)`` draws
-    random weights from seeded ``torch.Generator``s; with
+    """The model API of a dense or MoE decoder or of a Mamba-2 SSM.
+    ``init(seed)`` draws random weights from seeded ``torch.Generator``s; with
     ``quant_mode="packed"`` they are packed to W4 with the frozen
     universal codebooks, which ride in ``params["codebooks"]``, and their
     dequant scales decoded once (``ptq.decode_scales``); with ``"fake"``
     they are fake-quantized offline (``ptq.quantize_params``, the
     reference's W4A4 serving tree), with ``"fake_full"`` left float.  A
-    dense model is drawn whole on the CPU, then moved to ``device``.  A
+    dense or SSM model is drawn whole on the CPU, then moved to
+    ``device``; an SSM's (L, K, N) projection stacks pack with one s_X a
+    layer, the layout of the reference's packed tree.  A
     MoE model is drawn on ``device`` layer by layer, each layer from its
     own generator seeded from (seed, layer) and packed before the next is
     drawn, so at most one layer's float experts are resident in packed
@@ -69,8 +122,9 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     experts alone would be ~106 GB)."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
-            f"the port serves the {' and '.join(SERVED_FAMILIES)} families, not "
-            f"{cfg.family!r}; still to be ported: {', '.join(TO_PORT_FAMILIES)}")
+            f"the port serves the {', '.join(SERVED_FAMILIES)} families, not {cfg.family!r}; "
+            f"still to be ported: {', '.join(TO_PORT_FAMILIES)} ("
+            + "; ".join(f"{k}: {v}" for k, v in TO_PORT_FAMILIES.items()) + ")")
     if torch.device(device).type == "cuda" and (
             rt.quant_mode in ("fake", "fake_full") or (rt.quant_mode == "packed" and rt.fused_linear)):
         check_kernel_config(rt.bcq_cfg, f"zoo.build(quant_mode={rt.quant_mode!r})")
@@ -84,7 +138,8 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     def init(seed: int = 0) -> dict:
         if cfg.family == "moe":
             return _init_by_layer(cfg, rt, device, seed, codebooks())
-        params = transformer.init_lm(cfg, rt, torch.Generator().manual_seed(seed))
+        draw = ssm.init_ssm_lm if cfg.family == "ssm" else transformer.init_lm
+        params = draw(cfg, rt, torch.Generator().manual_seed(seed))
         params = _to(params, device)
         cb = codebooks()
         if cb is not None:
@@ -95,10 +150,24 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
             params["codebooks"] = cb
         return params
 
+    if cfg.family == "ssm":
+        return ModelAPI(
+            cfg, rt, device,
+            init=init,
+            loss_fn=lambda p, b: ssm.forward_train(p, b, cfg, rt),
+            prefill_fn=lambda p, b, ml: ssm.prefill(p, b, cfg, rt, ml),
+            decode_fn=lambda p, c, t, pos: ssm.decode_step(p, c, t, pos, cfg, rt),
+            page_spec=PageSpec("state_checkpoint"),
+            live_cache_init=lambda bsz, device=device: ssm.ssm_cache_stacked(cfg, bsz, device),
+            state_decode_fn=lambda p, live, t, pos: ssm.decode_step(p, live, t, pos, cfg, rt),
+        )
     return ModelAPI(
         cfg, rt, device,
         init=init,
         loss_fn=lambda p, b: transformer.forward_train(p, b, cfg, rt),
+        prefill_fn=lambda p, b, ml: transformer.prefill(p, b, cfg, rt, ml),
+        decode_fn=lambda p, c, t, pos: transformer.decode_step(p, c, t, pos, cfg, rt),
+        page_spec=PageSpec("kv_paged"),
         paged_decode_fn=lambda p, pool, t, bt, ln: transformer.paged_decode_step(
             p, pool, t, bt, ln, cfg, rt
         ),
@@ -108,8 +177,6 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         prefill_from_pages_fn=lambda p, t, pool, bt, n_past, ids, chunk_len=None: (
             transformer.prefill_from_pages(p, t, pool, bt, n_past, ids, cfg, rt, chunk_len)
         ),
-        prefill_fn=lambda p, b, ml: transformer.prefill(p, b, cfg, rt, ml),
-        decode_fn=lambda p, c, t, pos: transformer.decode_step(p, c, t, pos, cfg, rt),
     )
 
 

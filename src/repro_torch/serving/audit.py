@@ -1,9 +1,10 @@
-"""Invariant auditor for the paged serving engine (counterpart of the KV
-layout of ``repro/serving/audit.py``; the port has no state-checkpoint
-layout yet).
+"""Invariant auditor for the paged serving engines (counterpart of
+``repro/serving/audit.py``, without the enc-dec encoder pages).
 
-The allocator, the prefix cache and the engine's block tables are three
-views of one ownership story; a page leak or a double free is a
+The allocator, the prefix cache and the engine's page references (block
+tables in the kv layout; slot checkpoints and the checkpoints queued
+requests carry in the state layout) are three views of one ownership
+story; a page leak or a double free is a
 disagreement between the views, so it can be checked mechanically.
 ``audit_engine`` walks all three and checks the laws the serving design
 rests on:
@@ -12,7 +13,10 @@ rests on:
   equals the number of active block-table rows holding it (a row carries
   one reference per page: prefix claims, fork references and
   copy-on-write replacements all keep this), so a page no table reaches
-  but whose refcount is positive is a leak, named;
+  but whose refcount is positive is a leak, named; in the state layout
+  the references are each slot's checkpoint page and each queued
+  request's carried one, every one a ``state`` page, and a checkpoint
+  never covers more tokens than its row (``ckpt_pos ≤ pos``);
 * **partition** — every non-null page is exactly one of: free (refcount
   0), referenced (refcount > 0), or parked reclaimable in the prefix LRU
   (refcount 0, contents kept);
@@ -41,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.serving.pages import _HANDLE_BASE, NULL_PAGE, pages_needed
+from repro_torch.serving.pages import _HANDLE_BASE, KIND_STATE, NULL_PAGE, pages_needed
 
 
 class AuditError(RuntimeError):
@@ -107,6 +111,39 @@ def _gather_kv_refs(engine, free_set, bad) -> dict:
     return table_refs
 
 
+def _gather_state_refs(engine, free_set, bad) -> dict:
+    """References = each slot's checkpoint page plus the checkpoint a
+    preempted, requeued request carries; each must be a live ``state``
+    page, and a checkpoint covers at most the tokens its row holds."""
+    pool = engine.pool_mgr
+    refs: dict[int, int] = {}
+
+    def take(pid, where):
+        refs[pid] = refs.get(pid, 0) + 1
+        if pid in free_set:
+            bad.append(f"{where} references FREED page {pid}")
+        elif pool_refcount(engine, pid) <= 0:
+            bad.append(f"{where} references page {pid} with refcount {pool_refcount(engine, pid)}")
+        elif pool.kind_of(pid) != KIND_STATE:
+            bad.append(f"{where} expects a 'state' page but {pid} is tagged "
+                       f"{pool.kind_of(pid)!r}")
+
+    for i, slot in enumerate(engine.slots):
+        if slot.req is None:
+            if slot.ckpt_page is not None:
+                bad.append(f"empty slot {i} still references checkpoint page {slot.ckpt_page}")
+            continue
+        if slot.ckpt_page is not None:
+            take(int(slot.ckpt_page), f"slot {i} checkpoint")
+            if not 0 <= slot.ckpt_pos <= slot.pos:
+                bad.append(f"slot {i} checkpoint covers {slot.ckpt_pos} tokens but the row holds "
+                           f"{slot.pos} (ckpt_pos must be ≤ pos)")
+    for k, req in enumerate(engine.queue):
+        if req._state_resume is not None:
+            take(int(req._state_resume[0]), f"queued request #{k} (rid={req.rid})")
+    return refs
+
+
 def _audit_host_tier(engine, prefix, bad) -> None:
     """The cross-tier partition of the KV layout (see the module's list)."""
     tier = getattr(engine, "host_tier", None)
@@ -124,6 +161,9 @@ def _audit_host_tier(engine, prefix, bad) -> None:
     carried: dict[int, int] = {}
     for req in engine.queue:
         for h in (req._host_resume[0] if req._host_resume is not None else ()):
+            carried[h] = carried.get(h, 0) + 1
+        if req._host_state_resume is not None:
+            h = req._host_state_resume[0]
             carried[h] = carried.get(h, 0) + 1
     for handle, n in carried.items():
         if n != 1:
@@ -167,7 +207,7 @@ def _audit_host_tier(engine, prefix, bad) -> None:
 
 def audit_engine(engine) -> AuditReport:
     """One full consistency sweep over the PagePool, the PrefixCache and
-    the engine's block tables."""
+    the engine's page references (block tables, or state checkpoints)."""
     pool, prefix = engine.pool_mgr, engine.prefix
     bad: list[str] = []
     free = list(pool.free)
@@ -180,7 +220,10 @@ def audit_engine(engine) -> AuditReport:
     if pool.refcount[NULL_PAGE] != 0:
         bad.append(f"null page refcount {int(pool.refcount[NULL_PAGE])} != 0")
 
-    table_refs = _gather_kv_refs(engine, free_set, bad)
+    if getattr(engine, "PAGE_LAYOUT", "kv") == "state":
+        table_refs = _gather_state_refs(engine, free_set, bad)
+    else:
+        table_refs = _gather_kv_refs(engine, free_set, bad)
 
     # per-page conservation
     for pid in range(1, pool.n_pages):

@@ -1,6 +1,16 @@
 """PagedEngine: continuous batching over a paged, quantized KV pool
 (counterpart of ``repro/serving/engine.PagedEngine``).
 
+The engine is a layout-independent core (``_init_shared``: the request
+lifecycle, containment, telemetry, the host tier, the pipelined tick)
+and the KV layout (block tables over ``kv`` pages).  The layout hooks —
+``PAGE_LAYOUT``, ``HOST_SWAP_KIND``, ``_alloc_page(kind)``,
+``_pack_decode``, ``_fork_shared_pages`` / ``_fork_sibling``,
+``_carry_resume_state``, ``_release_carried``, ``_fetch_page_arrays`` /
+``_insert_page_arrays``, ``_free_slot``, ``_try_admit`` — are what
+``serving/state_engine.StatePagedEngine`` overrides for the
+state-checkpoint layout.
+
 Each ``step()``: admit queued requests into free slots; advance EVERY
 prefilling slot by one ``prefill_chunk`` in ONE ``prefill_from_pages``
 launch; then ONE fused decode launch over all ``n_slots`` rows.
@@ -292,6 +302,10 @@ class _PagedSlot:
 class PagedEngine:
     """Fixed-slot continuous batching over a shared paged KV pool."""
 
+    # the page layout this engine serves (the audit and the telemetry
+    # dispatch on it); StatePagedEngine's is "state"
+    PAGE_LAYOUT = "kv"
+
     def __init__(self, api, params, n_slots: int, max_len: int, page_size: int = 16,
                  n_pages: Optional[int] = None, eos_id: int = -1, prefix_caching: bool = True,
                  watermark: Optional[int] = None, chunked_prefill: bool = False,
@@ -321,13 +335,55 @@ class PagedEngine:
         ``recompress_after > 0``: the cold-page ladder after that many
         pressured ticks.  ``telemetry``: the registry, histograms,
         timelines and journal (a default-level ``Telemetry`` if None)."""
+        if getattr(api, "paged_decode_fn", None) is None:
+            from repro_torch.models.zoo import UnsupportedModelError
+
+            cfg = getattr(api, "cfg", None)
+            raise UnsupportedModelError(
+                getattr(cfg, "name", "?"), getattr(cfg, "family", "?"),
+                reason="This engine serves kv_paged layouts; state-checkpoint families serve "
+                       "through serving.state_engine.StatePagedEngine.")
+        if chunked_prefill and prefill_chunk % page_size:
+            raise ValueError("prefill_chunk must be a page multiple")
+        self._init_shared(api, params, n_slots, max_len, page_size, eos_id, prefix_caching,
+                          profile_sync, pipeline_depth, cuda_graphs, device, fault_injector,
+                          strict, nan_guard, audit_every, max_queue, shed_stuck, degrade_after,
+                          recover_after, degraded_prefix_target, host_pages, telemetry)
+        self.recompress_after = recompress_after
+        self.chunked = chunked_prefill
+        self.prefill_chunk = prefill_chunk
+        self.maxp = max_len // page_size
+        # decode headroom kept free at admission: every active slot may
+        # need one fresh page on any upcoming tick
+        self.watermark = n_slots if watermark is None else watermark
+        if n_pages is None:
+            n_pages = 1 + n_slots * self.maxp  # null page + worst case
+        self.pool_mgr = PagePool(n_pages)
+        self.pool = api.pool_init(n_pages, page_size)
+        self.slots = [_PagedSlot() for _ in range(n_slots)]
+        self.tables = np.full((n_slots, self.maxp), NULL_PAGE, np.int32)
+        self._packed = np.zeros((n_slots, 3 + self.tables.shape[1]), np.int32)
+        if self._use_graphs:
+            self._graphs = DecodeGraphs(self._decode_step, self._chain_tok, self._count_capture)
+
+    def _init_shared(self, api, params, n_slots, max_len, page_size, eos_id, prefix_caching,
+                     profile_sync, pipeline_depth, cuda_graphs, device, fault_injector, strict,
+                     nan_guard, audit_every, max_queue, shed_stuck, degrade_after, recover_after,
+                     degraded_prefix_target, host_pages, telemetry):
+        """The layout-independent engine state (the reference's
+        ``_init_shared``): the request lifecycle (queue, finished, the
+        lifecycle guard's anchors), the telemetry counters, the containment
+        settings, the host tier and the pipelined tick's machinery.  Shared
+        by PagedEngine (the kv_paged layout) and StatePagedEngine (the
+        state_checkpoint layout); what is layout-specific (the pool, the
+        slot records, block tables, the decode graphs) is the concrete
+        engine's.  ``_use_graphs`` says whether that engine builds its
+        ``DecodeGraphs``."""
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"model built for {api.device}, engine asked for {self.device}")
         if max_len % page_size:
             raise ValueError("page_size must divide max_len")
-        if chunked_prefill and prefill_chunk % page_size:
-            raise ValueError("prefill_chunk must be a page multiple")
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
         if cuda_graphs is None:
@@ -341,19 +397,14 @@ class PagedEngine:
         self.ps = page_size
         self.eos = eos_id
         self.prefix_caching = prefix_caching
-        self.chunked = chunked_prefill
-        self.prefill_chunk = prefill_chunk
-        self.maxp = max_len // page_size
-        # decode headroom kept free at admission: every active slot may
-        # need one fresh page on any upcoming tick
-        self.watermark = n_slots if watermark is None else watermark
-        if n_pages is None:
-            n_pages = 1 + n_slots * self.maxp  # null page + worst case
-        self.pool_mgr = PagePool(n_pages)
+        # the prefix cache's parking lot: shared code (``_available_pages``,
+        # ``_drop_page``, the degraded mode, the audit, the gauges) reads it;
+        # a state-layout engine registers nothing in it
         self.prefix = PrefixCache()
-        self.pool = api.pool_init(n_pages, page_size)
-        self.slots = [_PagedSlot() for _ in range(n_slots)]
-        self.tables = np.full((n_slots, self.maxp), NULL_PAGE, np.int32)
+        # a state-layout engine keeps these; PagedEngine sets its own
+        self.chunked = False
+        self.prefill_chunk = 0
+        self.recompress_after = 0
         self.queue: deque[Request] = deque()
         self.finished: list[Request] = []
         self._next_tok = np.zeros((n_slots,), np.int32)
@@ -374,7 +425,6 @@ class PagedEngine:
         self._cs_swap = {k: reg.counter(k) for k in SWAP_STAT_KEYS}  # registered either way
         self._cs_swap["swap_bytes"].unit = "bytes"
         self.host_tier = pages_lib.HostPageTier(host_pages) if host_pages else None
-        self.recompress_after = recompress_after
         self._rc_pressure = 0  # consecutive pressured ticks (the ladder's clock)
         self._recompress_stage: dict[int, int] = {}  # pid → ladder stage of its bytes
         self.stats = StatsView(self)
@@ -407,7 +457,6 @@ class PagedEngine:
         # id(request) → launch of its final row, for requests whose slot was
         # freed before that row was synced (``_retire_early``)
         self._retiring: dict[int, int] = {}
-        self._packed = np.zeros((n_slots, 3 + self.tables.shape[1]), np.int32)
         # the decode host gap: launch-to-launch wall clock less the sync
         # waits in between
         self._last_launch_end: Optional[float] = None
@@ -418,12 +467,11 @@ class PagedEngine:
         self._staging = [[None, None], [None, None]] if self.device.type == "cuda" else []
         self._trace_base = dict(api.trace_counts)
         self._graphs = None
-        if cuda_graphs:
-            if api.rt.paged_kernel or api.rt.fused_linear:
-                from repro_torch.kernels import build
+        self._use_graphs = bool(cuda_graphs)
+        if cuda_graphs and (api.rt.paged_kernel or api.rt.fused_linear):
+            from repro_torch.kernels import build
 
-                build.library()  # built and loaded before any capture
-            self._graphs = DecodeGraphs(self._decode_step, self._chain_tok, self._count_capture)
+            build.library()  # built and loaded before any capture
 
     # ------------------------------------------------------------ intake
     def submit(self, req: Request):
@@ -647,16 +695,17 @@ class PagedEngine:
         return launch
 
     # ------------------------------------------------------------ pages
-    def _alloc_page(self) -> Optional[int]:
-        """A free page, evicting parked prefix pages LRU-first; None when
-        neither is left (or the ``alloc`` seam fires)."""
+    def _alloc_page(self, kind: str = pages_lib.KIND_KV) -> Optional[int]:
+        """A free page of ``kind``, evicting parked prefix pages LRU-first
+        (a freed pid comes back as any kind: one budget across kinds); None
+        when neither is left (or the ``alloc`` seam fires)."""
         if self.faults is not None and self.faults.alloc_fails(self._tick):
             return None
-        pid = self.pool_mgr.alloc()
+        pid = self.pool_mgr.alloc(kind)
         while pid is None:
             if self._evict_parked_page() is None:
                 return None
-            pid = self.pool_mgr.alloc()
+            pid = self.pool_mgr.alloc(kind)
         return pid
 
     def _evict_parked_page(self) -> Optional[int]:
@@ -680,6 +729,8 @@ class PagedEngine:
         tier = self.host_tier
         if tier is None or h is None:
             return False
+        if self.pool_mgr.kind_of(pid) != self.HOST_SWAP_KIND:
+            return False  # a kind the tier does not hold from this layout
         if self.faults is not None and self.faults.swap_out_fails(self._tick, key=int(pid)):
             self._cs_swap["swap_skips"].inc()
             return False
@@ -699,7 +750,8 @@ class PagedEngine:
         self.telemetry.instant("swap_out", page=int(pid))
         return True
 
-    # the page kind the host tier holds from this engine
+    # ------------------------------------------------- layout hooks
+    # the page kind the host tier holds from this layout
     HOST_SWAP_KIND = pages_lib.KIND_KV
 
     def _fetch_page_arrays(self, pid: int) -> list:
@@ -1163,16 +1215,13 @@ class PagedEngine:
             sibs = (res + free)[: n - 1]
             if len(sibs) != n - 1:
                 raise RuntimeError("fork found too few sibling slots")
-            shared = live_pages(self.tables[i])
+            shared = self._fork_shared_pages(i)
             parent.n_samples, parent.sample_idx = 1, 0
             for s_idx, j in enumerate(sibs, start=1):
                 child = Request(rid=parent.rid, prompt=parent.prompt, max_new=parent.max_new,
                                 sampling=parent.sampling, sample_idx=s_idx)
                 self.telemetry.on_fork_child(parent, child, now)
-                for pid in shared:
-                    self.pool_mgr.ref(pid)  # one reference per sibling and page
-                self.tables[j] = self.tables[i]
-                self.slots[j] = _PagedSlot(req=child, pos=slot.pos, admit_seq=self._admit_counter)
+                self._fork_sibling(i, j, child, shared)
                 self._admit_counter += 1
                 children.append((j, child))
             self._c["forks"].inc()
@@ -1196,6 +1245,18 @@ class PagedEngine:
             child._progress_tick = self._tick
             self.telemetry.on_first_token(child, now)
             self._finish_if_budget_spent(j)
+
+    def _fork_shared_pages(self, i: int) -> list:
+        """The pages slot i's fork siblings share: its block table's."""
+        return live_pages(self.tables[i])
+
+    def _fork_sibling(self, i: int, j: int, child: Request, shared: list) -> None:
+        """Slot j becomes fork sibling ``child`` of slot i: one reference per
+        shared page and sibling, slot i's block table."""
+        for pid in shared:
+            self.pool_mgr.ref(pid)
+        self.tables[j] = self.tables[i]
+        self.slots[j] = _PagedSlot(req=child, pos=self.slots[i].pos, admit_seq=self._admit_counter)
 
     # ------------------------------------------------------- preemption
     def _preempt_one(self, exclude: Optional[int]) -> Optional[int]:
@@ -1417,9 +1478,9 @@ class PagedEngine:
     def _count_capture(self):
         self.api.trace_counts["decode"] += 1
 
-    def _stage(self, pk: np.ndarray) -> torch.Tensor:
+    def _stage(self, pk: np.ndarray, key) -> torch.Tensor:
         """The packed row on the device: through one of two pinned rows in
-        turn and a ``non_blocking`` copy on the card (into the bucket's
+        turn and a ``non_blocking`` copy on the card (into bucket ``key``'s
         static input with graphs on), a copy of it on the CPU."""
         if self.device.type != "cuda":
             return torch.from_numpy(pk.copy())
@@ -1431,26 +1492,27 @@ class PagedEngine:
         slot[1].synchronize()  # the copy that last read this row has landed
         slot[0].numpy()[:] = pk
         if self._graphs is not None:
-            dev = self._graphs.packed_input(pk.shape[1] - 3)
+            dev = self._graphs.packed_input(key, pk.shape[1])
         else:
             dev = torch.empty(pk.shape, dtype=torch.int32, device=self.device)
         dev.copy_(slot[0], non_blocking=True)
         slot[1].record()
         return dev
 
-    def _decode_step(self, packed: torch.Tensor, chain_tok: torch.Tensor):
+    def _decode_step(self, key, packed: torch.Tensor, chain_tok: torch.Tensor):
         """``fused_decode`` on this engine's model and pool (what a graph
-        captures); a probe's rows start over with it."""
+        captures; ``key``, the bucket's table width, is the packed row's);
+        a probe's rows start over with it."""
         if self._probe is not None:
             self._probe.begin()
         return fused_decode(self.api.paged_decode_fn, self.params, self.pool, packed, chain_tok)
 
-    def _run_decode(self, packed: torch.Tensor):
-        """The fused decode step on the staged row: a graph replay (the
-        bucket's first tick captures it) or an eager call."""
+    def _run_decode(self, packed: torch.Tensor, key):
+        """The fused decode step on the staged row of bucket ``key``: a graph
+        replay (the bucket's first tick captures it) or an eager call."""
         if self._graphs is not None:
-            return self._graphs.run(packed.shape[1] - 3)
-        return self._decode_step(packed, self._chain_tok)
+            return self._graphs.run(key)
+        return self._decode_step(key, packed, self._chain_tok)
 
     def _probe_done(self, launch: int, fetched) -> None:
         """A launch's probe rows, ready after its sync: feed the sink, every
@@ -1494,16 +1556,12 @@ class PagedEngine:
             except Exception as exc:
                 rec.faults[i] = exc
 
-    def _launch_decode(self, active: list) -> float:
-        """Enqueue ONE fused decode launch over all n_slots rows and push its
-        record; no host/device sync.  A slot takes its token from the host
-        row when freshly (re)started, else from the device chain of its
-        previous launch — the same value either way.  Rows not in ``active``
-        ride along at length 0 with NULL tables and their stale token,
-        exactly as the reference stages them.  In a step that admitted and
-        prefilled nothing (``_quiet``) the time since the last launch, less
-        the sync waits, is pure host time: the decode host gap.  Returns the
-        launch's start on the host clock."""
+    def _pack_decode(self, active: list):
+        """The decode launch's packed host row and its bucket key: (next
+        token, ``use_host``, kv length, block table) per slot, keyed by the
+        table's width.  Rows not in ``active`` ride along at length 0 with
+        NULL tables and their stale token, exactly as the reference stages
+        them."""
         w = self.tables.shape[1]
         if self._packed.shape[1] != 3 + w:
             self._packed = np.zeros((self.n_slots, 3 + w), np.int32)
@@ -1515,13 +1573,25 @@ class PagedEngine:
         for i in active:
             pk[i, 2] = self.slots[i].pos
             pk[i, 3:] = self.tables[i]
+        return pk, w
+
+    def _launch_decode(self, active: list) -> float:
+        """Enqueue ONE fused decode launch over all n_slots rows
+        (``_pack_decode``) and push its record; no host/device sync.  A slot
+        takes its token from the host row when freshly (re)started, else
+        from the device chain of its previous launch — the same value
+        either way.  In a step that admitted and prefilled nothing
+        (``_quiet``) the time since the last launch, less the sync waits,
+        is pure host time: the decode host gap.  Returns the launch's start
+        on the host clock."""
+        pk, key = self._pack_decode(active)
         sampled = [(i, self.slots[i].req) for i in active if not self.slots[i].req.sampling.greedy]
         if self.faults is not None:
             self.faults.delay_launch(self._tick, key=1)
         t0 = time.perf_counter()
         if self._quiet and self._last_launch_end is not None:
             self.telemetry.decode_gap(max(0.0, t0 - self._last_launch_end - self._gap_sync_s))
-        logits, nxt, fin, margin = self._run_decode(self._stage(pk))
+        logits, nxt, fin, margin = self._run_decode(self._stage(pk, key), key)
         if sampled:  # keyed at launch time, on the same stream
             nxt, margin = self._overlay_samples(logits, nxt, margin, sampled)
         rows = []

@@ -125,6 +125,13 @@ class Request:
     # engine-private: (host-tier handles, cache position) of the pages a
     # preemption carried to host RAM; re-admission streams them back
     _host_resume: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
+    # engine-private, state layout: (checkpoint page, tokens it covers) a
+    # preemption handed over — re-admission restores it and replays the
+    # rest — and (host-tier handle, position) of the live row it snapshot
+    # to host RAM, which re-admission restores with no replay
+    _state_resume: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
+    _host_state_resume: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                            compare=False)
     # the Request a preemption requeued this one as (``cancel`` follows it)
     _resumed_as: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
     # engine-private lifecycle anchors: the submit time on the monotonic

@@ -1,10 +1,15 @@
 """The decode tick as one CUDA graph per bucket (the counterpart of the
-reference's per-bucket jit cache of ``_make_fused_decode``).
+reference's per-bucket jit cache of ``_make_fused_decode`` and
+``_make_fused_state_decode``).
 
-A bucket is ``(n_slots, W)``: W is the block table's width, which grows
-by doubling, so an engine captures a handful of graphs over its life.
-Each bucket owns a static input, the packed ``(n_slots, 3+W)`` int32 row
-(next token, ``use_host`` flag, kv length, block table), which the
+A bucket is the key the engine launches under.  For the KV engine it is
+W, the block table's width, which grows by doubling, so an engine
+captures a handful of graphs over its life; for the state engine it is
+whether the tick checkpoints (two graphs: with and without the scatter
+into the state pages).  Each bucket owns a static input, the packed
+int32 row — ``(n_slots, 3+W)`` (next token, ``use_host`` flag, kv length,
+block table) or ``(n_slots, 5)`` (next token, ``use_host``, position,
+checkpoint page, encoder page) — which the
 engine fills with a ``non_blocking`` copy from pinned memory; the chain
 token vector is a second static input, shared by every bucket and owned
 by the engine.  The outputs — logits, greedy token, finite mask and
@@ -14,8 +19,9 @@ so the engine copies what it keeps before it replays again.
 Rules the graph relies on:
 
 * **The pool never rebinds.**  The graph bakes in the data pointers of
-  the parameters and of every page-pool leaf; page writes, copy-on-write
-  (``pages.copy_page``) and slab scatters (``scatter_prefill_pages``)
+  the parameters and of every page-pool leaf (the live cache tree and
+  the state pool too); page writes, copy-on-write (``pages.copy_page``),
+  slab scatters (``scatter_prefill_pages``) and the state tree ops
   update the leaves in place, and nothing may replace one.
 * **Counters count replays.**  A replay makes no Python call, so a
   kernel wrapper's launch counter (``kernels/build.py``) would miss it.
@@ -59,17 +65,19 @@ from repro_torch.kernels import build
 
 @dataclasses.dataclass
 class _Bucket:
-    packed: torch.Tensor  # static input (n_slots, 3+W) int32
+    key: object  # the engine's bucket key, handed to the step function
+    packed: torch.Tensor  # static input (n_slots, cols) int32
     graph: Optional[torch.cuda.CUDAGraph] = None
     outputs: tuple = ()  # static (logits, nxt, fin, margin)
     deltas: dict = dataclasses.field(default_factory=dict)  # launches per replay
 
 
 class DecodeGraphs:
-    """One captured decode step per block-table width.
+    """One captured decode step per bucket key.
 
-    ``fn(packed, chain_tok)`` is the engine's fused decode step: it reads
-    the static inputs and returns (logits, nxt, fin, margin).
+    ``fn(key, packed, chain_tok)`` is the engine's fused decode step for
+    bucket ``key``: it reads the static inputs and returns (logits, nxt,
+    fin, margin).
     ``chain_tok`` is the engine's (n_slots,) int32 device vector; it is
     only ever written in place."""
 
@@ -83,32 +91,32 @@ class DecodeGraphs:
         self.mem = torch.cuda.graph_pool_handle()
         self.buckets: dict[int, _Bucket] = {}
 
-    def node_count(self, width: int) -> int:
-        """Nodes (kernels and copies) of bucket ``width``'s captured graph
+    def node_count(self, key) -> int:
+        """Nodes (kernels and copies) of bucket ``key``'s captured graph
         (``cuGraphGetNodes`` of libcuda)."""
         import ctypes
 
         n = ctypes.c_size_t(0)
-        handle = ctypes.c_void_p(self.buckets[width].graph.raw_cuda_graph())
+        handle = ctypes.c_void_p(self.buckets[key].graph.raw_cuda_graph())
         rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(handle, None, ctypes.byref(n))
         if rc != 0:
             raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
         return n.value
 
-    def packed_input(self, width: int) -> torch.Tensor:
-        """The static packed row of bucket ``width``, to be filled before
-        ``run(width)``."""
-        b = self.buckets.get(width)
+    def packed_input(self, key, cols: int) -> torch.Tensor:
+        """The static packed row (n_slots, ``cols``) of bucket ``key``, to be
+        filled before ``run(key)``."""
+        b = self.buckets.get(key)
         if b is None:
             n = self.chain_tok.shape[0]
-            b = self.buckets[width] = _Bucket(
-                torch.zeros((n, 3 + width), dtype=torch.int32, device=self.device))
+            b = self.buckets[key] = _Bucket(
+                key, torch.zeros((n, cols), dtype=torch.int32, device=self.device))
         return b.packed
 
-    def run(self, width: int) -> tuple:
-        """The decode step of bucket ``width`` on its static inputs: one
+    def run(self, key) -> tuple:
+        """The decode step of bucket ``key`` on its static inputs: one
         replay, or on the bucket's first tick the warm-up and capture."""
-        b = self.buckets[width]
+        b = self.buckets[key]
         if b.graph is None:
             return self._capture(b)
         b.graph.replay()
@@ -121,7 +129,7 @@ class DecodeGraphs:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            outs = self.fn(b.packed, self.chain_tok)  # this tick, eagerly
+            outs = self.fn(b.key, b.packed, self.chain_tok)  # this tick, eagerly
         cur.wait_stream(side)
         for t in outs:
             t.record_stream(cur)
@@ -129,7 +137,7 @@ class DecodeGraphs:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             with torch.cuda.graph(graph, pool=self.mem):
-                b.outputs = self.fn(b.packed, self.chain_tok)
+                b.outputs = self.fn(b.key, b.packed, self.chain_tok)
         finally:
             after = build.counts()
             for name, c in build.COUNTERS.items():  # a capture launches nothing

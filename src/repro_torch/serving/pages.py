@@ -1,5 +1,6 @@
 """Host-side page allocator, the device-side page moves and the host-RAM
-page tier (counterpart of the KV part of ``repro/serving/pages.py``).
+page tier (counterpart of ``repro/serving/pages.py`` without the enc-dec
+encoder pages).
 
 Page id 0 is the **null page**: block-table padding and idle decode rows
 point at it, so their scatters land in a sacrificial page instead of live
@@ -8,17 +9,30 @@ A page may have several owners (prompts that hit the same prefix chain,
 or the siblings of a forked request); each owner drops exactly its own
 references, and the last ``deref`` decides between the free list and the
 prefix cache's parking lot (``PagePool.revive`` brings a parked page
-back).
+back).  Every page carries a kind (``PAGE_KINDS``): ``kv`` pages of the
+block-table layout, ``state`` pages that checkpoint a recurrent
+family's whole per-sequence state, ``shared_ro`` encoder pages (enc-dec,
+not ported yet) — one budget across kinds.
 
 ``copy_page`` and ``scatter_prefill_pages`` move page bytes on the
 device, in place, on the stacked pool tree (leaves (L, n_pages, ps, ...),
 the per-tensor ``k_sx``/``v_sx`` of rank 1 stay pool-global).
 
+**State pages** (the ``state_*`` tree ops): a state page holds one
+sequence's whole cache tree (whatever the family's ``live_cache_init``
+builds for batch 1) at a page-aligned position.  They are generic over
+the tree: each leaf's batch axis is found by comparing the tree's shapes
+at batch 1 and 3 (``state_batch_axes``, on the ``meta`` device), and a
+leaf whose shape does not depend on the batch is ``REPLICATED``: stored
+once, carried through untouched.  The live tree and the state pool are
+written in place (a captured decode graph keeps their addresses).
+
 **The host tier** (``HostPageTier``, docs/ROBUSTNESS.md "Memory tiers"):
 a bounded host-RAM pool that parked prefix pages and preemption victims'
 pages swap out to and stream back in from, each entry stamped with a
 blake2b digest at ``put`` and verified at ``take``.  ``kv_page_fetch`` /
-``kv_page_insert`` move one page across, and ``kv_page_recompress`` is the
+``kv_page_insert`` (``state_page_fetch`` / ``state_page_insert`` for a
+state page) move one page across, and ``kv_page_recompress`` is the
 cold-page ladder.  On the card every copy goes on the current (compute)
 stream, so the stream orders it against the launches around it:
 
@@ -49,7 +63,11 @@ import torch
 from repro_torch.models.layers import _last_writer
 
 NULL_PAGE = 0
-KIND_KV = "kv"  # the one page kind of this pool (the reference's KIND_KV)
+# typed page kinds (see the module docstring)
+KIND_KV = "kv"
+KIND_STATE = "state"
+KIND_SHARED_RO = "shared_ro"
+PAGE_KINDS = (KIND_KV, KIND_STATE, KIND_SHARED_RO)
 
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
@@ -63,10 +81,11 @@ def live_pages(table_row) -> list[int]:
 
 @dataclasses.dataclass
 class PagePool:
-    """Free list + per-page refcounts; page 0 (null) is never handed out.
-    ``deref`` returns True when a page's count reaches zero; the caller
-    then ``release``s it to the free list or parks it in the prefix
-    cache."""
+    """Free list + per-page refcounts and kinds; page 0 (null) is never
+    handed out.  ``deref`` returns True when a page's count reaches zero;
+    the caller then ``release``s it to the free list or parks it in the
+    prefix cache.  A parked page keeps its kind, so ``revive`` hands back
+    the typed content it parked."""
 
     n_pages: int
 
@@ -75,19 +94,26 @@ class PagePool:
             raise ValueError("need at least the null page + one real page")
         self.free: list[int] = list(range(self.n_pages - 1, 0, -1))
         self.refcount = np.zeros(self.n_pages, np.int32)
+        self.kind: list[str | None] = [None] * self.n_pages  # None: null or free
         self.peak = 0  # high-water mark of used(): only alloc() raises it
 
     def available(self) -> int:
         return len(self.free)
 
-    def alloc(self) -> int | None:
-        """Pop a free page with refcount 1, or None when dry."""
+    def alloc(self, kind: str = KIND_KV) -> int | None:
+        """Pop a free page of ``kind`` with refcount 1, or None when dry."""
+        if kind not in PAGE_KINDS:
+            raise ValueError(f"unknown page kind {kind!r}")
         if not self.free:
             return None
         pid = self.free.pop()
         self.refcount[pid] = 1
+        self.kind[pid] = kind
         self.peak = max(self.peak, self.used())
         return pid
+
+    def kind_of(self, pid: int) -> str | None:
+        return self.kind[pid]
 
     def ref(self, pid: int) -> None:
         if pid == NULL_PAGE or self.refcount[pid] <= 0:
@@ -96,7 +122,7 @@ class PagePool:
 
     def revive(self, pid: int) -> None:
         """Re-activate a parked page (refcount 0, outside the free list)
-        without touching its contents."""
+        without touching its contents or its kind."""
         if pid == NULL_PAGE or self.refcount[pid] != 0 or pid in self.free:
             raise ValueError(f"revive of a page that is not parked: {pid}")
         self.refcount[pid] = 1
@@ -111,15 +137,22 @@ class PagePool:
         """Return a refcount-0 page to the free list."""
         if pid == NULL_PAGE or self.refcount[pid] != 0:
             raise ValueError(f"release of live page {pid}")
+        self.kind[pid] = None
         self.free.append(pid)
 
     def used(self) -> int:
         return self.n_pages - 1 - len(self.free)
 
     def used_by_kind(self) -> dict[str, int]:
-        """Live (allocated or parked) pages per kind, the reference's kinds:
-        the port's pool holds KV pages only."""
-        return {"kv": self.used(), "state": 0, "shared_ro": 0}
+        """Live (allocated or parked) pages per kind; the counts sum to
+        ``used()``."""
+        counts = {k: 0 for k in PAGE_KINDS}
+        in_free = set(self.free)
+        for pid in range(1, self.n_pages):
+            k = self.kind[pid]
+            if k is not None and pid not in in_free:
+                counts[k] += 1
+        return counts
 
 
 # ------------------------------------------------------- device page moves
@@ -152,6 +185,117 @@ def copy_page(pool: dict, src: int, dst: int) -> dict:
         if leaf.ndim >= 3:
             leaf[:, dst] = leaf[:, src]
     return pool
+
+
+# ----------------------------------------------------- state-page tree ops
+REPLICATED = -1  # the batch axis of a leaf whose shape does not depend on the batch
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts in sorted-key order, the order
+    ``jax.tree.leaves`` gives the reference's dicts."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def state_batch_axes(cache_init_fn):
+    """The batch axis of each leaf of ``cache_init_fn(batch)``: the first
+    axis whose extent differs between batch 1 and batch 3, ``REPLICATED``
+    where none does.  Pass a ``cache_init_fn`` that builds on the ``meta``
+    device: nothing is allocated."""
+
+    def axis(a, b):
+        if a.ndim != b.ndim:
+            raise ValueError(f"leaf rank depends on the batch: {tuple(a.shape)} vs {tuple(b.shape)}")
+        for i, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                if (x, y) != (1, 3):
+                    raise ValueError(f"batch axis must scale 1:1 with the batch, got "
+                                     f"{tuple(a.shape)} vs {tuple(b.shape)} at axis {i}")
+                return i
+        return REPLICATED
+
+    return _tree_map(axis, cache_init_fn(1), cache_init_fn(3))
+
+
+def state_pool_init(cache_init_fn, axes, n_pages: int):
+    """The state pool: each leaf of ``cache_init_fn(1)`` with its batch axis
+    moved to the front and widened to ``n_pages`` (the page id indexes it),
+    zeros; a ``REPLICATED`` leaf is stored once, as batch 1 builds it."""
+
+    def build(leaf, ax):
+        if ax == REPLICATED:
+            return leaf
+        shape = (n_pages,) + tuple(leaf.shape[:ax]) + tuple(leaf.shape[ax + 1:])
+        return torch.zeros(shape, dtype=leaf.dtype, device=leaf.device)
+
+    return _tree_map(build, cache_init_fn(1), axes)
+
+
+def state_checkpoint_rows(pool, live, axes, dsts: torch.Tensor):
+    """Scatter every live row's state into its destination page, IN PLACE.
+    ``live``: the engine's batch-B cache tree; ``dsts``: (B,) page id per
+    row.  Rows sent to ``NULL_PAGE`` (idle slots, rows not checkpointing)
+    all land in the sacrificial null page, resolved last row wins as the
+    reference's scatter resolves them (``layers._last_writer``:
+    ``index_put_`` on CUDA promises no order among duplicates)."""
+    ids = dsts.long()
+    win = _last_writer(ids)
+
+    def scat(pl, lv, ax):
+        if ax != REPLICATED:
+            pl[ids] = torch.movedim(lv, ax, 0)[win].to(pl.dtype)
+
+    _tree_map(scat, pool, live, axes)
+    return pool
+
+
+def state_restore_row(live, pool, axes, row: int, pid: int):
+    """Write page ``pid``'s checkpoint into row ``row`` of the live tree, IN
+    PLACE."""
+
+    def rest(lv, pl, ax):
+        if ax != REPLICATED:
+            lv.select(ax, row).copy_(pl[pid].to(lv.dtype))
+
+    _tree_map(rest, live, pool, axes)
+    return live
+
+
+def state_extract_row(live, axes, row: int):
+    """Row ``row`` of the live tree as a batch-1 tree of its own."""
+    return _tree_map(lambda lv, ax: lv if ax == REPLICATED else lv.narrow(ax, row, 1).clone(),
+                     live, axes)
+
+
+def state_insert_row(live, one, axes, row: int):
+    """Write a batch-1 tree into row ``row`` of the live tree, IN PLACE."""
+
+    def ins(lv, on, ax):
+        if ax != REPLICATED:
+            lv.narrow(ax, row, 1).copy_(on.to(lv.dtype))
+
+    _tree_map(ins, live, one, axes)
+    return live
+
+
+def state_copy_row(live, axes, src: int, dst: int):
+    """Duplicate live row ``src`` into row ``dst`` (fork siblings), IN PLACE."""
+
+    def cp(lv, ax):
+        if ax != REPLICATED:
+            lv.select(ax, dst).copy_(lv.select(ax, src))
+
+    _tree_map(cp, live, axes)
+    return live
 
 
 # ------------------------------------------------------------ host page tier
@@ -342,12 +486,11 @@ def _page_leaves(pool: dict) -> list:
     return [pool[n] for n in sorted(pool) if pool[n].ndim >= 3]
 
 
-def kv_page_fetch(pool: dict, pid: int) -> list:
-    """Page ``pid``'s slice of every per-page pool leaf, on the host.  On
-    the card: gathered into one device buffer, copied to page-locked host
-    memory in ONE transfer on the current stream (after every launch in
-    flight), and waited for; the arrays are views of that buffer."""
-    sel = [leaf[:, pid] for leaf in _page_leaves(pool)]
+def _to_host(sel: list) -> list:
+    """Device slices on the host.  On the card: gathered into one device
+    buffer, copied to page-locked host memory in ONE transfer on the
+    current stream (after every launch in flight), and waited for; the
+    arrays are views of that buffer."""
     if sel[0].device.type != "cuda":
         return [a.clone() for a in sel]
     offs, total = _layout(sel)
@@ -362,22 +505,51 @@ def kv_page_fetch(pool: dict, pid: int) -> list:
     return _views(host, offs, sel)
 
 
-def kv_page_insert(pool: dict, arrays, pid: int, flat: torch.Tensor | None = None) -> dict:
-    """Write host arrays back into pool page ``pid`` IN PLACE (``copy_``:
-    the leaves keep their addresses).  ``flat``: the one buffer the arrays
-    are views of, as ``HostPageTier.put`` lays them out; on the card it
-    crosses in ONE transfer on the current stream."""
-    leaves = _page_leaves(pool)
+def _from_host(dsts: list, arrays, flat: torch.Tensor | None) -> None:
+    """Write host arrays into the device slices ``dsts`` IN PLACE
+    (``copy_``: the leaves keep their addresses).  ``flat``: the one buffer
+    the arrays are views of, as ``HostPageTier.put`` lays them out; on the
+    card it crosses in ONE transfer on the current stream."""
     arrays = [a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
               for a in arrays]
-    if flat is not None and leaves[0].device.type == "cuda":
+    if flat is not None and dsts[0].device.type == "cuda":
         offs, total = _layout(arrays)
-        dev = torch.empty(total, dtype=torch.uint8, device=leaves[0].device)
+        dev = torch.empty(total, dtype=torch.uint8, device=dsts[0].device)
         dev.copy_(flat[:total], non_blocking=True)
         arrays = _views(dev, offs, arrays)
-    for leaf, a in zip(leaves, arrays):
-        leaf[:, pid].copy_(a.to(leaf.dtype))
+    for dst, a in zip(dsts, arrays):
+        dst.copy_(a.to(dst.dtype))
+
+
+def kv_page_fetch(pool: dict, pid: int) -> list:
+    """Page ``pid``'s slice of every per-page pool leaf, on the host
+    (``_to_host``: one transfer on the card)."""
+    return _to_host([leaf[:, pid] for leaf in _page_leaves(pool)])
+
+
+def kv_page_insert(pool: dict, arrays, pid: int, flat: torch.Tensor | None = None) -> dict:
+    """Write host arrays back into pool page ``pid`` IN PLACE
+    (``_from_host``)."""
+    _from_host([leaf[:, pid] for leaf in _page_leaves(pool)], arrays, flat)
     return pool
+
+
+def _state_slices(spool, axes, pid: int) -> list:
+    """Page ``pid``'s slice of every per-page state-pool leaf, in the
+    reference's leaf order (``REPLICATED`` leaves are pool-global)."""
+    return [pl[pid] for pl, ax in zip(tree_leaves(spool), tree_leaves(axes)) if ax != REPLICATED]
+
+
+def state_page_fetch(spool, axes, pid: int) -> list:
+    """One state page (a checkpointed row) on the host (``_to_host``)."""
+    return _to_host(_state_slices(spool, axes, pid))
+
+
+def state_page_insert(spool, axes, arrays, pid: int, flat: torch.Tensor | None = None):
+    """Write host arrays back into state page ``pid`` IN PLACE
+    (``_from_host``)."""
+    _from_host(_state_slices(spool, axes, pid), arrays, flat)
+    return spool
 
 
 # ------------------------------------------------- cold-page recompression

@@ -594,3 +594,87 @@ def test_smoke_fake_modes_through_the_quantize_kernel(cuda):
 
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+# ------------------------------------------------ the state-checkpoint layout
+# mamba2_130m's projections: in_proj 768 → 3352 (3352 = 8 · 419, no multiple
+# of 16: the kernel masks the ragged N), out_proj 1536 → 768; M 8 (a decode
+# tick of 8 slots) and 500 (the longest prefill of chip_smoke's workload)
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 768, 3352), (500, 768, 3352), (8, 1536, 768),
+                                   (500, 1536, 768)])
+def test_bcq_linear_at_the_ssm_shapes(cuda, m, k, n):
+    g = torch.Generator().manual_seed(m + n)
+    x = (torch.randn((m, k), generator=g) * 3.0).to(cuda)
+    w = (torch.randn((k, n), generator=g) * k**-0.5).to(cuda)
+    cb = _cb(cuda)
+    pw = ops.packed_operand(layers.pack_weight(w, CFG, cb))
+    s_x = bcq.tensor_scale(x, CFG)
+    got = bcq_linear.bcq_linear(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, s_x, CFG)
+    want = fused_linear_ref(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, CFG, s_x, valid_k=k)
+    assert got.shape == (m, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_state_checkpoint_rows_with_null_duplicates_is_deterministic(cuda):
+    """Every row not checkpointing scatters into the null page: last row
+    wins (``layers._last_writer``), run after run, as on the CPU."""
+    from repro_torch.serving import pages
+
+    g = torch.Generator().manual_seed(0)
+    live = {"ssm_state": torch.randn((2, 64, 3, 4, 8), generator=g),
+            "conv_state": torch.randn((2, 64, 3, 20), generator=g)}
+    axes = {"ssm_state": 1, "conv_state": 1}
+    dsts = torch.zeros(64, dtype=torch.int32)
+    dsts[5], dsts[40] = 3, 7
+
+    def pool(device):
+        return {"ssm_state": torch.zeros((9, 2, 3, 4, 8), device=device),
+                "conv_state": torch.zeros((9, 2, 3, 20), device=device)}
+
+    want = pages.state_checkpoint_rows(pool("cpu"), live, axes, dsts)
+    live_d = {k: v.to(cuda) for k, v in live.items()}
+    for _ in range(5):
+        got = pages.state_checkpoint_rows(pool(cuda), live_d, axes, dsts.to(cuda))
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), k
+    assert torch.equal(want["ssm_state"][0], live["ssm_state"][:, 63])
+
+
+@pytest.mark.cuda
+def test_state_decode_graph_equals_eager(cuda):
+    """The smoke mamba2 through StatePagedEngine on the card: graph depth 2
+    ≡ eager depth 1 bit for bit (tokens, margins, counters, live tree and
+    state pool), a preemption and a fork among them; two graphs (with and
+    without the checkpoint scatter), B1 launched 2 × layers a pass."""
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serving.generate import Request
+    from repro_torch.serving.pages import tree_leaves
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    api, params = build_model(get_smoke("mamba2_130m"), device="cuda")
+    prompts = [np.random.default_rng(i).integers(0, 512, n) for i, n in enumerate((12, 9, 30))]
+    outs = []
+    for graphs, depth in ((False, 1), (True, 2)):
+        build.reset_counts()
+        eng = StatePagedEngine(api, params, n_slots=4, max_len=64, page_size=8,
+                               pipeline_depth=depth, cuda_graphs=graphs)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=17, n_samples=2 if i == 1 else 1))
+        for _ in range(5):
+            eng.step()
+        eng._preempt_one(None)
+        fin, _ = eng.run_to_completion()
+        torch.cuda.synchronize()
+        outs.append(([(r.rid, r.sample_idx, r.out, r.margins) for r in
+                      sorted(fin, key=lambda r: (r.rid, r.sample_idx))],
+                     eng.health()["state_counters"],
+                     [t.cpu() for t in tree_leaves(eng.live) + tree_leaves(eng.spool)],
+                     build.counts().get("bcq_linear", 0)))
+        if graphs:
+            assert sorted(eng._graphs.buckets) == [False, True]
+    (a, ca, ta, na), (b, cb_, tb, nb) = outs
+    assert a == b and ca == cb_ and na == nb
+    assert all(torch.equal(x, y) for x, y in zip(ta, tb))
+    assert na > 0 and na % (2 * 2) == 0  # 2 projections × 2 layers a pass
