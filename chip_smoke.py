@@ -239,6 +239,30 @@ success):
     tok/s, a state page's swap, resume vs recompute, and B1's times at the
     in_proj shape (N 3352).  Its launches join the ``kernels`` line
     (``state``).
+19. the hybrid family: full-width RecurrentGemma-9B (38 layers = 12
+    periods of two RG-LRU blocks and a local-attention block + 2 tail
+    RG-LRU blocks, d 4096, 16 heads of 256 and one KV head, d_ff 12288,
+    window 2048, vocab 256000; seeded random weights drawn and packed to
+    W4 a period at a time on the card, a bcq4 window ring, f32 compute)
+    served in W4A4 through StatePagedEngine on (a) phase 4's settings and
+    prompts and (b) two requests of 2,040 and 2,100 tokens for 40 tokens
+    each: graph depth 2 ≡ eager depth 1 bit for bit on both, B1 launches
+    254 a decode pass and 278 a prefill pass; every B1 launch of (a)'s
+    first step (2,478), a steady and a checkpoint tick (254 each) and
+    (b)'s first step (its prefills at M 2,040 and 2,100) held to plain;
+    kernels vs plain logits of one RG-LRU block at the full width (one
+    local-attention block, 2 layers and the 5-layer stack, 1 period + 2
+    tail blocks, printed: there W4A4 flips swamp the comparison); request
+    7 preempted after 20 ticks and resumed from its checkpoint (every
+    replay launch held at ``packed``; tokens equal at
+    ``quant_mode="none"``, flips counted at ``packed``) and from the host
+    tier (no replay, bit-exact at both); greedy and sampled forks; the
+    reference CI's hot state-layout chaos run (seed 3, rate 0.2, an audit
+    every tick) through ``tools/check_chaos.py``.  Prints the init's
+    seconds and resident GB, the steady tick, the checkpoint's extra
+    device time, prefill tok/s, a state page's swap, resume vs recompute,
+    and B1's times at the 12288 → 4096 shape (M 8 and 2,100).  Its
+    launches join the ``kernels`` line (``hybrid``).
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -699,6 +723,14 @@ def _device_kernels(fn, n=1):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n / 1e3
         seen[e.name] = seen.get(e.name, 0) + 1
     return len(kern) / n, sum(by_name.values()), by_name, seen
+
+
+EVENTS_TIMER = "the whole call between CUDA events (the profiler saw none of its kernels)"
+
+
+def timer(by_name):
+    """What timed a ``kernel_split_ms`` result."""
+    return EVENTS_TIMER if EVENTS_TIMER in by_name else "torch.profiler"
 
 
 def kv_write_split(eng, cb):
@@ -2188,6 +2220,32 @@ def check_telemetry_files(*paths):
         fail(f"phase 14: tools/check_telemetry.py rejects {paths}")
 
 
+def _opt(v, spec=".4f", unit=" ms"):
+    return "not measured" if v is None else f"{v:{spec}}{unit}"
+
+
+def encode_in_route(fn, bound, what, iters=20, tries=3):
+    """B3's device ms a call of ``fn`` (the mean of the profiler events it
+    got), the whole call's device ms and CUDA kernels a call, and what
+    timed them.  A window that saw B3 fewer than ``iters / 2`` times, or
+    below ``bound``, is profiled again, up to ``tries`` times; then B3's
+    share and the kernel count are not measured, and the whole call is
+    timed between CUDA events."""
+    for _ in range(tries):
+        got = _device_kernels(fn, iters)
+        if got is None:
+            continue
+        n_kern, route_dev, by_name, seen = got
+        enc = [nm for nm in by_name if "encode_kernel" in nm]
+        if len(enc) == 1 and seen[enc[0]] >= iters / 2:
+            dev = by_name[enc[0]] * iters / seen[enc[0]]
+            if dev >= bound:
+                return dev, route_dev, n_kern, "torch.profiler"
+    print(f"  ({what}: torch.profiler lost B3's launches in {tries} windows of {iters} calls; "
+          f"the whole call timed between CUDA events)", flush=True)
+    return None, cuda_ms(fn, iters=iters, warmup=1), None, EVENTS_TIMER
+
+
 def time_probe(cb):
     """B3's probe form: ``bcq.encode_stats`` at decode (8 rows: the slots)
     for K 768 (attn_qkv, attn_out, mlp_in) and 3072 (mlp_out) — event-loop
@@ -2204,25 +2262,14 @@ def time_probe(cb):
         plain_ms = cuda_ms(lambda: bcq.encode_stats_plain(x, cb, cfg), iters=10)
         nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
         bound, by = _bound(nbytes, (ENCODE_OPS * m * k, F32_FLOPS))
-        iters = 20
-        for _ in range(3):
-            got = _device_kernels(lambda: bcq.encode_stats(x, cb, cfg), iters)
-            if got is None:
-                continue
-            n_kern, probe_dev, by_name, seen = got
-            enc = [nm for nm in by_name if "encode_kernel" in nm]
-            if len(enc) == 1 and seen[enc[0]] >= iters / 2:
-                dev = by_name[enc[0]] * iters / seen[enc[0]]
-                if dev >= bound:
-                    break
-        else:
-            fail(f"phase 14: torch.profiler lost B3's probe launches at M={m} K={k}")
+        dev, probe_dev, n_kern, how = encode_in_route(lambda: bcq.encode_stats(x, cb, cfg),
+                                                      bound, f"B3's probe at M={m} K={k}")
         out[k] = {"shape": f"M {m} K {k} (decode probe)", "ms": ms, "device_ms": dev,
                   "probe_device_ms": probe_dev, "probe_kernels": n_kern, "plain_ms": plain_ms,
                   "bound_ms": bound, "bound_by": by, "library_ms": None}
         print(f"B3 probe form (encode_stats) at M={m} K={k}: {ms:.4f} ms a probe (event loop), "
-              f"B3's encode {dev:.4f} ms device, the probe's {n_kern:.0f} kernels {probe_dev:.4f} ms "
-              f"device (torch.profiler), plain encode_stats {plain_ms:.4f} ms, B3 bound "
+              f"B3's encode {_opt(dev)} device, the probe's {_opt(n_kern, '.0f', '')} kernels "
+              f"{probe_dev:.4f} ms device ({how}), plain encode_stats {plain_ms:.4f} ms, B3 bound "
               f"{bound:.5f} ms by {by}", flush=True)
     return {**out[768], "at_k3072": out[3072]}
 
@@ -3098,9 +3145,10 @@ def time_stacked(cb, launches, worst_err, smi):
         bound, by = _bound(nbytes, (2 * m * n * k, INT8_OPS), (ENCODE_OPS * m * k, F32_FLOPS))
         split = _linear_split(kernel_split_ms(lambda: bl.bcq_linear_experts(x, *args), bound,
                                               f"bcq_linear_experts at E={e} C={c}"))
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
         print(f"phase 16 stacked fused linear timing at E={e} C={c} K={k} N={n}: kernel "
               f"{ms:.4f} ms (device {split['device_ms']:.4f} ms: encode pass "
-              f"{split['encode_ms'] or 0:.4f}, GEMM {split['gemm_ms'] or 0:.4f}, torch.profiler), "
+              f"{fmt(split['encode_ms'])}, GEMM {fmt(split['gemm_ms'])}, {split['timer']}), "
               f"bound {bound:.5f} ms by {by} ({nbytes} B at {HBM_BPS:.3g} B/s), device/bound "
               f"{split['device_ms'] / bound:.2f}; plain (per-expert fused_linear_ref) "
               f"{plain_ms:.3f} ms; torch.bmm bf16 {library_ms:.4f} ms; {smi}", flush=True)
@@ -3453,25 +3501,14 @@ def time_fake_route(cb):
         plain_ms = cuda_ms(lambda: bcq.fake_quant_plain(x, cb, cfg), iters=5)
         nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
         bound, by = _bound(nbytes, (ENCODE_OPS * m * k, F32_FLOPS))
-        iters, dev = 20, None
-        for _ in range(3):
-            got = _device_kernels(lambda: bcq.fake_quant(x, cb, cfg), iters)
-            if got is None:
-                continue
-            n_kern, route_dev, by_name, seen = got
-            enc = [nm for nm in by_name if "encode_kernel" in nm]
-            if len(enc) == 1 and seen[enc[0]] >= iters / 2:
-                dev = by_name[enc[0]] * iters / seen[enc[0]]
-                if dev >= bound:
-                    break
-        if dev is None:
-            fail(f"phase 17: torch.profiler lost B3's fake-quant launches at M={m} K={k}")
+        dev, route_dev, n_kern, how = encode_in_route(lambda: bcq.fake_quant(x, cb, cfg),
+                                                      bound, f"B3's fake-quant at M={m} K={k}")
         out[m] = {"shape": f"M {m} K {k}", "ms": ms, "device_ms": dev,
                   "route_device_ms": route_dev, "route_kernels": n_kern, "plain_ms": plain_ms,
                   "bound_ms": bound, "bound_by": by, "library_ms": None}
         print(f"B3 fake-quant form (bcq.fake_quant) at M={m} K={k}: {ms:.4f} ms a call (event "
-              f"loop), B3's encode {dev:.4f} ms device, the route's {n_kern:.0f} kernels "
-              f"{route_dev:.4f} ms device (torch.profiler), plain fake_quant_plain "
+              f"loop), B3's encode {_opt(dev)} device, the route's {_opt(n_kern, '.0f', '')} "
+              f"kernels {route_dev:.4f} ms device ({how}), plain fake_quant_plain "
               f"{plain_ms:.4f} ms, B3 bound {bound:.5f} ms by {by}", flush=True)
     return {**out[8], "at_eval": out[EVAL_SEQ * EVAL_BATCH]}
 
@@ -3633,18 +3670,20 @@ def _state_counts_ok(eng, counts, label):
     return want
 
 
-def state_way(api, params, prompts, graphs, depth, n_time=6):
+def state_way(api, params, prompts, graphs, depth, n_time=6, label="phase 18",
+              counts_ok=None):
     """Phase 4's workload through StatePagedEngine in one way: served to
-    completion (outcome, live tree and state pool bytes, B1 launches,
-    captures), then served again by the warmed engine, which must capture
-    nothing new: the first step admits the 8 prompts, ``n_time`` steady
-    ticks (8 rows, none at a page boundary) are timed on the host clock
-    and 3 more profiled."""
+    completion (outcome, live tree and state pool bytes, B1 launches —
+    ``counts_ok(eng, counts, what)`` checks them, phase 18's count by
+    default —, captures), then served again by the warmed engine, which
+    must capture nothing new: the first step admits the 8 prompts,
+    ``n_time`` steady ticks (8 rows, none at a page boundary) are timed on
+    the host clock and 3 more profiled."""
     import torch
 
     from repro_torch.kernels import build
 
-    label = _way_name(graphs, depth)
+    phase, label = label, _way_name(graphs, depth)
     eng = state_engine(api, params, graphs, depth)
     _state_submit(eng, prompts)
     torch.cuda.synchronize()
@@ -3654,16 +3693,16 @@ def state_way(api, params, prompts, graphs, depth, n_time=6):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = build.counts()
-    _state_counts_ok(eng, counts, label)
+    (counts_ok or _state_counts_ok)(eng, counts, label)
     out, bits = _state_outcome(eng), _state_bits(eng)
     captures = eng.trace_counts()["decode"]
     if graphs and captures != 2:
-        fail(f"phase 18 [{label}]: {captures} decode captures, expected 2 (with and without "
+        fail(f"{phase} [{label}]: {captures} decode captures, expected 2 (with and without "
              "the checkpoint scatter)")
     # tick t ≥ 2 launches a row at position plen + t - 1: a checkpoint tick
     # where that is 15 mod 16; the timed and profiled ticks have none
     if any((len(p) + k) % STATE_PS == STATE_PS - 1 for p in prompts for k in range(1, n_time + 4)):
-        fail(f"phase 18 [{label}]: a timed steady tick would checkpoint")
+        fail(f"{phase} [{label}]: a timed steady tick would checkpoint")
     _state_submit(eng, prompts)
     eng.step()  # eight prefills and the first decode launch
     torch.cuda.synchronize()
@@ -3672,13 +3711,13 @@ def state_way(api, params, prompts, graphs, depth, n_time=6):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_time * 1e3
-    prof = _steady_profile(eng, "phase 18", len(prompts))
+    prof = _steady_profile(eng, phase, len(prompts))
     eng.run_to_completion()
     torch.cuda.synchronize()
     if eng.trace_counts()["decode"] != captures:
-        fail(f"phase 18 [{label}]: the warmed engine captured again")
+        fail(f"{phase} [{label}]: the warmed engine captured again")
     st = eng.stats
-    print(f"phase 18 [{label}] phase 4's workload: run {run_s:.2f} s ({out[1]['decode_ticks']} "
+    print(f"{phase} [{label}] phase 4's workload: run {run_s:.2f} s ({out[1]['decode_ticks']} "
           f"decode ticks, {out[1]['prefill_launches']} prefills, "
           f"{out[2]['state_checkpoints']} checkpoints); steady tick (8 rows, {n_time} ticks): "
           f"wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}", flush=True)
@@ -3762,9 +3801,9 @@ def state_launch_checks(api, params, prompts):
     return n, worst
 
 
-def state_logits(cfg, prompts):
-    """Kernels vs plain logits on identical inputs at ``STATE_LOGIT_LAYERS``
-    layers of the full width (seeded weights packed to W4) — the
+def state_logits(cfg, prompts, n_layers=STATE_LOGIT_LAYERS, label="phase 18", hold=True):
+    """Kernels vs plain logits on identical inputs at ``n_layers`` layers
+    of the full width (seeded weights packed to W4) — the
     exact-length prefill of the shortest and the longest prompt, then one
     8-row decode launch over the live tree — and the noise floor: the
     plain path against itself with the embedding scaled by 1 + 2^-22 (one
@@ -3772,18 +3811,21 @@ def state_logits(cfg, prompts):
     through the layers (the floor is then as large as the logits, and the
     comparison says nothing), so the floor must stay below
     ``STATE_FLOOR_FRAC`` of max|logit|, and the kernel path within
-    ``max(2 · floor, STATE_LOGIT_RTOL · max|logit|)`` of the plain path.
-    Returns the two comparisons."""
+    ``max(2 · floor, STATE_LOGIT_RTOL · max|logit|)`` of the plain path;
+    ``hold=False`` prints the two comparisons and holds neither.  Returns
+    the two comparisons."""
     import dataclasses
 
     import torch
 
     from repro_torch.launch.serve import build_model
     from repro_torch.models import zoo
+    from repro_torch.serving.pages import state_batch_axes, state_insert_row
 
-    cut = dataclasses.replace(cfg, n_layers=STATE_LOGIT_LAYERS)
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
     api_k, params = build_model(cut, "bcq4", True, "cuda", 0, True)
     api_p = zoo.build(cut, dataclasses.replace(api_k.rt, fused_linear=False), device="cuda")
+    axes = state_batch_axes(lambda b: api_k.live_cache_init(b, device="meta"))
 
     def logits(api, p):
         rows, dev = [], api.device
@@ -3791,8 +3833,7 @@ def state_logits(cfg, prompts):
         for i, pr in enumerate(prompts):
             tokens = torch.tensor(pr, dtype=torch.int32, device=dev)[None]
             lg, one = api.prefill_fn(p, {"tokens": tokens}, STATE_MAX_LEN)
-            for n in live:
-                live[n][:, i:i + 1].copy_(one[n])
+            state_insert_row(live, one, axes, i)
             if i in (0, len(prompts) - 1):
                 rows.append(lg[0, -1].float())
         tok = torch.tensor([[int(pr[-1])] for pr in prompts], dtype=torch.int32, device=dev)
@@ -3800,11 +3841,13 @@ def state_logits(cfg, prompts):
         ld, _ = api.state_decode_fn(p, live, tok, pos)
         return torch.cat([torch.stack(rows), ld[:, -1].float()])
 
-    tag = f"phase 18 at {STATE_LOGIT_LAYERS} layers"
+    tag = f"{label} at {n_layers} layers"
     kp = _compare(f"{tag} kernels vs plain, W4A4", logits(api_k, params), logits(api_p, params))
     nudged = dict(params, embed={"kernel": params["embed"]["kernel"] * (1 + 2**-22)})
     floor = _compare(f"{tag} plain vs plain with a 1-ulp embedding nudge (noise floor)",
                      logits(api_p, nudged), logits(api_p, params))
+    if not hold:
+        return kp, floor
     if floor["max"] > STATE_FLOOR_FRAC * floor["scale"]:
         fail(f"{tag}: the noise floor {floor['max']:.3e} exceeds {STATE_FLOOR_FRAC} of "
              f"max|logit| {floor['scale']:.3f}: the kernels vs plain comparison would say nothing")
@@ -3837,7 +3880,7 @@ def _timed_admits(eng):
     return log
 
 
-def state_preempted(api, params, prompts, host_pages=0, graphs=False, depth=1):
+def state_preempted(api, params, prompts, host_pages=0, graphs=False, depth=1, label="phase 18"):
     """Phase 4's workload with request 7 (the youngest, 500 prompt tokens)
     preempted after ``STATE_PREEMPT_AT`` ticks and resumed.  Returns (the
     engine, its outcome, the resumed request's admission ms; a held run's
@@ -3849,17 +3892,17 @@ def state_preempted(api, params, prompts, host_pages=0, graphs=False, depth=1):
     for _ in range(STATE_PREEMPT_AT):
         eng.step()
     if eng._preempt_one(None) != len(prompts) - 1:
-        fail("phase 18: the preemption did not take request 7")
+        fail(f"{label}: the preemption did not take request 7")
     log = _timed_admits(eng)
     eng.run_to_completion()
     torch.cuda.synchronize()
     admits = [ms for rid, ms in log if rid == len(prompts) - 1]
     if len(admits) != 1:
-        fail(f"phase 18: request 7 readmitted {len(admits)} times")
+        fail(f"{label}: request 7 readmitted {len(admits)} times")
     return eng, _state_outcome(eng), admits[0]
 
 
-def time_state_swap(eng):
+def time_state_swap(eng, label="phase 18"):
     """One state page out to the host tier and back, timed: the device
     gather + one transfer + wait (fetch), the host copy + blake2b digest
     (put), the digest check (take), one transfer + the in-place scatter
@@ -3888,7 +3931,7 @@ def time_state_swap(eng):
             ms[k].append((b - a) * 1e3)
     back = eng._fetch_page_arrays(pid)
     if not all(torch.equal(a, b) for a, b in zip(arrays, back)):
-        fail("phase 18: a state page came back from the host tier with other bytes")
+        fail(f"{label}: a state page came back from the host tier with other bytes")
     nbytes = sum(a.numel() * a.element_size() for a in arrays)
     return {k: sum(v) / len(v) for k, v in ms.items()} | {"bytes": nbytes}
 
@@ -4118,6 +4161,433 @@ def phase_state(cb, smi):
     return launches, entry, worst
 
 
+# ------------------------------------------------------------------ phase 19
+HYB_ARCH = "recurrentgemma_9b"
+# B1 launches a block and pass: a recurrent block's proj_x, proj_gate,
+# gate_a, gate_x, proj_out and MLP wi, wo; an attention block's wq, wk,
+# wv, wo and MLP at decode, and wk, wv again to fill the ring at prefill
+HYB_REC, HYB_ATTN_DECODE, HYB_ATTN_PREFILL = 7, 6, 8
+HYB_RING_LENS = (2040, 2100)  # (b): past the 2048-token window in decode, and at prefill
+HYB_RING_NEW = 40
+HYB_RING_MAX_LEN = 2144
+# kernels vs plain logits: one RG-LRU block at the full width is held.  A
+# local-attention block alone, 2 layers and the 5-layer stack (1 period + 2
+# tail blocks, the full config's shape of stack) are printed, not held:
+# there a 1-ulp nudge of the embedding, or B1's f32 sum order (1e-5 of a
+# launch's output), flips W4A4 encodings downstream, and the comparison
+# says nothing
+HYB_LOGIT_LAYERS = 5
+HYB_CHAOS = {"seed": 3, "rate": 0.2, "audit_every": 1, "deadline_s": 30.0}  # the CI hot run
+HYB_CHAOS_GEN = 8
+
+
+def _hyb_per_pass(cfg, prefill: bool) -> int:
+    """B1 launches of one pass of the layer stack (a prompt of more than
+    one token takes the attention blocks' prefill branch)."""
+    n_attn = cfg.hybrid.pattern.count("attn") * (cfg.n_layers // len(cfg.hybrid.pattern))
+    return HYB_REC * (cfg.n_layers - n_attn) + (
+        HYB_ATTN_PREFILL if prefill else HYB_ATTN_DECODE) * n_attn
+
+
+def _hybrid_counts_ok(eng, counts, label):
+    """B1's launches of a run: a prefill pass per exact-length prefill, a
+    decode pass per tick and per replayed token."""
+    cfg = eng.api.cfg
+    st, cs = eng.stats, eng.health()["state_counters"]
+    prefills = st["prefill_launches"] - cs["state_restores"]
+    passes = st["decode_ticks"] + cs["replay_tokens"]
+    want = _hyb_per_pass(cfg, True) * prefills + _hyb_per_pass(cfg, False) * passes
+    if counts.get("bcq_linear", 0) != want:
+        fail(f"phase 19 [{label}]: B1 launched {counts.get('bcq_linear', 0)} times, expected "
+             f"{want} ({prefills} prefill passes × {_hyb_per_pass(cfg, True)}, {passes} decode "
+             f"passes × {_hyb_per_pass(cfg, False)})")
+    return want
+
+
+def ring_engine(api, params, graphs, depth):
+    """Workload (b)'s engine: a slot a request, page 16, max_len 2144."""
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    return StatePagedEngine(api, params, n_slots=len(HYB_RING_LENS), max_len=HYB_RING_MAX_LEN,
+                            page_size=STATE_PS, device="cuda", pipeline_depth=depth,
+                            cuda_graphs=graphs)
+
+
+def ring_way(api, params, prompts, graphs, depth):
+    """Workload (b) served to completion in one way: outcome, live tree and
+    state pool bytes, B1 launches, prefill tok/s."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    label = f"ring run, {_way_name(graphs, depth)}"
+    eng = ring_engine(api, params, graphs, depth)
+    _state_submit(eng, prompts, max_new=HYB_RING_NEW - 1)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = build.counts()
+    _hybrid_counts_ok(eng, counts, label)
+    out = _state_outcome(eng)
+    if any(len(v[0]) != HYB_RING_NEW for v in out[0].values()):
+        fail(f"phase 19 [{label}]: {[len(v[0]) for v in out[0].values()]} tokens, expected "
+             f"{HYB_RING_NEW} each")
+    st = eng.stats
+    return {"out": out, "bits": _state_bits(eng), "counts": counts, "run_s": run_s,
+            "prefill_tok_s": st["prefill_tokens"] / max(st["t_prefill_s"], 1e-9),
+            "ticks": st["decode_ticks"]}
+
+
+def hybrid_launch_checks(api, params, prompts, ring_prompts):
+    """Every B1 launch of (a)'s first engine step (8 exact-length prefills
+    and a decode tick), of a steady tick without a checkpoint, of one with
+    its scatter, and of (b)'s first step (the prefills at M 2040 and 2100,
+    a 2-row tick) held to plain on its own inputs (eager depth 1).  The
+    counts and the new shapes are asserted.  Returns (launches held,
+    worst max|err|, the shapes held)."""
+    cfg = api.cfg
+    pre, dec = _hyb_per_pass(cfg, True), _hyb_per_pass(cfg, False)
+    eng = state_engine(api, params, False, 1)
+    _state_submit(eng, prompts)
+    _, first, e1 = hold_b1(eng.step, "phase 19 first step")
+    _, steady, e2 = hold_b1(eng.step, "phase 19 steady tick")
+    while not any((s.pos + 1) % STATE_PS == 0 for s in eng.slots if s.req is not None):
+        eng.step()
+    ck0 = eng.health()["state_counters"]["state_checkpoints"]
+    _, ckpt, e3 = hold_b1(eng.step, "phase 19 checkpoint tick")
+    n_ck = eng.health()["state_counters"]["state_checkpoints"] - ck0
+    eng.run_to_completion()
+    del eng
+    ring = ring_engine(api, params, False, 1)
+    _state_submit(ring, ring_prompts, max_new=HYB_RING_NEW - 1)
+    _, rfirst, e4 = hold_b1(ring.step, "phase 19 ring run's first step")
+    ring.run_to_completion()
+    del ring
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.head_dim
+    for name, got, want in (("first step", first, len(prompts) * pre + dec),
+                            ("steady tick", steady, dec), ("checkpoint tick", ckpt, dec),
+                            ("ring run's first step", rfirst, len(ring_prompts) * pre + dec)):
+        if sum(got.values()) != want:
+            fail(f"phase 19: {sum(got.values())} B1 launches held in the {name}, expected {want}")
+    need = {"steady tick": (steady, [(8, f, d), (8, d, kv), (8, d, f), (8, d, d)]),
+            "first step": (first, [(max(PROMPT_LENS), f, d), (max(PROMPT_LENS), d, kv)]),
+            "ring run's first step": (rfirst, [(n, f, d) for n in HYB_RING_LENS]
+                                      + [(n, d, kv) for n in HYB_RING_LENS])}
+    for name, (got, keys) in need.items():
+        if not all(k in got for k in keys):
+            fail(f"phase 19: the {name}'s held shapes {sorted(got)} miss {keys}")
+    worst = max(e1, e2, e3, e4)
+    n = sum(sum(x.values()) for x in (first, steady, ckpt, rfirst))
+    shapes = sorted(set(first) | set(steady) | set(rfirst))
+    print(f"phase 19 every B1 launch held to plain on its own inputs: (a)'s first step (8 "
+          f"prefills of 48–500 tokens × {pre} + a decode tick × {dec} = {sum(first.values())}), "
+          f"a steady tick ({sum(steady.values())}), a checkpoint tick ({sum(ckpt.values())}, "
+          f"{n_ck} rows checkpointing), (b)'s first step (prefills of {HYB_RING_LENS} tokens "
+          f"+ a 2-row tick = {sum(rfirst.values())}): {n} launches at {len(shapes)} (M, K, N) "
+          f"shapes, K up to {max(k for _, k, _ in shapes)}; max|err| {worst:.3e} "
+          f"(rtol={LINEAR_TOL}, atol={LINEAR_TOL}·max|plain|)", flush=True)
+    return n, worst, shapes
+
+
+def hybrid_replay_held(api, params, prompts, timed):
+    """The packed checkpoint resume of ``state_preempted`` again (graph
+    depth 2), with every B1 launch of the batch-1 replay (eager, M 1, a
+    decode pass a replayed token) held to plain on its own inputs.  The
+    run's outcome must equal the unheld run's ``timed`` bit for bit.
+    Returns (launches held, worst max|err|)."""
+    import torch
+
+    eng = state_engine(api, params, True, 2)
+    _state_submit(eng, prompts)
+    for _ in range(STATE_PREEMPT_AT):
+        eng.step()
+    if eng._preempt_one(None) != len(prompts) - 1:
+        fail("phase 19: the preemption did not take request 7")
+    real, held_log = eng._replay, []
+
+    def replay(*a):
+        got, shapes, err = hold_b1(lambda: real(*a), "phase 19 [packed] checkpoint replay")
+        held_log.append((shapes, err))
+        return got
+
+    eng._replay = replay
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    out = _state_outcome(eng)
+    replayed = out[2]["replay_tokens"]
+    if len(held_log) != 1:
+        fail(f"phase 19 [packed]: {len(held_log)} replays held, expected 1")
+    shapes, err = held_log[0]
+    if set(k[0] for k in shapes) != {1} or sum(shapes.values()) != \
+            _hyb_per_pass(api.cfg, False) * replayed:
+        fail(f"phase 19 [packed] checkpoint replay: held {shapes}, expected "
+             f"{_hyb_per_pass(api.cfg, False)} × {replayed} launches at M 1")
+    if out != timed:
+        fail("phase 19 [packed] checkpoint resume: the held run's outcome differs from the "
+             "unheld run's")
+    eng.audit(strict=True)
+    return sum(shapes.values()), err
+
+
+def _hybrid_resumes(mode, base, ck_out, ck_ms, ho_out, ho_ms):
+    """Check and print request 7's two resumes against the never-preempted
+    run ``base``: the checkpoint one replayed 1..page_size tokens (its
+    tokens equal at ``none``, the flips counted at ``packed``), the host
+    tier's none and bit-exact."""
+    cs, sw = ck_out[2], ho_out[3]
+    if not (0 < cs["replay_tokens"] <= STATE_PS and cs["state_restores"] == 1):
+        fail(f"phase 19 [{mode}]: checkpoint resume replayed {cs['replay_tokens']} tokens "
+             f"({cs['state_restores']} restores), expected 1..{STATE_PS}")
+    if ho_out[2]["replay_tokens"] or sw["verified_swapins"] != 1 or sw["swap_outs"] != 1:
+        fail(f"phase 19 [{mode}]: host resume {ho_out[2]}, swap {sw}")
+    if ho_out[0] != base:
+        fail(f"phase 19 [{mode}]: the host-tier resume is not bit-exact to the never-preempted "
+             "run")
+    toks = {k: v[0] for k, v in ck_out[0].items()}
+    flips = sum(x != y for k in base for x, y in zip(base[k][0], toks[k]))
+    if mode == "none" and toks != {k: v[0] for k, v in base.items()}:
+        fail("phase 19 [none]: the checkpoint resume's tokens differ from the never-preempted "
+             "run's")
+    print(f"phase 19 [{mode}] request 7 preempted after {STATE_PREEMPT_AT} ticks: checkpoint "
+          f"resume replayed {cs['replay_tokens']} tokens ({cs['replay_tokens'] - 1} state tokens "
+          f"recomputed past the checkpoint, ≤ {STATE_PS - 1}) in {ck_ms:.2f} ms, tokens vs the "
+          f"never-preempted run: {flips} of {sum(len(v[0]) for v in base.values())} differ; "
+          f"host-tier resume 0 replayed in {ho_ms:.2f} ms (swap {sw['swap_bytes']} B out and in), "
+          "bit-exact; audits clean", flush=True)
+
+
+def phase_hybrid(cb, smi):
+    """Phase 19: full-width RecurrentGemma-9B (``recurrentgemma_9b``: 38
+    layers = 12 periods (rec, rec, attn) + 2 tail rec blocks, d 4096, 16
+    heads of 256 and 1 KV head, d_ff 12288, lru_width 4096, window 2048,
+    vocab 256000, untied; seeded random weights drawn and packed to W4 a
+    period and a tail block at a time on the card, a bcq4 ring, f32
+    compute) served in W4A4 through StatePagedEngine: (a) phase 4's
+    settings and prompts, (b) two requests of 2,040 and 2,100 tokens for
+    40 tokens each (max_len 2,144: past the window in decode, and at
+    prefill); graph depth 2 ≡ eager depth 1 bit for bit on both; every B1
+    launch of (a)'s first step, a steady tick, a checkpoint tick and (b)'s
+    first step held to plain, counts and shapes asserted; kernels vs plain
+    logits of one RG-LRU block at the full width (its noise floor under
+    1e-3 of max|logit|; one local-attention block, 2 layers and the 5-layer
+    stack printed, not held); request 7 of (a) preempted after 20 ticks and resumed from
+    its checkpoint (≤ 16 tokens replayed, every replay launch held at
+    ``packed``; tokens equal at ``quant_mode="none"``, flips counted at
+    ``packed``) and from the host tier (no replay, bit-exact at both);
+    greedy and sampled forks; the reference CI's hot state-layout chaos
+    run through ``tools/check_chaos.py``.  Prints the init, the steady
+    tick, the checkpoint's extra device time, prefill tok/s, a state
+    page's swap and the resume times.  Returns (the phase's B1 launches,
+    its ``kernels`` entry fields, worst launch error)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serving.generate import Request, SamplingParams
+    from repro_torch.serving.pages import REPLICATED, tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(HYB_ARCH)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
+    ring_prompts = [rng.integers(0, cfg.vocab, n) for n in HYB_RING_LENS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    api, params = build_model(cfg, "bcq4", True, "cuda", 0, True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = (torch.cuda.memory_allocated() - before) / 1e9
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    probe = state_engine(api, params, False, 1)
+    page_b = sum(t[0].numel() * t.element_size() for t, ax in
+                 zip(tree_leaves(probe.spool), tree_leaves(probe.axes)) if ax != REPLICATED)
+    period = len(cfg.hybrid.pattern)
+    print(f"phase 19 {cfg.name}: {cfg.n_layers} layers ({cfg.n_layers // period} periods "
+          f"{', '.join(cfg.hybrid.pattern)} + {cfg.n_layers % period} tail), "
+          f"d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, {cfg.n_kv_heads} KV head, "
+          f"d_ff {cfg.d_ff}, window {cfg.hybrid.window}, vocab {cfg.vocab}: drawn and packed a "
+          f"period at a time in {init_s:.1f} s; the model {resident:.2f} GB resident (peak "
+          f"{peak:.2f} GB during the init, over what earlier phases hold); a state page {page_b} B ({page_b / 1e6:.2f} MB), "
+          f"{probe.pool_mgr.n_pages} pages", flush=True)
+    del probe
+    launches = 0
+
+    # the production tick on (a) and (b): graph depth 2 ≡ eager depth 1
+    ways = [(_way_name(g, d), state_way(api, params, prompts, g, d, label="phase 19",
+                                        counts_ok=_hybrid_counts_ok))
+            for g, d in ((True, 2), (False, 1))]
+    (n_g, g2), (n_e, e1) = ways
+    for part in ("out", "counts"):
+        if g2[part] != e1[part]:
+            fail(f"phase 19: {n_g} and {n_e} differ in their {part}")
+    if not all(torch.equal(a, b) for a, b in zip(g2["bits"], e1["bits"])):
+        fail(f"phase 19: {n_g} and {n_e} leave different live-tree or state-pool bytes")
+    launches += 2 * g2["counts"]["bcq_linear"]
+    eng = g2["engine"]
+    by = _device_kernels(lambda: eng._graphs.run(False), 3)
+    by_ck = _device_kernels(lambda: eng._graphs.run(True), 3)
+    b1 = lambda got: None if got is None else sum(  # noqa: E731
+        ms for nm, ms in got[2].items() if "encode_kernel" in nm or "gemm_" in nm)
+    replay_ms = None if by is None else by[1]
+    extra = None if by is None or by_ck is None else by_ck[1] - by[1]
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"  # noqa: E731
+    dec = _hyb_per_pass(cfg, False)
+    print(f"phase 19 (a): graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins, launch "
+          f"indices, counters, live tree and state pool bytes, {g2['counts'].get('bcq_linear', 0)} "
+          f"B1 launches: {_hyb_per_pass(cfg, True)} a prefill pass, {dec} a decode pass); decode "
+          f"graph nodes {g2['nodes']} (False: no checkpoint, True: with the scatter); steady tick "
+          f"wall {g2['wall']:.2f} ms at graph depth 2, {e1['wall']:.2f} ms eager depth 1; one "
+          f"graph replay's device time {fmt(replay_ms)}, of it B1 ({dec} launches) {fmt(b1(by))}; "
+          f"the checkpoint variant's extra device time {fmt(extra)}; prefill "
+          f"{g2['prefill_tok_s']:.0f} tok/s (exact-length, one prompt a launch); {smi}",
+          flush=True)
+    for _, w in ways:
+        w.pop("engine")
+    del eng, ways
+    rings = [(_way_name(g, d), ring_way(api, params, ring_prompts, g, d))
+             for g, d in ((True, 2), (False, 1))]
+    (_, rg), (_, re_) = rings
+    if rg["out"] != re_["out"] or rg["counts"] != re_["counts"] or not all(
+            torch.equal(a, b) for a, b in zip(rg["bits"], re_["bits"])):
+        fail("phase 19 (b): graph depth 2 and eager depth 1 differ")
+    launches += 2 * rg["counts"]["bcq_linear"]
+    print(f"phase 19 (b) prompts of {HYB_RING_LENS} tokens, {HYB_RING_NEW} tokens each (the "
+          f"first row crosses the {cfg.hybrid.window}-token window while it decodes, the second "
+          f"keeps its last {cfg.hybrid.window} tokens at prefill): graph depth 2 ≡ eager depth "
+          f"1 bit for bit ({rg['counts']['bcq_linear']} B1 launches, {rg['ticks']} ticks); run "
+          f"{rg['run_s']:.2f} s graph depth 2, {re_['run_s']:.2f} s eager; prefill "
+          f"{rg['prefill_tok_s']:.0f} tok/s", flush=True)
+    del rings
+
+    n_held, worst, shapes = hybrid_launch_checks(api, params, prompts, ring_prompts)
+
+    # preemption and resume at packed: from the checkpoint, then from the host tier
+    # (the production tick, graph depth 2: phase 19 held it to eager depth 1 above)
+    base = state_engine(api, params, True, 2)
+    _state_submit(base, prompts)
+    base.run_to_completion()
+    base_out = _state_outcome(base)[0]
+    del base
+    build.reset_counts()
+    ck, ck_out, ck_ms = state_preempted(api, params, prompts, graphs=True, depth=2,
+                                        label="phase 19")
+    launches += build.counts().get("bcq_linear", 0)
+    build.reset_counts()
+    ho, ho_out, ho_ms = state_preempted(api, params, prompts, host_pages=STATE_HOST_PAGES,
+                                        graphs=True, depth=2, label="phase 19")
+    launches += build.counts().get("bcq_linear", 0)
+    build.reset_counts()
+    n_rep, err_rep = hybrid_replay_held(api, params, prompts, ck_out)
+    launches += build.counts().get("bcq_linear", 0)
+    worst = max(worst, err_rep)
+    resumed = [r for r in ck.finished if r.rid == len(prompts) - 1][0].prompt
+    recompute = state_engine(api, params, False, 1)
+    log = _timed_admits(recompute)
+    recompute.submit(Request(rid=0, prompt=resumed, max_new=0))
+    recompute.run_to_completion()
+    rec_ms = log[0][1]
+    swap = time_state_swap(ck, "phase 19")
+    for e in (ck, ho):
+        e.audit(strict=True)
+    del ck, ho, recompute
+    _hybrid_resumes("packed", base_out, ck_out, ck_ms, ho_out, ho_ms)
+    print(f"phase 19 [packed] checkpoint replay again with its {n_rep} B1 launches (M 1, "
+          f"{dec} a replayed token) held to plain on their own inputs: max|err| {err_rep:.3e}, "
+          f"outcome bit-equal to the unheld run; full recompute of the {len(resumed)}-token "
+          f"resumed prompt {rec_ms:.2f} ms vs checkpoint {ck_ms:.2f} ms vs host tier "
+          f"{ho_ms:.2f} ms (unheld runs)", flush=True)
+    print(f"phase 19 one state page ({swap['bytes']} B) through the host tier: fetch (device "
+          f"gather + one transfer + wait) {swap['fetch']:.3f} ms, put (host copy + blake2b) "
+          f"{swap['put']:.3f} ms, take (blake2b check) {swap['take']:.3f} ms, insert (one "
+          f"transfer + in-place scatter, synced) {swap['insert']:.3f} ms; PCIe Gen5 x16 bound "
+          f"{swap['bytes'] / PCIE_BPS * 1e3:.3f} ms each way", flush=True)
+
+    # forks: greedy identical, sampled reproducible
+    build.reset_counts()
+    sp = SamplingParams(temperature=0.8, top_k=40, seed=1234)
+    outs = []
+    for _ in range(2):
+        e = state_engine(api, params, True, 2)
+        e.submit(Request(rid=0, prompt=prompts[0], max_new=GEN - 1, n_samples=2))
+        e.submit(Request(rid=1, prompt=prompts[1], max_new=GEN - 1, n_samples=3, sampling=sp))
+        e.run_to_completion()
+        e.audit(strict=True)
+        outs.append({(r.rid, r.sample_idx): r.out for r in e.finished})
+        del e
+    launches += build.counts().get("bcq_linear", 0)
+    if outs[0] != outs[1] or outs[0][(0, 0)] != outs[0][(0, 1)] \
+            or len({tuple(outs[0][(1, k)]) for k in range(3)}) < 2:
+        fail(f"phase 19: forks: greedy siblings equal {outs[0][(0, 0)] == outs[0][(0, 1)]}, "
+             f"sampled reproducible {outs[0] == outs[1]}")
+    print("phase 19 forks (graph depth 2): greedy siblings identical, a sampled fork of 3 "
+          "reproducible and divergent", flush=True)
+
+    # the reference CI's hot state-layout chaos run, at graph depth 2
+    path = os.path.join(ROOT, "build", "chaos_hybrid.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    build.reset_counts()
+    rep = serve.run_chaos(api, params, prompts[:4], HYB_CHAOS_GEN, page_size=STATE_PS,
+                          report_path=path, arch=cfg.name, **HYB_CHAOS)
+    launches += build.counts().get("bcq_linear", 0)
+    check = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "check_chaos.py"), path],
+                           capture_output=True, text=True, timeout=120)
+    print(f"phase 19 hot chaos run (seed {HYB_CHAOS['seed']}, rate {HYB_CHAOS['rate']}, audit "
+          f"every tick, deadline {HYB_CHAOS['deadline_s']} s) tools/check_chaos.py (exit "
+          f"{check.returncode}): {(check.stdout + check.stderr).strip()}; faults "
+          f"{rep['faults']['by_site']}", flush=True)
+    if (check.returncode or rep["page_layout"] != "state" or not rep["final_audit"]["ok"]
+            or rep["unhandled_exception"] is not None or rep["leaked_pages"]):
+        fail("phase 19: the hot state-layout chaos run is not contained")
+    del api, params
+    torch.cuda.empty_cache()
+
+    # kernels vs plain logits: one RG-LRU block (the tail block of a 1-layer
+    # cut) held; one local-attention block (a period of ``("attn",)``), two
+    # RG-LRU blocks and the 5-layer stack printed
+    state_logits(cfg, prompts, n_layers=1, label="phase 19 one RG-LRU block")
+    attn_only = dataclasses.replace(cfg, hybrid=dataclasses.replace(cfg.hybrid, pattern=("attn",)))
+    state_logits(attn_only, prompts, n_layers=1,
+                 label="phase 19 one local-attention block (printed, not held)", hold=False)
+    for n in (2, HYB_LOGIT_LAYERS):
+        state_logits(cfg, prompts, n_layers=n, label="phase 19 (printed, not held)", hold=False)
+    torch.cuda.empty_cache()
+
+    # the same preemption at quant_mode="none" (float weights, ~34 GB)
+    api_f, params_f = build_model(cfg, "bcq4", False, "cuda", 0, True)
+    base = state_engine(api_f, params_f, True, 2)
+    _state_submit(base, prompts)
+    base.run_to_completion()
+    fbase = _state_outcome(base)[0]
+    del base
+    fck, fck_out, fck_ms = state_preempted(api_f, params_f, prompts, graphs=True, depth=2,
+                                           label="phase 19")
+    fho, fho_out, fho_ms = state_preempted(api_f, params_f, prompts, host_pages=STATE_HOST_PAGES,
+                                           graphs=True, depth=2, label="phase 19")
+    for e in (fck, fho):
+        e.audit(strict=True)
+    del fck, fho, api_f, params_f
+    torch.cuda.empty_cache()
+    _hybrid_resumes("none", fbase, fck_out, fck_ms, fho_out, fho_ms)
+    entry = {"at_hybrid_decode": dict(_linear_times(cb, 8, cfg.d_ff, cfg.d_model, 93),
+                                      shape=f"M 8 K {cfg.d_ff} N {cfg.d_model} "
+                                            "(recurrentgemma_9b mlp-out)"),
+             "at_hybrid_prefill": dict(_linear_times(cb, max(HYB_RING_LENS), cfg.d_ff,
+                                                     cfg.d_model, 92),
+                                       shape=f"M {max(HYB_RING_LENS)} K {cfg.d_ff} N "
+                                             f"{cfg.d_model}")}
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, entry, worst
+
+
 # ------------------------------------------------------------------ phase 10
 def _bound(nbytes, *work):
     """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
@@ -4138,8 +4608,10 @@ def kernel_split_ms(fn, bound, what, iters=10, tries=3):
     a few events of a window, so a kernel is timed by the events the
     profiler saw; a window that saw no kernel, fewer than half the calls
     of one, or a device time below ``bound`` (ms, the least time the work
-    can take) is profiled again, up to ``tries`` times; then the run
-    fails."""
+    can take) is profiled again, up to ``tries`` times.  Where no window
+    did, the profiler has lost the card (it once saw no event in any of
+    them): the whole call is then timed between CUDA events over ``iters``
+    calls, under the one name ``EVENTS_TIMER``."""
     import torch
 
     fn()
@@ -4161,8 +4633,9 @@ def kernel_split_ms(fn, bound, what, iters=10, tries=3):
             return ms
         print(f"  ({what}: a profiler window read {seen} events, {sum(ms.values()):.5f} ms "
               f"against the bound {bound:.5f}; profiled again)", flush=True)
-    fail(f"torch.profiler dropped kernels of {what} in {tries} windows of {iters} calls "
-         f"(last window's events by kernel: {seen}; bound {bound:.5f} ms)")
+    print(f"  ({what}: torch.profiler lost its kernels in {tries} windows of {iters} calls "
+          f"(last window's events by kernel: {seen}); timed between CUDA events)", flush=True)
+    return {EVENTS_TIMER: cuda_ms(fn, iters=iters, warmup=1)}
 
 
 def device_ms(by_name):
@@ -4176,7 +4649,7 @@ def _linear_split(by_name):
     """B1's two device kernels: encode pass and GEMM, ms per call."""
     pick = lambda key: sum(ms for nm, ms in by_name.items() if key in nm) or None  # noqa: E731
     return {"encode_ms": pick("encode_kernel"), "gemm_ms": pick("gemm_"),
-            "device_ms": device_ms(by_name)}
+            "device_ms": device_ms(by_name), "timer": timer(by_name)}
 
 
 def _linear_times(cb, m, k, n, seed):
@@ -4208,7 +4681,7 @@ def _linear_times(cb, m, k, n, seed):
                                           f"bcq_linear at M={m} K={k} N={n}"))
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     print(f"bcq_linear timing at M={m} K={k} N={n}: kernel {ms:.4f} ms (encode pass "
-          f"{fmt(split['encode_ms'])}, GEMM {fmt(split['gemm_ms'])}, torch.profiler), plain "
+          f"{fmt(split['encode_ms'])}, GEMM {fmt(split['gemm_ms'])}, {split['timer']}), plain "
           f"{plain_ms:.4f} ms, torch.matmul bf16 {library_ms:.4f} ms, bound {bound:.5f} ms by {by} "
           f"({nbytes} B, {2 * m * n * k} product OP at {INT8_OPS:.3g}/s, {enc} encode OP at "
           f"{F32_FLOPS:.3g}/s; {2 * m * n * k / F32_FLOPS * 1e3:.5f} ms if the product ran at "
@@ -4265,9 +4738,10 @@ def _gather_times(cb, c, kv_len, seed):
     bound, by = _bound(nbytes, (flops, F32_FLOPS))
     by_name = kernel_split_ms(lambda: common.page_gather_attention(*run), bound,
                               f"page_gather at C={c}")
-    pick = lambda key: sum(t for nm, t in by_name.items() if key in nm)  # noqa: E731
+    pick = lambda key: sum(t for nm, t in by_name.items() if key in nm) or None  # noqa: E731
     return {"ms": ms, "device_ms": device_ms(by_name), "split_ms": pick("split_kernel"),
-            "combine_ms": pick("combine_kernel"), "plain_ms": plain_ms, "bound_ms": bound,
+            "combine_ms": pick("combine_kernel"), "timer": timer(by_name), "plain_ms": plain_ms,
+            "bound_ms": bound,
             "bound_by": by, "nbytes": nbytes, "flops": flops, "err": err}
 
 
@@ -4278,13 +4752,15 @@ def time_gather(cb, worst_err, launches):
     pre = _gather_times(cb, 64, kv_pre, 15)
     for nm, t, shape in (("decode", dec, f"B=8 C=1 kv_len={kv_dec}"),
                          ("chunked prefill", pre, "B=8 C=64 kv_len=500")):
-        dev = f"{t['device_ms']:.4f} ms = split {t['split_ms']:.4f} + combine {t['combine_ms']:.4f}"
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+        dev = (f"{t['device_ms']:.4f} ms = split {fmt(t['split_ms'])} + combine "
+               f"{fmt(t['combine_ms'])}")
         print(f"page_gather timing at {nm} {shape} H=12 D=64 bcq4: kernel {t['ms']:.4f} ms "
-              f"(device {dev}, torch.profiler), plain {t['plain_ms']:.4f} "
+              f"(device {dev}, {t['timer']}), plain {t['plain_ms']:.4f} "
               f"ms, bound {t['bound_ms']:.5f} ms by {t['bound_by']} ({t['nbytes']} B, "
               f"{t['flops']} f32 FLOP); kernel vs plain max|err| {t['err']:.3e}"
               + (f"; earlier run: {EARLIER_MS['page_gather']} ms" if nm == "decode" else ""), flush=True)
-    strip = lambda t: {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
+    strip = lambda t: {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "timer")}  # noqa: E731
     return {
         "name": "page_gather", "route": "cuda", "source": "src/repro_torch/csrc/page_gather.cu",
         "replaces": "src/repro/kernels/common.py:265", "launches": sum(launches.values()),
@@ -4379,9 +4855,9 @@ def _write_times(cb, c, seed):
               + sum(t.numel() * t.element_size() for t in ids) + 8 * 16 * 4 + 8)
     ops = ENCODE_OPS * 2 * k.numel()
     bound, by = _bound(nbytes, (ops, F32_FLOPS))
-    dev = device_ms(kernel_split_ms(run, bound, f"the KV-page writer at C={c}"))
-    return {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "nbytes": nbytes, "ops": ops}
+    by_name = kernel_split_ms(run, bound, f"the KV-page writer at C={c}")
+    return {"ms": ms, "device_ms": device_ms(by_name), "timer": timer(by_name),
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "nbytes": nbytes, "ops": ops}
 
 
 def time_quantize(cb, worst_err, launches, write_ties):
@@ -4400,11 +4876,12 @@ def time_quantize(cb, worst_err, launches, write_ties):
     nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
     ops = ENCODE_OPS * m * k
     bound, by = _bound(nbytes, (ops, F32_FLOPS))
-    dev = device_ms(kernel_split_ms(lambda: bq.bcq_quantize(x, cb, s_x, cfg), bound,
-                                    f"bcq_quantize at M={m} K={k}"))
+    by_name = kernel_split_ms(lambda: bq.bcq_quantize(x, cb, s_x, cfg), bound,
+                              f"bcq_quantize at M={m} K={k}")
+    dev = device_ms(by_name)
     fmt = lambda v: f"{v:.4f} ms"  # noqa: E731
     print(f"quantize timing at M={m} K={k} (banked-table encode of bcq_encode.cuh): kernel "
-          f"{ms:.4f} ms (device {fmt(dev)}, torch.profiler), plain {plain_ms:.4f} ms, bound "
+          f"{ms:.4f} ms (device {fmt(dev)}, {timer(by_name)}), plain {plain_ms:.4f} ms, bound "
           f"{bound:.5f} ms by {by} ({nbytes} B, {ops} f32 operations); earlier run: device "
           f"{EARLIER_MS['bcq_quantize']} ms", flush=True)
     writes = {}
@@ -4412,16 +4889,16 @@ def time_quantize(cb, worst_err, launches, write_ties):
         t = writes[nm] = _write_times(cb, c, seed)
         print(f"KV-page writer timing at {nm} (8 rows × {c} token{'s' if c > 1 else ''} × 12 "
               f"heads × 64, K and V f32, bcq4 pages of 16): kernel {t['ms']:.4f} ms (device "
-              f"{fmt(t['device_ms'])}), plain writer {t['plain_ms']:.4f} ms, bound "
+              f"{fmt(t['device_ms'])}, {t['timer']}), plain writer {t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['nbytes']} B, {t['ops']} f32 "
               f"operations); page bytes equal to the plain writer's", flush=True)
-    strip = lambda t: {n: t[n] for n in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}  # noqa: E731
+    strip = lambda t: {n: t[n] for n in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "timer")}  # noqa: E731
     return {
         "name": "bcq_quantize", "route": "cuda", "source": "src/repro_torch/csrc/bcq_quantize.cu",
         "replaces": "src/repro/kernels/bcq_quantize.py:31", "launches": sum(launches.values()),
         "launches_by_path": launches, "max_abs_err": worst_err, "ms": ms, "device_ms": dev,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "bound_peak": "f32 67 TFLOP/s", "shape": f"M {m} K {k}",
+        "timer": timer(by_name), "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "bound_peak": "f32 67 TFLOP/s", "shape": f"M {m} K {k}",
         "kv_write_tie_bytes": write_ties,
         "kv_write_at_decode": dict(strip(writes["decode"]), shape="B 8 C 1 H 12 D 64 f32"),
         "kv_write_at_prefill": dict(strip(writes["prefill"]), shape="B 8 C 64 H 12 D 64 f32"),
@@ -4450,18 +4927,19 @@ def time_matmul(cb, worst_err, launches):
     library_ms = cuda_ms(lambda: torch.matmul(xb, wb))
     nbytes = (m + n) * (k // 2 + k // 16 + k // 64 * 4) + 2 * 8 * 16 * 4 + m * n * 4
     bound, by = _bound(nbytes, (2 * m * n * k, INT8_OPS))
-    dev = device_ms(kernel_split_ms(lambda: bm.bcq_matmul(*args), bound,
-                                    f"bcq_matmul at M={m} K={k} N={n}"))
+    by_name = kernel_split_ms(lambda: bm.bcq_matmul(*args), bound,
+                              f"bcq_matmul at M={m} K={k} N={n}")
+    dev = device_ms(by_name)
     print(f"matmul timing at M={m} K={k} N={n}: kernel {ms:.4f} ms (device "
-          f"{dev:.4f} ms, torch.profiler), plain {plain_ms:.4f} ms, "
+          f"{dev:.4f} ms, {timer(by_name)}), plain {plain_ms:.4f} ms, "
           f"torch.matmul bf16 {library_ms:.4f} ms, bound {bound:.5f} ms by {by} ({nbytes} B, "
           f"{2 * m * n * k} OP at the int8 tensor-core peak; {2 * m * n * k / F32_FLOPS * 1e3:.5f} ms "
           f"at the f32 peak); earlier run: {EARLIER_MS['bcq_matmul']} ms", flush=True)
     return {
         "name": "bcq_matmul", "route": "cuda", "source": "src/repro_torch/csrc/bcq_matmul.cu",
         "replaces": "src/repro/kernels/bcq_matmul.py:52", "launches": launches,
-        "max_abs_err": worst_err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+        "max_abs_err": worst_err, "ms": ms, "device_ms": dev, "timer": timer(by_name),
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
         "bound_peak": "int8 tensor cores 1979 TOP/s", "shape": f"M {m} K {k} N {n}",
     }
 
@@ -4531,6 +5009,7 @@ def main() -> int:
     counts_moe, stacked, err_moe = phase_moe(cb, smi)
     counts_ptq, err_ptq, fake_form = phase_ptq(cb, smi)
     counts_state, state_entry, err_state = phase_state(cb, smi)
+    counts_hyb, hyb_entry, err_hyb = phase_hybrid(cb, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
@@ -4550,10 +5029,12 @@ def main() -> int:
     kernels[3]["probe_form"] = probe_form
     kernels[3]["fake_quant_form"] = fake_form
     kernels[0]["launches_by_path"]["state"] = counts_state
+    kernels[0]["launches_by_path"]["hybrid"] = counts_hyb
     kernels[0]["launches"] = sum(kernels[0]["launches_by_path"].values())
     kernels[0].update(state_entry)
+    kernels[0].update(hyb_entry)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab, err_moe["bcq_linear"],
-                                    err_ptq["bcq_linear"], err_state)
+                                    err_ptq["bcq_linear"], err_state, err_hyb)
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err_moe["page_gather"],
                                     err_ptq["page_gather"])
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err_ptq["flash_attention"])

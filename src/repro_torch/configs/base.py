@@ -1,6 +1,6 @@
 """Architecture registry: the ``ArchConfig`` dataclass and its lookup.
 
-A copy of the dense, MoE and SSM parts of ``repro/configs/base.py``: the port
+A copy of the dense, MoE, SSM and hybrid parts of ``repro/configs/base.py``: the port
 reads nothing of the JAX package, so it keeps its own config records.
 Each config module provides ``CONFIG`` (the published shape) and
 ``smoke()`` (a 2-layer reduction for CPU tests).
@@ -30,9 +30,16 @@ class SSMSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridSpec:
+    lru_width: int = 0  # 0 → d_model
+    window: int = 2048
+    pattern: tuple = ("rec", "rec", "attn")  # RecurrentGemma 1:2
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port serves "dense", "moe" and "ssm"
+    family: str  # the port serves "dense", "moe", "ssm" and "hybrid"
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,6 +54,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Optional[MoESpec] = None
     ssm: Optional[SSMSpec] = None
+    hybrid: Optional[HybridSpec] = None
     source: str = ""
 
     @property

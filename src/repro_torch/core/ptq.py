@@ -151,36 +151,36 @@ def packed_from_artifact(params: Any, packed: dict) -> Any:
 
 
 def pack_stack(leaf: torch.Tensor, codebooks: torch.Tensor, cfg: bcq.BCQConfig) -> dict:
-    """Pack a (..., K, N) stack of kernels, each (K, N) matrix with its own
-    s_X (blocks along K), a few matrices at a time: the dict of
-    ``layers.pack_weight`` with the stack's leading axes in front, and
-    ``s_x`` of the leading shape.  Each matrix's bytes are those of
-    ``pack_weight`` on it alone (the encode is elementwise given s_X, and
-    s_X a max, so batching moves no bit)."""
+    """Pack a (..., K, N) stack of kernels (or one (K, N) kernel), each
+    (K, N) matrix with its own s_X (blocks along K), a few matrices at a
+    time and a matrix larger than ``PACK_CHUNK`` a slab of its output rows
+    at a time: the dict of ``layers.pack_weight`` with the stack's leading
+    axes in front, and ``s_x`` of the leading shape.  Each matrix's bytes
+    are those of ``pack_weight`` on it alone (the encode is elementwise
+    along N given s_X, and s_X a max, so batching moves no bit)."""
     lead, (k, n) = leaf.shape[:-2], leaf.shape[-2:]
     flat = leaf.reshape((-1, k, n))
     step = max(1, PACK_CHUNK // (k * n))
+    rows = max(1, PACK_CHUNK // k)
     parts = []
     for i in range(0, flat.shape[0], step):
         wt = flat[i:i + step].transpose(-1, -2).float().contiguous()  # (m, N, K)
         s_x = torch.stack([bcq.tensor_scale(w, cfg) for w in wt])  # each matrix's s_X
-        enc = bcq.encode(wt, codebooks, cfg, s_x=s_x[:, None, None])
-        parts.append({"idx": enc.packed_idx, "sel": enc.packed_sel, "scale": enc.scale_code,
-                      "s_x": s_x})
+        encs = [bcq.encode(wt[:, r:r + rows], codebooks, cfg, s_x=s_x[:, None, None])
+                for r in range(0, n, rows)]
+        parts.append({"idx": torch.cat([e.packed_idx for e in encs], 1),
+                      "sel": torch.cat([e.packed_sel for e in encs], 1),
+                      "scale": torch.cat([e.scale_code for e in encs], 1), "s_x": s_x})
+        del wt, encs
     return {name: torch.cat([p[name] for p in parts]).reshape(lead + parts[0][name].shape[1:])
             for name in parts[0]}
 
 
 def pack_params(params: Any, codebooks: torch.Tensor, cfg: bcq.BCQConfig,
                 predicate: Callable[[str, Any], bool] = _is_gemm_weight) -> Any:
-    """Structural conversion to the ``quant_mode='packed'`` param tree."""
-    from repro_torch.models import layers as _layers
-
-    def pack_leaf(leaf):
-        if leaf.ndim >= 3:  # a layer or expert stack: each matrix its own s_X
-            return pack_stack(leaf, codebooks, cfg)
-        return _layers.pack_weight(leaf, cfg, codebooks)
-
+    """Structural conversion to the ``quant_mode='packed'`` param tree: each
+    GEMM ``kernel`` becomes ``kernel_packed`` through ``pack_stack`` (a
+    layer, period or expert stack with one s_X a matrix)."""
     def walk(tree, path=""):
         if not isinstance(tree, dict):
             return tree
@@ -190,7 +190,7 @@ def pack_params(params: Any, codebooks: torch.Tensor, cfg: bcq.BCQConfig,
             if isinstance(v, dict):
                 out[k] = walk(v, p)
             elif k == "kernel" and predicate(p, v):
-                out["kernel_packed"] = pack_leaf(v)
+                out["kernel_packed"] = pack_stack(v, codebooks, cfg)
             else:
                 out[k] = v
         return out

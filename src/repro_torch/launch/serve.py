@@ -5,11 +5,12 @@ Serves a batch of seeded random prompts from seeded random weights
 serving-core counters and the tokens.  ``--paged`` serves through the
 engine of the family's page layout (``api.page_spec.layout``):
 ``PagedEngine`` over KV pages for the dense and MoE families,
-``StatePagedEngine`` over ``state`` pages for the SSM family
-(``--arch mamba2_130m``).  Without ``--paged`` an SSM is served by the
-contiguous path (``greedy_generate`` over ``prefill_fn`` /
-``decode_fn``); for the KV families only the paged engine is ported, so
-``--paged`` is required there.  Admission is the
+``StatePagedEngine`` over ``state`` pages for the SSM and hybrid
+families (``--arch mamba2_130m``, ``--arch recurrentgemma_9b``).  Without
+``--paged`` a state family is served by the contiguous path
+(``greedy_generate`` over ``prefill_fn`` / ``decode_fn``); for the KV
+families only the paged engine is ported, so ``--paged`` is required
+there.  Admission is the
 slab prefill unless ``--chunked-prefill`` (KV layout only); prefix caching is on unless
 ``--no-prefix-cache``; ``--best-of N`` forks every prompt into N siblings
 sharing its pages, and ``--temperature`` / ``--top-k`` / ``--seed`` turn
@@ -285,7 +286,7 @@ def main(argv=None):
     if args.metrics_json or args.trace_out or args.quant_probes:
         args.paged = True
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
-    if not (args.paged or args.chaos or cfg.family == "ssm"):
+    if not (args.paged or args.chaos or zoo.page_spec(cfg).layout == "state_checkpoint"):
         ap.error("the port serves the KV families through the paged engine only: pass --paged")
     host_pages = args.host_pages if args.host_tier else 0
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (args.batch, args.prompt_len))

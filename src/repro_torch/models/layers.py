@@ -313,6 +313,21 @@ def cache_write(cache, k_new, v_new, pos: int, kind, cfg: BCQConfig, cb):
     return cache
 
 
+def cache_write_rows(cache, k_new, v_new, pos_rows, kind, cfg: BCQConfig, cb):
+    """Insert (B, 1, H, D) keys/values at per-row offsets ``pos_rows`` (B,)
+    of a contiguous cache, IN PLACE: row i writes cache[i, pos_rows[i]]
+    (the state engine's per-row decode, every row at its own position).
+    The bytes a row writes are those of ``cache_write`` of that row alone;
+    rows are distinct, so no two writes meet.  Returns the cache."""
+    enc = cache_encode(k_new, v_new, kind, cfg, cb, cache)
+    rows = torch.arange(k_new.shape[0], device=k_new.device)
+    slots = pos_rows.long()
+    for n, val in enc.items():
+        leaf = cache[n]
+        leaf[rows, slots] = val[:, 0].to(leaf.dtype)
+    return cache
+
+
 def cache_read(cache, kind, cfg: BCQConfig, cb, dtype, valid_len=None):
     """Dequantize cache leaves → (k, v) in ``dtype``.  ``valid_len`` bounds
     the read to the first ``valid_len`` sequence positions."""
@@ -440,10 +455,11 @@ def paged_gather_kv(pool, block_tables, kind, cfg: BCQConfig, cb, dtype):
 
 
 # ---------------------------------------------------------------- attention
-def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True):
+def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True, window=None):
     """Exact softmax attention.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D);
     q_pos (B, Sq) absolute positions; kv index j is absolute position j.
-    Masks: j < kv_valid_len, and j <= pos when causal, with finite -1e30.
+    Masks: j < kv_valid_len, j <= pos when causal, and pos - j < window
+    when ``window`` (local attention), with finite -1e30.
     (The reference scans over query chunks to bound memory; rows are
     independent, so all rows at once give the same values.)"""
     d = q.shape[-1]
@@ -455,12 +471,15 @@ def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True):
     m = j[None, None, None, :] < kv_valid_len
     if causal:
         m = m & (j[None, None, None, :] <= q_pos[:, None, :, None])
+    if window:
+        m = m & (q_pos[:, None, :, None] - j[None, None, None, :] < window)
     s = torch.where(m, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhck,bkhd->bchd", p, vx.float()).to(q.dtype)
 
 
-def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cache_pos=None):
+def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cache_pos=None,
+              window=None):
     """GQA attention: the cache-free self-attention, the contiguous-cache
     branch and the two paged serving branches of the reference.
 
@@ -472,7 +491,8 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
     here; its linears still go through the fused linear.
     ``paged`` = None and no cache: causal SELF-ATTENTION over x alone (the
     training / evaluation forward) — through the flash kernel when
-    ``rt.flash_kernel``, else the masked softmax.
+    ``rt.flash_kernel`` and no ``window``, else the masked softmax (with
+    ``window``: local attention, pos - j < window, the hybrid's blocks).
     ``paged`` = (pool, block_tables, lengths): DECODE — the new token is
     written into its page, attention reads live pages only.
     ``paged`` = (pool, block_tables, n_past, chunk_page_ids[, chunk_len]):
@@ -494,12 +514,12 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
         out = _attend_chunked(q, kf, vf, positions, cache_pos + s)
     elif paged is None:
         pool = None
-        if rt.flash_kernel:  # causal, no window, as many keys as queries
+        if rt.flash_kernel and window is None:  # causal, as many keys as queries
             from repro_torch.kernels.flash_attention import flash_attention
 
             out = flash_attention(q, k, v, causal=True).to(q.dtype)
         else:
-            out = _attend_chunked(q, k, v, positions, k.shape[1])
+            out = _attend_chunked(q, k, v, positions, k.shape[1], window=window)
     elif len(paged) >= 4:
         pool, block_tables, n_past, chunk_page_ids = paged[:4]
         chunk_len = paged[4] if len(paged) == 5 else None

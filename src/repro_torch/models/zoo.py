@@ -1,11 +1,11 @@
-"""ArchConfig → model API (counterpart of the dense, MoE and SSM branches
-of ``repro/models/zoo.build``): random init, the loss of a batch (the
-evaluation forward), the slab ``prefill`` / contiguous ``decode_step``
-pair and what the paged engines need, all on one device.  ``page_spec``
-says what the page pool holds: a dense or MoE model serves KV pages
-(the paged decode step, the page-pool init, the chunked-prefill step) through
-``serving.engine.PagedEngine``; an SSM serves ``state`` pages (the live
-cache tree and its per-row decode) through
+"""ArchConfig → model API (counterpart of the dense, MoE, SSM and hybrid
+branches of ``repro/models/zoo.build``): random init, the loss of a batch
+(the evaluation forward), the slab ``prefill`` / contiguous
+``decode_step`` pair and what the paged engines need, all on one device.
+``page_spec`` says what the page pool holds: a dense or MoE model serves
+KV pages (the paged decode step, the page-pool init, the chunked-prefill
+step) through ``serving.engine.PagedEngine``; an SSM or a hybrid serves
+``state`` pages (the live cache tree and its per-row decode) through
 ``serving.state_engine.StatePagedEngine``."""
 from __future__ import annotations
 
@@ -18,14 +18,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bcq import check_kernel_config
 from repro_torch.core.calibrate import default_universal_codebooks
 from repro_torch.core.ptq import decode_scales, pack_params, quantize_params
-from repro_torch.models import ssm, transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.layers import Runtime
 
 # the families the port builds and serves (paged or contiguous)
-SERVED_FAMILIES = ("dense", "moe", "ssm")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # what each family still to port lacks in the port
 TO_PORT_FAMILIES = {
-    "hybrid": "the RG-LRU block, its window-KV ring and the layer-by-layer init",
     "encdec": "the encoder, its shared_ro pages and the engine's shared-encoder branch",
     "vlm": "the vision frontend (not paged-servable in the reference either)",
 }
@@ -60,6 +59,12 @@ class PageSpec:
 
     layout: str
     shared_encoder: bool = False
+
+
+def page_spec(cfg: ArchConfig) -> PageSpec:
+    """What a served family's page pool holds: ``state`` pages for the
+    O(1)-state families (ssm, hybrid), KV pages for the rest."""
+    return PageSpec("state_checkpoint" if cfg.family in ("ssm", "hybrid") else "kv_paged")
 
 
 def resolve_device(device) -> torch.device:
@@ -105,7 +110,8 @@ class ModelAPI:
 
 
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
-    """The model API of a dense or MoE decoder or of a Mamba-2 SSM.
+    """The model API of a dense or MoE decoder, a Mamba-2 SSM or an
+    RG-LRU hybrid.
     ``init(seed)`` draws random weights from seeded ``torch.Generator``s; with
     ``quant_mode="packed"`` they are packed to W4 with the frozen
     universal codebooks, which ride in ``params["codebooks"]``, and their
@@ -119,7 +125,9 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     own generator seeded from (seed, layer) and packed before the next is
     drawn, so at most one layer's float experts are resident in packed
     mode (the fake modes keep the float stack; full-width Moonlight's float
-    experts alone would be ~106 GB)."""
+    experts alone would be ~106 GB); a hybrid likewise period by period and
+    tail block by tail block (full-width RecurrentGemma-9B is ~34 GB in
+    f32), its (P, K, N) stacks with one s_X a period."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"the port serves the {', '.join(SERVED_FAMILIES)} families, not {cfg.family!r}; "
@@ -136,7 +144,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         return None
 
     def init(seed: int = 0) -> dict:
-        if cfg.family == "moe":
+        if cfg.family in ("moe", "hybrid"):
             return _init_by_layer(cfg, rt, device, seed, codebooks())
         draw = ssm.init_ssm_lm if cfg.family == "ssm" else transformer.init_lm
         params = draw(cfg, rt, torch.Generator().manual_seed(seed))
@@ -157,9 +165,21 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
             loss_fn=lambda p, b: ssm.forward_train(p, b, cfg, rt),
             prefill_fn=lambda p, b, ml: ssm.prefill(p, b, cfg, rt, ml),
             decode_fn=lambda p, c, t, pos: ssm.decode_step(p, c, t, pos, cfg, rt),
-            page_spec=PageSpec("state_checkpoint"),
+            page_spec=page_spec(cfg),
             live_cache_init=lambda bsz, device=device: ssm.ssm_cache_stacked(cfg, bsz, device),
             state_decode_fn=lambda p, live, t, pos: ssm.decode_step(p, live, t, pos, cfg, rt),
+        )
+    if cfg.family == "hybrid":
+        return ModelAPI(
+            cfg, rt, device,
+            init=init,
+            loss_fn=lambda p, b: hybrid.forward_train(p, b, cfg, rt),
+            prefill_fn=lambda p, b, ml: hybrid.prefill(p, b, cfg, rt, ml),
+            decode_fn=lambda p, c, t, pos: hybrid.decode_step(p, c, t, pos, cfg, rt),
+            page_spec=page_spec(cfg),
+            live_cache_init=lambda bsz, device=device: hybrid.hybrid_cache_init(
+                cfg, rt, bsz, device),
+            state_decode_fn=lambda p, live, t, pos: hybrid.decode_step(p, live, t, pos, cfg, rt),
         )
     return ModelAPI(
         cfg, rt, device,
@@ -167,7 +187,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         loss_fn=lambda p, b: transformer.forward_train(p, b, cfg, rt),
         prefill_fn=lambda p, b, ml: transformer.prefill(p, b, cfg, rt, ml),
         decode_fn=lambda p, c, t, pos: transformer.decode_step(p, c, t, pos, cfg, rt),
-        page_spec=PageSpec("kv_paged"),
+        page_spec=page_spec(cfg),
         paged_decode_fn=lambda p, pool, t, bt, ln: transformer.paged_decode_step(
             p, pool, t, bt, ln, cfg, rt
         ),
@@ -181,27 +201,48 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
 
 
 def _generator(device, seed: int, layer: int) -> torch.Generator:
-    """The generator of one layer (``layer`` ≥ 0) or of the parameters
-    outside the stack (``layer`` -1), seeded from (seed, layer)."""
+    """The generator of one layer, period or tail block (``layer`` ≥ 0, in
+    draw order) or of the parameters outside the stacks (``layer`` -1),
+    seeded from (seed, layer)."""
     return torch.Generator(device=device).manual_seed(seed * 65536 + layer + 1)
 
 
+def _draw_units(cfg, rt: Runtime) -> list:
+    """(params key, stack depth or None for an unstacked block, draw) of
+    each unit the init draws in turn: a MoE model's layers; a hybrid's
+    periods, then its tail blocks."""
+    if cfg.family == "hybrid":
+        _, n_periods, tail = hybrid._counts(cfg)
+        return ([("periods", n_periods, lambda g: hybrid.init_period(cfg, rt, g))]
+                + [(f"tail{t}", None, lambda g: hybrid.init_rec_block(cfg, rt, g))
+                   for t in range(tail)])
+    return [("layers", cfg.n_layers, lambda g: transformer.init_block(cfg, rt, g))]
+
+
 def _init_by_layer(cfg, rt: Runtime, device, seed: int, cb) -> dict:
-    """A MoE model drawn and packed one layer at a time into preallocated
-    (L, ...) leaves."""
+    """A MoE model drawn and packed one layer at a time, a hybrid one
+    period and one tail block at a time, into preallocated (n, ...)
+    leaves: unit i (in ``_draw_units`` order) from generator (seed, i)."""
     params = transformer.init_top(cfg, rt, _generator(device, seed, -1))
-    stack = None
-    for i in range(cfg.n_layers):
-        block = transformer.init_block(cfg, rt, _generator(device, seed, i))
-        if rt.quant_mode == "packed":
-            block = decode_scales(pack_params(block, cb, rt.bcq_cfg))
-        if stack is None:
-            stack = _alloc_stack(block, cfg.n_layers)
-        _put_layer(stack, block, i)
-        del block
-    params["layers"] = stack
+    i = 0
+    for key, n, draw in _draw_units(cfg, rt):
+        stack = None
+        for j in range(1 if n is None else n):
+            block = draw(_generator(device, seed, i))
+            i += 1
+            if rt.quant_mode == "packed":
+                block = decode_scales(pack_params(block, cb, rt.bcq_cfg))
+            if n is None:
+                stack = block
+                break
+            if stack is None:
+                stack = _alloc_stack(block, n)
+            _put_layer(stack, block, j)
+            del block
+        if stack is not None:  # a hybrid of fewer layers than a period has no periods
+            params[key] = stack
     if cb is not None:
-        if rt.quant_mode == "fake":  # the stack as one tensor, as ptq.quantize_params
+        if rt.quant_mode == "fake":  # each stack as one tensor, as ptq.quantize_params
             params = quantize_params(params, cb, rt.bcq_cfg)
         params["codebooks"] = cb
     return params

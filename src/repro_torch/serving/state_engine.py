@@ -4,7 +4,8 @@ enc-dec shared-encoder branch, which comes with that family).
 
 The KV engine (``serving/engine.py``) maps token positions to (page, slot)
 through block tables — meaningless for a family whose decode state is a
-fixed-size recurrence (Mamba-2's ssm and conv states).  This engine keeps
+fixed-size recurrence (Mamba-2's ssm and conv states; the hybrid's LRU and
+conv states and its window-sized KV ring with the ring's ``pos_buf``).  This engine keeps
 the KV engine's request lifecycle, admission control, preemption,
 pipelined tick, fault containment and telemetry (it subclasses
 PagedEngine's layout-independent core) and swaps the storage layout:

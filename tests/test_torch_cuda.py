@@ -678,3 +678,105 @@ def test_state_decode_graph_equals_eager(cuda):
     assert a == b and ca == cb_ and na == nb
     assert all(torch.equal(x, y) for x, y in zip(ta, tb))
     assert na > 0 and na % (2 * 2) == 0  # 2 projections × 2 layers a pass
+
+
+# ---------------------------------------------------------- the hybrid family
+# recurrentgemma_9b's projections no other path runs: mlp-out 12288 → 4096
+# (the largest K) at M 1 (a batch-1 replay), 8 (a decode tick of 8 slots)
+# and 2,100 (the longest prompt of chip_smoke's ring run); the one KV head's
+# 4096 → 256 and mlp-in 4096 → 12288 at M 8
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 12288, 4096), (8, 12288, 4096), (2100, 12288, 4096),
+                                   (8, 4096, 256), (8, 4096, 12288)])
+def test_bcq_linear_at_the_hybrid_shapes(cuda, m, k, n):
+    g = torch.Generator().manual_seed(m + n + 1)
+    x = (torch.randn((m, k), generator=g) * 3.0).to(cuda)
+    w = (torch.randn((k, n), generator=g) * k**-0.5).to(cuda)
+    cb = _cb(cuda)
+    pw = ops.packed_operand(layers.pack_weight(w, CFG, cb))
+    s_x = bcq.tensor_scale(x, CFG)
+    before = bcq_linear.BCQ_LINEAR.count
+    got = bcq_linear.bcq_linear(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, s_x, CFG)
+    want = fused_linear_ref(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, CFG, s_x, valid_k=k)
+    assert got.shape == (m, n) and bcq_linear.BCQ_LINEAR.count == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_state_checkpoint_rows_over_the_hybrid_tree_is_deterministic(cuda):
+    """The smoke hybrid's live tree (ring leaves, ``pos_buf``, the
+    ``REPLICATED`` s_X, tail states) checkpointed with duplicate null-page
+    rows: last row wins, run after run, as on the CPU; the s_X stay."""
+    import dataclasses
+
+    from repro_torch.models import hybrid
+    from repro_torch.serving import pages
+
+    cfg = dataclasses.replace(get_smoke("recurrentgemma_9b"), n_layers=5)
+    rt = layers.Runtime(cache_kind="bcq4")
+    axes = pages.state_batch_axes(lambda b: hybrid.hybrid_cache_init(cfg, rt, b, "meta"))
+    g = torch.Generator().manual_seed(1)
+
+    def rand(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=g).to(t.dtype)
+        return torch.randint(0, 100, t.shape, generator=g).to(t.dtype)
+
+    live = pages._tree_map(rand, hybrid.hybrid_cache_init(cfg, rt, 16))
+    dsts = torch.zeros(16, dtype=torch.int32)
+    dsts[3], dsts[11] = 2, 5
+    want = pages.state_checkpoint_rows(
+        pages.state_pool_init(lambda b: hybrid.hybrid_cache_init(cfg, rt, b), axes, 7), live,
+        axes, dsts)
+    live_d = pages._tree_map(lambda t: t.to(cuda), live)
+    for _ in range(5):
+        got = pages.state_checkpoint_rows(
+            pages.state_pool_init(lambda b: hybrid.hybrid_cache_init(cfg, rt, b, cuda), axes, 7),
+            live_d, axes, dsts.to(cuda))
+        for a, b in zip(pages.tree_leaves(got), pages.tree_leaves(want)):
+            assert torch.equal(a.cpu(), b)
+    ring = want["periods"]["b2"]
+    assert torch.equal(ring["pos_buf"][0], live["periods"]["b2"]["pos_buf"][:, 15])
+    assert torch.equal(ring["k_sx"], torch.ones(1))
+
+
+@pytest.mark.cuda
+def test_hybrid_state_decode_graph_equals_eager(cuda):
+    """The smoke hybrid (bcq4 ring, window 32) through StatePagedEngine on
+    the card: graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins,
+    counters, live tree and state pool) with a preemption and a fork, the
+    ring wrapping while it decodes; B1 launched 7 a recurrent block and 6
+    (decode) or 8 (prefill) an attention block a pass."""
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serving.generate import Request
+    from repro_torch.serving.pages import tree_leaves
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    api, params = build_model(get_smoke("recurrentgemma_9b"), device="cuda")
+    prompts = [np.random.default_rng(i).integers(0, 512, n) for i, n in enumerate((12, 9, 30))]
+    outs = []
+    for graphs, depth in ((False, 1), (True, 2)):
+        build.reset_counts()
+        eng = StatePagedEngine(api, params, n_slots=4, max_len=64, page_size=8,
+                               pipeline_depth=depth, cuda_graphs=graphs)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=25, n_samples=2 if i == 1 else 1))
+        for _ in range(5):
+            eng.step()
+        eng._preempt_one(None)
+        fin, _ = eng.run_to_completion()
+        torch.cuda.synchronize()
+        st, cs = eng.stats, eng.health()["state_counters"]
+        prefills = st["prefill_launches"] - cs["state_restores"]
+        passes = st["decode_ticks"] + cs["replay_tokens"]
+        # a pass of the 1-period smoke: 2 × 7 + 8 (prefill) or 2 × 7 + 6 (decode)
+        assert build.counts().get("bcq_linear", 0) == 22 * prefills + 20 * passes
+        outs.append(([(r.rid, r.sample_idx, r.out, r.margins) for r in
+                      sorted(fin, key=lambda r: (r.rid, r.sample_idx))], cs,
+                     [t.cpu() for t in tree_leaves(eng.live) + tree_leaves(eng.spool)]))
+        if graphs:
+            assert sorted(eng._graphs.buckets) == [False, True]
+    (a, ca, ta), (b, cb_, tb) = outs
+    assert a == b and ca == cb_
+    assert all(torch.equal(x, y) for x, y in zip(ta, tb))
+    assert max(len(r[2]) for r in a) + 30 > 32  # a row decoded past the window

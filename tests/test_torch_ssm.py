@@ -282,7 +282,7 @@ def test_zoo_ssm_branch_and_what_is_left():
                                        TCFG.ssm.head_dim, TCFG.ssm.d_state)
     dense = tzoo.build(t_get_smoke("gpt3_126m"), TRT, device="cpu")
     assert dense.page_spec == tzoo.PageSpec("kv_paged")
-    for fam in ("hybrid", "encdec"):
+    for fam in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match=f"{fam}: "):
             tzoo.build(dataclasses.replace(TCFG, family=fam), TRT, device="cpu")
 
