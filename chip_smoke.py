@@ -104,11 +104,14 @@ success):
     way equal to the first bit for bit: tokens, margins, launch
     indices, engine counters, pool bytes and kernel launch counts.  A
     fresh engine captures one graph per block-table width, a warmed
-    engine none; a steady greedy graph tick makes one ``cudaGraphLaunch``
-    and no kernel launch from the host.  For each way: wall
-    ms/tick of steady ticks (8 rows), device busy, idle share, host
-    kernel and graph launches and CUDA kernels a tick (torch.profiler
-    over 3 ticks); for phase 11's workload the same over its decode-only
+    engine none; a steady greedy graph tick makes one graph replay and
+    no eager kernel launch from the host (``_host_launches``: the graphs'
+    replay counter and a dispatch-mode record of the aten ops on CUDA
+    tensors, which need no profiler event; phases 13–15 and 18–20 check
+    their steady ticks the same way).  For each way: wall
+    ms/tick of steady ticks (8 rows), device busy, idle share and CUDA
+    kernels a tick (torch.profiler over 3 ticks; "not measured" where it
+    saw no device event); for phase 11's workload the same over its decode-only
     steps with sampled rows.  Phase 11's graph depth 2 run is held launch
     by launch to the plain paths (``check_shadow``).  Its graph depth 2
     launches join the ``kernels`` line (``production_tick``).
@@ -131,7 +134,7 @@ success):
     writes ``build/chaos_report.json``, which ``tools/check_chaos.py``
     must accept, and equals an eager depth 1 rerun.  The default engine
     with an audit every 8 ticks keeps phase 12's steady greedy graph tick
-    (kernels a tick, one ``cudaGraphLaunch``, no host kernel launch) and
+    (graph nodes, one graph replay, no eager kernel launch) and
     its bits; its wall ms/tick is printed beside phase 12's and an earlier run's
     with the card's name and power limit.  Its kernel runs' launches join
     the ``kernels`` line (``containment``).
@@ -144,7 +147,7 @@ success):
     metrics and Chrome trace (``build/telemetry_*.json``) pass
     ``tools/check_telemetry.py``.  Phase 4's workload on a counters-level
     engine beside phase 12's default one: the same decode-graph nodes,
-    bits and ``device_syncs``, 1 ``cudaGraphLaunch`` and no host kernel
+    bits and ``device_syncs``, 1 graph replay and no eager kernel
     launch a steady tick, the two walls printed.  The quant-error probes
     (``--quant-probes``: a ``QuantProbeRecorder`` in the model's Runtime):
     phase 11's workload eagerly at depth 1 — every probe launch of B3 held
@@ -176,7 +179,7 @@ success):
     cross-tier partition included.  The CLI's chaos run with the tier
     (seed 1) passes ``tools/check_chaos.py`` and equals an eager depth 1
     rerun.  An idle tier keeps phase 12's steady graph tick (nodes, one
-    ``cudaGraphLaunch``, no host kernel launch).  On a bf16 pool at full
+    graph replay, no eager kernel launch).  On a bf16 pool at full
     width, every page the ladder recompresses equals the CPU's
     ``_fake_quant`` of its bytes.  The resumed request's re-admission time
     beside its recompute in phase 12's tier-off run; one page's swap
@@ -263,6 +266,27 @@ success):
     device time, prefill tok/s, a state page's swap, resume vs recompute,
     and B1's times at the 12288 → 4096 shape (M 8 and 2,100).  Its
     launches join the ``kernels`` line (``hybrid``).
+20. the enc-dec family: full-width Whisper-base (6 encoder and 6
+    decoder layers, d 512, 8 heads of 64, d_ff 2048, 1,500 stub frames,
+    vocab 51865; seeded weights packed to W4, a bcq4 decoder self cache,
+    max_len 448) served in W4A4 through StatePagedEngine with its
+    encoder output in shared_ro pages: 12 requests over 3 clips (decoder
+    prompts of 4–224 tokens, 48 tokens each, 8 slots, page 16) — 3
+    encodes and 9 prefix hits each skipping 1,500 frames; graph depth 2 ≡
+    eager depth 1 bit for bit (the encoder pool too), B1 launched 48 an
+    encode and 48 a decoder pass; every B1 launch of the first step, a
+    steady and a checkpoint tick held to plain; request 7 preempted
+    after 20 ticks and resumed from its checkpoint (every replay launch
+    held, no encode) and from the host tier (bit-exact); a best-of-2
+    fork sharing the encoder page; the hot chaos run; one encoder block
+    and one decoder block kernels vs plain, held launch by launch up to
+    the first W4A4 flip (the 6 + 6-layer logits printed); the evaluation
+    forward (4 clips × 448 tokens, bf16) through B5 at (32, 448, 64), 6 B5
+    and 96 B1 launches held to plain.  Prints
+    the steady tick, graph nodes, B1's device ms a tick, an encode's ms,
+    prefill tok/s on a hit, the resume ms, resident GB, and B1 and B5 at
+    the whisper shapes.  Its launches join the ``kernels`` line
+    (``encdec``; B5's ``encdec_eval``).
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -1119,10 +1143,11 @@ def w4a4_gate(api_k, api_p, params, batches, mean_k, mean_p):
     return out
 
 
-def check_eval_launches(api, params, batch):
+def check_eval_launches(api, params, batch, expect=None):
     """Hold every flash and fused-linear launch of one evaluation forward
     against its plain version on the very inputs the forward gave it (the
-    launches of this check are not counted toward the main path's).
+    launches of this check are not counted toward the main path's);
+    ``expect``: the launches by kernel (a dense model's by default).
     Returns the worst max|err| per kernel."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -1157,7 +1182,7 @@ def check_eval_launches(api, params, batch):
     finally:
         fa.flash_attention_kernel, ops.bcq_linear = kernel_fa, kernel_lin
     n = {name: len(v) for name, v in worst.items()}
-    expect = {"flash_attention": api.cfg.n_layers, "bcq_linear": 6 * api.cfg.n_layers}
+    expect = expect or {"flash_attention": api.cfg.n_layers, "bcq_linear": 6 * api.cfg.n_layers}
     if n != expect:
         fail(f"the evaluation forward made {n} launches, expected {expect}")
     out = {name: max(v) for name, v in worst.items()}
@@ -1679,15 +1704,12 @@ def core_plain_work(eng, api, params, prompt, overlay):
 
 
 # ------------------------------------------------------------------ phase 12
-HOST_KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                        "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
 COUNTED = ("bcq_linear", "page_gather", "bcq_page_write")
 
 
 def _tick_profile(fn, n):
     """``fn`` called ``n`` times under torch.profiler: (CUDA kernels, device
-    busy ms, host kernel launches, host ``cudaGraphLaunch`` calls) per call,
-    or None where the profiler saw no device kernel."""
+    busy ms) per call, or None where the profiler saw no device kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1699,28 +1721,118 @@ def _tick_profile(fn, n):
     kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
         return None
-    host = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU]
-    return (len(kern) / n, sum(e.time_range.elapsed_us() for e in kern) / n / 1e3,
-            sum(h in HOST_KERNEL_LAUNCHES for h in host) / n, host.count("cudaGraphLaunch") / n)
+    return len(kern) / n, sum(e.time_range.elapsed_us() for e in kern) / n / 1e3
 
 
 def _steady_profile(eng, label, rows, n=3, tries=3):
     """``_tick_profile`` of ``n`` steady ticks of ``eng`` (``rows`` rows
-    decoding).  The ticks of a window are alike, so a window with no
-    device kernel, or with a host launch count that is not a whole number
-    a tick, is one where the profiler dropped events: it is profiled
-    again, up to ``tries`` windows, and the last one stands (the caller's
-    checks then judge it)."""
+    decoding), for the device-busy numbers only: the ticks of a window are
+    alike, so a window with no device kernel, or with a kernel count that is
+    not a whole number a tick, is one where the profiler dropped events: it
+    is profiled again, up to ``tries`` windows, and the last one stands
+    (None: "not measured").  The host-launch checks read ``_host_launches``
+    instead, which needs no device event."""
     for _ in range(tries):
         if sum(s.req is not None for s in eng.slots) != rows:
             fail(f"{label}: the steady window lost a decoding row")
         prof = _tick_profile(eng.step, n)
-        if prof is not None and all(abs(prof[i] * n - round(prof[i] * n)) < 1e-6
-                                    for i in (2, 3)):
+        if prof is not None and abs(prof[0] * n - round(prof[0] * n)) < 1e-6:
             return prof
         print(f"  ({label}: torch.profiler dropped events of a steady window of {n} ticks "
               f"{prof}; profiled again)", flush=True)
     return prof
+
+
+# aten ops on CUDA tensors that launch no kernel: allocations, metadata,
+# a device-to-host read of one value; a copy launches none when it is a
+# plain memcpy (``_copy_is_memcpy``)
+NO_KERNEL_OPS = {"aten.empty.memory_format", "aten.empty_strided.default",
+                 "aten.empty_like.default", "aten.new_empty.default",
+                 "aten.new_empty_strided.default", "aten._local_scalar_dense.default",
+                 "aten.record_stream.default", "aten.is_pinned.default",
+                 "aten.detach.default", "aten.alias.default", "aten.lift_fresh.default"}
+COPY_OPS = {"aten.copy_.default", "aten._to_copy.default", "aten.clone.default"}
+
+
+def _cuda_tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree] if tree.device.type == "cuda" else []
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _cuda_tensors(x)]
+    if isinstance(tree, dict):
+        return [t for x in tree.values() for t in _cuda_tensors(x)]
+    return []
+
+
+def _copy_is_memcpy(args, out) -> bool:
+    """A copy between tensors of one dtype, each contiguous: a memcpy (the
+    copy kernels run only to convert or to gather strided data)."""
+    import torch
+
+    ts = [t for t in (list(args) + [out]) if isinstance(t, torch.Tensor)]
+    return len({t.dtype for t in ts}) == 1 and all(t.is_contiguous() for t in ts)
+
+
+def _host_launches(eng, label, rows, n=3):
+    """What ``n`` steady ticks of ``eng`` (``rows`` rows decoding) issue from
+    the host, measured without the profiler's device events (which it has
+    lost on this card): the decode graphs' replays (``DecodeGraphs.replays``)
+    and the eager CUDA kernels — a dispatch-mode record of every aten op
+    that touches a CUDA tensor, less views, allocations and plain memcpys
+    (each other op launches a kernel), and the port's own kernels launched
+    outside a replay (the launch counters' growth less what the replays
+    added).  Returns (kernels a tick, replays a tick, the kernels' names)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import build
+
+    if sum(s.req is not None for s in eng.slots) != rows:
+        fail(f"{label}: the steady window lost a decoding row")
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            if _cuda_tensors([args, kwargs or {}, out]) and not (
+                    name in NO_KERNEL_OPS or func.is_view
+                    or (name in COPY_OPS and _copy_is_memcpy(args, out))):
+                ops.append(name)
+            return out
+
+    graphs, replayed = eng._graphs, {}
+    if graphs is not None:
+        real_run = graphs.run
+
+        def run(key):  # a bucket with a graph replays; its launches are the capture's deltas
+            replay = graphs.buckets[key].graph is not None
+            out = real_run(key)
+            for name, d in (graphs.buckets[key].deltas.items() if replay else ()):
+                replayed[name] = replayed.get(name, 0) + d
+            return out
+
+        graphs.run = run
+    before, replays = build.counts(), graphs.replays if graphs is not None else 0
+    try:
+        with Record():
+            for _ in range(n):
+                eng.step()
+        torch.cuda.synchronize()
+    finally:
+        if graphs is not None:
+            del graphs.run  # the instance attribute; the method shows through again
+    for name, c in build.counts().items():
+        ops += [name] * (c - before.get(name, 0) - replayed.get(name, 0))
+    replays = (graphs.replays - replays) if graphs is not None else 0
+    return len(ops) / n, replays / n, sorted(set(ops))
+
+
+def _host_txt(host):
+    return (f"host, a tick: {host[1]:.0f} graph replay + {host[0]:.0f} eager kernel launches "
+            f"(dispatch record){' ' + str(host[2]) if host[2] else ''}")
 
 
 def _outcome(eng, fin=None):
@@ -1747,10 +1859,9 @@ def _way_name(graphs, depth):
 def _profile_txt(prof, wall):
     if prof is None:
         return "the profiler saw no device kernels (device busy not measured)"
-    kern, busy, launches, graphs = prof
+    kern, busy = prof
     return (f"device busy {busy:.3f} ms/tick, idle share {max(0.0, 1 - busy / wall):.3f}, "
-            f"{kern:.0f} CUDA kernels/tick, host launches/tick: {launches:.0f} kernel "
-            f"launches + {graphs:.0f} cudaGraphLaunch")
+            f"{kern:.0f} CUDA kernels/tick")
 
 
 def production_way(eng4, prompts, graphs, depth, n_time, label="phase 12", api=None, **extra):
@@ -1801,6 +1912,7 @@ def production_way(eng4, prompts, graphs, depth, n_time, label="phase 12", api=N
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_time * 1e3
     prof = _steady_profile(eng, label, len(prompts))
+    host = _host_launches(eng, label, len(prompts))
     eng.run_to_completion()
     torch.cuda.synchronize()
     again = eng.trace_counts()["decode"] - captures
@@ -1809,10 +1921,11 @@ def production_way(eng4, prompts, graphs, depth, n_time, label="phase 12", api=N
     print(f"{label} [{_way_name(graphs, depth)}] phase 4's workload: run {run_s:.2f} s "
           f"({out[1]['decode_ticks']} decode ticks, {out[1]['prefill_launches']} prefill "
           f"launches), captures {captures} fresh / {again} warmed; steady tick (8 rows, "
-          f"{n_time} ticks): wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}", flush=True)
+          f"{n_time} ticks): wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}; "
+          f"{_host_txt(host)}", flush=True)
     nodes = {w: eng._graphs.node_count(w) for w in eng._graphs.buckets} if graphs else {}
     return {"out": out, "pool": pool, "counts": counts, "wall": wall, "prof": prof,
-            "captures": captures, "nodes": nodes, "engine": eng}
+            "host": host, "captures": captures, "nodes": nodes, "engine": eng}
 
 
 def _hold_ways(ways, what, label="phase 12"):
@@ -1836,7 +1949,7 @@ def _sampled_txt(eng):
         fail("phase 12: no decode-only step with sampled rows was timed")
     wall = 1e3 * float(np.mean(walls))
     profs = [p for p in eng.sampled_prof if p is not None]
-    prof = tuple(float(np.mean([p[i] for p in profs])) for i in range(4)) if profs else None
+    prof = tuple(float(np.mean([p[i] for p in profs])) for i in range(2)) if profs else None
     return wall, (f"wall {wall:.2f} ms/step over {len(walls)} decode-only steps with sampled "
                   f"rows; over {len(profs)} profiled such steps {_profile_txt(prof, wall)}")
 
@@ -1859,9 +1972,9 @@ def phase_production(eng4, tol, core):
             for g, d, n in ((False, 1, 3), (True, 1, 10), (True, 2, 10))]
     _hold_ways(ways, "phase 4's workload")
     for name, w in ways[1:]:
-        if w["prof"] is not None and (w["prof"][3] != 1 or w["prof"][2] != 0):
-            fail(f"phase 12 [{name}]: a steady greedy tick made {w['prof'][3]} cudaGraphLaunch "
-                 f"and {w['prof'][2]} kernel launches from the host")
+        if w["host"][:2] != (0, 1):
+            fail(f"phase 12 [{name}]: a steady greedy tick issued {w['host']} (eager kernel "
+                 "launches, graph replays, ops) from the host")
     eager = ways[0][1]
     print(f"phase 12 phase 4's workload: eager depth 1, graph depth 1 and graph depth 2 equal bit "
           f"for bit (tokens, margins, launch indices, counters, pool bytes, launch counts "
@@ -2087,11 +2200,10 @@ def phase_containment(eng4, tol, core, g2, smi):
     # the graph's node count is exact; the profiler's kernels a tick may
     # lose or gain a few events in a window
     prof = w["prof"]
-    if w["nodes"] != g2["nodes"] or not w["nodes"] or prof is None or prof[2] != 0 \
-            or prof[3] != 1:
+    if w["nodes"] != g2["nodes"] or not w["nodes"] or w["host"][:2] != (0, 1):
         fail(f"phase 13: the default engine's steady greedy graph tick with audit_every=8 "
-             f"(graph nodes {w['nodes']}; kernels, busy, host kernel launches, cudaGraphLaunch "
-             f"a tick {prof}) is not phase 12's (graph nodes {g2['nodes']}; {g2['prof']})")
+             f"(graph nodes {w['nodes']}; eager kernel launches, graph replays a tick "
+             f"{w['host']}) is not phase 12's (graph nodes {g2['nodes']}; {g2['host']})")
     eng_a = w["engine"]
     t0 = time.perf_counter()
     for _ in range(20):
@@ -2102,9 +2214,11 @@ def phase_containment(eng4, tol, core, g2, smi):
           f"earlier run without containment {EARLIER_TICK[1]} ms); one audit of its "
           f"{eng_a.pool_mgr.n_pages}-page pool and {eng_a.n_slots} slots takes {audit_ms:.3f} ms "
           f"of host time (host clock, 20 calls); decode graph nodes {w['nodes']} (phase 12's "
-          f"{g2['nodes']}); torch.profiler: {prof[0]:.2f} CUDA kernels/tick (phase 12's "
-          f"{g2['prof'][0]:.2f}; the earlier run {EARLIER_TICK[0]}), {prof[3]:.0f} cudaGraphLaunch "
-          f"and {prof[2]:.0f} host kernel launches a tick; card {smi}", flush=True)
+          f"{g2['nodes']}); torch.profiler: "
+          + ("not measured (no device event)" if prof is None or g2["prof"] is None else
+             f"{prof[0]:.2f} CUDA kernels/tick (phase 12's {g2['prof'][0]:.2f}; the earlier run "
+             f"{EARLIER_TICK[0]})")
+          + f"; {_host_txt(w['host'])}; card {smi}", flush=True)
     total = {}
     for c in (runs["graph depth 2"][2]["counts"], way_k["counts"], counts_chaos, w["counts"]):
         for n in COUNTED:
@@ -2281,7 +2395,7 @@ def phase_telemetry(eng4, cb, g2, core_g2, smi):
     device_syncs; that run's TTFT and ITL counts, and its metrics and
     trace accepted by ``tools/check_telemetry.py``.  Phase 4's workload on
     a counters-level engine beside phase 12's default one: the same graph
-    nodes, bits and device_syncs, 1 ``cudaGraphLaunch`` and 0 host kernel
+    nodes, bits and device_syncs, 1 graph replay and 0 eager kernel
     launches a steady tick.  Quant-error probes (``--quant-probes``): phase
     11's workload eagerly at depth 1, every probe launch of B3 held to the
     plain ``encode_stats``, and at graph depth 2 — equal probe reports bit
@@ -2346,15 +2460,15 @@ def phase_telemetry(eng4, cb, g2, core_g2, smi):
     _hold_ways([("phase 12 graph depth 2 (default level)", g2), ("counters level", wc)],
                "phase 4's workload", "phase 14")
     for name, w in (("default", g2), ("counters", wc)):
-        if w["prof"] is None or w["prof"][2] != 0 or w["prof"][3] != 1:
-            fail(f"phase 14: the {name} level's steady greedy tick: {w['prof']}")
+        if w["host"][:2] != (0, 1):
+            fail(f"phase 14: the {name} level's steady greedy tick: {w['host']}")
     if wc["nodes"] != g2["nodes"] or not wc["nodes"] or syncs(wc["engine"]) != syncs(g2["engine"]):
         fail(f"phase 14: the counters level's decode graph ({wc['nodes']} nodes, "
              f"{syncs(wc['engine'])} syncs) is not the default level's ({g2['nodes']}, "
              f"{syncs(g2['engine'])})")
     print(f"phase 14 phase 4's workload, graph depth 2: default level (phase 12's engine) and "
           f"counters level equal bit for bit; decode graph nodes {g2['nodes']} at both (an "
-          f"earlier run: {EARLIER_DEFAULT_TICK[0]}); 1 cudaGraphLaunch and 0 host kernel launches "
+          f"earlier run: {EARLIER_DEFAULT_TICK[0]}); 1 graph replay and 0 eager kernel launches "
           f"a steady tick at both; device_syncs {syncs(g2['engine'])} at both; steady tick wall "
           f"default {g2['wall']:.2f} ms, counters {wc['wall']:.2f} ms (an earlier run: "
           f"{EARLIER_DEFAULT_TICK[1]} ms); card {smi}", flush=True)
@@ -2419,8 +2533,8 @@ def phase_telemetry(eng4, cb, g2, core_g2, smi):
     wp = production_way(eng4, prompts, True, 2, 10, label="phase 14 probes", api=api_p)
     if wp["out"] != g2["out"] or not _same_pool(wp["pool"], g2["pool"]):
         fail("phase 14: the probe engine's tokens or pool bytes differ from phase 12's")
-    if wp["prof"] is None or wp["prof"][2] != 0 or wp["prof"][3] != 1:
-        fail(f"phase 14: the probe engine's steady tick: {wp['prof']}")
+    if wp["host"][:2] != (0, 1):
+        fail(f"phase 14: the probe engine's steady tick: {wp['host']}")
     wp_passes = wp["out"][1]["decode_ticks"] + wp["out"][1]["prefill_launches"]
     if wp["counts"].get("bcq_quantize", 0) != per_pass * wp_passes:
         fail(f"phase 14: B3 launched {wp['counts'].get('bcq_quantize', 0)} times for the probes "
@@ -2906,10 +3020,10 @@ def phase_host_tier(eng4, tol, core, g2, core_g2, smi):
     _hold_ways([("phase 12 graph depth 2", g2), ("idle host tier", w)], "phase 4's workload",
                "phase 15")
     prof = w["prof"]
-    if w["nodes"] != g2["nodes"] or not w["nodes"] or prof is None or prof[2] != 0 \
-            or prof[3] != 1 or w["engine"].health()["swap"]["swap_outs"]:
-        fail(f"phase 15: the idle tier's steady tick (graph nodes {w['nodes']}; {prof}) is not "
-             f"phase 12's ({g2['nodes']}; {g2['prof']})")
+    if w["nodes"] != g2["nodes"] or not w["nodes"] or w["host"][:2] != (0, 1) \
+            or w["engine"].health()["swap"]["swap_outs"]:
+        fail(f"phase 15: the idle tier's steady tick (graph nodes {w['nodes']}; {w['host']}) is "
+             f"not phase 12's ({g2['nodes']}; {g2['host']})")
     add(w["counts"])
     print(f"phase 15 idle tier ({TIER_PAGES} host pages, no pressure) on phase 4's workload: "
           f"graph nodes {w['nodes']} (phase 12's {g2['nodes']}), steady tick wall {w['wall']:.2f} "
@@ -3712,6 +3826,10 @@ def state_way(api, params, prompts, graphs, depth, n_time=6, label="phase 18",
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n_time * 1e3
     prof = _steady_profile(eng, phase, len(prompts))
+    host = _host_launches(eng, phase, len(prompts))
+    if graphs and host[:2] != (0, 1):
+        fail(f"{phase} [{label}]: a steady tick issued {host} (eager kernel launches, graph "
+             "replays, ops) from the host")
     eng.run_to_completion()
     torch.cuda.synchronize()
     if eng.trace_counts()["decode"] != captures:
@@ -3720,10 +3838,10 @@ def state_way(api, params, prompts, graphs, depth, n_time=6, label="phase 18",
     print(f"{phase} [{label}] phase 4's workload: run {run_s:.2f} s ({out[1]['decode_ticks']} "
           f"decode ticks, {out[1]['prefill_launches']} prefills, "
           f"{out[2]['state_checkpoints']} checkpoints); steady tick (8 rows, {n_time} ticks): "
-          f"wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}", flush=True)
+          f"wall {wall:.2f} ms/tick, {_profile_txt(prof, wall)}; {_host_txt(host)}", flush=True)
     nodes = {k: eng._graphs.node_count(k) for k in eng._graphs.buckets} if graphs else {}
     return {"out": out, "bits": bits, "counts": counts, "wall": wall, "prof": prof,
-            "nodes": nodes, "engine": eng,
+            "host": host, "nodes": nodes, "engine": eng,
             "prefill_tok_s": st["prefill_tokens"] / max(st["t_prefill_s"], 1e-9)}
 
 
@@ -4292,24 +4410,18 @@ def hybrid_launch_checks(api, params, prompts, ring_prompts):
     return n, worst, shapes
 
 
-def hybrid_replay_held(api, params, prompts, timed):
-    """The packed checkpoint resume of ``state_preempted`` again (graph
-    depth 2), with every B1 launch of the batch-1 replay (eager, M 1, a
-    decode pass a replayed token) held to plain on its own inputs.  The
-    run's outcome must equal the unheld run's ``timed`` bit for bit.
-    Returns (launches held, worst max|err|)."""
+def replay_held(eng, per_token, timed, label):
+    """Serve ``eng`` — its request 7 preempted after ``STATE_PREEMPT_AT``
+    ticks — to the end with every B1 launch of the batch-1 checkpoint
+    replay (eager, M 1, ``per_token`` launches a replayed token) held to
+    plain on its own inputs; the outcome must equal the unheld run's
+    ``timed`` bit for bit.  Returns (launches held, worst max|err|)."""
     import torch
 
-    eng = state_engine(api, params, True, 2)
-    _state_submit(eng, prompts)
-    for _ in range(STATE_PREEMPT_AT):
-        eng.step()
-    if eng._preempt_one(None) != len(prompts) - 1:
-        fail("phase 19: the preemption did not take request 7")
     real, held_log = eng._replay, []
 
     def replay(*a):
-        got, shapes, err = hold_b1(lambda: real(*a), "phase 19 [packed] checkpoint replay")
+        got, shapes, err = hold_b1(lambda: real(*a), f"{label} checkpoint replay")
         held_log.append((shapes, err))
         return got
 
@@ -4319,17 +4431,27 @@ def hybrid_replay_held(api, params, prompts, timed):
     out = _state_outcome(eng)
     replayed = out[2]["replay_tokens"]
     if len(held_log) != 1:
-        fail(f"phase 19 [packed]: {len(held_log)} replays held, expected 1")
+        fail(f"{label}: {len(held_log)} replays held, expected 1")
     shapes, err = held_log[0]
-    if set(k[0] for k in shapes) != {1} or sum(shapes.values()) != \
-            _hyb_per_pass(api.cfg, False) * replayed:
-        fail(f"phase 19 [packed] checkpoint replay: held {shapes}, expected "
-             f"{_hyb_per_pass(api.cfg, False)} × {replayed} launches at M 1")
+    if {k[0] for k in shapes} != {1} or sum(shapes.values()) != per_token * replayed:
+        fail(f"{label} checkpoint replay: held {shapes}, expected {per_token} × {replayed} "
+             "launches at M 1")
     if out != timed:
-        fail("phase 19 [packed] checkpoint resume: the held run's outcome differs from the "
-             "unheld run's")
+        fail(f"{label} checkpoint resume: the held run's outcome differs from the unheld run's")
     eng.audit(strict=True)
     return sum(shapes.values()), err
+
+
+def hybrid_replay_held(api, params, prompts, timed):
+    """The packed checkpoint resume of ``state_preempted`` again (graph
+    depth 2), every replay launch held (``replay_held``)."""
+    eng = state_engine(api, params, True, 2)
+    _state_submit(eng, prompts)
+    for _ in range(STATE_PREEMPT_AT):
+        eng.step()
+    if eng._preempt_one(None) != len(prompts) - 1:
+        fail("phase 19: the preemption did not take request 7")
+    return replay_held(eng, _hyb_per_pass(api.cfg, False), timed, "phase 19 [packed]")
 
 
 def _hybrid_resumes(mode, base, ck_out, ck_ms, ho_out, ho_ms):
@@ -4588,6 +4710,578 @@ def phase_hybrid(cb, smi):
     return launches, entry, worst
 
 
+# ------------------------------------------------------------------ phase 20
+ENC_ARCH = "whisper_base"
+ENC_MAX_LEN = 448  # Whisper's text context
+ENC_SLOTS = 8
+ENC_CLIPS = 3  # distinct 30 s clips, 1,500 stub frames each
+ENC_PROMPT_LENS = (4, 36, 100, 224)  # decoder prompts: a task prompt up to a long prefix
+ENC_REQS = 12  # request i: clip i % ENC_CLIPS, prompt ENC_PROMPT_LENS[i % 4]
+ENC_GEN = 48
+ENC_EVAL_CLIPS = 4  # the evaluation forward: 4 clips × ENC_MAX_LEN tokens, bf16
+# B1 launches: an encode, 6 an encoder layer (q, k, v, o, mlp in, out) and
+# 2 a decoder layer (the cross K/V); a decoder pass, 8 a layer (self q, k,
+# v, o, cross q, o, mlp in, out)
+ENC_PER_ENC_LAYER, ENC_XKV_PER_LAYER, ENC_PER_DEC_LAYER = 6, 2, 8
+
+
+def _encdec_per_encode(cfg) -> int:
+    return ENC_PER_ENC_LAYER * cfg.n_encoder_layers + ENC_XKV_PER_LAYER * cfg.n_layers
+
+
+def _encdec_counts_ok(eng, counts, label):
+    """B1's launches of a run: an encode per encoder launch, a decoder pass
+    per exact-length prefill, decode tick and replayed token."""
+    cfg = eng.api.cfg
+    st, cs = eng.stats, eng.health()["state_counters"]
+    passes = (st["prefill_launches"] - cs["state_restores"] + st["decode_ticks"]
+              + cs["replay_tokens"])
+    want = (_encdec_per_encode(cfg) * cs["encoder_launches"]
+            + ENC_PER_DEC_LAYER * cfg.n_layers * passes)
+    if counts.get("bcq_linear", 0) != want:
+        fail(f"phase 20 [{label}]: B1 launched {counts.get('bcq_linear', 0)} times, expected "
+             f"{want} ({cs['encoder_launches']} encodes × {_encdec_per_encode(cfg)}, {passes} "
+             f"decoder passes × {ENC_PER_DEC_LAYER * cfg.n_layers})")
+    return want
+
+
+def encdec_inputs(cfg):
+    """The phase's clips (``ENC_CLIPS`` stub frame tensors (encoder_len,
+    d_model), numpy normals · 0.02) and the 12 requests' decoder prompts."""
+    rng = np.random.default_rng(20)
+    clips = [(rng.normal(size=(cfg.encoder_len, cfg.d_model)) * 0.02).astype(np.float32)
+             for _ in range(ENC_CLIPS)]
+    prompts = [rng.integers(0, cfg.vocab, ENC_PROMPT_LENS[i % len(ENC_PROMPT_LENS)])
+               for i in range(ENC_REQS)]
+    return clips, prompts
+
+
+def encdec_submit(eng, clips, prompts):
+    """Request i: ``prompts[i]`` over clip i % ``len(clips)``, ``ENC_GEN`` tokens."""
+    from repro_torch.serving.generate import Request
+
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=ENC_GEN - 1, frames=clips[i % len(clips)]))
+
+
+def encdec_engine(api, params, graphs, depth, **kw):
+    """Phase 20's engine: 8 slots, page 16, max_len 448, prefix caching on."""
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    return StatePagedEngine(api, params, n_slots=ENC_SLOTS, max_len=ENC_MAX_LEN,
+                            page_size=STATE_PS, device="cuda", pipeline_depth=depth,
+                            cuda_graphs=graphs, **kw)
+
+
+def _encdec_bits(eng):
+    return _state_bits(eng) + [t.clone() for t in eng.enc_pool]
+
+
+def encdec_way(api, params, clips, prompts, graphs, depth, n_time=6):
+    """The 12 requests through the engine in one way: served to completion
+    (outcome, live tree, state and encoder pool bytes, B1 launches, 3
+    encodes and 9 prefix hits, captures), then served again by the warmed
+    engine — every clip a hit, nothing captured — whose first step admits
+    8 requests, then ``n_time`` steady ticks (8 rows, none checkpointing)
+    timed on the host clock, 3 profiled and 3 recorded for their host
+    launches."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    label = _way_name(graphs, depth)
+    cfg = api.cfg
+    eng = encdec_engine(api, params, graphs, depth)
+    encdec_submit(eng, clips, prompts)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = build.counts()
+    _encdec_counts_ok(eng, counts, label)
+    out, bits = _state_outcome(eng), _encdec_bits(eng)
+    st = eng.stats
+    hits = (ENC_REQS - ENC_CLIPS, (ENC_REQS - ENC_CLIPS) * cfg.encoder_len)
+    if out[2]["encoder_launches"] != ENC_CLIPS or (st["prefix_hits"],
+                                                   st["prefill_tokens_skipped"]) != hits:
+        fail(f"phase 20 [{label}]: {out[2]['encoder_launches']} encodes, {st['prefix_hits']} "
+             f"prefix hits skipping {st['prefill_tokens_skipped']} frames; expected "
+             f"{ENC_CLIPS} and {hits}")
+    if any(len(v[0]) != ENC_GEN for v in out[0].values()):
+        fail(f"phase 20 [{label}]: {[len(v[0]) for v in out[0].values()]} tokens, expected "
+             f"{ENC_GEN} each")
+    captures = eng.trace_counts()["decode"]
+    if graphs and captures != 2:
+        fail(f"phase 20 [{label}]: {captures} decode captures, expected 2")
+    # tick t ≥ 2 of the second run launches row i at position plen_i + t - 1:
+    # the timed ticks checkpoint no row
+    if any((len(p) + t - 1) % STATE_PS == STATE_PS - 1 for p in prompts[:ENC_SLOTS]
+           for t in range(2, n_time + 2)):
+        fail(f"phase 20 [{label}]: a timed steady tick would checkpoint")
+    pre_tok, pre_s = st["prefill_tokens"], st["t_prefill_s"]
+    encdec_submit(eng, clips, prompts)
+    eng.step()  # eight prefills on hits and the first decode launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_time):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_time * 1e3
+    prof = _steady_profile(eng, "phase 20", ENC_SLOTS)
+    host = _host_launches(eng, "phase 20", ENC_SLOTS)
+    if graphs and host[:2] != (0, 1):
+        fail(f"phase 20 [{label}]: a steady tick issued {host} (eager kernel launches, graph "
+             "replays, ops) from the host")
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    if eng.trace_counts()["decode"] != captures or \
+            eng.health()["state_counters"]["encoder_launches"] != ENC_CLIPS:
+        fail(f"phase 20 [{label}]: the warmed engine captured or encoded again")
+    hit_tok_s = (st["prefill_tokens"] - pre_tok) / max(st["t_prefill_s"] - pre_s, 1e-9)
+    print(f"phase 20 [{label}] 12 requests over {ENC_CLIPS} clips: run {run_s:.2f} s "
+          f"({out[1]['decode_ticks']} decode ticks, {out[1]['prefill_launches']} prefills, "
+          f"{out[2]['encoder_launches']} encodes, {st['prefix_hits'] - ENC_REQS} prefix hits "
+          f"then all {ENC_REQS} warmed); steady tick (8 rows, {n_time} ticks): wall "
+          f"{wall:.2f} ms/tick, {_profile_txt(prof, wall)}; {_host_txt(host)}; prefill on a "
+          f"hit {hit_tok_s:.0f} tok/s", flush=True)
+    nodes = {k: eng._graphs.node_count(k) for k in eng._graphs.buckets} if graphs else {}
+    return {"out": out, "bits": bits, "counts": counts, "wall": wall, "prof": prof,
+            "host": host, "nodes": nodes, "engine": eng, "hit_tok_s": hit_tok_s}
+
+
+def encdec_launch_checks(api, params, clips, prompts):
+    """Every B1 launch of the first engine step (3 encodes, 8 exact-length
+    prefills on the encoder pages, a decode tick), of a steady tick and of
+    a checkpoint tick held to plain on its own inputs (eager depth 1).
+    Returns (launches held, worst max|err|, the shapes)."""
+    cfg = api.cfg
+    enc, dec = _encdec_per_encode(cfg), ENC_PER_DEC_LAYER * cfg.n_layers
+    eng = encdec_engine(api, params, False, 1)
+    encdec_submit(eng, clips, prompts)
+    _, first, e1 = hold_b1(eng.step, "phase 20 first step")
+    _, steady, e2 = hold_b1(eng.step, "phase 20 steady tick")
+    while not any((s.pos + 1) % STATE_PS == 0 for s in eng.slots if s.req is not None):
+        eng.step()
+    _, ckpt, e3 = hold_b1(eng.step, "phase 20 checkpoint tick")
+    eng.run_to_completion()
+    eng.audit(strict=True)
+    want_first = ENC_CLIPS * enc + (ENC_SLOTS + 1) * dec
+    for name, got, want in (("first step", first, want_first), ("steady tick", steady, dec),
+                            ("checkpoint tick", ckpt, dec)):
+        if sum(got.values()) != want:
+            fail(f"phase 20: {sum(got.values())} B1 launches held in the {name}, expected {want}")
+    d, f, t = cfg.d_model, cfg.d_ff, cfg.encoder_len
+    need = {"first step": (first, [(t, d, d), (t, d, f), (t, f, d), (max(ENC_PROMPT_LENS), d, d)]),
+            "steady tick": (steady, [(ENC_SLOTS, d, d), (ENC_SLOTS, d, f), (ENC_SLOTS, f, d)])}
+    for name, (got, keys) in need.items():
+        if not all(k in got for k in keys):
+            fail(f"phase 20: the {name}'s held shapes {sorted(got)} miss {keys}")
+    n = sum(sum(x.values()) for x in (first, steady, ckpt))
+    shapes = sorted(set(first) | set(steady))
+    worst = max(e1, e2, e3)
+    print(f"phase 20 every B1 launch held to plain on its own inputs: the first step (3 encodes "
+          f"× {enc} at M {t} + 8 prefills of 4–224 tokens and a decode tick × {dec} = "
+          f"{sum(first.values())}), a steady tick ({sum(steady.values())}) and a checkpoint "
+          f"tick ({sum(ckpt.values())}): {n} launches at (M, K, N) {shapes}; max|err| "
+          f"{worst:.3e} (rtol={LINEAR_TOL}, atol={LINEAR_TOL}·max|plain|)", flush=True)
+    return n, worst, shapes
+
+
+def encdec_preempted(api, params, clips, prompts, host_pages=0):
+    """The 12 requests (graph depth 2) with request 7 (the youngest)
+    preempted after ``STATE_PREEMPT_AT`` ticks and resumed, encoding nothing
+    again.  Returns (engine, outcome, the resumed request's admission ms)."""
+    import torch
+
+    eng = encdec_engine(api, params, True, 2, host_pages=host_pages)
+    encdec_submit(eng, clips, prompts)
+    for _ in range(STATE_PREEMPT_AT):
+        eng.step()
+    if eng._preempt_one(None) is None or eng.queue[0].rid != ENC_SLOTS - 1:
+        fail("phase 20: the preemption did not take request 7")
+    if eng.queue[0]._enc_page is None:
+        fail("phase 20: the preempted request does not carry its encoder page")
+    log = _timed_admits(eng)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    admits = [ms for rid, ms in log if rid == ENC_SLOTS - 1]
+    if len(admits) != 1:
+        fail(f"phase 20: request 7 readmitted {len(admits)} times")
+    out = _state_outcome(eng)
+    if out[2]["encoder_launches"] != ENC_CLIPS:
+        fail(f"phase 20: the resume encoded again ({out[2]['encoder_launches']} encodes)")
+    eng.audit(strict=True)
+    return eng, out, admits[0]
+
+
+def encdec_replay_held(api, params, clips, prompts, timed):
+    """The checkpoint resume of ``encdec_preempted`` again, every replay
+    launch (a decoder pass a replayed token, cross-attending to the carried
+    encoder page) held (``replay_held``)."""
+    eng = encdec_engine(api, params, True, 2)
+    encdec_submit(eng, clips, prompts)
+    for _ in range(STATE_PREEMPT_AT):
+        eng.step()
+    eng._preempt_one(None)
+    return replay_held(eng, ENC_PER_DEC_LAYER * api.cfg.n_layers, timed, "phase 20")
+
+
+def _b1_trace(run, plain):
+    """``run()`` with every B1 launch recorded (its activation, its s_X),
+    through the kernel or, with ``plain``, through its plain version
+    (``fused_linear_ref``).  Returns (what ``run`` returned, the launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import fused_linear_ref
+
+    real, log = ops.bcq_linear, []
+
+    def linear(x, w_idx, w_sel, w_inv, cb, s_x, cfg):
+        log.append((x.clone(), s_x))
+        if plain:
+            return fused_linear_ref(x, w_idx, w_sel, w_inv, cb, cfg, s_x, valid_k=x.shape[1])
+        return real(x, w_idx, w_sel, w_inv, cb, s_x, cfg)
+
+    ops.bcq_linear = linear
+    try:
+        return run(), log
+    finally:
+        ops.bcq_linear = real
+
+
+def held_to_first_flip(tag, run):
+    """Kernels vs plain on identical inputs through ``run``, held launch by
+    launch: each B1 launch's activation must be the plain run's within
+    ``LINEAR_TOL`` · max|x| (B1's f32 sum order, nothing more) until the
+    first launch whose activation encodes to other codes in the two runs
+    (a W4A4 flip: the noise crossed an encode boundary; every later launch
+    sees other inputs); with no flip the output is held within
+    ``STATE_LOGIT_RTOL`` · max|plain|, with one it is printed and the flip
+    named.  Returns the launch index of the flip, or None."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.core.calibrate import default_universal_codebooks
+
+    out_k, log_k = _b1_trace(run, plain=False)
+    out_p, log_p = _b1_trace(run, plain=True)
+    if len(log_k) != len(log_p):
+        fail(f"{tag}: {len(log_k)} B1 launches through the kernels, {len(log_p)} plain")
+    cfg, flip = bcq.BCQConfig(), None
+    cb = default_universal_codebooks().as_tensor("cuda")
+    for i, ((xk, sk), (xp, sp)) in enumerate(zip(log_k, log_p)):
+        gap = float((xk - xp).abs().max())
+        if gap > LINEAR_TOL * float(xp.abs().max()):
+            fail(f"{tag}: B1 launch {i}'s activation parts from the plain run's by {gap:.3e} "
+                 "before any W4A4 flip")
+        ek, ep = bcq.encode(xk, cb, cfg, s_x=sk), bcq.encode(xp, cb, cfg, s_x=sp)
+        if not all(torch.equal(getattr(ek, f), getattr(ep, f))
+                   for f in ("scale_code", "packed_sel", "packed_idx")):
+            flip = i
+            break
+    kp = _compare(f"{tag} kernels vs plain", out_k.float(), out_p.float())
+    if flip is None:
+        if kp["max"] > STATE_LOGIT_RTOL * kp["scale"]:
+            fail(f"{tag}: no W4A4 flip, yet the kernel path differs from the plain path by "
+                 f"{kp['max']:.3e}, beyond {STATE_LOGIT_RTOL} · {kp['scale']:.3f}")
+        print(f"{tag}: all {len(log_k)} B1 launches encode alike; kernels vs plain max|Δ| "
+              f"{kp['max']:.3e} within {STATE_LOGIT_RTOL} · max|plain|", flush=True)
+    else:
+        print(f"{tag}: held launch by launch up to B1 launch {flip} of {len(log_k)}, where a "
+              f"W4A4 flip parts the runs (its activations within {LINEAR_TOL} · max|x|, their "
+              f"encodes apart); the output after it printed above, not held", flush=True)
+    return flip
+
+
+def encdec_blocks(cfg, clips, prompts):
+    """Kernels vs plain at the full width on identical inputs
+    (``held_to_first_flip``): one encoder block's output (a 1-layer
+    encoder over clips 0 and 1) and one decoder block's logits (a 1-layer
+    decoder over 8 prompts cut to 36 tokens, cross-attending to the plain
+    path's encoder output).  The 6 + 6-layer model's prefill logits are
+    printed, not held: W4A4 flips from B1's f32 sum order cascade there.
+    Returns the flips (launch index or None) of the two blocks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models import encdec, transformer
+
+    frames = torch.from_numpy(np.stack(clips[:2])).cuda()
+    rows = [p for p in prompts if len(p) >= ENC_PROMPT_LENS[1]][:ENC_SLOTS]
+    s = min(len(p) for p in rows)
+    tokens = torch.from_numpy(np.stack([p[:s] for p in rows]).astype(np.int32)).cuda()
+    pos = torch.arange(s, device=tokens.device)[None].expand(tokens.shape)
+
+    one = dataclasses.replace(cfg, n_encoder_layers=1, n_layers=1)
+    api, params = build_model(one, "bcq4", True, "cuda", 0, True)
+    f_enc = held_to_first_flip("phase 20 one encoder block (output)",
+                               lambda: encdec.encode(params, frames, one, api.rt))
+    enc_out, _ = _b1_trace(lambda: encdec.encode(params, frames, one, api.rt), plain=True)
+    enc_out = enc_out.repeat_interleave(ENC_SLOTS // 2, 0)
+
+    def dec():
+        x, _ = encdec.decoder(params, tokens, enc_out, one, api.rt, pos)
+        return transformer.lm_logits(params, x, api.rt)
+
+    f_dec = held_to_first_flip("phase 20 one decoder block (logits)", dec)
+    del api, params
+    api, params = build_model(cfg, "bcq4", True, "cuda", 0, True)
+    batch = {"tokens": tokens, "frames": frames.repeat_interleave(ENC_SLOTS // 2, 0)}
+
+    def full():
+        return api.prefill_fn(params, batch, ENC_MAX_LEN)[0]
+
+    _compare("phase 20 the 6 + 6-layer prefill logits kernels vs plain (printed, not held)",
+             _b1_trace(full, plain=False)[0].float(), _b1_trace(full, plain=True)[0].float())
+    torch.cuda.empty_cache()
+    return f_enc, f_dec
+
+
+def encdec_eval(api, params, clips):
+    """The evaluation forward (``loss_fn``) on 4 clips × 448 tokens in bf16
+    with ``flash_kernel``: the decoder's causal self-attention through B5
+    at (32, 448, 64), every B1 and B5 launch counted exactly and held to
+    plain on its own inputs (``check_eval_launches``).  Returns (launches
+    by kernel, worst max|err| by kernel, wall ms)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import zoo
+
+    cfg = api.cfg
+    rt = dataclasses.replace(api.rt, compute_dtype=torch.bfloat16, flash_kernel=True)
+    api_e = zoo.build(cfg, rt, device="cuda")
+    rng = np.random.default_rng(21)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (ENC_EVAL_CLIPS, ENC_MAX_LEN + 1))
+                              .astype(np.int32)).cuda()
+    frames = torch.from_numpy(np.stack([clips[i % len(clips)]
+                                        for i in range(ENC_EVAL_CLIPS)])).cuda()
+    batch = {"frames": frames, "tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    expect = {"flash_attention": cfg.n_layers,
+              "bcq_linear": _encdec_per_encode(cfg) + ENC_PER_DEC_LAYER * cfg.n_layers}
+    torch.cuda.synchronize()
+    build.reset_counts()
+    loss = float(api_e.loss_fn(params, batch))
+    counts = {k: build.counts().get(k, 0) for k in expect}
+    if counts != expect:
+        fail(f"phase 20: the evaluation forward launched {counts}, expected {expect}")
+    api_p = zoo.build(cfg, dataclasses.replace(rt, fused_linear=False, flash_kernel=False),
+                      device="cuda")
+    loss_p = float(api_p.loss_fn(params, batch))
+    if not (np.isfinite(loss) and abs(loss - loss_p) <= 0.05 * abs(loss_p)):
+        fail(f"phase 20: the evaluation loss {loss} (kernels) vs {loss_p} (plain)")
+    worst = check_eval_launches(api_e, params, batch, expect)
+    wall = cuda_ms(lambda: api_e.loss_fn(params, batch), iters=3, warmup=1)
+    print(f"phase 20 evaluation forward (loss_fn, {ENC_EVAL_CLIPS} clips × {ENC_MAX_LEN} "
+          f"tokens, bf16, flash_kernel): loss {loss:.5f} kernels, {loss_p:.5f} plain; launches "
+          f"{counts} (B5 at ({ENC_EVAL_CLIPS * cfg.n_heads}, {ENC_MAX_LEN}, {cfg.head_dim})); "
+          f"{wall:.2f} ms a forward", flush=True)
+    return counts, worst, wall
+
+
+def phase_encdec(cb, smi):
+    """Phase 20: full-width Whisper-base (``whisper_base``: 6 encoder and 6
+    decoder layers, d 512, 8 heads of 64, d_ff 2048, gelu, layernorm, vocab
+    51865 padded to 51968, tied; 1,500 stub frames; seeded weights packed
+    to W4, f32 compute, a bcq4 decoder self cache, max_len 448) served in
+    W4A4 through StatePagedEngine with its encoder output in shared_ro
+    pages: 12 requests over 3 clips (decoder prompts of 4–224 tokens, 48
+    tokens each; 8 slots, page 16) — 3 encodes and 9 prefix hits, graph
+    depth 2 ≡ eager depth 1 bit for bit (encoder pool bytes too), exact B1
+    counts (48 an encode, 48 a decoder pass), a steady tick one graph
+    replay and no eager kernel; every B1 launch of the first step, a
+    steady and a checkpoint tick held to plain; request 7 preempted after
+    20 ticks and resumed from its checkpoint (every replay launch held,
+    nothing encoded again) and from the host tier (bit-exact); a best-of-2
+    fork sharing the encoder page; the reference CI's hot chaos run; one
+    encoder block and one decoder block kernels vs plain, held launch by
+    launch up to the first W4A4 flip; the evaluation forward in bf16
+    through B5 at (32, 448, 64).  Returns (B1 launches, B5 launches, the
+    ``kernels`` entries' fields for B1 and B5, worst errors)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serving.generate import Request
+    from repro_torch.serving.pages import REPLICATED, tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(ENC_ARCH)
+    clips, prompts = encdec_inputs(cfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    api, params = build_model(cfg, "bcq4", True, "cuda", 0, True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = (torch.cuda.memory_allocated() - before) / 1e9
+    probe = encdec_engine(api, params, False, 1)
+    page_b = sum(t[0].numel() * t.element_size() for t, ax in
+                 zip(tree_leaves(probe.spool), tree_leaves(probe.axes)) if ax != REPLICATED)
+    enc_b = sum(t.numel() * t.element_size() for t in probe.enc_pool)
+    n_pages = probe.pool_mgr.n_pages
+    print(f"phase 20 {cfg.name}: {cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"{cfg.encoder_len} frames, vocab {cfg.vocab} (padded {cfg.vocab_padded}): drawn and "
+          f"packed in {init_s:.1f} s, {resident:.3f} GB resident; an engine of {n_pages} pages: "
+          f"a state page (the decoder's bcq4 self cache, {ENC_MAX_LEN} tokens) {page_b} B, the "
+          f"encoder pool {enc_b / 1e9:.3f} GB ({n_pages} pages × {enc_b // n_pages} B)",
+          flush=True)
+    del probe
+    launches = 0
+
+    # the production tick: graph depth 2 ≡ eager depth 1
+    ways = [(_way_name(g, d), encdec_way(api, params, clips, prompts, g, d))
+            for g, d in ((True, 2), (False, 1))]
+    (n_g, g2), (n_e, e1) = ways
+    for part in ("out", "counts"):
+        if g2[part] != e1[part]:
+            fail(f"phase 20: {n_g} and {n_e} differ in their {part}")
+    if not all(torch.equal(a, b) for a, b in zip(g2["bits"], e1["bits"])):
+        fail(f"phase 20: {n_g} and {n_e} leave different live-tree, state or encoder pool bytes")
+    launches += 2 * g2["counts"]["bcq_linear"]
+    eng = g2["engine"]
+    by = _device_kernels(lambda: eng._graphs.run(False), 3)
+    b1 = None if by is None else sum(ms for nm, ms in by[2].items()
+                                     if "encode_kernel" in nm or "gemm_" in nm)
+    fmt = lambda v: "not measured" if v is None else f"{v:.3f} ms"  # noqa: E731
+    dec = ENC_PER_DEC_LAYER * cfg.n_layers
+    print(f"phase 20: graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins, launch "
+          f"indices, counters, live tree, state and encoder pool bytes, "
+          f"{g2['counts']['bcq_linear']} B1 launches: {_encdec_per_encode(cfg)} an encode, {dec} "
+          f"a decoder pass); decode graph nodes {g2['nodes']}; steady tick wall "
+          f"{g2['wall']:.2f} ms graph depth 2, {e1['wall']:.2f} ms eager depth 1; one graph "
+          f"replay's device time {fmt(None if by is None else by[1])}, of it B1 ({dec} launches) "
+          f"{fmt(b1)}; {smi}", flush=True)
+    hit_tok_s = g2["hit_tok_s"]
+    for _, w in ways:
+        w.pop("engine")
+    del eng, ways
+
+    n_held, worst, _ = encdec_launch_checks(api, params, clips, prompts)
+
+    # one encode (M 1500 through the 6 encoder layers and the cross K/V), timed
+    pool = api.enc_pool_init(2)
+    frames = torch.from_numpy(clips[0])[None].cuda()
+    enc_ms = cuda_ms(lambda: api.enc_store_fn(pool, api.encode_xkv_fn(params, frames), 1),
+                     iters=10)
+    del pool
+
+    # preemption: request 7 resumed from its checkpoint and from the host tier
+    base = encdec_engine(api, params, True, 2)
+    encdec_submit(base, clips, prompts)
+    base.run_to_completion()
+    base_out = _state_outcome(base)[0]
+    del base
+    build.reset_counts()
+    ck, ck_out, ck_ms = encdec_preempted(api, params, clips, prompts)
+    _encdec_counts_ok(ck, build.counts(), "checkpoint resume")
+    launches += build.counts().get("bcq_linear", 0)
+    build.reset_counts()
+    ho, ho_out, ho_ms = encdec_preempted(api, params, clips, prompts, host_pages=STATE_HOST_PAGES)
+    launches += build.counts().get("bcq_linear", 0)
+    build.reset_counts()
+    n_rep, err_rep = encdec_replay_held(api, params, clips, prompts, ck_out)
+    launches += build.counts().get("bcq_linear", 0)
+    worst = max(worst, err_rep)
+    cs, sw = ck_out[2], ho_out[3]
+    if not (0 < cs["replay_tokens"] <= STATE_PS and cs["state_restores"] == 1):
+        fail(f"phase 20: checkpoint resume replayed {cs['replay_tokens']} tokens "
+             f"({cs['state_restores']} restores), expected 1..{STATE_PS}")
+    if ho_out[2]["replay_tokens"] or sw["verified_swapins"] != 1 or sw["swap_outs"] != 1:
+        fail(f"phase 20: host resume {ho_out[2]}, swap {sw}")
+    if ho_out[0] != base_out:
+        fail("phase 20: the host-tier resume is not bit-exact to the never-preempted run")
+    flips = sum(x != y for k in base_out for x, y in zip(base_out[k][0], ck_out[0][k][0]))
+    swap = time_state_swap(ck, "phase 20")
+    del ck, ho
+    print(f"phase 20 request 7 preempted after {STATE_PREEMPT_AT} ticks, no encode again: "
+          f"checkpoint resume replayed {cs['replay_tokens']} tokens in {ck_ms:.2f} ms (its "
+          f"{n_rep} B1 launches, M 1, held to plain: max|err| {err_rep:.3e}; tokens vs the "
+          f"never-preempted run: {flips} of {sum(len(v[0]) for v in base_out.values())} "
+          f"differ, as W4A4 allows); host-tier resume 0 replayed in {ho_ms:.2f} ms, bit-exact; "
+          f"one state page ({swap['bytes']} B) through the host tier: fetch "
+          f"{swap['fetch']:.3f} ms, put {swap['put']:.3f} ms, take {swap['take']:.3f} ms, "
+          f"insert {swap['insert']:.3f} ms; audits clean", flush=True)
+
+    # a best-of-2 fork shares the encoder page
+    build.reset_counts()
+    e = encdec_engine(api, params, True, 2)
+    e.submit(Request(rid=0, prompt=prompts[1], max_new=ENC_GEN - 1, n_samples=2,
+                     frames=clips[0]))
+    e.step()
+    sib = [s for s in e.slots if s.req is not None]
+    if len(sib) != 2 or sib[0].enc_page != sib[1].enc_page or \
+            e.pool_mgr.refcount[sib[0].enc_page] != 2:
+        fail("phase 20: the fork's siblings do not share one encoder page")
+    fin, _ = e.run_to_completion()
+    e.audit(strict=True)
+    if fin[0].out != fin[1].out or e.health()["state_counters"]["encoder_launches"] != 1 \
+            or e.stats["shared_pages"] != 2:
+        fail(f"phase 20: a greedy best-of-2 gave {[r.out[:4] for r in fin]}, "
+             f"{e.health()['state_counters']}, shared pages {e.stats['shared_pages']}")
+    del e
+    launches += build.counts().get("bcq_linear", 0)
+    print("phase 20 best-of-2 (graph depth 2): the siblings share the encoder page (refcount "
+          "2, one encode) and the checkpoint page, greedy siblings identical", flush=True)
+
+    # the reference CI's hot state-layout chaos run, at graph depth 2
+    path = os.path.join(ROOT, "build", "chaos_encdec.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    build.reset_counts()
+    rep = serve.run_chaos(api, params, prompts[:4], HYB_CHAOS_GEN, page_size=STATE_PS,
+                          report_path=path, arch=cfg.name, frames=clips[0], **HYB_CHAOS)
+    launches += build.counts().get("bcq_linear", 0)
+    check = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "check_chaos.py"), path],
+                           capture_output=True, text=True, timeout=120)
+    print(f"phase 20 hot chaos run (seed {HYB_CHAOS['seed']}, rate {HYB_CHAOS['rate']}, audit "
+          f"every tick) tools/check_chaos.py (exit {check.returncode}): "
+          f"{(check.stdout + check.stderr).strip()}; faults {rep['faults']['by_site']}",
+          flush=True)
+    if (check.returncode or rep["page_layout"] != "state" or not rep["final_audit"]["ok"]
+            or rep["unhandled_exception"] is not None or rep["leaked_pages"]):
+        fail("phase 20: the hot chaos run is not contained")
+
+    counts_ev, err_ev, eval_ms = encdec_eval(api, params, clips)
+    launches += counts_ev["bcq_linear"]
+    worst = max(worst, err_ev["bcq_linear"])
+    del api, params
+    torch.cuda.empty_cache()
+    flips = encdec_blocks(cfg, clips, prompts)
+
+    lin = {"at_encdec_encode": dict(_linear_times(cb, cfg.encoder_len, cfg.d_model, cfg.d_ff, 91),
+                                    shape=f"M {cfg.encoder_len} K {cfg.d_model} N {cfg.d_ff} "
+                                          "(whisper_base encoder mlp-in)"),
+           "at_encdec_decode": dict(_linear_times(cb, ENC_SLOTS, cfg.d_ff, cfg.d_model, 90),
+                                    shape=f"M {ENC_SLOTS} K {cfg.d_ff} N {cfg.d_model} "
+                                          "(whisper_base decode mlp-out)")}
+    bh = ENC_EVAL_CLIPS * cfg.n_heads
+    ft = _flash_times(bh, ENC_MAX_LEN, cfg.head_dim, cfg.n_heads)
+    ft.pop("inputs")
+    print(f"flash timing at BH={bh} S={ENC_MAX_LEN} D={cfg.head_dim} bf16 causal (whisper_base "
+          f"evaluation): kernel {ft['ms']:.4f} ms, plain {ft['plain_ms']:.4f} ms, SDPA "
+          f"{ft['library_ms']:.4f} ms, bound {ft['bound_ms']:.5f} ms by {ft['bound_by']}; kernel "
+          f"vs plain max|err| {ft['err']:.3e}", flush=True)
+    flash = {"at_encdec_eval": {k: ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by")}
+             | {"shape": f"BH {bh} S {ENC_MAX_LEN} D {cfg.head_dim} bf16 causal"}}
+    print(f"phase 20 summary ({smi}): steady graph tick {g2['wall']:.2f} ms wall, "
+          f"{_profile_txt(g2['prof'], g2['wall'])}; graph nodes {g2['nodes']}; an encode "
+          f"{enc_ms:.3f} ms; prefill on a hit {hit_tok_s:.0f} tok/s; resume {ck_ms:.2f} ms "
+          f"(checkpoint) / {ho_ms:.2f} ms (host tier); evaluation forward {eval_ms:.2f} ms; "
+          f"{n_held} B1 launches held; W4A4 flips at B1 launch {flips} (encoder block, decoder "
+          f"block; None: none); phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, counts_ev["flash_attention"], lin, flash, {
+        "bcq_linear": worst, "flash_attention": max(err_ev["flash_attention"], ft["err"])}
+
+
 # ------------------------------------------------------------------ phase 10
 def _bound(nbytes, *work):
     """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
@@ -4770,46 +5464,60 @@ def time_gather(cb, worst_err, launches):
     }
 
 
-def time_flash(worst_err, launches):
-    """Flash at the evaluation shape: (4 · 12, 2048, 64) bf16, causal."""
+def _flash_times(bh, s_len, d, heads):
+    """Flash, bf16 and causal, at (bh, s_len, d): kernel, plain and SDPA
+    (on (bh / heads, heads, s_len, d)) ms, the bound, kernel vs plain
+    max|err|, and the inputs."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
-    bh, s_len, d = EVAL_BATCH * 12, EVAL_SEQ, 64
     q, k, v = (torch.randn((bh, s_len, d), device="cuda").to(torch.bfloat16) for _ in range(3))
     ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, True), iters=20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True), iters=5)
-    q32, k32, v32 = (t.float() for t in (q, k, v))  # the f32 specialisation (CUDA cores)
-    f32_ms = cuda_ms(lambda: fa.flash_attention_kernel(q32, k32, v32, True), iters=5)
-    ok32, err32 = held(fa.flash_attention_kernel(q32, k32, v32, True),
-                       fa.flash_attention_plain(q32, k32, v32, True), *(FLASH_TOL["float32"],) * 2)
-    if not ok32:
-        fail(f"f32 flash disagrees with its plain version at BH={bh} S={s_len} D={d}: {err32:.3e}")
     tol = FLASH_TOL["bfloat16"]
     ok, err = held(fa.flash_attention_kernel(q, k, v, True), fa.flash_attention_plain(q, k, v, True),
                    tol, tol)
     if not ok:
         fail(f"flash disagrees with its plain version at BH={bh} S={s_len} D={d}: {err:.3e}")
-    q4, k4, v4 = (t.reshape(EVAL_BATCH, 12, s_len, d) for t in (q, k, v))
+    q4, k4, v4 = (t.reshape(bh // heads, heads, s_len, d) for t in (q, k, v))
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), iters=20)
     nbytes = 4 * bh * s_len * d * 2  # q, k, v read once, out written once
     pairs = s_len * (s_len + 1) // 2  # causal (query, key) pairs per head
     flops = 4 * d * pairs * bh  # q·k and p·v
     bound, by = _bound(nbytes, (flops, BF16_FLOPS))
-    print(f"flash timing at BH={bh} S={s_len} D={d} bf16 causal: kernel {ms:.4f} ms (earlier run: "
-          f"{EARLIER_MS['flash_attention']} ms), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
-          f"bound {bound:.5f} ms by {by} ({nbytes} B, {flops} FLOP at the bf16 tensor-core peak; "
-          f"{flops / F32_FLOPS * 1e3:.4f} ms at the f32 peak); kernel vs plain max|err| {err:.3e}; "
-          f"f32 specialisation on f32 inputs {f32_ms:.4f} ms (max|err| {err32:.3e})", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": by, "err": err, "nbytes": nbytes, "flops": flops, "inputs": (q, k, v)}
+
+
+def time_flash(worst_err, launches):
+    """Flash at the evaluation shape: (4 · 12, 2048, 64) bf16, causal."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bh, s_len, d = EVAL_BATCH * 12, EVAL_SEQ, 64
+    t = _flash_times(bh, s_len, d, 12)
+    q32, k32, v32 = (x.float() for x in t.pop("inputs"))  # the f32 specialisation (CUDA cores)
+    f32_ms = cuda_ms(lambda: fa.flash_attention_kernel(q32, k32, v32, True), iters=5)
+    ok32, err32 = held(fa.flash_attention_kernel(q32, k32, v32, True),
+                       fa.flash_attention_plain(q32, k32, v32, True), *(FLASH_TOL["float32"],) * 2)
+    if not ok32:
+        fail(f"f32 flash disagrees with its plain version at BH={bh} S={s_len} D={d}: {err32:.3e}")
+    print(f"flash timing at BH={bh} S={s_len} D={d} bf16 causal: kernel {t['ms']:.4f} ms (earlier "
+          f"run: {EARLIER_MS['flash_attention']} ms), plain {t['plain_ms']:.4f} ms, SDPA "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by {t['bound_by']} "
+          f"({t['nbytes']} B, {t['flops']} FLOP at the bf16 tensor-core peak; "
+          f"{t['flops'] / F32_FLOPS * 1e3:.4f} ms at the f32 peak); kernel vs plain max|err| "
+          f"{t['err']:.3e}; f32 specialisation on f32 inputs {f32_ms:.4f} ms (max|err| "
+          f"{err32:.3e})", flush=True)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26", "launches": launches,
-        "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": by, "library_ms": library_ms, "bound_peak": "bf16 989 TFLOP/s",
-        "shape": f"BH {bh} S {s_len} D {d} bf16 causal", "f32_ms": f32_ms,
+        "max_abs_err": worst_err, **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms")},
+        "bound_peak": "bf16 989 TFLOP/s", "shape": f"BH {bh} S {s_len} D {d} bf16 causal",
+        "f32_ms": f32_ms,
     }
 
 
@@ -5010,6 +5718,7 @@ def main() -> int:
     counts_ptq, err_ptq, fake_form = phase_ptq(cb, smi)
     counts_state, state_entry, err_state = phase_state(cb, smi)
     counts_hyb, hyb_entry, err_hyb = phase_hybrid(cb, smi)
+    counts_enc, flash_enc, enc_entry, flash_entry, err_enc = phase_encdec(cb, smi)
     for entry, counter in zip(kernels, ("bcq_linear", "page_gather", None, "bcq_page_write")):
         if counter is not None:
             entry["launches_by_path"]["serving_core"] = counts_core[counter]
@@ -5030,14 +5739,21 @@ def main() -> int:
     kernels[3]["fake_quant_form"] = fake_form
     kernels[0]["launches_by_path"]["state"] = counts_state
     kernels[0]["launches_by_path"]["hybrid"] = counts_hyb
+    kernels[0]["launches_by_path"]["encdec"] = counts_enc
     kernels[0]["launches"] = sum(kernels[0]["launches_by_path"].values())
     kernels[0].update(state_entry)
     kernels[0].update(hyb_entry)
+    kernels[0].update(enc_entry)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], err_slab, err_moe["bcq_linear"],
-                                    err_ptq["bcq_linear"], err_state, err_hyb)
+                                    err_ptq["bcq_linear"], err_state, err_hyb,
+                                    err_enc["bcq_linear"])
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], err_moe["page_gather"],
                                     err_ptq["page_gather"])
-    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err_ptq["flash_attention"])
+    kernels[2]["launches_by_path"]["encdec_eval"] = flash_enc
+    kernels[2]["launches"] = sum(kernels[2]["launches_by_path"].values())
+    kernels[2].update(flash_entry)
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], err_ptq["flash_attention"],
+                                    err_enc["flash_attention"])
     kernels.insert(1, stacked)
     check_bounds(kernels)
     print(smi, flush=True)

@@ -1,6 +1,7 @@
 """Architecture registry: the ``ArchConfig`` dataclass and its lookup.
 
-A copy of the dense, MoE, SSM and hybrid parts of ``repro/configs/base.py``: the port
+A copy of the dense, MoE, SSM, hybrid and enc-dec parts of
+``repro/configs/base.py``: the port
 reads nothing of the JAX package, so it keeps its own config records.
 Each config module provides ``CONFIG`` (the published shape) and
 ``smoke()`` (a 2-layer reduction for CPU tests).
@@ -39,7 +40,7 @@ class HybridSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port serves "dense", "moe", "ssm" and "hybrid"
+    family: str  # the port serves "dense", "moe", "ssm", "hybrid" and "encdec"
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,6 +56,8 @@ class ArchConfig:
     moe: Optional[MoESpec] = None
     ssm: Optional[SSMSpec] = None
     hybrid: Optional[HybridSpec] = None
+    n_encoder_layers: int = 0  # enc-dec only
+    encoder_len: int = 1500  # whisper frame count (stub frontend)
     source: str = ""
 
     @property

@@ -5,12 +5,14 @@ Serves a batch of seeded random prompts from seeded random weights
 serving-core counters and the tokens.  ``--paged`` serves through the
 engine of the family's page layout (``api.page_spec.layout``):
 ``PagedEngine`` over KV pages for the dense and MoE families,
-``StatePagedEngine`` over ``state`` pages for the SSM and hybrid
-families (``--arch mamba2_130m``, ``--arch recurrentgemma_9b``).  Without
-``--paged`` a state family is served by the contiguous path
-(``greedy_generate`` over ``prefill_fn`` / ``decode_fn``); for the KV
-families only the paged engine is ported, so ``--paged`` is required
-there.  Admission is the
+``StatePagedEngine`` over ``state`` pages for the SSM, hybrid and enc-dec
+families (``--arch mamba2_130m``, ``--arch recurrentgemma_9b``, ``--arch
+whisper_base``; an enc-dec model's encoder output in ``shared_ro`` pages,
+encoded once for the batch, whose requests all carry the same seeded stub
+frames, ``_stub_frames``).  Without ``--paged`` a state family is served
+by the contiguous path (``generate_contiguous`` over ``prefill_fn`` /
+``decode_fn``); for the KV families only the paged engine is ported, so
+``--paged`` is required there.  Admission is the
 slab prefill unless ``--chunked-prefill`` (KV layout only); prefix caching is on unless
 ``--no-prefix-cache``; ``--best-of N`` forks every prompt into N siblings
 sharing its pages, and ``--temperature`` / ``--top-k`` / ``--seed`` turn
@@ -70,7 +72,14 @@ from repro_torch.models.layers import Runtime
 from repro_torch.serving.audit import audit_engine
 from repro_torch.serving.engine import PagedEngine
 from repro_torch.serving.faults import SITES, FaultInjector
-from repro_torch.serving.generate import GREEDY, Request, SamplingParams, greedy_generate
+from repro_torch.serving import prng
+from repro_torch.serving.generate import (
+    GREEDY,
+    Request,
+    SamplingParams,
+    greedy_generate,
+    next_greedy_tokens,
+)
 from repro_torch.serving.state_engine import StatePagedEngine
 from repro_torch.serving.telemetry import QuantProbeRecorder, QuantProbeSink
 
@@ -90,6 +99,38 @@ def build_model(cfg, cache: str = "bcq4", packed: bool = True, device="cuda", se
     return api, api.init(seed)
 
 
+def _stub_frames(cfg) -> np.ndarray:
+    """The stub audio-frame embeddings of an enc-dec model (the conv
+    frontend is a stub): (encoder_len, d_model) f32, normal · 0.02 from
+    key 11 of ``serving/prng.py`` — the reference's
+    ``jax.random.normal(PRNGKey(11), ...) * 0.02``.  One frame tensor for
+    the whole batch, so the shared encoder page serves every request."""
+    t, d = cfg.encoder_len, cfg.d_model
+    return (prng.normal(prng.prng_key(11), t * d).reshape(t, d) * 0.02).numpy()
+
+
+def generate_contiguous(api, cfg, params, prompts, frames, gen_len: int, max_len: int,
+                        device="cuda"):
+    """Contiguous greedy decoding of the prompt batch (B, S) for any servable
+    family: ``greedy_generate`` unless the family conditions on ``frames``
+    (enc-dec: every row over the same frames, one batched prefill with
+    the encoder, then ``gen_len - 1`` decode steps).  Returns (B, gen_len)
+    int32 tokens."""
+    if frames is None:
+        return greedy_generate(api, params, prompts, gen_len, max_len, device=device)
+    device = zoo.resolve_device(device)
+    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(device)
+    b, s = tokens.shape
+    fr = torch.from_numpy(np.asarray(frames, np.float32)).to(device)[None].expand(
+        (b,) + tuple(np.shape(frames)))
+    logits, caches = api.prefill_fn(params, {"tokens": tokens, "frames": fr}, max_len)
+    out = [next_greedy_tokens(logits)]
+    for t in range(gen_len - 1):
+        logits, caches = api.decode_fn(params, caches, out[-1][:, None], s + t)
+        out.append(next_greedy_tokens(logits))
+    return torch.stack(out, 1)
+
+
 def is_state_layout(api) -> bool:
     """The family serves through StatePagedEngine (state pages)."""
     return api.page_spec is not None and api.page_spec.layout == "state_checkpoint"
@@ -99,7 +140,8 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
           page_size: int = 16, prefill_chunk: int = 0, device="cuda", seed: int = 0,
           kernels: bool = True, chunked_prefill: bool = False, prefix_caching: bool = True,
           best_of: int = 1, sampling: SamplingParams = GREEDY, pipeline_depth: int = 2,
-          cuda_graphs=None, quant_probe=None, host_pages: int = 0, recompress_after: int = 0):
+          cuda_graphs=None, quant_probe=None, host_pages: int = 0, recompress_after: int = 0,
+          frames=None):
     """Serve ``prompts`` (a list of 1-D token arrays) for ``gen`` tokens
     each (the prefill's token plus gen-1 decode tokens), ``best_of``
     forked siblings each, one slot per sibling.  ``seed`` draws the
@@ -109,8 +151,9 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
     ``pipeline_depth`` and ``cuda_graphs`` (None: on for a CUDA device)
     go to the engine, and ``host_pages`` (a host tier of that many pages
     if > 0) and ``recompress_after`` (the cold-page ladder if > 0);
-    ``quant_probe`` (a ``QuantProbeRecorder``) to the model.  Returns
-    (finished requests, engine)."""
+    ``quant_probe`` (a ``QuantProbeRecorder``) to the model; ``frames``
+    condition every request of an enc-dec model.  Returns (finished
+    requests, engine)."""
     api, params = build_model(cfg, cache, packed, device, seed, kernels, quant_probe)
     max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
     n_slots = len(prompts) * best_of
@@ -120,8 +163,8 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
                              "a state-checkpoint family prefills each prompt in one launch")
         eng = StatePagedEngine(
             api, params, n_slots=n_slots, max_len=max_len, page_size=page_size,
-            pipeline_depth=pipeline_depth, cuda_graphs=cuda_graphs, device=device,
-            host_pages=host_pages)
+            prefix_caching=prefix_caching, pipeline_depth=pipeline_depth,
+            cuda_graphs=cuda_graphs, device=device, host_pages=host_pages)
     else:
         eng = PagedEngine(
             api, params, n_slots=n_slots, max_len=max_len, page_size=page_size,
@@ -132,7 +175,7 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
         )
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new=gen - 1, n_samples=best_of,
-                           sampling=sampling))
+                           sampling=sampling, frames=frames))
     finished, _ = eng.run_to_completion()
     return finished, eng
 
@@ -141,7 +184,7 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
               seed: int = 0, rate: float = 0.05, report_path=None, audit_every: int = 0,
               deadline_s=None, degrade_after=None, pipeline_depth: int = 2, cuda_graphs=None,
               arch: str = "gpt3_126m", cache: str = "bcq4", host_pages: int = 0,
-              recompress_after: int = 0) -> dict:
+              recompress_after: int = 0, frames=None) -> dict:
     """The chaos smoke (the reference's ``run_chaos``): ``prompts`` served
     twice over (two waves, the second queued behind the first; odd rids
     fork in 2) by an engine of one slot per prompt (a chunked-prefill
@@ -151,10 +194,10 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
     request) — an audit every ``audit_every`` ticks (4 if 0) and a queue
     bounded at twice the batch; ``host_pages`` > 0 adds the host tier
     (its swap seams armed at ``rate`` too) and ``recompress_after`` the
-    ladder.  The run must end with no exception
-    escaping the engine, no page referenced and a clean audit.  Returns
-    the report (the reference's schema 1, written to ``report_path`` if
-    given)."""
+    ladder; ``frames`` condition every request of an enc-dec model.  The
+    run must end with no exception escaping the engine, no page
+    referenced and a clean audit.  Returns the report (the reference's
+    schema 1, written to ``report_path`` if given)."""
     batch = len(prompts)
     rates = {s: (rate / 5 if s in ("logits", "sampler") else rate) for s in SITES}
     faults = FaultInjector(seed=seed, rates=rates)
@@ -170,7 +213,8 @@ def run_chaos(api, params, prompts, gen: int, page_size: int = 16, prefill_chunk
                           prefill_chunk=prefill_chunk or 2 * page_size,
                           recompress_after=recompress_after, **common)
     reqs = [Request(rid=wave * batch + i, prompt=prompts[i], max_new=gen - 1,
-                    n_samples=2 if (wave * batch + i) % 2 else 1, deadline_s=deadline_s)
+                    n_samples=2 if (wave * batch + i) % 2 else 1, deadline_s=deadline_s,
+                    frames=frames)
             for wave in range(2) for i in range(batch)]
     unhandled, ticks = None, 0
     try:
@@ -290,15 +334,16 @@ def main(argv=None):
         ap.error("the port serves the KV families through the paged engine only: pass --paged")
     host_pages = args.host_pages if args.host_tier else 0
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    frames = _stub_frames(cfg) if cfg.family == "encdec" else None
     if not (args.paged or args.chaos):
-        return serve_contiguous(cfg, prompts, args.gen, args.packed, args.device)
+        return serve_contiguous(cfg, prompts, args.gen, args.packed, args.device, frames)
     if args.chaos:  # W4A4 packed weights, as the reference's chaos smoke
         api, params = build_model(cfg, args.cache, True, args.device)
         rep = run_chaos(api, params, list(prompts), args.gen, args.page_size, args.prefill_chunk,
                         args.chaos_seed, args.chaos_rate, args.chaos_report, args.audit_every,
                         args.deadline_s, args.degrade_after, args.pipeline_depth,
                         arch=cfg.name, cache=args.cache, host_pages=host_pages,
-                        recompress_after=args.recompress_after)
+                        recompress_after=args.recompress_after, frames=frames)
         return 0 if rep["unhandled_exception"] is None else 1
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, seed=args.seed)
     probe_sink = QuantProbeSink(n_layers=cfg.n_layers) if args.quant_probes else None
@@ -309,7 +354,7 @@ def main(argv=None):
         prefix_caching=not args.no_prefix_cache, best_of=args.best_of, sampling=sampling,
         pipeline_depth=args.pipeline_depth,
         quant_probe=None if probe_sink is None else QuantProbeRecorder(probe_sink),
-        host_pages=host_pages, recompress_after=args.recompress_after,
+        host_pages=host_pages, recompress_after=args.recompress_after, frames=frames,
     )
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -336,13 +381,15 @@ def main(argv=None):
         report_telemetry(eng, args.metrics_json, args.trace_out, probe_sink)
 
 
-def serve_contiguous(cfg, prompts, gen: int, packed: bool, device) -> int:
-    """The contiguous path: the prompt batch (B, S) through ``greedy_generate``
-    (one batched prefill, then ``gen - 1`` decode steps over the model's
-    contiguous caches).  Prints the tokens and the rate."""
+def serve_contiguous(cfg, prompts, gen: int, packed: bool, device, frames=None) -> int:
+    """The contiguous path: the prompt batch (B, S) through
+    ``generate_contiguous`` (one batched prefill, then ``gen - 1`` decode
+    steps over the model's contiguous caches).  Prints the tokens and the
+    rate."""
     api, params = build_model(cfg, packed=packed, device=device)
     t0 = time.perf_counter()
-    out = greedy_generate(api, params, prompts, gen, prompts.shape[1] + gen, device=device)
+    out = generate_contiguous(api, cfg, params, prompts, frames, gen, prompts.shape[1] + gen,
+                              device=device)
     if api.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

@@ -1,11 +1,13 @@
-"""Dense-model primitives of the port: norms, RoPE, quantized dense, paged
-GQA attention, MLPs, and the bf16 / int8 / packed-BCQ4 KV page layouts.
+"""Model primitives of the port: norms, RoPE, quantized dense, GQA
+attention (self, cross, slab, per-row and paged), MLPs, and the bf16 /
+int8 / packed-BCQ4 KV page layouts.
 
-Counterpart of the dense subset of ``repro/models/layers.py``.  Apply
-functions take plain dicts of tensors (the reference's parameter tree
-layout).  Where the reference is functional, the page writes here update
-the page pool **in place** (``paged_token_write``, ``paged_chunk_write``):
-the pool is the one large mutable state of a server.
+Counterpart of ``repro/models/layers.py`` for the families the port
+serves.  Apply functions take plain dicts of tensors (the reference's
+parameter tree layout).  Where the reference is functional, the page
+writes here update the page pool **in place** (``paged_token_write``,
+``paged_chunk_write``): the pool is the one large mutable state of a
+server.
 """
 from __future__ import annotations
 
@@ -479,20 +481,28 @@ def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True, window=None):
 
 
 def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cache_pos=None,
-              window=None):
+              window=None, causal=True, kv_override=None, use_rope=True):
     """GQA attention: the cache-free self-attention, the contiguous-cache
-    branch and the two paged serving branches of the reference.
+    branches and the two paged serving branches of the reference.
 
     ``cache`` (one layer's contiguous cache, leaves (B, max_len, ...)) with
-    ``cache_pos`` (int): the SLAB path — x's K/V are written at
-    ``cache_pos`` (``cache_write``, in place) and x attends causally to
-    the first ``cache_pos + S`` positions of the cache, the only ones the
-    read dequantizes.  The reference uses no Pallas kernel
-    here; its linears still go through the fused linear.
-    ``paged`` = None and no cache: causal SELF-ATTENTION over x alone (the
-    training / evaluation forward) — through the flash kernel when
-    ``rt.flash_kernel`` and no ``window``, else the masked softmax (with
-    ``window``: local attention, pos - j < window, the hybrid's blocks).
+    ``cache_pos`` an int: the SLAB path — x's K/V are written at
+    ``cache_pos`` (``cache_write``, in place) and x attends to the first
+    ``cache_pos + S`` positions of the cache, the only ones the read
+    dequantizes.  ``cache_pos`` a (B,) tensor: the PER-ROW decode of the
+    state engine — S == 1, row i writes its token at ``cache_pos[i]``
+    (``cache_write_rows``) and attends to its first ``cache_pos[i] + 1``
+    positions.  The reference uses no Pallas kernel here; its linears
+    still go through the fused linear.
+    ``paged`` = None and no cache: SELF-ATTENTION over x alone (the
+    training / evaluation forward; ``causal=False`` for a bidirectional
+    encoder) — through the flash kernel when ``rt.flash_kernel``, causal,
+    no ``window`` and as many keys as queries, else the masked softmax
+    (with ``window``: local attention, pos - j < window, the hybrid's
+    blocks).  ``kv_override`` = (k, v) (B, T, Hkv, D): CROSS-ATTENTION to
+    them (enc-dec); only q is projected, through its own ``qdense``.
+    ``use_rope=False`` leaves q and k unrotated (enc-dec's sinusoidal
+    positions are added to the embeddings).
     ``paged`` = (pool, block_tables, lengths): DECODE — the new token is
     written into its page, attention reads live pages only.
     ``paged`` = (pool, block_tables, n_past, chunk_page_ids[, chunk_len]):
@@ -502,24 +512,40 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
     Returns (out, pool or cache) — updated in place (None without one)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = qdense_shared(x, [p["wq"], p["wk"], p["wv"]], rt, cb, tag="attn_qkv")
-    q = rope(q.reshape(b, s, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if kv_override is None:
+        q, k, v = qdense_shared(x, [p["wq"], p["wk"], p["wv"]], rt, cb, tag="attn_qkv")
+        q = q.reshape(b, s, cfg.n_heads, hd)
+        k = k.reshape(b, s, cfg.n_kv_heads, hd)
+        v = v.reshape(b, s, cfg.n_kv_heads, hd)
+        if use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+    else:
+        q = qdense(x, p["wq"], rt, cb, tag="attn_q").reshape(b, s, cfg.n_heads, hd)
+        k, v = kv_override
     kind = rt.cache_kind
 
     if cache is not None:
-        pool = cache_write(cache, k, v, cache_pos, kind, rt.bcq_cfg, cb)
-        kf, vf = cache_read(cache, kind, rt.bcq_cfg, cb, rt.compute_dtype, valid_len=cache_pos + s)
-        out = _attend_chunked(q, kf, vf, positions, cache_pos + s)
+        if torch.is_tensor(cache_pos) and cache_pos.ndim >= 1:  # per-row decode
+            if s != 1:
+                raise ValueError("a per-row cache_pos is a single-token decode")
+            pool = cache_write_rows(cache, k, v, cache_pos, kind, rt.bcq_cfg, cb)
+            kf, vf = cache_read(cache, kind, rt.bcq_cfg, cb, rt.compute_dtype)
+            valid = (cache_pos.long() + s).reshape(b, 1, 1, 1)
+        else:
+            pool = cache_write(cache, k, v, cache_pos, kind, rt.bcq_cfg, cb)
+            kf, vf = cache_read(cache, kind, rt.bcq_cfg, cb, rt.compute_dtype,
+                                valid_len=cache_pos + s)
+            valid = cache_pos + s
+        out = _attend_chunked(q, kf, vf, positions, valid, causal, window)
     elif paged is None:
         pool = None
-        if rt.flash_kernel and window is None:  # causal, as many keys as queries
+        if rt.flash_kernel and causal and window is None and s == k.shape[1]:
             from repro_torch.kernels.flash_attention import flash_attention
 
             out = flash_attention(q, k, v, causal=True).to(q.dtype)
         else:
-            out = _attend_chunked(q, k, v, positions, k.shape[1], window=window)
+            out = _attend_chunked(q, k, v, positions, k.shape[1], causal, window)
     elif len(paged) >= 4:
         pool, block_tables, n_past, chunk_page_ids = paged[:4]
         chunk_len = paged[4] if len(paged) == 5 else None

@@ -1,12 +1,13 @@
-"""ArchConfig → model API (counterpart of the dense, MoE, SSM and hybrid
-branches of ``repro/models/zoo.build``): random init, the loss of a batch
-(the evaluation forward), the slab ``prefill`` / contiguous
+"""ArchConfig → model API (counterpart of the dense, MoE, SSM, hybrid and
+enc-dec branches of ``repro/models/zoo.build``): random init, the loss of
+a batch (the evaluation forward), the slab ``prefill`` / contiguous
 ``decode_step`` pair and what the paged engines need, all on one device.
 ``page_spec`` says what the page pool holds: a dense or MoE model serves
 KV pages (the paged decode step, the page-pool init, the chunked-prefill
-step) through ``serving.engine.PagedEngine``; an SSM or a hybrid serves
-``state`` pages (the live cache tree and its per-row decode) through
-``serving.state_engine.StatePagedEngine``."""
+step) through ``serving.engine.PagedEngine``; an SSM, a hybrid or an
+enc-dec model serves ``state`` pages (the live cache tree and its per-row
+decode) through ``serving.state_engine.StatePagedEngine``, an enc-dec
+model with its encoder output in ``shared_ro`` pages besides."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,14 +19,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.bcq import check_kernel_config
 from repro_torch.core.calibrate import default_universal_codebooks
 from repro_torch.core.ptq import decode_scales, pack_params, quantize_params
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import Runtime
 
 # the families the port builds and serves (paged or contiguous)
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 # what each family still to port lacks in the port
 TO_PORT_FAMILIES = {
-    "encdec": "the encoder, its shared_ro pages and the engine's shared-encoder branch",
     "vlm": "the vision frontend (not paged-servable in the reference either)",
 }
 
@@ -54,8 +54,8 @@ class PageSpec:
     slot); copy-on-write forks; prefix caching) or ``state_checkpoint``
     (one ``state`` page checkpoints a sequence's whole O(1) recurrent state
     at page-aligned positions; preemption replays at most page_size
-    tokens).  shared_encoder: encoder output in read-only ``shared_ro`` pages
-    (enc-dec, not ported yet)."""
+    tokens).  shared_encoder: the encoder output in read-only ``shared_ro``
+    pages keyed by the input's hash (enc-dec)."""
 
     layout: str
     shared_encoder: bool = False
@@ -63,7 +63,11 @@ class PageSpec:
 
 def page_spec(cfg: ArchConfig) -> PageSpec:
     """What a served family's page pool holds: ``state`` pages for the
-    O(1)-state families (ssm, hybrid), KV pages for the rest."""
+    O(1)-state families (ssm, hybrid) and for enc-dec (its decoder self
+    caches; the encoder output in ``shared_ro`` pages), KV pages for the
+    rest."""
+    if cfg.family == "encdec":
+        return PageSpec("state_checkpoint", shared_encoder=True)
     return PageSpec("state_checkpoint" if cfg.family in ("ssm", "hybrid") else "kv_paged")
 
 
@@ -96,11 +100,22 @@ class ModelAPI:
     pool_init: Callable[..., Any] = None
     prefill_from_pages_fn: Callable[..., Any] = None
     # state_checkpoint families: the resident live cache tree of B rows,
-    # ``live_cache_init(B, device=...)`` (``device="meta"``: shapes only),
-    # and the per-row decode over it, ``state_decode_fn(params, live,
-    # tokens (B, 1), pos (B,))`` → (logits (B, 1, V), live), in place
+    # ``live_cache_init(B, max_len, device=...)`` (``device="meta"``: shapes
+    # only; ``max_len`` sizes an enc-dec model's self caches, the others
+    # ignore it), and the per-row decode over it, ``state_decode_fn(params,
+    # live, tokens (B, 1), pos (B,), shared=None)`` → (logits (B, 1, V),
+    # live), in place; ``shared`` = (encoder pool, (B,) page ids) for enc-dec
     live_cache_init: Callable[..., Any] = None
     state_decode_fn: Callable[..., Any] = None
+    # shared_encoder families: the encode of frames (B, T, D) to the cross
+    # K/V, the shared_ro page pool's init ``enc_pool_init(n_pages)``, the
+    # in-place publish ``enc_store_fn(pool, xkv, pid)`` and the prefill
+    # against a page's cross K/V ``prefill_with_xkv_fn(params, batch,
+    # max_len, xkv)`` → (logits, self caches)
+    encode_xkv_fn: Callable[..., Any] = None
+    enc_pool_init: Callable[..., Any] = None
+    enc_store_fn: Callable[..., Any] = None
+    prefill_with_xkv_fn: Callable[..., Any] = None
     # captures of the serving step functions over every engine on this
     # api (``PagedEngine.trace_counts``): the decode step's CUDA graphs;
     # the prefills run eagerly and capture nothing
@@ -110,17 +125,17 @@ class ModelAPI:
 
 
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
-    """The model API of a dense or MoE decoder, a Mamba-2 SSM or an
-    RG-LRU hybrid.
+    """The model API of a dense or MoE decoder, a Mamba-2 SSM, an RG-LRU
+    hybrid or a Whisper-style encoder-decoder.
     ``init(seed)`` draws random weights from seeded ``torch.Generator``s; with
     ``quant_mode="packed"`` they are packed to W4 with the frozen
     universal codebooks, which ride in ``params["codebooks"]``, and their
     dequant scales decoded once (``ptq.decode_scales``); with ``"fake"``
     they are fake-quantized offline (``ptq.quantize_params``, the
     reference's W4A4 serving tree), with ``"fake_full"`` left float.  A
-    dense or SSM model is drawn whole on the CPU, then moved to
-    ``device``; an SSM's (L, K, N) projection stacks pack with one s_X a
-    layer, the layout of the reference's packed tree.  A
+    dense, SSM or enc-dec model is drawn whole on the CPU, then moved to
+    ``device``; its (L, K, N) stacks pack with one s_X a layer, the layout
+    of the reference's packed tree.  A
     MoE model is drawn on ``device`` layer by layer, each layer from its
     own generator seeded from (seed, layer) and packed before the next is
     drawn, so at most one layer's float experts are resident in packed
@@ -146,7 +161,8 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     def init(seed: int = 0) -> dict:
         if cfg.family in ("moe", "hybrid"):
             return _init_by_layer(cfg, rt, device, seed, codebooks())
-        draw = ssm.init_ssm_lm if cfg.family == "ssm" else transformer.init_lm
+        draw = {"ssm": ssm.init_ssm_lm, "encdec": encdec.init_encdec}.get(
+            cfg.family, transformer.init_lm)
         params = draw(cfg, rt, torch.Generator().manual_seed(seed))
         params = _to(params, device)
         cb = codebooks()
@@ -166,8 +182,10 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
             prefill_fn=lambda p, b, ml: ssm.prefill(p, b, cfg, rt, ml),
             decode_fn=lambda p, c, t, pos: ssm.decode_step(p, c, t, pos, cfg, rt),
             page_spec=page_spec(cfg),
-            live_cache_init=lambda bsz, device=device: ssm.ssm_cache_stacked(cfg, bsz, device),
-            state_decode_fn=lambda p, live, t, pos: ssm.decode_step(p, live, t, pos, cfg, rt),
+            live_cache_init=lambda bsz, max_len=None, device=device: ssm.ssm_cache_stacked(
+                cfg, bsz, device),
+            state_decode_fn=lambda p, live, t, pos, shared=None: ssm.decode_step(
+                p, live, t, pos, cfg, rt),
         )
     if cfg.family == "hybrid":
         return ModelAPI(
@@ -177,9 +195,30 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
             prefill_fn=lambda p, b, ml: hybrid.prefill(p, b, cfg, rt, ml),
             decode_fn=lambda p, c, t, pos: hybrid.decode_step(p, c, t, pos, cfg, rt),
             page_spec=page_spec(cfg),
-            live_cache_init=lambda bsz, device=device: hybrid.hybrid_cache_init(
+            live_cache_init=lambda bsz, max_len=None, device=device: hybrid.hybrid_cache_init(
                 cfg, rt, bsz, device),
-            state_decode_fn=lambda p, live, t, pos: hybrid.decode_step(p, live, t, pos, cfg, rt),
+            state_decode_fn=lambda p, live, t, pos, shared=None: hybrid.decode_step(
+                p, live, t, pos, cfg, rt),
+        )
+    if cfg.family == "encdec":
+        return ModelAPI(
+            cfg, rt, device,
+            init=init,
+            loss_fn=lambda p, b: encdec.forward_train(p, b, cfg, rt),
+            prefill_fn=lambda p, b, ml: encdec.prefill(p, b, cfg, rt, ml),
+            decode_fn=lambda p, c, t, pos: encdec.decode_step(p, c, t, pos, cfg, rt),
+            page_spec=page_spec(cfg),
+            # a live row holds the decoder self caches; the cross K/V is read
+            # from the row's shared_ro encoder page every tick
+            live_cache_init=lambda bsz, max_len, device=device: {
+                "self": transformer.cache_init_stacked(cfg, rt, bsz, max_len, device=device)},
+            state_decode_fn=lambda p, live, t, pos, shared: encdec.decode_step_shared(
+                p, live, t, pos, shared[0], shared[1], cfg, rt),
+            encode_xkv_fn=lambda p, frames: encdec.encode_xkv(p, frames, cfg, rt),
+            enc_pool_init=lambda n_pages: encdec.enc_pool_init(n_pages, cfg, rt, device),
+            enc_store_fn=encdec.enc_store,
+            prefill_with_xkv_fn=lambda p, b, ml, xkv: encdec.prefill_with_xkv(
+                p, b, cfg, rt, ml, xkv),
         )
     return ModelAPI(
         cfg, rt, device,

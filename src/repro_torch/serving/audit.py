@@ -1,10 +1,10 @@
 """Invariant auditor for the paged serving engines (counterpart of
-``repro/serving/audit.py``, without the enc-dec encoder pages).
+``repro/serving/audit.py``).
 
 The allocator, the prefix cache and the engine's page references (block
-tables in the kv layout; slot checkpoints and the checkpoints queued
-requests carry in the state layout) are three views of one ownership
-story; a page leak or a double free is a
+tables in the kv layout; slot checkpoint and encoder pages, and those
+queued requests carry, in the state layout) are three views of one
+ownership story; a page leak or a double free is a
 disagreement between the views, so it can be checked mechanically.
 ``audit_engine`` walks all three and checks the laws the serving design
 rests on:
@@ -14,9 +14,11 @@ rests on:
   one reference per page: prefix claims, fork references and
   copy-on-write replacements all keep this), so a page no table reaches
   but whose refcount is positive is a leak, named; in the state layout
-  the references are each slot's checkpoint page and each queued
-  request's carried one, every one a ``state`` page, and a checkpoint
-  never covers more tokens than its row (``ckpt_pos ≤ pos``);
+  the references are each slot's checkpoint page (a ``state`` page) and
+  encoder page (a ``shared_ro`` page, enc-dec) and each queued request's
+  carried ones, and a checkpoint never covers more tokens than its row
+  (``ckpt_pos ≤ pos``); a parked encoder page is in the prefix LRU like
+  any parked page;
 * **partition** — every non-null page is exactly one of: free (refcount
   0), referenced (refcount > 0), or parked reclaimable in the prefix LRU
   (refcount 0, contents kept);
@@ -45,7 +47,13 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.serving.pages import _HANDLE_BASE, KIND_STATE, NULL_PAGE, pages_needed
+from repro_torch.serving.pages import (
+    _HANDLE_BASE,
+    KIND_SHARED_RO,
+    KIND_STATE,
+    NULL_PAGE,
+    pages_needed,
+)
 
 
 class AuditError(RuntimeError):
@@ -112,35 +120,42 @@ def _gather_kv_refs(engine, free_set, bad) -> dict:
 
 
 def _gather_state_refs(engine, free_set, bad) -> dict:
-    """References = each slot's checkpoint page plus the checkpoint a
-    preempted, requeued request carries; each must be a live ``state``
-    page, and a checkpoint covers at most the tokens its row holds."""
+    """References = each slot's checkpoint and encoder pages plus those a
+    preempted, requeued request carries; each must be a live page of its
+    kind (``state``, ``shared_ro``), and a checkpoint covers at most the
+    tokens its row holds."""
     pool = engine.pool_mgr
     refs: dict[int, int] = {}
 
-    def take(pid, where):
+    def take(pid, want, where):
         refs[pid] = refs.get(pid, 0) + 1
         if pid in free_set:
             bad.append(f"{where} references FREED page {pid}")
         elif pool_refcount(engine, pid) <= 0:
             bad.append(f"{where} references page {pid} with refcount {pool_refcount(engine, pid)}")
-        elif pool.kind_of(pid) != KIND_STATE:
-            bad.append(f"{where} expects a 'state' page but {pid} is tagged "
+        elif pool.kind_of(pid) != want:
+            bad.append(f"{where} expects a {want!r} page but {pid} is tagged "
                        f"{pool.kind_of(pid)!r}")
 
     for i, slot in enumerate(engine.slots):
         if slot.req is None:
-            if slot.ckpt_page is not None:
-                bad.append(f"empty slot {i} still references checkpoint page {slot.ckpt_page}")
+            if slot.ckpt_page is not None or slot.enc_page is not None:
+                bad.append(f"empty slot {i} still references pages (checkpoint "
+                           f"{slot.ckpt_page}, encoder {slot.enc_page})")
             continue
         if slot.ckpt_page is not None:
-            take(int(slot.ckpt_page), f"slot {i} checkpoint")
+            take(int(slot.ckpt_page), KIND_STATE, f"slot {i} checkpoint")
             if not 0 <= slot.ckpt_pos <= slot.pos:
                 bad.append(f"slot {i} checkpoint covers {slot.ckpt_pos} tokens but the row holds "
                            f"{slot.pos} (ckpt_pos must be ≤ pos)")
+        if slot.enc_page is not None:
+            take(int(slot.enc_page), KIND_SHARED_RO, f"slot {i} encoder page")
     for k, req in enumerate(engine.queue):
         if req._state_resume is not None:
-            take(int(req._state_resume[0]), f"queued request #{k} (rid={req.rid})")
+            take(int(req._state_resume[0]), KIND_STATE, f"queued request #{k} (rid={req.rid})")
+        enc = getattr(req, "_enc_page", None)  # the reference's requests set it only when carried
+        if enc is not None:
+            take(int(enc), KIND_SHARED_RO, f"queued request #{k} (rid={req.rid}) encoder page")
     return refs
 
 

@@ -1219,7 +1219,8 @@ class PagedEngine:
             parent.n_samples, parent.sample_idx = 1, 0
             for s_idx, j in enumerate(sibs, start=1):
                 child = Request(rid=parent.rid, prompt=parent.prompt, max_new=parent.max_new,
-                                sampling=parent.sampling, sample_idx=s_idx)
+                                frames=parent.frames, sampling=parent.sampling,
+                                sample_idx=s_idx)
                 self.telemetry.on_fork_child(parent, child, now)
                 self._fork_sibling(i, j, child, shared)
                 self._admit_counter += 1
@@ -1277,8 +1278,8 @@ class PagedEngine:
             prompt=np.concatenate([np.asarray(req.prompt, np.int64),
                                    np.asarray(req.out[folded:], np.int64)]),
             max_new=req.max_new, out=req.out, margins=req.margins, launch_ids=req.launch_ids,
-            sampling=req.sampling, n_samples=req.n_samples, sample_idx=req.sample_idx,
-            _orig_plen=orig_plen,
+            frames=req.frames, sampling=req.sampling, n_samples=req.n_samples,
+            sample_idx=req.sample_idx, _orig_plen=orig_plen, _frames_digest=req._frames_digest,
             timeline=req.timeline,  # one timeline: one submit, an admit per admission
             # the lifecycle guard survives preemption: the original submit
             # anchors the deadline, a cancel still lands, the stall clock

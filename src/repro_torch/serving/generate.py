@@ -107,6 +107,11 @@ class Request:
     n_samples: int = 1
     sample_idx: int = 0
     error: Optional[RequestError] = None
+    # the conditioning of a shared-encoder family (enc-dec): stub frame
+    # embeddings (T_enc, D).  The state engine keys its read-only encoder
+    # page on their bytes, so requests over the same frames share one
+    # encode; forks and preemption carry them as they are
+    frames: Optional[np.ndarray] = dataclasses.field(default=None, repr=False, compare=False)
     deadline_s: Optional[float] = None  # None: unbounded
     max_output_stall_ticks: Optional[int] = None
     cancelled: bool = False
@@ -132,6 +137,11 @@ class Request:
     _state_resume: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
     _host_state_resume: Optional[tuple] = dataclasses.field(default=None, repr=False,
                                                             compare=False)
+    # engine-private, shared-encoder families: the shared_ro encoder page a
+    # preemption handed over (re-admission takes it, encoding nothing), and
+    # the memoized digest of ``frames``
+    _enc_page: Optional[int] = dataclasses.field(default=None, repr=False, compare=False)
+    _frames_digest: Optional[bytes] = dataclasses.field(default=None, repr=False, compare=False)
     # the Request a preemption requeued this one as (``cancel`` follows it)
     _resumed_as: Optional[object] = dataclasses.field(default=None, repr=False, compare=False)
     # engine-private lifecycle anchors: the submit time on the monotonic

@@ -19,10 +19,14 @@ so the engine copies what it keeps before it replays again.
 Rules the graph relies on:
 
 * **The pool never rebinds.**  The graph bakes in the data pointers of
-  the parameters and of every page-pool leaf (the live cache tree and
-  the state pool too); page writes, copy-on-write (``pages.copy_page``),
-  slab scatters (``scatter_prefill_pages``) and the state tree ops
-  update the leaves in place, and nothing may replace one.
+  the parameters and of every page-pool leaf (the live cache tree, the
+  state pool and an enc-dec model's encoder pool too); page writes,
+  copy-on-write (``pages.copy_page``), slab scatters
+  (``scatter_prefill_pages``), the state tree ops and the encoder page
+  publish (``encdec.enc_store``) update the leaves in place, and nothing
+  may replace one.  A state tick reads each row's encoder page through
+  column 4 of the packed row, so a page published after the capture is
+  read by the next replay.
 * **Counters count replays.**  A replay makes no Python call, so a
   kernel wrapper's launch counter (``kernels/build.py``) would miss it.
   The counters' deltas over the capture are recorded, the capture's own
@@ -90,6 +94,7 @@ class DecodeGraphs:
         self.on_capture = on_capture
         self.mem = torch.cuda.graph_pool_handle()
         self.buckets: dict[int, _Bucket] = {}
+        self.replays = 0  # graph replays so far (a bucket's warm-up tick is not one)
 
     def node_count(self, key) -> int:
         """Nodes (kernels and copies) of bucket ``key``'s captured graph
@@ -120,6 +125,7 @@ class DecodeGraphs:
         if b.graph is None:
             return self._capture(b)
         b.graph.replay()
+        self.replays += 1
         for name, n in b.deltas.items():
             build.counter(name).count += n
         return b.outputs

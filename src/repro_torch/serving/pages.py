@@ -1,6 +1,5 @@
 """Host-side page allocator, the device-side page moves and the host-RAM
-page tier (counterpart of ``repro/serving/pages.py`` without the enc-dec
-encoder pages).
+page tier (counterpart of ``repro/serving/pages.py``).
 
 Page id 0 is the **null page**: block-table padding and idle decode rows
 point at it, so their scatters land in a sacrificial page instead of live
@@ -11,8 +10,9 @@ references, and the last ``deref`` decides between the free list and the
 prefix cache's parking lot (``PagePool.revive`` brings a parked page
 back).  Every page carries a kind (``PAGE_KINDS``): ``kv`` pages of the
 block-table layout, ``state`` pages that checkpoint a recurrent
-family's whole per-sequence state, ``shared_ro`` encoder pages (enc-dec,
-not ported yet) — one budget across kinds.
+family's whole per-sequence state, ``shared_ro`` pages that hold an
+enc-dec model's encoder output for every request over the same input —
+one budget across kinds.
 
 ``copy_page`` and ``scatter_prefill_pages`` move page bytes on the
 device, in place, on the stacked pool tree (leaves (L, n_pages, ps, ...),
@@ -120,11 +120,16 @@ class PagePool:
             raise ValueError(f"ref of unowned page {pid}")
         self.refcount[pid] += 1
 
-    def revive(self, pid: int) -> None:
+    def revive(self, pid: int, kind: str | None = None) -> None:
         """Re-activate a parked page (refcount 0, outside the free list)
-        without touching its contents or its kind."""
+        without touching its contents or its kind.  With ``kind``, the
+        parked page must be of that kind (a shared_ro hit never revives a
+        parked page of another kind)."""
         if pid == NULL_PAGE or self.refcount[pid] != 0 or pid in self.free:
             raise ValueError(f"revive of a page that is not parked: {pid}")
+        if kind is not None and self.kind[pid] != kind:
+            raise ValueError(f"revive kind mismatch: page {pid} is {self.kind[pid]!r}, "
+                             f"expected {kind!r}")
         self.refcount[pid] = 1
 
     def deref(self, pid: int) -> bool:

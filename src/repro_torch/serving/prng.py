@@ -18,6 +18,11 @@ to the reference's token for token.  What is reproduced:
   1``, then ``· (maxval − minval) + minval`` and ``max(minval, ·)``, in
   f32 and in that order;
 * ``gumbel``: ``−log(−log(uniform(tiny, 1)))`` (``mode="low"``);
+* ``normal``: ``√2 · erfinv(uniform(nextafter(−1, 0), 1))`` in f32, as
+  ``jax.random.normal`` computes it, with XLA's ``erf_inv`` (M. Giles'
+  single-precision polynomials, "Approximating the erfinv function",
+  2010); XLA's own ``log1p`` and fused multiply-adds may move the last
+  bits;
 * ``categorical``: ``argmax(gumbel + logits)``, first index on a tie;
   it also returns the noise, which the sampler's margins need.
 
@@ -29,6 +34,7 @@ a call with row r's key alone.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -87,6 +93,37 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0, maxval: float = 1.0)
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# XLA's f32 erf_inv: a degree-8 polynomial in w - 2.5 where w = -log1p(-x²)
+# < 5, else in sqrt(w) - 3 (highest power first)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` of x in (-1, 1)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=torch.float32, device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], dtype=torch.float32, device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return p * x
+
+
+def normal(key: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 standard normals: (..., n)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    sqrt2 = torch.tensor(np.sqrt(2), dtype=torch.float32, device=key.device)
+    return sqrt2 * erfinv(uniform(key, n, lo, 1.0))
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -44,6 +44,7 @@ from repro.models import layers as jlayers
 from repro_torch.core import bcq as tbcq
 from repro_torch.kernels import common as tcommon
 from repro_torch.models.convert import from_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 NEG = -1e30
 TILE = 64  # flash: query rows and keys per tile

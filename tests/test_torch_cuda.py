@@ -780,3 +780,85 @@ def test_hybrid_state_decode_graph_equals_eager(cuda):
     assert a == b and ca == cb_
     assert all(torch.equal(x, y) for x, y in zip(ta, tb))
     assert max(len(r[2]) for r in a) + 30 > 32  # a row decoded past the window
+
+
+# whisper_base's linears: M 1500 (an encode, one 30 s clip) and M 8 (a decode
+# tick of 8 slots) at d 512 → 512, 512 → 2048 and 2048 → 512
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", [(512, 512), (512, 2048), (2048, 512)],
+                         ids=lambda kn: f"K{kn[0]}_N{kn[1]}")
+@pytest.mark.parametrize("m", [1500, 8])
+def test_bcq_linear_kernel_matches_plain_at_whisper_shapes(cuda, m, kn):
+    k, n = kn
+    x = _activation(m, k, m + k + n, cuda)
+    pw, cb = _packed(n, k, 3 * n + k, cuda), _cb(cuda)
+    s_x = bcq.tensor_scale(x, CFG)
+    before = bcq_linear.BCQ_LINEAR.count
+    got = bcq_linear.bcq_linear(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, s_x, CFG)
+    want = fused_linear_ref(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, CFG, s_x, valid_k=k)
+    assert got.shape == (m, n) and bcq_linear.BCQ_LINEAR.count == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_plain_at_whisper_evaluation_shape(cuda):
+    """The enc-dec evaluation forward's decoder self-attention: 4 clips × 8
+    heads, 448 tokens (Whisper's text context), head 64, bf16, causal."""
+    g = torch.Generator().manual_seed(448)
+    q, k, v = (torch.randn((32, 448, 64), generator=g).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    before = flash.FLASH_ATTENTION.count
+    got = flash.flash_attention_kernel(q, k, v, True)
+    assert flash.FLASH_ATTENTION.count == before + 1
+    want = flash.flash_attention_plain(q, k, v, True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_encdec_state_decode_graph_equals_eager(cuda):
+    """The smoke enc-dec (bcq4 self cache, encoder pages) through
+    StatePagedEngine on the card: graph depth 2 ≡ eager depth 1 bit for bit
+    (tokens, margins, counters, live tree, state and encoder pools) with
+    requests over two frames (a prefix hit), a preemption and a fork; B1
+    launched exactly 6 an encoder layer and 2 a decoder layer an encode (the
+    cross K/V), 8 a decoder layer a pass."""
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serving.generate import Request
+    from repro_torch.serving.pages import tree_leaves
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    cfg = get_smoke("whisper_base")
+    api, params = build_model(cfg, device="cuda")
+    prompts = [np.random.default_rng(i).integers(0, 512, n) for i, n in enumerate((12, 9, 30))]
+    frames = [(np.random.default_rng(10 + i).normal(size=(cfg.encoder_len, cfg.d_model)) * 0.02
+               ).astype(np.float32) for i in range(2)]
+    per_encode = 6 * cfg.n_encoder_layers + 2 * cfg.n_layers
+    outs = []
+    for graphs, depth in ((False, 1), (True, 2)):
+        build.reset_counts()
+        eng = StatePagedEngine(api, params, n_slots=4, max_len=64, page_size=8,
+                               pipeline_depth=depth, cuda_graphs=graphs)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=25, n_samples=2 if i == 1 else 1,
+                               frames=frames[i % 2]))
+        for _ in range(5):
+            eng.step()
+        eng._preempt_one(None)
+        fin, _ = eng.run_to_completion()
+        torch.cuda.synchronize()
+        st, cs = eng.stats, eng.health()["state_counters"]
+        prefills = st["prefill_launches"] - cs["state_restores"]
+        passes = prefills + st["decode_ticks"] + cs["replay_tokens"]
+        assert cs["encoder_launches"] == 2 and st["prefix_hits"] == 1
+        assert build.counts().get("bcq_linear", 0) == (
+            per_encode * cs["encoder_launches"] + 8 * cfg.n_layers * passes)
+        outs.append(([(r.rid, r.sample_idx, r.out, r.margins) for r in
+                      sorted(fin, key=lambda r: (r.rid, r.sample_idx))], cs,
+                     [t.cpu() for t in tree_leaves(eng.live) + tree_leaves(eng.spool)]
+                     + [t.cpu() for t in eng.enc_pool]))
+        if graphs:
+            assert sorted(eng._graphs.buckets) == [False, True]
+        assert eng.audit().ok
+    (a, ca, ta), (b, cb_, tb) = outs
+    assert a == b and ca == cb_
+    assert all(torch.equal(x, y) for x, y in zip(ta, tb))

@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 jax = pytest.importorskip("jax")  # the parity side; absent where only the port runs
 import jax.numpy as jnp  # noqa: E402
 

@@ -47,6 +47,7 @@ from repro_torch.serving.audit import AuditError, audit_engine
 from repro_torch.serving.engine import ENGINE_STAT_KEYS, NonFiniteLogitsError, PagedEngine
 from repro_torch.serving.faults import SITES, FaultInjector, InjectedFault
 from repro_torch.serving.generate import Request
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 VOCAB = 32

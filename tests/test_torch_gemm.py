@@ -33,6 +33,7 @@ from repro_torch.kernels import bcq_quantize as tquant
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models.convert import from_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 JC, TC = JCfg(), tbcq.BCQConfig()
 CB = default_universal_codebooks(JC).levels

@@ -50,6 +50,7 @@ from repro_torch.serving import generate as tgen
 from repro_torch.serving import pages as tpages
 from repro_torch.serving.engine import ENGINE_STAT_KEYS, PagedEngine
 from repro_torch.serving.faults import FaultInjector
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 STUB = make_stub_api()
 COUNTERS = tuple(k for k in ENGINE_STAT_KEYS if not k.startswith("t_"))

@@ -45,6 +45,8 @@ from repro_torch.models import zoo as tzoo
 from repro_torch.models.layers import Runtime as TRuntime
 from repro_torch.serving import pages as tpages
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 jax = pytest.importorskip("jax")  # the parity side; absent where only the port runs
 import jax.numpy as jnp  # noqa: E402
 
@@ -65,17 +67,6 @@ CFG, TCFG = get_smoke(ARCH), t_get_smoke(ARCH)
 W = CFG.hybrid.window  # 32
 CB = default_universal_codebooks(JCfg()).as_jnp()
 TCB = torch.from_numpy(np.array(CB))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The file's torch ops on one thread: its tensors are small, and the
-    suite's workers share the machine's cores (many threads each would
-    contend for them); the worker's setting comes back after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(n_layers):

@@ -50,7 +50,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.faults, repro_torch.serving.audit\n"
         "import repro_torch.serving.telemetry, repro_torch.serving.events\n"
         "import repro_torch.serving.state_engine, repro_torch.models.ssm\n"
-        "import repro_torch.models.hybrid\n"
+        "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

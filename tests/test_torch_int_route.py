@@ -43,6 +43,7 @@ from repro_torch.core import formats as tfmt
 from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import ops as tops
 from repro_torch.models.convert import from_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 JC, TC = jbcq.BCQConfig(), tbcq.BCQConfig()
 CB = default_universal_codebooks(JC).levels

@@ -36,6 +36,7 @@ from repro_torch.kernels.chunked_prefill import chunked_prefill as t_chunked
 from repro_torch.kernels.paged_attention import paged_attention as t_paged
 from repro_torch.models import layers as tlayers
 from repro_torch.models.convert import from_numpy_tree
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 JC, TC = JCfg(), tbcq.BCQConfig()
 CB = default_universal_codebooks(JC).levels

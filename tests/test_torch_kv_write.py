@@ -36,6 +36,7 @@ from repro.models import layers as jlayers
 from repro_torch.core import bcq as tbcq
 from repro_torch.core import formats as tfmt
 from repro_torch.models import layers as tlayers
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 JC, TC = JCfg(), tbcq.BCQConfig()
 CB = np.asarray(default_universal_codebooks(JC).levels, dtype=np.float32)

@@ -20,6 +20,7 @@ from repro_torch.core import bcq as tbcq
 from repro_torch.core import formats as tfmt
 from repro_torch.core.calibrate import default_universal_codebooks as t_universal
 from repro_torch.kernels import common as tcommon
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 CFGS = [  # the sweep of tests/test_kernels.py:19-24
     (8, 64, 8),

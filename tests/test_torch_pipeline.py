@@ -39,6 +39,7 @@ from repro_torch.models.convert import from_numpy_tree
 from repro_torch.models.layers import Runtime as TRuntime
 from repro_torch.serving import generate as tgen
 from repro_torch.serving.engine import ENGINE_STAT_KEYS, PagedEngine, fused_decode
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 TCFG = t_get_smoke("gpt3_126m")
 PS, CHUNK, SLOTS, MAX_LEN = 8, 16, 4, 32  # tests/test_torch_serving_core.py's engine

@@ -56,6 +56,7 @@ from repro_torch.core import ptq as tptq
 from repro_torch.models.convert import from_numpy_tree
 from repro_torch.models.layers import Runtime as TRuntime
 from repro_torch.serving import prng
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 CB_FILE = "configs/codebooks/universal_g64_Lb8_Nc8.json"

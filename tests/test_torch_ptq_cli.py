@@ -32,6 +32,7 @@ from repro_torch.models.convert import from_numpy_tree
 from repro_torch.models.layers import Runtime as TRuntime
 from repro_torch.serving import generate as tgen
 from repro_torch.serving.engine import PagedEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 TC = tbcq.BCQConfig()
 HIST_RTOL = 2e-4

@@ -29,6 +29,7 @@ from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import from_numpy_tree
 from repro_torch.models.layers import ACT_FORMATS
 from repro_torch.models.layers import Runtime as TRuntime
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 MODES = ("fake", "fake_full")
 RTOL = 1e-5

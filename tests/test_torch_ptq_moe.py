@@ -12,6 +12,7 @@ import pytest
 
 from repro_torch.models.layers import ACT_FORMATS
 from test_torch_ptq_model import MODES, build_model, check_mode, ref  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,8 @@ from repro_torch.models import zoo as tzoo
 from repro_torch.models.layers import Runtime as TRuntime
 from repro_torch.serving import pages as tpages
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 jax = pytest.importorskip("jax")  # the parity side; absent where only the port runs
 import jax.numpy as jnp  # noqa: E402
 
@@ -54,17 +56,6 @@ CFG, TCFG = get_smoke(ARCH), t_get_smoke(ARCH)
 JRT = JRuntime(quant_mode="none", compute_dtype=jnp.float32, param_dtype=jnp.float32)
 TRT = TRuntime(quant_mode="none", compute_dtype=torch.float32)
 CB = default_universal_codebooks(JCfg()).as_jnp()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The file's torch ops on one thread: its tensors are small, and the
-    suite's workers share the machine's cores (many threads each would
-    contend for them); the worker's setting comes back after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
@@ -282,9 +273,11 @@ def test_zoo_ssm_branch_and_what_is_left():
                                        TCFG.ssm.head_dim, TCFG.ssm.d_state)
     dense = tzoo.build(t_get_smoke("gpt3_126m"), TRT, device="cpu")
     assert dense.page_spec == tzoo.PageSpec("kv_paged")
-    for fam in ("encdec", "vlm"):
+    for fam in ("vlm",):
         with pytest.raises(NotImplementedError, match=f"{fam}: "):
             tzoo.build(dataclasses.replace(TCFG, family=fam), TRT, device="cpu")
+    encdec = tzoo.build(t_get_smoke("whisper_base"), TRT, device="cpu")  # served now
+    assert encdec.page_spec == tzoo.PageSpec("state_checkpoint", shared_encoder=True)
 
 
 # ----------------------------------------------------------- typed pages

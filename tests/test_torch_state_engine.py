@@ -54,6 +54,8 @@ from repro_torch.serving.engine import PagedEngine
 from repro_torch.serving.faults import FaultInjector as TFaults
 from repro_torch.serving.state_engine import StatePagedEngine
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
+
 jax = pytest.importorskip("jax")  # the parity side; absent where only the port runs
 import jax.numpy as jnp  # noqa: E402
 
@@ -74,17 +76,6 @@ SLOTS, ML, PS, S = 4, 64, 8, 12
 TOL = 1e-3
 STAT_KEYS = ("prefill_launches", "prefill_tokens", "decode_ticks", "forks", "shared_pages",
              "preemptions")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The file's torch ops on one thread: its tensors are small, and the
-    suite's workers share the machine's cores (many threads each would
-    contend for them); the worker's setting comes back after the file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

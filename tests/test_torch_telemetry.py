@@ -49,6 +49,7 @@ from repro_torch.serving import events as tev
 from repro_torch.serving import generate as tgen
 from repro_torch.serving import telemetry as ttel
 from repro_torch.serving.engine import ENGINE_STAT_KEYS, PagedEngine, _host_row_stats, _row_stats
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TCFG = t_get_smoke("gpt3_126m")
