@@ -35,8 +35,8 @@ NO_PREFETCH = [
      "    nxt_job = io.load(g + stride, n_blocks, nxt, nxt_sx);\n"),
 ]
 TWO_CTAS = [
-    ("encode_kernel<Io>, ENC_THREADS, 0);\n",
-     "encode_kernel<Io>, ENC_THREADS, 0);\n      if (per_sm[dev] > 2) per_sm[dev] = 2;\n"),
+    ("encode_kernel<Io, INT_BOOKS>, ENC_THREADS, 0);\n",
+     "encode_kernel<Io, INT_BOOKS>, ENC_THREADS, 0);\n      if (per_sm[dev] > 2) per_sm[dev] = 2;\n"),
 ]
 # a val row holds the 8 codewords as bf16 (exact for integers ≤ 31) in one
 # 16-byte row: one 128-bit read a scalar, each codeword unpacked by a shift

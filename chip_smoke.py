@@ -185,16 +185,16 @@ success):
     beside its recompute in phase 12's tier-off run; one page's swap
     timed on an idle stream beside the copy's bound at 64 GB/s.  Its
     kernel runs' launches join the ``kernels`` line (``host_tier``).
-16. the MoE family: full-width, full-depth Moonlight-16B-A3B
-    (``moonshot_v1_16b``: 48 layers, d 2048, 16 heads of 128, 64 experts
-    top-6 of d_ff 1408, vocab 163840; seeded random weights drawn and
-    packed to W4 one layer at a time on the card, ~17 GB of packed
-    experts) with phase 4's settings and requests: the stacked fused
+16. the MoE family: full-width Moonlight-16B-A3B (``moonshot_v1_16b``:
+    d 2048, 16 heads of 128, 64 experts top-6 of d_ff 1408, vocab 163840;
+    4 of its 48 layers, a depth cut for the script's time; seeded random
+    weights drawn and packed to W4 one layer at a time on the card, ~1.4
+    GB of packed experts) with phase 4's settings and requests: the stacked fused
     linear (one launch for a layer's 64 experts of wi, wg or wo) bit for
     bit equal to its per-expert launches and held to its plain version at
     decode, chunk and ragged shapes; the production tick (graph depth 2)
-    and eager depth 1 equal bit for bit; launches exactly 3 × 48 stacked
-    B1, 4 × 48 dense B1, 48 B2 and 48 writer launches a pass; every launch
+    and eager depth 1 equal bit for bit; launches exactly 3 × 4 stacked
+    B1, 4 × 4 dense B1, 4 B2 and 4 writer launches a pass; every launch
     of the first engine step and of a steady decode tick held to its plain
     version on its own inputs (B2 at d_head 128); at 4 layers of the same
     width the kernel run (graph depth 2) and the plain run (eager depth 1)
@@ -205,17 +205,40 @@ success):
     the stacked launch's device ms beside its bound, prefill tokens/s and
     the phase's seconds.  Its launches join the ``kernels`` line (``moe``;
     the stacked form as ``bcq_linear_experts``).
-17. the PTQ deploy step on full-width gpt3_126m: seeded float weights
-    saved by the port's ``CheckpointManager`` (async writer) and restored
-    bit for bit; ``python -m repro_torch.launch.quantize``'s ``main`` on
-    the card (calibration on one batch of 4 × 128 tokens, 15 LO-BCQ
+21. (run before 17) training: full-width gpt3_126m through
+    ``python -m repro_torch.launch.train``'s ``main`` on the card, bf16
+    compute on f32 parameters, 4 × 2048 tokens a step, 200 steps: the
+    held-out loss (4 eval batches) falls by more than 0.5 nat
+    (``tests/test_system.py``'s bar) and no kernel is launched (the float
+    step is plain: no kernel of the reference has a backward); ms/step,
+    tokens/s, the device idle share and the cost of the deterministic
+    algorithms (windows on, off, off, on); an 8-step run of 1 × 2048
+    tokens a step in a subprocess, started with the phase, sent SIGTERM
+    after step 4 writes its snapshot and keeps running (it is
+    killed once the snapshot lands), and the rerun resumes from it and ends
+    bit-equal in every leaf to an uninterrupted run; 2 ``--quant fake``
+    steps from the trained weights through the CLI, every B3 launch held
+    to ``quantize_ref`` on its own inputs, exactly 4 a layer and pass, all
+    but the first step's the threshold search (the trained books are no
+    longer integers); one fake step's loss and every gradient leaf
+    through B3's route equal to the plain route's (a codebook tie may move
+    the codebook gradient: counted); B3's threshold search timed at (8192,
+    768).  Its B3 launches join the ``kernels`` line (``training``; B3's
+    entry gains ``trained_books``).
+17. the PTQ deploy step on full-width gpt3_126m trained by phase 21: its
+    weights saved again by the port's ``CheckpointManager`` (async writer)
+    and restored bit for bit; ``python -m repro_torch.launch.quantize``'s
+    ``main`` on the card over phase 21's checkpoint (calibration on one
+    batch of 4 × 128 tokens, 15 LO-BCQ
     iterations; ``codebooks.json``, the fake and packed npz, the
     manifest; its 6 B3 launches of ``quantize_params``, held to the plain
     encode in a second run); the fit twice, byte-equal to each other and
     to the CLI's books, its history non-increasing, its books equal to the
     port's CPU fit of the same samples; the held-out loss of phase 9's
-    batches (bf16, flash kernel) for the fake artifact under every
-    act_format, for ``fake_full`` and for the packed artifact, launch counts
+    batches (bf16, flash kernel) for the float weights, the fake artifact
+    under every act_format, ``fake_full`` and the packed artifact, the
+    W4A4 perplexity below 1.10 × the float one and below the int4
+    activations' (``tests/test_system.py::test_ptq_pipeline_ppl_close``), launch counts
     per forward, every B3 launch of a fake and a fake_full forward and
     every B1 / B5 launch of a packed forward held to plain; both artifacts
     served on phase 4's settings and prompts, graph depth 2 ≡ eager depth
@@ -223,8 +246,9 @@ success):
     packed: 6 B1, B2, writer), every launch of a prefill and a steady tick
     held to plain; B3's fake-quant form timed.  Its launches join the
     ``kernels`` line (``ptq``; B3's as ``ptq_fake_quant``).
-18. the state-checkpoint layout: full-width Mamba2-130m (24 layers, d
-    768, d_state 128; seeded random weights packed to W4, f32 compute)
+18. the state-checkpoint layout: full-width Mamba2-130m (12 of its 24
+    layers, a depth cut for the script's time; d 768, d_state 128; seeded
+    random weights packed to W4, f32 compute)
     served in W4A4 through StatePagedEngine on phase 4's settings and
     prompts: graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins,
     launch indices, counters, live tree and state pool bytes, B1 launches
@@ -242,16 +266,17 @@ success):
     tok/s, a state page's swap, resume vs recompute, and B1's times at the
     in_proj shape (N 3352).  Its launches join the ``kernels`` line
     (``state``).
-19. the hybrid family: full-width RecurrentGemma-9B (38 layers = 12
-    periods of two RG-LRU blocks and a local-attention block + 2 tail
-    RG-LRU blocks, d 4096, 16 heads of 256 and one KV head, d_ff 12288,
+19. the hybrid family: full-width RecurrentGemma-9B (20 of its 38
+    layers, a depth cut for the script's time: 6 periods of two RG-LRU
+    blocks and a local-attention block + 2 tail RG-LRU blocks, where the
+    model has 12 periods; d 4096, 16 heads of 256 and one KV head, d_ff 12288,
     window 2048, vocab 256000; seeded random weights drawn and packed to
     W4 a period at a time on the card, a bcq4 window ring, f32 compute)
     served in W4A4 through StatePagedEngine on (a) phase 4's settings and
     prompts and (b) two requests of 2,040 and 2,100 tokens for 40 tokens
     each: graph depth 2 ≡ eager depth 1 bit for bit on both, B1 launches
-    254 a decode pass and 278 a prefill pass; every B1 launch of (a)'s
-    first step (2,478), a steady and a checkpoint tick (254 each) and
+    134 a decode pass and 146 a prefill pass (254 and 278 at 38 layers);
+    every B1 launch of (a)'s first step, a steady and a checkpoint tick and
     (b)'s first step (its prefills at M 2,040 and 2,100) held to plain;
     kernels vs plain logits of one RG-LRU block at the full width (one
     local-attention block, 2 layers and the 5-layer stack, 1 period + 2
@@ -3055,6 +3080,7 @@ def phase_host_tier(eng4, tol, core, g2, core_g2, smi):
 
 # ------------------------------------------------------------------ phase 16
 MOE_ARCH = "moonshot_v1_16b"
+MOE_LAYERS = 4  # of Moonlight's 48: the depth cut that keeps the script in its time (width whole)
 MOE_PLAIN_LAYERS = 4  # depth of the whole-run kernel vs plain comparison
 # (E, C, K, N) of the stacked fused linear's own checks: decode (C 1), a
 # 512-token chunk's wo (C 61), a ragged stack
@@ -3277,14 +3303,15 @@ def time_stacked(cb, launches, worst_err, smi):
 
 
 def phase_moe(cb, smi):
-    """Phase 16: full-width, full-depth Moonlight-16B-A3B (``moonshot_v1_16b``:
-    48 layers, d 2048, 16 heads of 128, 64 experts top-6, d_ff_expert 1408,
-    vocab 163840; seeded random weights drawn and packed to W4 a layer at a
-    time on the card) served in W4A4 from bcq4 pages through the kernels,
+    """Phase 16: full-width Moonlight-16B-A3B (``moonshot_v1_16b``: d 2048,
+    16 heads of 128, 64 experts top-6, d_ff_expert 1408, vocab 163840; its
+    depth cut to ``MOE_LAYERS`` of 48 layers; seeded random weights drawn
+    and packed to W4 a layer at a time on the card) served in W4A4 from
+    bcq4 pages through the kernels,
     phase 4's settings and requests: the production tick (graph depth 2)
     and eager depth 1 equal bit for bit (tokens, margins, launch indices,
     counters, pool bytes, launch counts), exact launch counts (the stacked
-    B1 3 × 48 a pass, the dense B1 4 × 48, B2 and the writer 48), every
+    B1 3 a layer and pass, the dense B1 4, B2 and the writer 1), every
     launch of the first engine step and of a steady decode tick held to its
     plain version; then kernels (graph depth 2) and plain paths (eager depth
     1) at 4 layers of the same width agree under the margin rule, and every
@@ -3303,7 +3330,7 @@ def phase_moe(cb, smi):
     from repro_torch.serving.generate import greedy_agreement
 
     t_phase = time.perf_counter()
-    cfg = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
     err_stacked = check_stacked(cb)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
@@ -3397,6 +3424,7 @@ PTQ_FORMATS = ("bcq", "mx4", "mxfp4", "vsq", "int4", "none")  # Runtime.act_form
 PTQ_PER_LAYER = {"fake": {"bcq_quantize": 4, "page_gather": 1, "bcq_page_write": 1},
                  "packed": {"bcq_linear": 6, "page_gather": 1, "bcq_page_write": 1}}
 PTQ_FIT_RTOL = 2e-4  # the card's fit history vs the CPU fit's (f32 sums in another order)
+PPL_BAR = 1.10  # W4A4 perplexity below this × the float one: tests/test_system.py:89
 
 
 def hold_fake_route(run, label):
@@ -3512,8 +3540,9 @@ def ptq_fit_checks(params, cfg, calib, written):
 
 def ptq_eval(cfg, floats, fake, packed, batches, totals):
     """Held-out loss over phase 9's batches (bf16, the flash kernel) of the
-    fake artifact under every act_format, of the float weights quantized in
-    the forward (``fake_full``), and of the packed artifact; launch counts
+    float weights, of the fake artifact under every act_format, of the
+    float weights quantized in the forward (``fake_full``), and of the
+    packed artifact; launch counts
     per forward; every B3 launch of one fake and one fake_full forward, and
     every B1 and B5 launch of one packed forward, held to its plain
     version (``fake_full`` quantizes the float weights, ``floats``, in the
@@ -3528,9 +3557,10 @@ def ptq_eval(cfg, floats, fake, packed, batches, totals):
 
     L, nb = cfg.n_layers, len(batches)
     base = Runtime(compute_dtype=torch.bfloat16, flash_kernel=True)
-    runs = [(f"fake {f}", dataclasses.replace(base, quant_mode="fake", act_format=f), fake,
-             {"bcq_quantize": 4 * L * nb if f == "bcq" else 0, "flash_attention": L * nb})
-            for f in PTQ_FORMATS]
+    runs = [("float", base, floats, {"flash_attention": L * nb})]
+    runs += [(f"fake {f}", dataclasses.replace(base, quant_mode="fake", act_format=f), fake,
+              {"bcq_quantize": 4 * L * nb if f == "bcq" else 0, "flash_attention": L * nb})
+             for f in PTQ_FORMATS]
     runs += [("fake_full bcq", dataclasses.replace(base, quant_mode="fake_full"), floats,
               {"bcq_quantize": 10 * L * nb, "flash_attention": L * nb}),
              ("packed", dataclasses.replace(base, quant_mode="packed"), packed,
@@ -3627,18 +3657,23 @@ def time_fake_route(cb):
     return {**out[8], "at_eval": out[EVAL_SEQ * EVAL_BATCH]}
 
 
-def phase_ptq(cb, smi):
-    """Phase 17: the PTQ deploy step on full-width gpt3_126m.  Seeded float
-    weights on the card saved by the port's ``CheckpointManager`` and
-    restored (bytes equal); ``python -m repro_torch.launch.quantize``'s
-    ``main`` on the card (calibration: one batch of 4 × 128 tokens, 15
-    LO-BCQ iterations; the fake and packed artifacts, the manifest); the
-    fit twice byte-equal, non-increasing, equal to the port's CPU fit; the
-    held-out loss of the fake artifact under every act_format, of
-    ``fake_full`` and of the packed artifact; both artifacts served at graph
-    depth 2 ≡ eager depth 1 with every launch of a prefill and a steady
-    tick held to plain.  Returns (the phase's launches by kernel, the worst
-    B1 / B2 / B5 errors, B3's fake-quant form)."""
+def phase_ptq(cb, smi, train_ck):
+    """Phase 17: the PTQ deploy step on full-width gpt3_126m, trained by
+    phase 21.  The trained float weights saved again by the port's
+    ``CheckpointManager`` and restored (bytes equal); ``python -m
+    repro_torch.launch.quantize``'s ``main`` on the card over phase 21's
+    checkpoint (calibration: one batch of 4 × 128 tokens, 15 LO-BCQ
+    iterations; the fake and packed artifacts, the manifest); the fit twice
+    byte-equal, non-increasing, equal to the port's CPU fit; the held-out
+    loss of the float weights, of the fake artifact under every act_format,
+    of ``fake_full`` and of the packed artifact, the W4A4 perplexity held
+    to the reference's bar (``tests/test_system.py::test_ptq_pipeline_ppl_close``:
+    below ``PPL_BAR`` × the float perplexity and below the int4 baseline's);
+    both artifacts served at graph depth 2 ≡ eager depth 1 with every launch
+    of a prefill and a steady tick held to plain.  Returns (the phase's
+    launches by kernel, the worst B1 / B2 / B5 errors, B3's fake-quant
+    form)."""
+    import math
     import shutil
 
     import torch
@@ -3650,13 +3685,14 @@ def phase_ptq(cb, smi):
     from repro_torch.data.pipeline import DataConfig, batch_at, eval_stream
     from repro_torch.launch import quantize
     from repro_torch.models import zoo
-    from repro_torch.models.layers import Runtime
 
     t_phase = time.perf_counter()
     cfg = get_arch("gpt3_126m")
     shutil.rmtree(PTQ_DIR, ignore_errors=True)
     ck, out = os.path.join(PTQ_DIR, "ckpt"), os.path.join(PTQ_DIR, "w4")
-    params = zoo.build(cfg, Runtime(compute_dtype=torch.float32), device="cuda").init(0)
+    train_step, train_state = CheckpointManager(train_ck).restore()
+    params = zoo._to(train_state["params"], "cuda")
+    del train_state
     t0 = time.perf_counter()
     mgr = CheckpointManager(ck, keep=2)
     mgr.save(1, {"params": params})  # the async writer
@@ -3665,20 +3701,18 @@ def phase_ptq(cb, smi):
     t0 = time.perf_counter()
     step, state = mgr.restore()
     restore_s = time.perf_counter() - t0
-    flat = lambda t, p="": ([x for k in sorted(t) for x in flat(t[k], f"{p}/{k}")]  # noqa: E731
-                            if isinstance(t, dict) else [(p, t)])
-    mine, back = flat(params), flat(state["params"])
+    mine, back = _flat(params), _flat(state["params"])
     if step != 1 or [p for p, _ in mine] != [p for p, _ in back] or not all(
             a.dtype == b.dtype and torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(mine, back)):
         fail("phase 17: the restored checkpoint differs from the saved weights")
     ck_bytes = sum(os.path.getsize(os.path.join(ck, f)) for f in os.listdir(ck))
-    print(f"phase 17 checkpoint: {len(mine)} leaves, {ck_bytes} B on disk, saved (async writer) "
-          f"in {save_s:.2f} s, restored in {restore_s:.2f} s, every leaf equal bit for bit",
-          flush=True)
+    print(f"phase 17 checkpoint: phase 21's weights (step {train_step}), {len(mine)} leaves, "
+          f"{ck_bytes} B on disk, saved again (async writer) in {save_s:.2f} s, restored in "
+          f"{restore_s:.2f} s, every leaf equal bit for bit", flush=True)
 
     totals = {}
     t0 = time.perf_counter()
-    manifest, counts = _counted(lambda: quantize.main(["--ckpt", ck, "--out", out]), totals)
+    manifest, counts = _counted(lambda: quantize.main(["--ckpt", train_ck, "--out", out]), totals)
     quant_s = time.perf_counter() - t0
     _expect(counts, {"bcq_quantize": 6}, "quantize CLI")  # quantize_params: 6 layer stacks
     stats = ptq.count_quantized_bits(params, BCQConfig())
@@ -3710,6 +3744,17 @@ def phase_ptq(cb, smi):
     batches = list(eval_stream(dc, EVAL_BATCHES, device="cuda"))
     losses, err_ev = ptq_eval(cfg, dict(params, codebooks=fake["codebooks"]), fake, packed,
                               batches, totals)
+    ppl = {k: math.exp(v) for k, v in losses.items()}
+    print("phase 17 perplexity of the trained model: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ppl.items()) + f"; W4A4 (fake bcq) / float "
+        f"{ppl['fake bcq'] / ppl['float']:.4f} (bar {PPL_BAR}), int4 activations / float "
+        f"{ppl['fake int4'] / ppl['float']:.4f}", flush=True)
+    if not ppl["fake bcq"] < PPL_BAR * ppl["float"]:
+        fail(f"phase 17: the trained model's W4A4 perplexity {ppl['fake bcq']:.4f} is not below "
+             f"{PPL_BAR} × its float perplexity {ppl['float']:.4f}")
+    if not ppl["fake bcq"] < ppl["fake int4"]:
+        fail(f"phase 17: the trained model's W4A4 perplexity {ppl['fake bcq']:.4f} is not below "
+             f"the int4-activation baseline's {ppl['fake int4']:.4f}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
     served, worst = {}, {}
@@ -3727,8 +3772,393 @@ def phase_ptq(cb, smi):
     return totals, worst, fake_form
 
 
+# ------------------------------------------------------------------ phase 21
+TRAIN_DIR = os.path.join(ROOT, "build", "train")  # under the ignored build/
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 200, 20, 1e-3  # the CLI's lr and warmup
+TRAIN_LOG = 25
+TRAIN_DROP = 0.5  # nat: the held-out loss must fall by more (tests/test_system.py:41's bar)
+# the SIGTERM check: full width, 1 × 2048 tokens a step (a short run), killed
+# after step 4's log line, 8 steps
+RESUME_STEPS, RESUME_KILL_AFTER, RESUME_BATCH = 8, 4, 1
+FAKE_STEPS = 2  # --quant fake steps from the trained weights
+TIME_STEPS = 2  # steps a timing window
+# the threshold search's operations per scalar: per codebook 4 compares, a
+# level read, d, d², Σ; 4 compares more for the winner's index
+THR_ENCODE_OPS = 8 * (4 + 1 + 3) + 4
+
+
+def _train_args(steps, ckpt, *extra, batch=EVAL_BATCH):
+    return ["--arch", "gpt3_126m", "--batch", str(batch), "--seq", str(EVAL_SEQ),
+            "--steps", str(steps), "--warmup", str(TRAIN_WARMUP), "--lr", str(TRAIN_LR),
+            "--save-every", str(steps + 1), "--ckpt", ckpt, *extra]
+
+
+def _ckpt_tree(path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    return CheckpointManager(path).restore()
+
+
+def _flat(tree, p=""):
+    """(path, leaf) of nested dicts in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], f"{p}/{k}")]
+    return [(p, tree)]
+
+
+def _held_out(api, params, dcfg):
+    """The train CLI's held-out loss: the mean over 4 eval_stream batches."""
+    import torch
+
+    from repro_torch.data.pipeline import eval_stream
+
+    with torch.no_grad():
+        return float(np.mean([float(api.loss_fn(params, b))
+                              for b in eval_stream(dcfg, 4, device="cuda")]))
+
+
+def train_timing(api, params, opt, batch):
+    """ms/step of the train step on the trained state (the same inputs each
+    step: the update is out of place) with and without the deterministic
+    algorithms, in turns (on, off, off, on), and one profiled window of the
+    deterministic step: (ms on, ms off, the windows' ms, (CUDA kernels,
+    device busy ms) a step or None)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    step = train.make_train_step(api, adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                                                        total_steps=TRAIN_STEPS))
+
+    def window(det):
+        with train.deterministic() if det else contextlib.nullcontext():
+            step(params, opt, batch)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIME_STEPS):
+                step(params, opt, batch)
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / TIME_STEPS
+
+    ms = {True: [], False: []}
+    for det in (True, False, False, True):
+        ms[det].append(window(det))
+    with train.deterministic():
+        prof = _tick_profile(lambda: step(params, opt, batch), TIME_STEPS)
+    return float(np.mean(ms[True])), float(np.mean(ms[False])), ms, prof
+
+
+def start_killed_run():
+    """The run to be preempted: a subprocess of the train CLI (full width,
+    ``RESUME_BATCH`` × 2048 tokens a step), sent SIGTERM after its step-4
+    log line; the hook writes its snapshot and the process keeps running
+    (the default handler is not callable), so it is killed once the
+    snapshot's sidecar has landed.  A watcher thread does both while this
+    process goes on (phase 21's main run).  Returns (the process, the
+    watcher, what went wrong, its output lines)."""
+    import atexit
+    import signal
+    import threading
+
+    killed = os.path.join(TRAIN_DIR, "killed")
+    os.makedirs(killed, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           *_train_args(RESUME_STEPS, killed, "--log-every", "1", batch=RESUME_BATCH)]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)  # a failed phase leaves no process behind
+    seen, why = [], []
+
+    def watch():
+        for line in proc.stdout:
+            seen.append(line.rstrip())
+            if line.startswith(f"step {RESUME_KILL_AFTER} loss"):
+                break
+        else:
+            why.append(f"the run to be killed ended before step {RESUME_KILL_AFTER}")
+            return
+        proc.send_signal(signal.SIGTERM)
+        deadline = time.time() + 180
+        while not [f for f in os.listdir(killed) if f.endswith(".npz.json")]:
+            if proc.poll() is not None or time.time() > deadline:
+                why.append("no SIGTERM snapshot landed" + (
+                    f" (the run exited {proc.returncode})" if proc.poll() is not None else ""))
+                return
+            time.sleep(0.02)
+        if proc.poll() is not None:
+            why.append(f"the SIGTERM'd run exited ({proc.returncode}): the hook must leave it "
+                       "running under the default handler")
+        proc.kill()
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return proc, watcher, why, seen
+
+
+def train_kill_resume(killer):
+    """The preempted run (``start_killed_run``) resumed from its snapshot
+    ends bit-equal, in every leaf of params and optimizer state, to the
+    uninterrupted run; both run here.  Returns (the snapshot's step,
+    seconds of this part)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    proc, watcher, why, seen = killer
+    try:
+        watcher.join(timeout=300)
+    finally:
+        proc.kill()
+        proc.wait()
+    if watcher.is_alive() or why:
+        fail(f"phase 21: {why or ['the watcher did not finish']}: " + " | ".join(seen[-5:]))
+    straight, killed = os.path.join(TRAIN_DIR, "straight"), os.path.join(TRAIN_DIR, "killed")
+    snap = sorted(f for f in os.listdir(killed) if f.endswith(".npz.json"))
+    snap_step = int(snap[-1][5:13])
+    if len(snap) != 1 or not RESUME_KILL_AFTER <= snap_step < RESUME_STEPS:
+        fail(f"phase 21: the killed run left {snap}, expected one snapshot of a step in "
+             f"[{RESUME_KILL_AFTER}, {RESUME_STEPS})")
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(_train_args(RESUME_STEPS, straight, "--log-every", "1", batch=RESUME_BATCH))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train.main(_train_args(RESUME_STEPS, killed, "--log-every", "1", batch=RESUME_BATCH))
+    if f"resumed from step {snap_step}" not in out.getvalue():
+        fail(f"phase 21: the rerun did not resume from step {snap_step}:\n{out.getvalue()}")
+    (sa, ta), (sb, tb) = _ckpt_tree(straight), _ckpt_tree(killed)
+    fa, fb = _flat(ta), _flat(tb)
+    if sa != sb or [p for p, _ in fa] != [p for p, _ in fb]:
+        fail(f"phase 21: the resumed checkpoint (step {sb}) does not match the uninterrupted "
+             f"one's leaves (step {sa})")
+    diff = [p for (p, a), (_, b) in zip(fa, fb) if a.dtype != b.dtype or not torch.equal(a, b)]
+    if diff:
+        fail(f"phase 21: killed at step {snap_step} and resumed, {len(diff)} of {len(fa)} leaves "
+             f"differ from the uninterrupted run's: {diff[:6]}")
+    print(f"phase 21 SIGTERM and resume: a run of {RESUME_STEPS} steps of {RESUME_BATCH} × "
+          f"{EVAL_SEQ} tokens (a subprocess of the CLI) sent SIGTERM after step "
+          f"{RESUME_KILL_AFTER}'s log line wrote its snapshot at step {snap_step} and kept running "
+          f"(killed after the snapshot landed); the rerun resumed from step {snap_step} and ended "
+          f"bit-equal to the uninterrupted run in all {len(fa)} leaves of params and optimizer "
+          f"state ({time.perf_counter() - t0:.1f} s after the main run)", flush=True)
+    return snap_step, time.perf_counter() - t0
+
+
+def fake_train(trained, totals):
+    """``--quant fake`` at full width from the trained weights (the CLI
+    resumes a step-0 checkpoint of them with the universal codebooks and a
+    fresh optimizer state), every B3 launch held to ``quantize_ref`` on its
+    own inputs.  Returns (launches by kernel, B3 launches held, ties, the
+    threshold search's launches, the final tree)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.calibrate import default_universal_codebooks
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    ck = os.path.join(TRAIN_DIR, "fake")
+    params = dict(trained, codebooks=default_universal_codebooks().as_tensor("cuda"))
+    CheckpointManager(ck).save(0, {"params": params, "opt": adamw.init_state(params)},
+                               blocking=True)
+    args = _train_args(FAKE_STEPS, ck, "--quant", "fake", "--log-every", "1")
+    (out, n, ties), counts = _counted(
+        lambda: hold_fake_route(lambda: train.main(args), "phase 21 --quant fake"), totals)
+    L = 12
+    want = 4 * L * (FAKE_STEPS + 4)  # 4 activations a layer: the steps, then 4 eval forwards
+    thr = counts.get("bcq_quantize_thr", 0)
+    if counts.get("bcq_quantize", 0) != want or n != want or thr != want - 4 * L:
+        fail(f"phase 21 --quant fake: launches {counts}, {n} held; expected {want} B3 launches, "
+             f"{want - 4 * L} of them the threshold search (the books are non-integer after the "
+             "first step)")
+    _, state = _ckpt_tree(ck)
+    return counts, n, ties, thr, state["params"], out[1]
+
+
+def fake_grads_equal(params, batch):
+    """One fake-quant step's loss and every gradient leaf through B3's route
+    against the plain route on the same inputs (trained, non-integer
+    codebooks); every B3 launch held and its ties counted.  Returns (leaves
+    bit-equal, leaves, ties, the max |Δ| of the codebook gradient)."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    api = zoo.build(get_arch("gpt3_126m"), Runtime(quant_mode="fake"), device="cuda")
+    with train.deterministic():
+        (kl, kg), n, ties = hold_fake_route(lambda: train.value_and_grad(api.loss_fn, params, batch),
+                                            "phase 21 gradient step")
+        real = bcq.fake_quant
+        bcq.fake_quant = bcq.fake_quant_plain
+        try:
+            pl, pg = train.value_and_grad(api.loss_fn, params, batch)
+        finally:
+            bcq.fake_quant = real
+    torch.cuda.synchronize()
+    if not torch.equal(kl, pl):
+        fail(f"phase 21: the fake-quant loss through B3's route ({float(kl)!r}) differs from the "
+             f"plain route's ({float(pl)!r})")
+    fk, fp = _flat(kg), _flat(pg)
+    same = [torch.equal(a, b) for (_, a), (_, b) in zip(fk, fp)]
+    cb_diff = float((kg["codebooks"] - pg["codebooks"]).abs().max())
+    for (path, a), (_, b), eq in zip(fk, fp, same):
+        if eq:
+            continue
+        if path == "/codebooks" and ties:
+            continue  # a codebook tie moved a block's share of the codebook gradient
+        fail(f"phase 21: the gradient of {path} through B3's route differs from the plain "
+             f"route's by {float((a - b).abs().max()):.3e} ({ties} ties)")
+    if not bool(torch.isfinite(kg["codebooks"]).all()) or float(kg["codebooks"].abs().max()) == 0:
+        fail("phase 21: the codebook gradient is zero or non-finite")
+    return sum(same), len(same), ties, n, cb_diff
+
+
+def time_trained_books(books):
+    """B3 at (8192, 768) on trained (non-integer) books: the threshold
+    search, beside the table on the integer books, the plain encode and the
+    bound (its operations per scalar: ``THR_ENCODE_OPS``)."""
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_quantize as bq
+    from repro_torch.kernels.ref import quantize_ref
+
+    cfg = bcq.BCQConfig()
+    m, k = EVAL_SEQ * EVAL_BATCH, 768
+    x = activation(m, k, 7)
+    s_x = bcq.tensor_scale(x, cfg)
+    ms = cuda_ms(lambda: bq.bcq_quantize(x, books, s_x, cfg))
+    plain_ms = cuda_ms(lambda: quantize_ref(x, books, cfg, s_x), iters=5)
+    nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
+    ops = THR_ENCODE_OPS * m * k
+    bound, by = _bound(nbytes, (ops, F32_FLOPS))
+    by_name = kernel_split_ms(lambda: bq.bcq_quantize(x, books, s_x, cfg), bound,
+                              f"bcq_quantize (threshold search) at M={m} K={k}")
+    dev = device_ms(by_name)
+    print(f"B3 threshold search (trained books) at M={m} K={k}: kernel {ms:.4f} ms (device "
+          f"{dev:.4f} ms, {timer(by_name)}), plain {plain_ms:.4f} ms, bound {bound:.5f} ms by "
+          f"{by} ({nbytes} B, {ops} f32 operations)", flush=True)
+    return {"shape": f"M {m} K {k}, trained books", "ms": ms, "device_ms": dev,
+            "timer": timer(by_name), "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def phase_train(smi):
+    """Phase 21: training full-width gpt3_126m through ``launch.train.main``
+    on the card (bf16 compute, f32 parameters, 4 × 2048 tokens a step):
+    the held-out loss falls by more than ``TRAIN_DROP``; ms/step, tokens/s,
+    the idle share and the cost of the deterministic algorithms; a run
+    killed by SIGTERM and resumed ends bit-equal to the uninterrupted one;
+    ``--quant fake`` steps from the trained weights through B3 (its
+    threshold search after the first step), every launch held to plain;
+    one fake step's loss and gradients through B3 equal to the plain
+    route's.  Returns (B3's launches of the fake run, the trained
+    checkpoint's directory, B3's entry for trained books: its threshold
+    search's launches and time at (8192, 768), the step's numbers)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("gpt3_126m")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    main_ck = os.path.join(TRAIN_DIR, "main")
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the subprocess needs room
+    killer = start_killed_run()
+    api = zoo.build(cfg, Runtime(), device="cuda")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=EVAL_SEQ, global_batch=EVAL_BATCH, seed=0)
+    before = _held_out(api, api.init_train(0), dcfg)
+
+    torch.cuda.synchronize()
+    build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, after = train.main(_train_args(TRAIN_STEPS, main_ck, "--log-every", str(TRAIN_LOG)))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(build.counts().values()):
+        fail(f"phase 21: the float training run launched kernels {build.counts()}: its step "
+             "has none (no kernel of the reference has a backward)")
+    if not np.isfinite(after) or not before - after > TRAIN_DROP:
+        fail(f"phase 21: the held-out loss went {before:.4f} → {after:.4f}, not down by more than "
+             f"{TRAIN_DROP} nat")
+    step, state = _ckpt_tree(main_ck)
+    if step != TRAIN_STEPS or int(state["opt"]["step"]) != TRAIN_STEPS:
+        fail(f"phase 21: the final checkpoint is at step {step}, opt step {state['opt']['step']}")
+    trained = zoo._to(state["params"], "cuda")
+    opt = zoo._to(state["opt"], "cuda")
+    print(f"phase 21 training: full-width gpt3_126m, {TRAIN_STEPS} steps of {EVAL_BATCH} × "
+          f"{EVAL_SEQ} tokens (bf16 compute, f32 params, lr {TRAIN_LR}, warmup {TRAIN_WARMUP}) in "
+          f"{run_s:.1f} s with the CLI's set-up, eval and final save; held-out loss {before:.4f} → "
+          f"{after:.4f} (down {before - after:.4f} nat, bar {TRAIN_DROP}); peak device memory "
+          f"{peak_gb:.1f} GB; no kernel launched (the float step runs the plain paths)",
+          flush=True)
+
+    batch = {k: v for k, v in batch_at(dcfg, TRAIN_STEPS, device="cuda").items()}
+    ms_det, ms_free, turns, prof = train_timing(api, trained, opt, batch)
+    tokens = EVAL_BATCH * EVAL_SEQ
+    busy = "not measured" if prof is None else f"{prof[1]:.1f} ms"
+    idle = None if prof is None else max(0.0, 1 - prof[1] / ms_det)
+    print(f"phase 21 train step (deterministic algorithms on, the CLI's): {ms_det:.1f} ms/step, "
+          f"{tokens / ms_det * 1e3:.0f} tokens/s, device busy {busy} a step"
+          f"{'' if idle is None else f' (idle share {idle:.3f}, {prof[0]:.0f} CUDA kernels)'}; "
+          f"off: {ms_free:.1f} ms/step — the determinism costs {ms_det - ms_free:+.1f} ms a step "
+          f"({(ms_det / ms_free - 1) * 100:+.1f}%; windows of {TIME_STEPS} steps on, off, off, "
+          f"on: {turns[True][0]:.1f}, {turns[False][0]:.1f}, {turns[False][1]:.1f}, "
+          f"{turns[True][1]:.1f}); {smi}", flush=True)
+    del opt
+
+    snap_step, resume_s = train_kill_resume(killer)
+
+    totals = {}
+    t0 = time.perf_counter()
+    counts, n, ties, thr, fparams, _ = fake_train(trained, totals)
+    fake_s = time.perf_counter() - t0
+    fparams = zoo._to(fparams, "cuda")
+    books = fparams["codebooks"]
+    moved = float((books - torch.round(books)).abs().max())
+    print(f"phase 21 --quant fake: {FAKE_STEPS} steps from the trained weights through the CLI, "
+          f"{n} B3 launches held to quantize_ref ({ties} with a codebook tie), {thr} of them the "
+          f"threshold search (the books move off the integers by up to {moved:.2e} after step 1; "
+          f"{fake_s:.1f} s)", flush=True)
+    same, leaves, gties, gn, cb_diff = fake_grads_equal(fparams, batch)
+    print(f"phase 21 fake-quant gradient on the trained books: loss equal bit for bit through "
+          f"B3's route and the plain route, {same} of {leaves} gradient leaves bit-equal "
+          f"({gn} B3 launches held, {gties} codebook ties; the codebook gradient parts by "
+          f"{cb_diff:.3e})", flush=True)
+    trained_form = time_trained_books(books)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 21 summary: held-out loss {before:.4f} → {after:.4f}, {ms_det:.1f} ms/step "
+          f"({tokens / ms_det * 1e3:.0f} tokens/s), determinism {ms_det - ms_free:+.1f} ms a step, "
+          f"SIGTERM at step {snap_step} resumed bit-exact ({resume_s:.1f} s), fake steps' B3 "
+          f"launches {counts}; phase 21 {phase_s:.1f} s; {smi}", flush=True)
+    return counts.get("bcq_quantize", 0), main_ck, dict(
+        trained_form, launches_threshold_search=thr, held=n, ties=ties,
+        gradient_leaves_equal=f"{same}/{leaves}", codebook_gradient_max_diff=cb_diff,
+        train_ms_per_step=ms_det, train_ms_per_step_nondeterministic=ms_free,
+        train_idle_share=idle, phase_s=phase_s)
+
+
 # ------------------------------------------------------------------ phase 18
 STATE_ARCH = "mamba2_130m"
+STATE_LAYERS = 12  # of Mamba2-130m's 24: the depth cut that keeps the script in its time
 STATE_PER_LAYER = 2  # B1 launches a layer and pass: in_proj, out_proj
 STATE_PS = 16
 STATE_MAX_LEN = -(-(max(PROMPT_LENS) + GEN + 1) // STATE_PS) * STATE_PS  # serve()'s
@@ -4085,8 +4515,9 @@ def state_replay_held(api, params, prompts, timed):
 
 
 def phase_state(cb, smi):
-    """Phase 18: full-width Mamba2-130m (``mamba2_130m``: 24 layers, d 768,
-    d_state 128, head_dim 64, vocab 50280; seeded random weights packed to
+    """Phase 18: full-width Mamba2-130m (``mamba2_130m``: ``STATE_LAYERS``
+    of its 24 layers, d 768, d_state 128, head_dim 64, vocab 50280; seeded
+    random weights packed to
     W4, f32 compute) served in W4A4 through StatePagedEngine on phase 4's
     settings and prompts (8 slots, page 16, 48–500 prompt tokens, 32 new
     tokens): graph depth 2 ≡ eager depth 1 bit for bit (tokens, margins,
@@ -4106,6 +4537,8 @@ def phase_state(cb, smi):
     state page's swap and the resume times against the full recompute.
     Returns (the phase's B1 launches, its ``kernels`` entry fields, worst
     launch error)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs.base import get_arch
@@ -4116,7 +4549,7 @@ def phase_state(cb, smi):
     from repro_torch.serving.pages import tree_leaves
 
     t_phase = time.perf_counter()
-    cfg = get_arch(STATE_ARCH)
+    cfg = dataclasses.replace(get_arch(STATE_ARCH), n_layers=STATE_LAYERS)
     L = cfg.n_layers
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
@@ -4281,6 +4714,7 @@ def phase_state(cb, smi):
 
 # ------------------------------------------------------------------ phase 19
 HYB_ARCH = "recurrentgemma_9b"
+HYB_LAYERS = 20  # of its 38: 6 of 12 periods + the 2 tail blocks, for the script's time
 # B1 launches a block and pass: a recurrent block's proj_x, proj_gate,
 # gate_a, gate_x, proj_out and MLP wi, wo; an attention block's wq, wk,
 # wv, wo and MLP at decode, and wk, wv again to fill the ring at prefill
@@ -4482,8 +4916,9 @@ def _hybrid_resumes(mode, base, ck_out, ck_ms, ho_out, ho_ms):
 
 
 def phase_hybrid(cb, smi):
-    """Phase 19: full-width RecurrentGemma-9B (``recurrentgemma_9b``: 38
-    layers = 12 periods (rec, rec, attn) + 2 tail rec blocks, d 4096, 16
+    """Phase 19: full-width RecurrentGemma-9B (``recurrentgemma_9b``:
+    ``HYB_LAYERS`` of its 38 layers = periods (rec, rec, attn) + 2 tail rec
+    blocks, d 4096, 16
     heads of 256 and 1 KV head, d_ff 12288, lru_width 4096, window 2048,
     vocab 256000, untied; seeded random weights drawn and packed to W4 a
     period and a tail block at a time on the card, a bcq4 ring, f32
@@ -4516,7 +4951,7 @@ def phase_hybrid(cb, smi):
     from repro_torch.serving.pages import REPLICATED, tree_leaves
 
     t_phase = time.perf_counter()
-    cfg = get_arch(HYB_ARCH)
+    cfg = dataclasses.replace(get_arch(HYB_ARCH), n_layers=HYB_LAYERS)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
     ring_prompts = [rng.integers(0, cfg.vocab, n) for n in HYB_RING_LENS]
@@ -5664,6 +6099,10 @@ def check_bounds(kernels):
 
 
 def main() -> int:
+    # before the first cuBLAS call: phase 21's training runs in this process
+    # and in its subprocess take the deterministic algorithms with one
+    # cuBLAS workspace setting (launch.train sets the same in its own main)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -5715,7 +6154,8 @@ def main() -> int:
     counts_tel, probe_form = phase_telemetry(eng4, cb, g2, core_g2, smi)
     counts_tier, _ = phase_host_tier(eng4, tol, core, g2, core_g2, smi)
     counts_moe, stacked, err_moe = phase_moe(cb, smi)
-    counts_ptq, err_ptq, fake_form = phase_ptq(cb, smi)
+    counts_train, train_ck, trained_form = phase_train(smi)
+    counts_ptq, err_ptq, fake_form = phase_ptq(cb, smi, train_ck)
     counts_state, state_entry, err_state = phase_state(cb, smi)
     counts_hyb, hyb_entry, err_hyb = phase_hybrid(cb, smi)
     counts_enc, flash_enc, enc_entry, flash_entry, err_enc = phase_encdec(cb, smi)
@@ -5734,7 +6174,9 @@ def main() -> int:
     kernels[2]["launches"] = sum(kernels[2]["launches_by_path"].values())
     kernels[3]["launches_by_path"]["probes"] = counts_tel["bcq_quantize"]
     kernels[3]["launches_by_path"]["ptq_fake_quant"] = counts_ptq.get("bcq_quantize", 0)
+    kernels[3]["launches_by_path"]["training"] = counts_train
     kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
+    kernels[3]["trained_books"] = trained_form
     kernels[3]["probe_form"] = probe_form
     kernels[3]["fake_quant_form"] = fake_form
     kernels[0]["launches_by_path"]["state"] = counts_state

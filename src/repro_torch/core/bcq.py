@@ -126,30 +126,44 @@ class CodebookSet:
                            cfg=BCQConfig(**d["cfg"]), history=d.get("history"))
 
 
-def check_codebook_levels(levels: np.ndarray, cfg: BCQConfig) -> None:
-    """The premise of the W4A4 kernels: they multiply codewords as int8
-    integers and find the nearest entry by a table over floor(2y), both
-    exact only for sorted integer levels within ±codeword_max
-    (csrc/bcq_encode.cuh, csrc/bcq_gemm.cuh).  Raises ValueError."""
+def check_codebook_levels(levels: np.ndarray, cfg: BCQConfig, integer: bool = True) -> bool:
+    """The premise of the W4A4 kernels: B1, B4 and the KV-page writer
+    multiply codewords as int8 integers and find the nearest entry by a
+    table over floor(2y), both exact only for sorted integer levels within
+    ±codeword_max (csrc/bcq_encode.cuh, csrc/bcq_gemm.cuh).  B3's quantize
+    form (``integer=False``) also takes any sorted, finite f32 levels —
+    trained codebooks — through its threshold search, as the reference's
+    kernel does.  Raises ValueError; returns whether the levels are
+    integers within ±codeword_max (the table path)."""
     lv = np.asarray(levels, dtype=np.float32)
-    if not np.array_equal(lv, np.round(lv)):
+    whole = np.array_equal(lv, np.round(lv))
+    if integer and not whole:
         raise ValueError("codebook levels must be integers (INT codewords)")
+    if not np.all(np.isfinite(lv)):
+        raise ValueError("codebook levels must be finite")
     if np.any(np.diff(lv, axis=-1) < 0):
         raise ValueError("codebook levels must be sorted ascending")
-    if np.any(np.abs(lv) > cfg.codeword_max):
+    in_range = bool(np.all(np.abs(lv) <= cfg.codeword_max))
+    if integer and not in_range:
         raise ValueError(f"codebook levels must lie within ±{cfg.codeword_max:g}")
+    return whole and in_range
 
 
-def check_kernel_codebooks(codebooks: torch.Tensor, cfg: BCQConfig) -> None:
-    """``check_codebook_levels`` at a kernel's entry.  The check reads the
+def check_kernel_codebooks(codebooks: torch.Tensor, cfg: BCQConfig, integer: bool = True) -> bool:
+    """``check_codebook_levels`` at a kernel's entry; returns whether the
+    levels are integers (B3 picks its path from it).  The check reads the
     values on the host, a copy that a CUDA graph capture cannot make and a
     launch should not wait for, so a tensor that passed keeps the in-place
-    version it passed at (``_kernel_checked``): a later launch on it, a
-    captured one after its eager warm-up too, reads one attribute."""
-    if getattr(codebooks, "_kernel_checked", None) == codebooks._version:
-        return
-    check_codebook_levels(codebooks.detach().cpu().numpy(), cfg)
-    codebooks._kernel_checked = codebooks._version
+    version it passed at and what it was found to be (``_kernel_checked``):
+    a later launch on it, a captured one after its eager warm-up too, reads
+    one attribute.  A trained codebook is a new tensor every step, checked
+    once."""
+    seen = getattr(codebooks, "_kernel_checked", None)
+    if seen is not None and seen[0] == codebooks._version and (seen[1] or not integer):
+        return seen[1]
+    whole = check_codebook_levels(codebooks.detach().cpu().numpy(), cfg, integer)
+    codebooks._kernel_checked = (codebooks._version, whole)
+    return whole
 
 
 def check_kernel_config(cfg: BCQConfig, what: str) -> None:
@@ -300,7 +314,15 @@ def fake_quant(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig, s_x=Non
     ``kernels.bcq_quantize``, x as (M, K) padded to whole arrays; ``s_x``
     a 0-d tensor) and decoded with torch ops on the device; a CPU tensor
     takes ``fake_quant_plain``.  The decoded values are the plain
-    route's, bit for bit (a codebook tie moves a selector, not a value)."""
+    route's, bit for bit (a codebook tie moves a selector, not a value).
+
+    The gradient is the plain route's, which is the reference's (there is
+    no straight-through estimator): the encode's outputs — indices,
+    selectors and the E4M3 ratio, whose rounding has zero gradient — are
+    constants, so the gradient reaches ``x`` only through ``s_x`` =
+    codeword_max / amax|x| (``amax`` splits it evenly among tied maxima, as
+    ``jnp.max`` does) and ``codebooks`` through the decode's gather.  B3
+    runs on detached inputs; the torch decode carries both."""
     if x.device.type == "cpu":
         return fake_quant_plain(x, codebooks, cfg, s_x)
     from repro_torch.kernels.bcq_quantize import bcq_quantize
@@ -309,8 +331,8 @@ def fake_quant(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig, s_x=Non
     if s_x is None:
         s_x = tensor_scale(xf, cfg)
     k = xf.shape[-1]
-    x2, _ = pad_to_multiple(xf.reshape(-1, k), cfg.array_len)
-    idx, sel, ratio = bcq_quantize(x2.contiguous(), codebooks, s_x, cfg)
+    x2, _ = pad_to_multiple(xf.detach().reshape(-1, k), cfg.array_len)
+    idx, sel, ratio = bcq_quantize(x2.contiguous(), codebooks, s_x.detach(), cfg)
     out = dequantize(idx, sel, ratio * s_x, codebooks, cfg)
     return out[:, :k].reshape(x.shape).to(x.dtype)
 

@@ -6,9 +6,9 @@
 // per scalar, a strict-< running argmin over the codebooks per 8-scalar
 // block.
 //
-// The nearest entry is a table lookup, not 15 threshold compares.
-// Codewords are integers (core/bcq.CodebookSet checks it when the
-// codebooks are loaded), so every midpoint threshold thr has an integer
+// The nearest entry is a table lookup, not 15 threshold compares, where
+// the codewords are integers (core/bcq.check_kernel_codebooks checks it at
+// the kernel's entry): every midpoint threshold thr then has an integer
 // 2·thr, and doubling y is exact:
 //
 //     y ≥ thr  ⇔  2y ≥ 2·thr  ⇔  floor(2y) ≥ 2·thr,
@@ -39,6 +39,22 @@
 // The running argmin keeps the error and the codebook only; the winner's
 // entries are looked up after the last codebook.
 //
+// Trained codebooks (W4A4 fake-quant training updates them, so after a
+// step their levels are sorted but no longer integers) take the threshold
+// search instead (ThrTables, encode_block_thr): for any f32 levels,
+// barring overflow and subnormal thresholds, doubling y is still exact and
+// the reference's threshold 0.5·(l[i] + l[i+1]) is half of the f32 sum
+// fadd_rn(l[i], l[i+1]), so
+//
+//     y ≥ thr  ⇔  2y ≥ fadd_rn(l[i], l[i+1]),
+//
+// the comparison the table encodes, now made per scalar: 4 halvings over
+// a codebook's 15 sums for each of the 8 codebooks, then once more for the
+// winner's indices.  That path gives indices only (the QuantizeIo form);
+// the int8 codes of B1's GEMM and the page writer need integer levels.
+// The caller picks the path from the codebook check at the kernel's entry
+// (core/bcq.check_kernel_codebooks): integer books keep the table.
+//
 // Bit-exactness with the plain PyTorch encode: every product and sum
 // that feeds a compare or a stored value uses the _rn intrinsics, so no
 // multiply-add is contracted into an FMA; the block error is summed left
@@ -48,6 +64,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace bcq {
 
@@ -65,6 +83,13 @@ struct Tables {
   float4 val_hi[LUT_N * VAL_COPIES];  // codebooks 4-7 per row
   uint32_t ent[NC * LUT_N];           // (codebook, row) entries
   float thr2[NC * NE];                // 2·thr per codebook (15 used), while building
+};
+
+// The threshold search's tables: per codebook the 15 sums l[i] + l[i+1]
+// (the 16th +inf) and the 16 levels.
+struct ThrTables {
+  float thr2[NC * NE];
+  float lv[NC * NE];
 };
 
 __device__ __forceinline__ float pow2i(int e) { return __int_as_float((e + 127) << 23); }
@@ -115,6 +140,16 @@ __device__ __forceinline__ float entry_value(uint32_t e) { return __uint_as_floa
 __device__ __forceinline__ uint32_t entry_idx(uint32_t e) { return e & 15u; }
 __device__ __forceinline__ uint32_t entry_code(uint32_t e) { return (e >> 4) & 0xFFu; }
 
+// The number of a sorted codebook's doubled thresholds thr2[0..15) that
+// are ≤ v (thr2[15] is +inf): the index of the entry nearest v / 2, in 4
+// halvings.  NaN passes no threshold.
+__device__ __forceinline__ int thr_count(const float* thr2, float v) {
+  int k = 0;
+#pragma unroll
+  for (int step = NE / 2; step > 0; step >>= 1) k += thr2[k + step - 1] <= v ? step : 0;
+  return k;
+}
+
 // Build the tables (see the note above) in shared memory from the f32
 // codebooks (NC × NE) in device memory; every thread of the block must
 // call, and the tables are readable after the caller's next
@@ -134,9 +169,7 @@ __device__ __forceinline__ void load_tables(const float* __restrict__ cb, Tables
     const float v = static_cast<float>(i % LUT_N - 64);
     // the number of thresholds ≤ v: the codebooks are sorted (CodebookSet
     // checks it), so their thresholds are too and 4 halvings find it
-    int k = 0;
-#pragma unroll
-    for (int step = NE / 2; step > 0; step >>= 1) k += t.thr2[c * NE + k + step - 1] <= v ? step : 0;
+    const int k = thr_count(t.thr2 + c * NE, v);
     const float w = cb[c * NE + k];
     const uint32_t code = static_cast<uint8_t>(static_cast<int8_t>(__float2int_rn(w)));
     t.ent[i] = __float_as_uint(w) | (code << 4) | static_cast<uint32_t>(k);
@@ -152,15 +185,24 @@ __device__ __forceinline__ void load_tables(const float* __restrict__ cb, Tables
   }
 }
 
-// Encode one 8-scalar block y of a thread.  The blocks of an array sit on
-// ``lanes`` neighbouring lanes (lanes = L_A / 8, a power of two ≤ 8,
-// aligned to it), and every lane of the warp must call (full-mask
-// shuffles).  On return: ent the table entry of the chosen codebook per
-// scalar (index and code), sel that codebook, ratio the array's
-// E4M3-snapped s_a / s_x, scale = ratio · s_x.
-__device__ __forceinline__ void encode_block(const float (&y)[LB], const Tables& t, float s_x,
-                                             float cw_max, int lanes, uint32_t (&ent)[LB],
-                                             int& sel, float& ratio, float& scale) {
+// The threshold search's tables from the f32 codebooks (NC × NE) in device
+// memory; every thread of the block must call, readable after the
+// caller's next __syncthreads().
+__device__ __forceinline__ void load_thr_tables(const float* __restrict__ cb, ThrTables& t,
+                                                int tid, int nthreads) {
+  for (int i = tid; i < NC * NE; i += nthreads) {
+    t.thr2[i] = i % NE < NE - 1 ? __fadd_rn(cb[i], cb[i + 1]) : INFINITY;
+    t.lv[i] = cb[i];
+  }
+}
+
+// The array's scales for one 8-scalar block y of a thread: ratio the
+// array's E4M3-snapped s_a / s_x, scale = ratio · s_x.  The blocks of an
+// array sit on ``lanes`` neighbouring lanes (lanes = L_A / 8, a power of
+// two ≤ 8, aligned to it), and every lane of the warp must call
+// (full-mask shuffles).
+__device__ __forceinline__ void array_scales(const float (&y)[LB], float s_x, float cw_max,
+                                             int lanes, float& ratio, float& scale) {
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < LB; ++i) amax = fmaxf(amax, fabsf(y[i]));
@@ -168,6 +210,30 @@ __device__ __forceinline__ void encode_block(const float (&y)[LB], const Tables&
   const float s_a = amax > 0.f ? __fdiv_rn(cw_max, amax) : s_x;
   ratio = e4m3_snap(__fdiv_rn(s_a, s_x));
   scale = __fmul_rn(ratio, s_x);
+}
+
+// The first codebook of least block error (a strict-< running argmin).
+__device__ __forceinline__ int argmin_codebook(const float (&err)[NC]) {
+  float best = INFINITY;
+  int sel = 0;
+#pragma unroll
+  for (int cb = 0; cb < NC; ++cb) {
+    if (err[cb] < best) {
+      best = err[cb];
+      sel = cb;
+    }
+  }
+  return sel;
+}
+
+// Encode one 8-scalar block y of a thread through the tables of integer
+// codebooks (see array_scales for the lanes).  On return: ent the table
+// entry of the chosen codebook per scalar (index and code), sel that
+// codebook, ratio and scale as array_scales.
+__device__ __forceinline__ void encode_block(const float (&y)[LB], const Tables& t, float s_x,
+                                             float cw_max, int lanes, uint32_t (&ent)[LB],
+                                             int& sel, float& ratio, float& scale) {
+  array_scales(y, s_x, cw_max, lanes, ratio, scale);
 
   // The table row v = floor(2y) + 64 comes as float bits: c + 1.5·2^23 +
   // 64 rounded down is the float 1.5·2^23 + floor(c) + 64 (spacing 1
@@ -194,18 +260,35 @@ __device__ __forceinline__ void encode_block(const float (&y)[LB], const Tables&
       err[cb] = i == 0 ? __fmul_rn(d, d) : __fadd_rn(err[cb], __fmul_rn(d, d));
     }
   }
-  float best = INFINITY;
-  sel = 0;
-#pragma unroll
-  for (int cb = 0; cb < NC; ++cb) {
-    if (err[cb] < best) {
-      best = err[cb];
-      sel = cb;
-    }
-  }
+  sel = argmin_codebook(err);
   const uint32_t ent_sel = smem(t.ent + sel * LUT_N) - ROW0 * 4u;
 #pragma unroll
   for (int i = 0; i < LB; ++i) ent[i] = lds_u32(ent_sel + bits[i] * 4u);
+}
+
+// Encode one 8-scalar block y of a thread through the threshold search (any
+// sorted f32 codebooks; the note at the top).  The same outputs as
+// encode_block, but ent holds the index alone (no int8 code).
+__device__ __forceinline__ void encode_block_thr(const float (&y)[LB], const ThrTables& t,
+                                                 float s_x, float cw_max, int lanes,
+                                                 uint32_t (&ent)[LB], int& sel, float& ratio,
+                                                 float& scale) {
+  array_scales(y, s_x, cw_max, lanes, ratio, scale);
+  float err[NC], y2[LB];
+#pragma unroll
+  for (int i = 0; i < LB; ++i) {
+    const float yi = __fmul_rn(y[i], scale);
+    y2[i] = __fadd_rn(yi, yi);
+#pragma unroll
+    for (int cb = 0; cb < NC; ++cb) {  // left to right over the block
+      const float w = t.lv[cb * NE + thr_count(t.thr2 + cb * NE, y2[i])];
+      const float d = __fsub_rn(yi, w);
+      err[cb] = i == 0 ? __fmul_rn(d, d) : __fadd_rn(err[cb], __fmul_rn(d, d));
+    }
+  }
+  sel = argmin_codebook(err);
+#pragma unroll
+  for (int i = 0; i < LB; ++i) ent[i] = static_cast<uint32_t>(thr_count(t.thr2 + sel * NE, y2[i]));
 }
 
 // The encode pass: one thread per 8-scalar block, a grid-stride loop so
@@ -223,13 +306,18 @@ __device__ __forceinline__ void encode_block(const float (&y)[LB], const Tables&
 //
 // Blocks whose job is < 0 are encoded all the same (their lanes join the
 // amax shuffles) and not stored.  The next step's loads are issued before
-// this step's encode, so their latency hides behind it.
-template <class Io>
+// this step's encode, so their latency hides behind it.  INT_BOOKS: the
+// codebooks are integers (the tables); else any sorted f32 levels (the
+// threshold search, indices only).
+template <class Io, bool INT_BOOKS = true>
 __global__ void __launch_bounds__(ENC_THREADS) encode_kernel(Io io, const float* __restrict__ cb,
                                                              long long n_blocks, float cw_max,
                                                              int lanes) {
-  __shared__ Tables tab;
-  load_tables(cb, tab, threadIdx.x, ENC_THREADS);
+  __shared__ typename std::conditional<INT_BOOKS, Tables, ThrTables>::type tab;
+  if constexpr (INT_BOOKS)
+    load_tables(cb, tab, threadIdx.x, ENC_THREADS);
+  else
+    load_thr_tables(cb, tab, threadIdx.x, ENC_THREADS);
   __syncthreads();
   const long long stride = static_cast<long long>(gridDim.x) * ENC_THREADS;
   long long g = static_cast<long long>(blockIdx.x) * ENC_THREADS + threadIdx.x;
@@ -243,7 +331,10 @@ __global__ void __launch_bounds__(ENC_THREADS) encode_kernel(Io io, const float*
     uint32_t ent[LB];
     int sel;
     float ratio, scale;
-    encode_block(y, tab, s_x, cw_max, lanes, ent, sel, ratio, scale);
+    if constexpr (INT_BOOKS)
+      encode_block(y, tab, s_x, cw_max, lanes, ent, sel, ratio, scale);
+    else
+      encode_block_thr(y, tab, s_x, cw_max, lanes, ent, sel, ratio, scale);
     const int pair = __shfl_down_sync(FULL, sel, 1);
     if (job >= 0) io.store(g, job, ent, sel, pair, ratio, scale);
 #pragma unroll
@@ -275,7 +366,7 @@ struct RowMajorIn {
 
 // Grid of the encode pass: as many blocks of threads as the card holds at
 // once (each builds its tables once), fewer for small inputs.
-template <class Io>
+template <class Io, bool INT_BOOKS = true>
 inline unsigned encode_grid(long long n_blocks) {
   static int per_sm[16], sms[16];  // per device, filled on first use
   int dev = 0;
@@ -284,7 +375,8 @@ inline unsigned encode_grid(long long n_blocks) {
   if (dev < 16) {
     if (per_sm[dev] == 0) {
       cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], encode_kernel<Io>, ENC_THREADS, 0);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev],
+                                                    encode_kernel<Io, INT_BOOKS>, ENC_THREADS, 0);
     }
     fit = per_sm[dev] > 0 ? per_sm[dev] * sms[dev] : fit;
   }

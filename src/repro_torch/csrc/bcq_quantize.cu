@@ -12,6 +12,10 @@
 //       idx   u8  (M, K/2)   codeword indices, two nibbles a byte, low first
 //       sel   u8  (M, K/16)  codebook selectors, two nibbles a byte
 //       ratio f32 (M, K/64)  E4M3-snapped s_A / s_X per 64-scalar array
+//   with integer codebooks (the table lookup), or, through
+//   bcq_quantize_thr_launch, with any sorted f32 codebooks (the threshold
+//   search: the trained codebooks of W4A4 fake-quant training), as the
+//   reference's kernel takes them;
 // * page store (bcq_page_write_launch): the bcq4 KV-page writer of the
 //   serving path, where the reference encodes with jnp bcq.encode
 //   (repro/models/layers.py: paged_token_write, paged_chunk_write).  One
@@ -39,7 +43,11 @@
 // row's float bits, E4M3 takes the exponent from the bits, and the next
 // grid-stride step's loads are in flight during this step's encode.  Each thread loads 8 scalars as two
 // float4 (one uint4 for bf16) and stores its 8 indices as one 32-bit word;
-// the even lane of a block pair stores the pair's selector byte.
+// the even lane of a block pair stores the pair's selector byte.  The
+// threshold search is simpler: 4 shared-memory compares and a level read
+// per scalar and codebook (not one table row for all 8), plus 4 for the
+// winner's index, from 1 KB of tables, so it is bound by those reads; it
+// runs only on trained codebooks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -162,33 +170,50 @@ struct PageWriteIo {
   }
 };
 
-template <class Io>
+template <class Io, bool INT_BOOKS = true>
 int launch(const Io& io, const float* cb, long long n_blocks, float cw_max, int lanes,
            void* stream) {
-  bcq::encode_kernel<<<bcq::encode_grid<Io>(n_blocks), bcq::ENC_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(io, cb, n_blocks, cw_max, lanes);
+  bcq::encode_kernel<Io, INT_BOOKS><<<bcq::encode_grid<Io, INT_BOOKS>(n_blocks), bcq::ENC_THREADS,
+                                      0, static_cast<cudaStream_t>(stream)>>>(io, cb, n_blocks,
+                                                                              cw_max, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entries: launch on ``stream``, allocate nothing, return the
-// launch status (cudaGetLastError).  Both need the paper config (L_b 8,
-// 16 entries, 8 integer codebooks); the wrappers check shapes, types and
-// alignment.
-//
-// Quantize: K % 64 == 0, 16-byte aligned x, 4-byte aligned idx.
-extern "C" int bcq_quantize_launch(const float* x, const float* cb, const float* s_x,
-                                   uint8_t* idx, uint8_t* sel, float* ratio, int M, int K,
-                                   float cw_max, void* stream) {
-  if (M <= 0 || K <= 0 || K % LA) return static_cast<int>(cudaErrorInvalidValue);
+QuantizeIo quantize_io(const float* x, const float* s_x, uint8_t* idx, uint8_t* sel,
+                       float* ratio) {
   QuantizeIo io;
   io.x = x;
   io.s_x = s_x;
   io.idx = reinterpret_cast<uint32_t*>(idx);
   io.sel = sel;
   io.ratio = ratio;
-  return launch(io, cb, static_cast<long long>(M) * (K / LB), cw_max, LA / LB, stream);
+  return io;
+}
+
+}  // namespace
+
+// Plain C entries: launch on ``stream``, allocate nothing, return the
+// launch status (cudaGetLastError).  All need the paper config (L_b 8, 16
+// entries, 8 codebooks); the wrappers check shapes, types and alignment.
+//
+// Quantize: K % 64 == 0, 16-byte aligned x, 4-byte aligned idx; integer
+// codebooks within ±cw_max (the tables).
+extern "C" int bcq_quantize_launch(const float* x, const float* cb, const float* s_x,
+                                   uint8_t* idx, uint8_t* sel, float* ratio, int M, int K,
+                                   float cw_max, void* stream) {
+  if (M <= 0 || K <= 0 || K % LA) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(quantize_io(x, s_x, idx, sel, ratio), cb, static_cast<long long>(M) * (K / LB),
+                cw_max, LA / LB, stream);
+}
+
+// Quantize with any sorted, finite f32 codebooks (the threshold search of
+// bcq_encode.cuh: trained codebooks); otherwise as bcq_quantize_launch.
+extern "C" int bcq_quantize_thr_launch(const float* x, const float* cb, const float* s_x,
+                                       uint8_t* idx, uint8_t* sel, float* ratio, int M, int K,
+                                       float cw_max, void* stream) {
+  if (M <= 0 || K <= 0 || K % LA) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<QuantizeIo, false>(quantize_io(x, s_x, idx, sel, ratio), cb,
+                                   static_cast<long long>(M) * (K / LB), cw_max, LA / LB, stream);
 }
 
 // Page store: k, v (B, S, H, D) contiguous and 16-byte aligned, f32

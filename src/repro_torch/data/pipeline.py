@@ -1,17 +1,20 @@
-"""Deterministic synthetic LM data: the held-out evaluation stream.
+"""Deterministic synthetic LM data: training batches behind a prefetch
+thread, and the held-out evaluation stream.
 
 Counterpart of ``repro/data/pipeline.py`` (``DataConfig``,
-``_markov_params``, ``synth_tokens``, ``batch_at``, ``eval_stream``).  The
-token source is a Zipf-distributed order-2 Markov chain with repeating
-n-gram structure, so a language model has something learnable and
-perplexity deltas under quantization mean something.  Every batch is a
-pure numpy function of (seed, step, host), so the port's tokens are byte
-for byte the reference's.  The reference's background ``Prefetcher``
-(training) is not ported.
+``_markov_params``, ``synth_tokens``, ``batch_at``, ``Prefetcher``,
+``eval_stream``).  The token source is a Zipf-distributed order-2 Markov
+chain with repeating n-gram structure, so a language model has something
+learnable and perplexity deltas under quantization mean something.  Every
+batch is a pure numpy function of (seed, step, host), so the port's
+tokens are byte for byte the reference's, and a resumed job regenerates
+exactly the batches it would have seen.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
@@ -69,6 +72,50 @@ def batch_at(cfg: DataConfig, step: int, device="cuda") -> dict:
     toks = torch.from_numpy(synth_tokens(cfg, step)).long()
     return {"tokens": toks[:, :-1].contiguous().to(device),
             "labels": toks[:, 1:].contiguous().to(device)}
+
+
+class Prefetcher:
+    """Bounded-queue background producer of training batches: iterating
+    yields (step, batch) from ``start_step`` on, a batch holding the
+    reference's ``batch_at`` bytes (int32 tokens and labels) as CPU
+    tensors (page-locked with ``pin``, so the train loop's copy to the card
+    can be asynchronous).
+    The consumer moves each batch to its device; ``close`` stops the
+    thread."""
+
+    def __init__(self, cfg: DataConfig, start_step: int = 0, depth: int = 2, pin: bool = False):
+        self.cfg = cfg
+        self.pin = pin
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._step = start_step
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _batch(self, step: int) -> dict:
+        toks = torch.from_numpy(synth_tokens(self.cfg, step))
+        out = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+        return {k: v.pin_memory() for k, v in out.items()} if self.pin else out
+
+    def _run(self):
+        step = self._step
+        while not self._stop.is_set():
+            item = (step, self._batch(step))
+            while not self._stop.is_set():
+                try:
+                    self.q.put(item, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def __iter__(self) -> Iterator[tuple[int, dict]]:
+        while True:
+            yield self.q.get()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2)
 
 
 def eval_stream(cfg: DataConfig, n_batches: int, offset: int = 1_000_000,

@@ -7,7 +7,9 @@ per-array scales into a workspace this wrapper allocates, then the int8
 tensor-core GEMM reads them (design notes in the source) — and runs the
 plain version, ``ref.fused_linear_ref`` (the encode/decode/matmul
 composition the reference's kernel is held to), for CPU tensors.  The
-launch counter counts calls, one per fused linear.
+launch counter counts calls, one per fused linear.  Neither the kernel nor
+the reference's has a backward, so both wrappers refuse inputs that
+require grad while autograd records (``build.refuse_grad``).
 
 ``bcq_linear_experts`` is the expert-stacked form of the same launch
 pair: the E expert linears of a mixture-of-experts layer, one shared
@@ -33,7 +35,9 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
     w_idx (N, K/2) uint8, w_sel (N, K/16) uint8, w_inv (N, K/L_A) f32 =
     1/(ŝ_A·s_W) (zero where never written); s_x: the per-tensor activation
     scale, a 0-d tensor the caller reduced over the whole launch batch.
-    K must be a multiple of L_A; ragged M and N are masked in the kernel."""
+    K must be a multiple of L_A; ragged M and N are masked in the kernel.
+    No backward: an input that requires grad under autograd raises."""
+    build.refuse_grad("bcq_linear", x, w_inv, codebooks, s_x)
     if x.device.type == "cpu":
         return fused_linear_ref(x, w_idx, w_sel, w_inv, codebooks, cfg, s_x,
                                 valid_k=x.shape[1])
@@ -74,7 +78,8 @@ def bcq_linear_experts(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -
     packed weights — w_idx (E, N, K/2), w_sel (E, N, K/16), w_inv (E, N,
     K/L_A) — with one shared s_x → f32 (E, C, N).  Expert e's output has
     the bits of ``bcq_linear(x[e], w_idx[e], …)`` (the tile shape follows
-    C, not E·C)."""
+    C, not E·C).  No backward, as ``bcq_linear``."""
+    build.refuse_grad("bcq_linear_experts", x, w_inv, codebooks, s_x)
     if x.device.type == "cpu":
         return fused_linear_experts_ref(x, w_idx, w_sel, w_inv, codebooks, cfg, s_x)
     if x.device.type != "cuda":

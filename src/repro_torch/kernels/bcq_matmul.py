@@ -20,7 +20,9 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
                cfg: BCQConfig) -> torch.Tensor:
     """out (M, N) f32 = decode(A) · decode(W)ᵀ for packed rows: idx u8
     (R, K/2), sel u8 (R, K/16), inv f32 (R, K/L_A) = 1/(ŝ_A·s_X).  K must
-    be a multiple of L_A; ragged M and N are masked in the kernel."""
+    be a multiple of L_A; ragged M and N are masked in the kernel.  No
+    backward: an input that requires grad under autograd raises."""
+    build.refuse_grad("bcq_matmul", a_inv, w_inv, codebooks_a, codebooks_w)
     if a_idx.device.type == "cpu":
         return matmul_ref(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_w, cfg)
     if a_idx.device.type != "cuda":

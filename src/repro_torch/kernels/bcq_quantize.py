@@ -26,19 +26,26 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import quantize_ref
 
 BCQ_QUANTIZE = build.counter("bcq_quantize")
+# the launches of BCQ_QUANTIZE that took the threshold search (non-integer
+# codebooks: W4A4 fake-quant training after its first step)
+BCQ_QUANTIZE_THR = build.counter("bcq_quantize_thr")
 BCQ_PAGE_WRITE = build.counter("bcq_page_write")
 
 
 def bcq_quantize(x: torch.Tensor, codebooks: torch.Tensor, s_x: torch.Tensor, cfg: BCQConfig):
     """Encode x (M, K) f32 with the per-tensor scale ``s_x`` (a 0-d
     tensor) → (idx u8 (M, K/2), sel u8 (M, K/16), ratio f32 (M, K/L_A)).
-    K must be a multiple of L_A."""
+    K must be a multiple of L_A.  The codebooks are any sorted, finite f32
+    levels: integer ones take the kernel's table, others (trained books)
+    its threshold search — the choice is the entry check's, never a
+    fallback.  The outputs are integer codes and a ratio with no gradient
+    (``bcq.fake_quant`` decodes them with torch ops that carry it)."""
     if x.device.type == "cpu":
         return quantize_ref(x, codebooks, cfg, s_x)
     if x.device.type != "cuda":
         raise ValueError(f"bcq_quantize: unsupported device {x.device}")
     check_kernel_config(cfg, "bcq_quantize kernel")
-    check_kernel_codebooks(codebooks, cfg)
+    whole = check_kernel_codebooks(codebooks, cfg, integer=False)
     m, k = x.shape
     if k % cfg.array_len:
         raise ValueError(f"bcq_quantize kernel: K={k} is not a multiple of {cfg.array_len}")
@@ -52,13 +59,17 @@ def bcq_quantize(x: torch.Tensor, codebooks: torch.Tensor, s_x: torch.Tensor, cf
     ratio = torch.empty((m, k // 64), dtype=torch.float32, device=x.device)
     if m == 0:
         return idx, sel, ratio
-    status = build.library().bcq_quantize_launch(
+    lib = build.library()
+    launch = lib.bcq_quantize_launch if whole else lib.bcq_quantize_thr_launch
+    status = launch(
         x.data_ptr(), codebooks.data_ptr(), s_x.data_ptr(), idx.data_ptr(), sel.data_ptr(),
         ratio.data_ptr(), m, k, cfg.codeword_max,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(status, "bcq_quantize_launch")
+    build.check(status, "bcq_quantize_launch" if whole else "bcq_quantize_thr_launch")
     BCQ_QUANTIZE.count += 1
+    if not whole:
+        BCQ_QUANTIZE_THR.count += 1
     return idx, sel, ratio
 
 

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "page_gather_launch": (_I,) + (_P,) * 14 + (_I,) * 9 + (_F, _P),
     # x, cb, s_x, idx, sel, ratio, M, K, cw_max, stream
     "bcq_quantize_launch": (_P,) * 6 + (_I, _I, _F, _P),
+    "bcq_quantize_thr_launch": (_P,) * 6 + (_I, _I, _F, _P),
     # bf16, k, v, k_sx, v_sx, cb, k_idx, k_sel, k_scale, v_idx, v_sel, v_scale,
     # ids, ids64, ids_stride, aux, aux64, aux_stride, B, S, H, D, P, ps, n_cp,
     # la, cw_max, stream
@@ -172,6 +173,19 @@ def aligned(t, nbytes: int):
     """``t``, or a fresh copy when its data does not start on an
     ``nbytes`` boundary (a kernel reading it in wide words needs that)."""
     return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """The kernels have no backward (nor has the reference's Pallas call):
+    raise where autograd records and an input requires grad, rather than
+    return a result cut off from the graph (a silently missing gradient)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad() or on inputs that do not "
+            "require grad (the training forward runs the plain paths)")
 
 
 def check(status: int, name: str) -> None:

@@ -43,7 +43,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel on (BH, S, dh) CUDA tensors of one dtype
     (f32 or bf16), dh in {32, 64, 128}; any S.  bf16 tensors not on a
     16-byte boundary are copied first (the tensor-core kernel reads
-    16-byte chunks)."""
+    16-byte chunks).  No backward: inputs that require grad under autograd
+    raise."""
+    build.refuse_grad("flash_attention kernel", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: unsupported device {q.device}")
     if q.ndim != 3 or q.dtype not in _DTYPE_CODE or q.shape[2] not in (32, 64, 128):
@@ -68,7 +70,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """(B, S, H, D) wrapper with GQA head replication: k/v (B, S, Hkv, D).
-    Returns (B, S, H, D) in q's dtype."""
+    Returns (B, S, H, D) in q's dtype.  The kernel has no backward (nor has
+    the reference's), so inputs that require grad under autograd raise on
+    either device; the training forward runs the masked softmax."""
+    build.refuse_grad("flash_attention", q, k, v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, s_len, h, d = q.shape

@@ -108,15 +108,19 @@ def encode(params, frames, cfg: ArchConfig, rt: Runtime):
     b, t, d = frames.shape
     x = frames.to(rt.compute_dtype) + _sinusoidal(t, d, frames.device)[None].to(rt.compute_dtype)
     positions = torch.arange(t, device=frames.device)[None, :].expand(b, t)
+    block = layers.maybe_remat(_enc_block, rt)
     for i in range(cfg.n_encoder_layers):
-        p = _layer(params["enc_layers"], i)
-        h = layers.norm_apply(x, p["ln1"], cfg.norm)
-        a, _ = layers.attention(h, p["attn"], cfg, rt, cb, positions, causal=False,
-                                use_rope=False)
-        x = x + a
-        h = layers.norm_apply(x, p["ln2"], cfg.norm)
-        x = x + layers.mlp(h, p["mlp"], cfg.act, rt, cb)
+        x = block(x, _layer(params["enc_layers"], i), cfg, rt, cb, positions)
     return layers.norm_apply(x, params["ln_enc"], cfg.norm)
+
+
+def _enc_block(x, p, cfg, rt: Runtime, cb, positions):
+    """One encoder block: bidirectional self-attention, the MLP."""
+    h = layers.norm_apply(x, p["ln1"], cfg.norm)
+    a, _ = layers.attention(h, p["attn"], cfg, rt, cb, positions, causal=False, use_rope=False)
+    x = x + a
+    h = layers.norm_apply(x, p["ln2"], cfg.norm)
+    return x + layers.mlp(h, p["mlp"], cfg.act, rt, cb)
 
 
 def _dec_block(h, p, cfg, rt: Runtime, cb, positions, enc_kv, cache=None, cache_pos=None):
@@ -159,10 +163,11 @@ def decoder(params, tokens, enc_out, cfg: ArchConfig, rt: Runtime, positions, ca
     x = x + _sinusoidal_at(positions, cfg.d_model).to(x.dtype)
     if xkv is None:
         xkv = _cross_kv(params, enc_out, cfg, rt, cb)
+    block = layers.maybe_remat(_dec_block, rt)
     for i in range(cfg.n_layers):
         cache = None if caches is None else _layer(caches, i)
-        x = _dec_block(x, _layer(params["dec_layers"], i), cfg, rt, cb, positions,
-                       (xkv[0][i], xkv[1][i]), cache, cache_pos)
+        x = block(x, _layer(params["dec_layers"], i), cfg, rt, cb, positions,
+                  (xkv[0][i], xkv[1][i]), cache, cache_pos)
     return layers.norm_apply(x, params["ln_f"], cfg.norm), caches
 
 

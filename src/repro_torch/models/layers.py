@@ -45,7 +45,10 @@ class Runtime:
     (kernels/flash_attention.py) instead of the masked softmax.
     logit_chunk: the loss takes its logits this many positions at a time
     (0: all at once).  quant_probe: the quant-error probe's recorder
-    (``serving.telemetry.QuantProbeRecorder``), None for no probe."""
+    (``serving.telemetry.QuantProbeRecorder``), None for no probe.
+    remat: each layer of the stack is recomputed in the backward instead
+    of keeping its activations (``maybe_remat``); remat_policy ``full``
+    saves nothing of a layer, ``dots`` saves its linears' outputs."""
 
     quant_mode: str = "none"
     bcq_cfg: BCQConfig = BCQConfig()
@@ -58,10 +61,44 @@ class Runtime:
     logit_chunk: int = 0
     act_format: str = "bcq"  # bcq | mx4 | mxfp4 | vsq | int4 | none
     quant_probe: Any = None
+    remat: bool = False
+    remat_policy: str = "full"  # full | dots
 
 
 QUANT_MODES = ("none", "fake", "fake_full", "packed")
 ACT_FORMATS = ("bcq", "mx4", "mxfp4", "vsq", "int4", "none")
+
+
+# ------------------------------------------------------------------ remat
+# the linears' products: 2-D matmuls, no batch dims (``x @ kernel`` folds
+# its leading axes into one); attention's batched score products are not
+REMAT_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def maybe_remat(fn, rt: Runtime):
+    """``fn`` as the reference's ``jax.checkpoint`` would run it when
+    ``rt.remat``: its activations are recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  ``remat_policy="dots"``
+    keeps the linears' outputs (the reference's
+    ``dots_with_no_batch_dims_saveable``) through a selective checkpoint;
+    ``"full"`` keeps nothing.  The values are ``fn``'s, bit for bit."""
+    if not rt.remat:
+        return fn
+    import functools
+
+    from torch.utils import checkpoint as ckpt
+
+    if rt.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {rt.remat_policy!r} (full | dots)")
+    extra = {}
+    if rt.remat_policy == "dots":
+        extra["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                list(REMAT_SAVED_DOTS))
+
+    def run(*args, **kwargs):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+
+    return run
 
 
 # ------------------------------------------------------------------ norms

@@ -195,6 +195,11 @@ def ssm_cache_stacked(cfg: ArchConfig, batch: int, device="cpu") -> dict:
             for n, leaf in ssm_cache_init(batch, cfg, device).items()}
 
 
+def _ssm_layer(x, p, cfg: ArchConfig, rt: Runtime, cb, cache):
+    """One layer's mixer output on x and its new states (not yet stored)."""
+    return ssm_block(layers.norm_apply(x, p["ln"], "rmsnorm"), p["mixer"], cfg, rt, cb, cache)
+
+
 def ssm_backbone(params, x, cfg: ArchConfig, rt: Runtime, caches=None, out_caches=None):
     """The layer stack.  ``caches`` (layer-stacked): the recurrent decode,
     each layer's new states written into them in place.  ``out_caches``
@@ -204,11 +209,11 @@ def ssm_backbone(params, x, cfg: ArchConfig, rt: Runtime, caches=None, out_cache
     if cb is None and rt.quant_mode != "none":
         raise ValueError(f"quant_mode {rt.quant_mode!r} needs the tree's 'codebooks' (zoo.build's "
                          "init, or a quantize artifact); this tree has none")
+    layer = layers.maybe_remat(_ssm_layer, rt)
     for i in range(cfg.n_layers):
         p = transformer._layer(params["layers"], i)
         cache = None if caches is None else transformer._layer(caches, i)
-        hh = layers.norm_apply(x, p["ln"], "rmsnorm")
-        out, new = ssm_block(hh, p["mixer"], cfg, rt, cb, cache)
+        out, new = layer(x, p, cfg, rt, cb, cache)
         dst = cache if cache is not None else (
             None if out_caches is None else transformer._layer(out_caches, i))
         if dst is not None:

@@ -199,11 +199,12 @@ def backbone(params, x, cfg, rt: Runtime, positions, pool=None, paged_tables=Non
         raise ValueError(f"quant_mode {rt.quant_mode!r} needs the tree's 'codebooks' (zoo.build's "
                          "init, or a quantize artifact); this tree has none")
     aux = None
+    block = layers.maybe_remat(block_apply, rt)
     for i in range(cfg.n_layers):
         paged = None if pool is None else (_layer(pool, i),) + tuple(paged_tables)
         cache = None if caches is None else _layer(caches, i)
-        x, a = block_apply(x, _layer(params["layers"], i), cfg, rt, cb, positions, paged, cache,
-                           cache_pos)
+        x, a = block(x, _layer(params["layers"], i), cfg, rt, cb, positions, paged, cache,
+                     cache_pos)
         if a is not None:
             aux = a if aux is None else aux + a
     return layers.norm_apply(x, params["ln_f"], cfg.norm), aux

@@ -90,6 +90,10 @@ class ModelAPI:
     device: torch.device
     init: Callable[[int], Any]
     loss_fn: Callable[..., Any]
+    # the reference's training tree (``init_train(seed)``): the float
+    # weights, plus the universal codebooks as a float leaf in the W4A4
+    # modes, whatever ``init`` serves
+    init_train: Callable[[int], Any]
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
     # what the page pool holds (None: not paged-servable)
@@ -174,10 +178,22 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
             params["codebooks"] = cb
         return params
 
+    def init_train(seed: int = 0) -> dict:
+        """What the reference's train CLI starts from (``train.py:108-113``):
+        ``init_lm``'s float weights — this api's draw under
+        ``quant_mode="none"`` — and, unless ``rt.quant_mode`` is ``none``,
+        the universal codebooks as a float leaf that training updates."""
+        floats = dataclasses.replace(rt, quant_mode="none", cache_kind="bf16")
+        params = build(cfg, floats, device).init(seed)
+        if rt.quant_mode != "none":
+            params["codebooks"] = default_universal_codebooks(rt.bcq_cfg).as_tensor(device)
+        return params
+
     if cfg.family == "ssm":
         return ModelAPI(
             cfg, rt, device,
             init=init,
+            init_train=init_train,
             loss_fn=lambda p, b: ssm.forward_train(p, b, cfg, rt),
             prefill_fn=lambda p, b, ml: ssm.prefill(p, b, cfg, rt, ml),
             decode_fn=lambda p, c, t, pos: ssm.decode_step(p, c, t, pos, cfg, rt),
@@ -191,6 +207,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         return ModelAPI(
             cfg, rt, device,
             init=init,
+            init_train=init_train,
             loss_fn=lambda p, b: hybrid.forward_train(p, b, cfg, rt),
             prefill_fn=lambda p, b, ml: hybrid.prefill(p, b, cfg, rt, ml),
             decode_fn=lambda p, c, t, pos: hybrid.decode_step(p, c, t, pos, cfg, rt),
@@ -204,6 +221,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         return ModelAPI(
             cfg, rt, device,
             init=init,
+            init_train=init_train,
             loss_fn=lambda p, b: encdec.forward_train(p, b, cfg, rt),
             prefill_fn=lambda p, b, ml: encdec.prefill(p, b, cfg, rt, ml),
             decode_fn=lambda p, c, t, pos: encdec.decode_step(p, c, t, pos, cfg, rt),
@@ -223,6 +241,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
     return ModelAPI(
         cfg, rt, device,
         init=init,
+        init_train=init_train,
         loss_fn=lambda p, b: transformer.forward_train(p, b, cfg, rt),
         prefill_fn=lambda p, b, ml: transformer.prefill(p, b, cfg, rt, ml),
         decode_fn=lambda p, c, t, pos: transformer.decode_step(p, c, t, pos, cfg, rt),

@@ -534,8 +534,12 @@ def test_fake_quant_route_through_quantize_kernel(cuda, shape):
 @pytest.mark.cuda
 def test_kernels_refuse_a_non_integer_codebook(cuda):
     """The premise moved from ``CodebookSet`` to the kernels' entry: a
-    non-integer book loads (the fake modes run it in plain torch) and every
-    kernel that takes codebooks refuses it with the same message."""
+    non-integer book loads, the kernels that multiply int8 codes (B1 here;
+    B4 and the page writer in ``test_integer_premise_kernels_refuse_trained_books``)
+    refuse it with the same message, and B3's quantize form — the fake
+    modes' route — takes it through its threshold search, as the
+    reference's kernel does: the decoded values of ``fake_quant`` are the
+    plain route's, bit for bit (no silent plain fallback: one B3 launch)."""
     lv = default_universal_codebooks().levels.copy()
     lv[3, 5] += 0.5
     bad = bcq.CodebookSet(lv, CFG).as_tensor(cuda)
@@ -543,12 +547,11 @@ def test_kernels_refuse_a_non_integer_codebook(cuda):
     s_x = bcq.tensor_scale(x, CFG)
     w = _packed(64, 768, 5, cuda)
     with pytest.raises(ValueError, match="codebook levels must be integers"):
-        bcq_quantize.bcq_quantize(x, bad, s_x, CFG)
-    with pytest.raises(ValueError, match="codebook levels must be integers"):
         bcq_linear.bcq_linear(x, w.idx_packed, w.sel_packed, w.inv_scale, bad, s_x, CFG)
-    with pytest.raises(ValueError, match="codebook levels must be integers"):
-        bcq.fake_quant(x, bad, CFG)  # the B3 route: no silent plain fallback
-    assert torch.isfinite(bcq.fake_quant_plain(x, bad, CFG)).all()
+    before = bcq_quantize.BCQ_QUANTIZE_THR.count
+    got = bcq.fake_quant(x, bad, CFG)
+    assert bcq_quantize.BCQ_QUANTIZE_THR.count == before + 1
+    assert torch.equal(got, bcq.fake_quant_plain(x, bad, CFG))
 
 
 @pytest.mark.cuda
@@ -862,3 +865,120 @@ def test_encdec_state_decode_graph_equals_eager(cuda):
     (a, ca, ta), (b, cb_, tb) = outs
     assert a == b and ca == cb_
     assert all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+# ------------------------------------------- trained (non-integer) codebooks
+def _trained_books(device, steps=3, lr=1e-3, seed=0):
+    """The universal codebooks after a few Adam-sized steps: every level
+    moved by ±lr a step (sorted, no longer integers), as W4A4 fake-quant
+    training leaves them."""
+    g = torch.Generator().manual_seed(seed)
+    cb = _cb("cpu")
+    for _ in range(steps):
+        cb = cb + lr * torch.sign(torch.randn(cb.shape, generator=g))
+    return torch.sort(cb, dim=-1).values.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mk", [(8192, 768), (8192, 3072), (256, 768), (37, 192)])
+def test_bcq_quantize_threshold_search_on_trained_books(cuda, mk):
+    """B3 widened to any sorted f32 codebooks: on trained books it takes its
+    threshold search (one launch, counted on both counters) and equals
+    ``quantize_ref``: ratios and decoded values bit for bit, indices and
+    selectors but on codebook ties."""
+    m, k = mk
+    x, cb = _activation(m, k, 5 * m + k, cuda), _trained_books(cuda)
+    assert not bcq.check_kernel_codebooks(cb, CFG, integer=False)
+    s_x = bcq.tensor_scale(x, CFG)
+    before = (bcq_quantize.BCQ_QUANTIZE.count, bcq_quantize.BCQ_QUANTIZE_THR.count)
+    idx, sel, ratio = bcq_quantize.bcq_quantize(x, cb, s_x, CFG)
+    assert (bcq_quantize.BCQ_QUANTIZE.count, bcq_quantize.BCQ_QUANTIZE_THR.count) == (
+        before[0] + 1, before[1] + 1)
+    r_idx, r_sel, r_ratio = quantize_ref(x, cb, CFG, s_x)
+    assert torch.equal(ratio, r_ratio)
+    inv = 1.0 / (r_ratio * s_x)
+    assert torch.equal(decode_ref(idx, sel, inv, cb, CFG), decode_ref(r_idx, r_sel, inv, cb, CFG))
+    ties = int((idx != r_idx).sum()) + int((sel != r_sel).sum())
+    assert ties <= m * k // 1000  # ties are rare on trained books
+
+
+@pytest.mark.cuda
+def test_bcq_quantize_integer_books_keep_the_table(cuda):
+    """Integer books take the table (the threshold counter stays), with the
+    bytes of ``quantize_ref``; the threshold search's C entry on the same
+    integer books writes the same bytes as the table."""
+    m, k = 8192, 768
+    x, cb = _activation(m, k, 11, cuda), _cb(cuda)
+    s_x = bcq.tensor_scale(x, CFG)
+    thr_before = bcq_quantize.BCQ_QUANTIZE_THR.count
+    idx, sel, ratio = bcq_quantize.bcq_quantize(x, cb, s_x, CFG)
+    assert bcq_quantize.BCQ_QUANTIZE_THR.count == thr_before
+    r_idx, r_sel, r_ratio = quantize_ref(x, cb, CFG, s_x)
+    assert torch.equal(ratio, r_ratio) and torch.equal(idx, r_idx) and torch.equal(sel, r_sel)
+    outs = [torch.empty_like(t) for t in (idx, sel, ratio)]
+    status = build.library().bcq_quantize_thr_launch(
+        x.data_ptr(), cb.data_ptr(), s_x.data_ptr(), *(t.data_ptr() for t in outs), m, k,
+        CFG.codeword_max, torch.cuda.current_stream(cuda).cuda_stream)
+    build.check(status, "bcq_quantize_thr_launch")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, (idx, sel, ratio)))
+
+
+@pytest.mark.cuda
+def test_fake_quant_kernel_route_gradients_equal_plain(cuda, monkeypatch):
+    """W4A4 fake-quant training's loss and gradient (codebooks included)
+    through B3's route equal the plain route's bit for bit, on integer
+    books and on trained books: B3's outputs are constants of the graph,
+    the torch decode carries the gradient to s_X and the codebooks."""
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    cfg = get_smoke("gpt3_126m")
+    api = zoo.build(cfg, Runtime(quant_mode="fake", compute_dtype=torch.float32), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (4, 65))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for books in ("integer", "trained"):
+        params = api.init_train(0)
+        if books == "trained":
+            params["codebooks"] = _trained_books(cuda)
+        runs = []
+        for route in ("kernel", "plain"):
+            if route == "plain":
+                monkeypatch.setattr(bcq, "fake_quant", bcq.fake_quant_plain)
+            build.reset_counts()
+            with train.deterministic():
+                loss, grads = train.value_and_grad(api.loss_fn, params, batch)
+            torch.cuda.synchronize()
+            runs.append((loss, grads, build.counts().get("bcq_quantize", 0)))
+            monkeypatch.undo()
+        (lk, gk, nk), (lp, gp, np_) = runs
+        assert nk == 4 * cfg.n_layers and np_ == 0
+        assert torch.equal(lk, lp)
+        assert float(gk["codebooks"].abs().max()) > 0
+        for a, b in zip(train.adamw.tree_leaves(gk), train.adamw.tree_leaves(gp)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_integer_premise_kernels_refuse_trained_books(cuda):
+    """B1, B4 and the KV-page writer multiply int8 codes: on trained books
+    they raise the message they always gave; the flash kernel refuses
+    inputs that require grad on the card."""
+    cb = _trained_books(cuda)
+    x = _activation(8, 768, 3, cuda)
+    s_x = bcq.tensor_scale(x, CFG)
+    pw = _packed(64, 768, 4, cuda)
+    with pytest.raises(ValueError, match="codebook levels must be integers"):
+        bcq_linear.bcq_linear(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, s_x, CFG)
+    a_idx, a_sel, ratio = quantize_ref(x, _cb(cuda), CFG, s_x)
+    with pytest.raises(ValueError, match="codebook levels must be integers"):
+        bcq_matmul.bcq_matmul(a_idx, a_sel, 1.0 / (ratio * s_x), pw.idx_packed, pw.sel_packed,
+                              pw.inv_scale, cb, cb, CFG)
+    kv = torch.zeros((2, 1, 2, 64), device=cuda)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="codebook levels must be integers"):
+        bcq_quantize.bcq_page_write({}, kv, kv, CFG, cb, page_ids=ids, offsets=ids)
+    q = torch.zeros((2, 64, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        flash.flash_attention_kernel(q, q, q)

@@ -51,6 +51,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.telemetry, repro_torch.serving.events\n"
         "import repro_torch.serving.state_engine, repro_torch.models.ssm\n"
         "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
+        "import repro_torch.launch.train, repro_torch.optim.adamw, repro_torch.runtime.elastic\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -83,6 +84,21 @@ def test_entry_points_default_to_the_card():
     logits, caches = api.prefill_fn(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 16)
     logits2, _ = api.decode_fn(params, caches, torch.zeros((1, 1), dtype=torch.int32), 4)
     assert {t.device.type for t in [logits, logits2, *caches.values()]} == {"cpu"}
+
+
+def test_train_cli_defaults_to_the_card_and_runs_on_cpu(tmp_path, capsys):
+    """``launch.train`` runs on the card unless ``--device cpu`` is given."""
+    from repro_torch.launch.train import main
+
+    args = ["--smoke", "--steps", "2", "--batch", "2", "--seq", "16", "--log-every", "1",
+            "--ckpt", str(tmp_path)]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(args)
+    params, loss = main(args + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and "step 2 loss" in out and np.isfinite(loss)
+    assert {t.device.type for t in params["layers"]["mlp"]["wi"].values()} == {"cpu"}
 
 
 def test_chip_smoke_fails_without_card_or_repository(tmp_path):
