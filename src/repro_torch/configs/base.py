@@ -1,10 +1,10 @@
 """Architecture registry: the ``ArchConfig`` dataclass and its lookup.
 
-A copy of the dense, MoE, SSM, hybrid and enc-dec parts of
-``repro/configs/base.py``: the port
-reads nothing of the JAX package, so it keeps its own config records.
-Each config module provides ``CONFIG`` (the published shape) and
-``smoke()`` (a 2-layer reduction for CPU tests).
+A copy of ``repro/configs/base.py``'s records and ``ARCH_IDS`` (its
+dry-run shapes aside): the port reads nothing of the JAX package, so it
+keeps its own config records.  Each config module provides ``CONFIG``
+(the published shape) and ``smoke()`` (a 2-layer reduction for CPU
+tests).
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class HybridSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port serves "dense", "moe", "ssm", "hybrid" and "encdec"
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -58,6 +58,7 @@ class ArchConfig:
     hybrid: Optional[HybridSpec] = None
     n_encoder_layers: int = 0  # enc-dec only
     encoder_len: int = 1500  # whisper frame count (stub frontend)
+    n_patches: int = 256  # vlm stub patch count
     source: str = ""
 
     @property
@@ -69,6 +70,20 @@ class ArchConfig:
     @property
     def vocab_padded(self) -> int:
         return ((self.vocab + 255) // 256) * 256  # pad for clean sharding
+
+
+ARCH_IDS = [
+    "qwen1_5_32b",
+    "starcoder2_3b",
+    "phi3_medium_14b",
+    "qwen2_0_5b",
+    "qwen3_moe_235b",
+    "moonshot_v1_16b",
+    "pixtral_12b",
+    "mamba2_130m",
+    "recurrentgemma_9b",
+    "whisper_base",
+]
 
 
 def get_arch(arch_id: str) -> ArchConfig:

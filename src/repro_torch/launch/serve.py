@@ -9,10 +9,29 @@ engine of the family's page layout (``api.page_spec.layout``):
 families (``--arch mamba2_130m``, ``--arch recurrentgemma_9b``, ``--arch
 whisper_base``; an enc-dec model's encoder output in ``shared_ro`` pages,
 encoded once for the batch, whose requests all carry the same seeded stub
-frames, ``_stub_frames``).  Without ``--paged`` a state family is served
-by the contiguous path (``generate_contiguous`` over ``prefill_fn`` /
-``decode_fn``); for the KV families only the paged engine is ported, so
-``--paged`` is required there.  Admission is the
+frames, ``_stub_frames``); with ``--paged`` a KV family's prompts also
+go through ``launch.batching.ContinuousBatcher`` over the same model,
+and the CLI prints whether the two engines' outputs agree.  The VLM
+family (``--arch pixtral_12b``) has no paged path: ``--paged``,
+``--chaos`` and ``--best-of`` > 1 raise ``zoo.UnsupportedModelError``.
+
+Without ``--paged`` the batch is served contiguously (one batched
+prefill, then decode steps over the model's contiguous caches): a KV
+family or a VLM as the reference's CLI does — float weights, then W4A4
+with fake-quantized weights and activations, then with ``--packed`` the
+packed 4-bit weights through the fused W4A4 linear (``--unfused``: the
+plain decode-and-matmul route), each with its token agreement against
+the float run; a state family the one model (``--packed`` or float)
+through ``generate_contiguous``.  The decode reads only the written
+prefix of the cache, so the reference's ``--kv-bucket N`` is accepted
+and changes nothing.  The packed forward needs every linear's input in
+whole 64-wide arrays, as the reference's: Qwen2's smoke (d_model 112)
+serves float and W4A4 only::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b --smoke \\
+        --device cpu --packed
+
+Admission is the
 slab prefill unless ``--chunked-prefill`` (KV layout only); prefix caching is on unless
 ``--no-prefix-cache``; ``--best-of N`` forks every prompt into N siblings
 sharing its pages, and ``--temperature`` / ``--top-k`` / ``--seed`` turn
@@ -67,6 +86,7 @@ import torch
 
 from repro_torch.configs.base import get_arch, get_smoke
 from repro_torch.core.bcq import BCQConfig
+from repro_torch.launch.batching import ContinuousBatcher
 from repro_torch.models import zoo
 from repro_torch.models.layers import Runtime
 from repro_torch.serving.audit import audit_engine
@@ -85,15 +105,19 @@ from repro_torch.serving.telemetry import QuantProbeRecorder, QuantProbeSink
 
 
 def build_model(cfg, cache: str = "bcq4", packed: bool = True, device="cuda", seed: int = 0,
-                kernels: bool = True, quant_probe=None):
+                kernels: bool = True, quant_probe=None, quant: str = None, fused: bool = None):
     """(api, params): seeded random weights (packed to W4 with ``packed``)
     on ``device``; ``kernels`` selects the fused linear, the page-gather
     kernel and the KV-page writer, else the plain paths; ``quant_probe``: a
-    ``QuantProbeRecorder`` for the activation quant-error probes."""
+    ``QuantProbeRecorder`` for the activation quant-error probes.
+    ``quant`` names the quant mode instead of ``packed`` (``"fake"``: W4A4
+    with fake-quantized weights and activations); ``fused`` False takes a
+    packed weight's plain decode-and-matmul route with the kernels on."""
     rt = Runtime(
-        quant_mode="packed" if packed else "none", bcq_cfg=BCQConfig(),
+        quant_mode=quant or ("packed" if packed else "none"), bcq_cfg=BCQConfig(),
         compute_dtype=torch.float32, cache_kind=cache,
-        paged_kernel=kernels, fused_linear=kernels, quant_probe=quant_probe,
+        paged_kernel=kernels, fused_linear=kernels if fused is None else fused,
+        quant_probe=quant_probe,
     )
     api = zoo.build(cfg, rt, device=device)
     return api, api.init(seed)
@@ -112,10 +136,10 @@ def _stub_frames(cfg) -> np.ndarray:
 def generate_contiguous(api, cfg, params, prompts, frames, gen_len: int, max_len: int,
                         device="cuda"):
     """Contiguous greedy decoding of the prompt batch (B, S) for any servable
-    family: ``greedy_generate`` unless the family conditions on ``frames``
-    (enc-dec: every row over the same frames, one batched prefill with
-    the encoder, then ``gen_len - 1`` decode steps).  Returns (B, gen_len)
-    int32 tokens."""
+    family: ``greedy_generate`` unless the
+    family conditions on ``frames`` (enc-dec: every row over the same
+    frames, one batched prefill with the encoder, then ``gen_len - 1``
+    decode steps).  Returns (B, gen_len) int32 tokens."""
     if frames is None:
         return greedy_generate(api, params, prompts, gen_len, max_len, device=device)
     device = zoo.resolve_device(device)
@@ -141,7 +165,7 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
           kernels: bool = True, chunked_prefill: bool = False, prefix_caching: bool = True,
           best_of: int = 1, sampling: SamplingParams = GREEDY, pipeline_depth: int = 2,
           cuda_graphs=None, quant_probe=None, host_pages: int = 0, recompress_after: int = 0,
-          frames=None):
+          frames=None, fused: bool = None):
     """Serve ``prompts`` (a list of 1-D token arrays) for ``gen`` tokens
     each (the prefill's token plus gen-1 decode tokens), ``best_of``
     forked siblings each, one slot per sibling.  ``seed`` draws the
@@ -152,9 +176,10 @@ def serve(cfg, prompts, gen: int, cache: str = "bcq4", packed: bool = True,
     go to the engine, and ``host_pages`` (a host tier of that many pages
     if > 0) and ``recompress_after`` (the cold-page ladder if > 0);
     ``quant_probe`` (a ``QuantProbeRecorder``) to the model; ``frames``
-    condition every request of an enc-dec model.  Returns (finished
-    requests, engine)."""
-    api, params = build_model(cfg, cache, packed, device, seed, kernels, quant_probe)
+    condition every request of an enc-dec model; ``fused`` as in
+    ``build_model``.  Returns (finished requests, engine)."""
+    api, params = build_model(cfg, cache, packed, device, seed, kernels, quant_probe,
+                              fused=fused)
     max_len = -(-(max(len(p) for p in prompts) + gen + 1) // page_size) * page_size
     n_slots = len(prompts) * best_of
     if is_state_layout(api):
@@ -269,12 +294,21 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cache", default="bcq4", choices=["bf16", "int8", "bcq4"])
-    ap.add_argument("--paged", action="store_true", help="serve via the paged engine (required)")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve via the paged engine of the family's page layout (else "
+                         "contiguously)")
     ap.add_argument("--chunked-prefill", action="store_true",
                     help="chunk-at-a-time admission (default: one slab prefill per prompt)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="do not share full prompt pages across requests")
     ap.add_argument("--packed", action="store_true", help="W4A4: packed 4-bit weights")
+    ap.add_argument("--unfused", action="store_true",
+                    help="with --packed: the plain decode-and-matmul route of the packed "
+                         "weights instead of the fused W4A4 linear")
+    ap.add_argument("--kv-bucket", type=int, default=0,
+                    help="the reference CLI's bucketed cache read, accepted for its flags: "
+                         "the port's contiguous decode reads only the written prefix, which "
+                         "no bucket exceeds, so the tokens are the same")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=0, help="0 → 2 × page size")
     ap.add_argument("--best-of", type=int, default=1,
@@ -330,13 +364,24 @@ def main(argv=None):
     if args.metrics_json or args.trace_out or args.quant_probes:
         args.paged = True
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
-    if not (args.paged or args.chaos or zoo.page_spec(cfg).layout == "state_checkpoint"):
-        ap.error("the port serves the KV families through the paged engine only: pass --paged")
+    spec = zoo.page_spec(cfg)
+    if (args.paged or args.chaos or args.best_of > 1) and spec is None:
+        # the typed refusal before any compute (a VLM has no paged path)
+        raise zoo.UnsupportedModelError(
+            cfg.name, cfg.family,
+            reason="Drop --paged/--chaos/--best-of or pick an arch from a servable family.")
     host_pages = args.host_pages if args.host_tier else 0
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (args.batch, args.prompt_len))
     frames = _stub_frames(cfg) if cfg.family == "encdec" else None
     if not (args.paged or args.chaos):
-        return serve_contiguous(cfg, prompts, args.gen, args.packed, args.device, frames)
+        if spec is not None and spec.layout == "state_checkpoint":
+            return serve_contiguous(cfg, prompts, args.gen, args.packed, args.device, frames,
+                                    unfused=args.unfused)
+        if args.kv_bucket:
+            print(f"kv bucket {args.kv_bucket}: the decode reads the written prefix, within "
+                  f"every bucket (no bound needed)")
+        return serve_contiguous_kv(cfg, prompts, args.gen, args.cache, args.packed,
+                                   args.device, args.unfused)
     if args.chaos:  # W4A4 packed weights, as the reference's chaos smoke
         api, params = build_model(cfg, args.cache, True, args.device)
         rep = run_chaos(api, params, list(prompts), args.gen, args.page_size, args.prefill_chunk,
@@ -355,6 +400,7 @@ def main(argv=None):
         pipeline_depth=args.pipeline_depth,
         quant_probe=None if probe_sink is None else QuantProbeRecorder(probe_sink),
         host_pages=host_pages, recompress_after=args.recompress_after, frames=frames,
+        fused=False if args.unfused else None,
     )
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
@@ -364,7 +410,10 @@ def main(argv=None):
     print(f"arch={cfg.name} device={where} cache={args.cache} packed={args.packed} "
           f"{toks} tokens in {dt:.3f}s ({toks / dt:.1f} tok/s incl. set-up) "
           f"decode ticks {eng.stats['decode_ticks']} prefill launches {eng.stats['prefill_launches']} "
-          f"pipeline depth {eng.pipeline_depth} decode graphs {eng.trace_counts()['decode']}")
+          f"pipeline depth {eng.pipeline_depth} decode graphs {eng.trace_counts()['decode']}"
+          + (f" linear route {_route(eng.api.rt)}" if args.packed else ""))
+    if eng.PAGE_LAYOUT == "kv" and args.best_of == 1:
+        compare_batcher(eng, list(prompts), finished, args.gen, sampling)
     keys = ("prefix_hits", "prefix_misses", "prefill_tokens_skipped", "forks", "shared_pages",
             "cow_copies", "preemptions", "prefix_evictions")
     print(f"serving core ({eng.PAGE_LAYOUT} pages): "
@@ -381,12 +430,74 @@ def main(argv=None):
         report_telemetry(eng, args.metrics_json, args.trace_out, probe_sink)
 
 
-def serve_contiguous(cfg, prompts, gen: int, packed: bool, device, frames=None) -> int:
-    """The contiguous path: the prompt batch (B, S) through
-    ``generate_contiguous`` (one batched prefill, then ``gen - 1`` decode
-    steps over the model's contiguous caches).  Prints the tokens and the
+def _route(rt) -> str:
+    """The linear route a packed model takes, as the CLI prints it."""
+    return "fused W4A4 linear kernel" if rt.fused_linear else "decode + matmul (--unfused)"
+
+
+def compare_batcher(eng, prompts, finished, gen: int, sampling: SamplingParams) -> bool:
+    """``prompts``, which ``eng`` served for ``gen`` tokens each, again
+    through ``ContinuousBatcher`` over the same model (one slot a request,
+    per-request prefill); prints whether the two engines' outputs are
+    equal, and returns it."""
+    t0 = time.perf_counter()
+    cbat = ContinuousBatcher(eng.api, eng.params, n_slots=len(prompts), max_len=eng.max_len)
+    for i, p in enumerate(prompts):
+        cbat.submit(Request(rid=i, prompt=p, max_new=gen - 1, sampling=sampling))
+    fin_c, _ = cbat.run_to_completion()
+    dt = time.perf_counter() - t0
+    got = {r.rid: r.out for r in fin_c}
+    equal = sum(r.out == got.get(r.rid) for r in finished)
+    match = equal == len(prompts)
+    print(f"contig : {sum(len(o) for o in got.values())} tokens in {dt:.3f}s "
+          f"(slot-contiguous engine, {cbat.launches} launches); paged outputs "
+          f"{'==' if match else '!='} contiguous engine ({equal} of {len(prompts)} requests "
+          f"equal)")
+    return match
+
+
+def serve_contiguous_kv(cfg, prompts, gen: int, cache: str, packed: bool, device,
+                        unfused: bool = False) -> int:
+    """The reference CLI's contiguous comparison for a transformer family:
+    the prompt batch (B, S) through ``greedy_generate`` with float weights,
+    with W4A4 fake-quantized weights and activations, and with ``packed``
+    the packed 4-bit weights too (the fused
+    W4A4 linear, or its plain decode-and-matmul route with ``unfused``).
+    Prints each run's rate and token agreement with the float run."""
+    max_len = prompts.shape[1] + gen + 1
+    modes = [("float", "none", None), ("W4A4", "fake", None)]
+    if packed:
+        modes.append(("packed", "packed", False if unfused else None))
+    ref = None
+    for label, quant, fused in modes:
+        api, params = build_model(cfg, cache, device=device, quant=quant, fused=fused)
+        t0 = time.perf_counter()
+        out = greedy_generate(api, params, prompts, gen, max_len, device=device)
+        if api.device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref = out if ref is None else ref
+        where = torch.cuda.get_device_name(api.device) if api.device.type == "cuda" else "cpu"
+        what = {"float": "float weights",
+                "W4A4": "fake-quant weights and activations",
+                "packed": f"4-bit weight buffers, {_route(api.rt)}"}[label]
+        print(f"{label:7s}: arch={cfg.name} device={where} cache={cache} contiguous: "
+              f"{out.numel()} tokens in {dt:.3f}s ({out.numel() / dt:.1f} tok/s; {what}) "
+              f"agreement vs float {(out == ref).float().mean().item() * 100:.1f}%")
+        for i, row in enumerate(out.tolist()):
+            print(f"  rid {i}: {row}")
+        del api, params
+    return 0
+
+
+def serve_contiguous(cfg, prompts, gen: int, packed: bool, device, frames=None,
+                     unfused: bool = False) -> int:
+    """The contiguous path of a state family: the prompt batch (B, S)
+    through ``generate_contiguous`` (one batched prefill, then ``gen - 1``
+    decode steps over the model's caches).  Prints the tokens and the
     rate."""
-    api, params = build_model(cfg, packed=packed, device=device)
+    api, params = build_model(cfg, packed=packed, device=device,
+                              fused=False if unfused else None)
     t0 = time.perf_counter()
     out = generate_contiguous(api, cfg, params, prompts, frames, gen, prompts.shape[1] + gen,
                               device=device)

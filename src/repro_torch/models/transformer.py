@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM, dense and MoE families (counterpart of the
-dense and MoE parts of ``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense, MoE and VLM-backbone families
+(counterpart of ``repro/models/transformer.py``).  The VLM family takes
+precomputed patch embeddings (the vision frontend is a stub, as in the
+reference), written over the first positions of the embedded prompt.
 
 Parameters are the reference's tree: per-layer leaves stacked on a
 leading layer axis (``params["layers"]``), the page pool likewise
@@ -19,58 +21,6 @@ from repro_torch.models.layers import Runtime
 
 
 # ------------------------------------------------------------------- init
-def init_lm(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
-    """Random float parameters with the reference's shapes and scales
-    (normal · 1/sqrt(d_in) for linears, 0.02 for the embedding; norms at
-    scale 1, bias 0), drawn from ``generator`` (a dense model on the CPU;
-    a MoE model on the generator's device: ``init_top``, then
-    ``init_block`` of every layer, stacked)."""
-    if cfg.family == "moe":
-        params = init_top(cfg, rt, generator)
-        blocks = [init_block(cfg, rt, generator) for _ in range(cfg.n_layers)]
-        params["layers"] = stack_layers(blocks)
-        return params
-    L, d, hd, f = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
-    dt = rt.param_dtype
-
-    def dense(d_in, d_out, scale=None):
-        scale = scale if scale is not None else d_in**-0.5
-        return (torch.randn((L, d_in, d_out), generator=generator) * scale).to(dt)
-
-    def norm():
-        return _norm(cfg, rt, (L,), "cpu")
-
-    def lin(d_in, d_out, bias=False):
-        p = {"kernel": dense(d_in, d_out)}
-        if bias:
-            p["bias"] = torch.zeros((L, d_out), dtype=dt)
-        return p
-
-    mlp = {"wi": lin(d, f), "wo": lin(f, d)}
-    if cfg.act == "swiglu":
-        mlp["wg"] = lin(d, f)
-    params = {
-        "embed": {"kernel": (torch.randn((cfg.vocab_padded, d), generator=generator) * 0.02).to(dt)},
-        "layers": {
-            "ln1": norm(),
-            "attn": {
-                "wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
-                "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wo": lin(cfg.n_heads * hd, d),
-            },
-            "ln2": norm(),
-            "mlp": mlp,
-        },
-        "ln_f": {k: v[0] for k, v in norm().items()},
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = {
-            "kernel": (torch.randn((d, cfg.vocab_padded), generator=generator) * 0.02).to(dt)
-        }
-    return params
-
-
 def init_top(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
     """The parameters outside the layer stack — embedding, final norm and
     an untied ``lm_head`` — drawn on ``generator``'s device."""
@@ -87,8 +37,10 @@ def init_top(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
 
 
 def init_block(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict:
-    """One MoE layer's parameters (no layer axis) on ``generator``'s
-    device: attention, the two norms and ``moe`` (``moe.init_moe``)."""
+    """One layer's parameters (no layer axis) on ``generator``'s device,
+    with the reference's shapes and scales (normal · 1/sqrt(d_in) for
+    linears; norms at scale 1, biases 0): attention, the two norms and
+    the MLP — or, for the MoE family, ``moe`` (``moe.init_moe``)."""
     d, hd, dt, dev = cfg.d_model, cfg.head_dim, rt.param_dtype, generator.device
 
     def lin(d_in, d_out, bias=False):
@@ -98,7 +50,7 @@ def init_block(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict
             p["bias"] = torch.zeros((d_out,), dtype=dt, device=dev)
         return p
 
-    return {
+    block = {
         "ln1": _norm(cfg, rt, (), dev),
         "attn": {
             "wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
@@ -107,8 +59,14 @@ def init_block(cfg: ArchConfig, rt: Runtime, generator: torch.Generator) -> dict
             "wo": lin(cfg.n_heads * hd, d),
         },
         "ln2": _norm(cfg, rt, (), dev),
-        "moe": moe_lib.init_moe(cfg, rt, generator),
     }
+    if cfg.family == "moe":
+        block["moe"] = moe_lib.init_moe(cfg, rt, generator)
+    else:
+        block["mlp"] = {"wi": lin(d, cfg.d_ff), "wo": lin(cfg.d_ff, d)}
+        if cfg.act == "swiglu":
+            block["mlp"]["wg"] = lin(d, cfg.d_ff)
+    return block
 
 
 def _norm(cfg, rt: Runtime, lead: tuple, device) -> dict:
@@ -210,9 +168,26 @@ def backbone(params, x, cfg, rt: Runtime, positions, pool=None, paged_tables=Non
     return layers.norm_apply(x, params["ln_f"], cfg.norm), aux
 
 
-def _forward(params, tokens, cfg: ArchConfig, rt: Runtime):
-    b, s = tokens.shape
+def embed_inputs(params, batch, cfg: ArchConfig, rt: Runtime):
+    """The embedded prompt (B, S, d) of ``batch["tokens"]``; for the VLM
+    family, ``batch["patch_embeds"]`` (B, n, d), when given, replaces its
+    first n positions (the reference's ``dynamic_update_slice`` at 0)."""
+    tokens = batch["tokens"]
     x = embed_tokens(params, tokens, rt)
+    pe = batch.get("patch_embeds") if cfg.family == "vlm" else None
+    if pe is None:
+        return x
+    n = pe.shape[1]
+    if pe.shape[0] != x.shape[0] or pe.shape[2] != x.shape[2] or n > x.shape[1]:
+        raise ValueError(
+            f"patch_embeds {tuple(pe.shape)} must be (B, n, d_model) over a prompt of at least "
+            f"n tokens: tokens are {tuple(tokens.shape)}, d_model {cfg.d_model}")
+    return torch.cat([pe.to(x.dtype), x[:, n:]], 1)
+
+
+def _forward(params, tokens, cfg: ArchConfig, rt: Runtime, patch_embeds=None):
+    b, s = tokens.shape
+    x = embed_inputs(params, {"tokens": tokens, "patch_embeds": patch_embeds}, cfg, rt)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     return backbone(params, x, cfg, rt, positions)
 
@@ -223,10 +198,11 @@ def forward_hidden(params, tokens, cfg: ArchConfig, rt: Runtime):
 
 
 def forward_train(params, batch, cfg: ArchConfig, rt: Runtime):
-    """batch: {'tokens', 'labels' (B, S), optional 'mask'} → scalar loss,
-    plus 0.01 × the MoE auxiliary loss for the MoE family (the
-    reference's ``loss + 0.01 * aux``; a dense model has none)."""
-    x, aux = _forward(params, batch["tokens"], cfg, rt)
+    """batch: {'tokens', 'labels' (B, S), optional 'mask', optional
+    'patch_embeds' (VLM)} → scalar loss, plus 0.01 × the MoE auxiliary
+    loss for the MoE family (the reference's ``loss + 0.01 * aux``; a
+    dense model has none)."""
+    x, aux = _forward(params, batch["tokens"], cfg, rt, batch.get("patch_embeds"))
     loss = xent_loss(params, x, batch["labels"], rt, batch.get("mask"))
     return loss if aux is None else loss + 0.01 * aux
 
@@ -239,12 +215,13 @@ def cache_init_stacked(cfg: ArchConfig, rt: Runtime, batch, max_len, device="cpu
 
 
 def prefill(params, batch, cfg: ArchConfig, rt: Runtime, max_len: int):
-    """Run the prompts (B, S) over fresh contiguous caches of ``max_len``
-    positions.  Returns (last-position logits (B, 1, V), caches)."""
+    """Run the prompts (B, S) (a VLM's with ``batch["patch_embeds"]``) over
+    fresh contiguous caches of ``max_len`` positions.  Returns
+    (last-position logits (B, 1, V), caches)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     caches = cache_init_stacked(cfg, rt, b, max_len, device=tokens.device)
-    x = embed_tokens(params, tokens, rt)
+    x = embed_inputs(params, batch, cfg, rt)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x, _ = backbone(params, x, cfg, rt, positions, caches=caches, cache_pos=0)
     return lm_logits(params, x[:, -1:, :], rt), caches

@@ -1,5 +1,5 @@
-"""ArchConfig → model API (counterpart of the dense, MoE, SSM, hybrid and
-enc-dec branches of ``repro/models/zoo.build``): random init, the loss of
+"""ArchConfig → model API (counterpart of ``repro/models/zoo.build``, every
+family: dense, MoE, VLM, SSM, hybrid, enc-dec): random init, the loss of
 a batch (the evaluation forward), the slab ``prefill`` / contiguous
 ``decode_step`` pair and what the paged engines need, all on one device.
 ``page_spec`` says what the page pool holds: a dense or MoE model serves
@@ -7,7 +7,11 @@ KV pages (the paged decode step, the page-pool init, the chunked-prefill
 step) through ``serving.engine.PagedEngine``; an SSM, a hybrid or an
 enc-dec model serves ``state`` pages (the live cache tree and its per-row
 decode) through ``serving.state_engine.StatePagedEngine``, an enc-dec
-model with its encoder output in ``shared_ro`` pages besides."""
+model with its encoder output in ``shared_ro`` pages besides.  A VLM
+keeps the transformer's KV machinery but has no page spec: its prefill
+needs patch embeddings that paged admission does not carry, so it serves
+contiguously only (``launch.batching``, ``serving.generate``), as in the
+reference."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,12 +26,9 @@ from repro_torch.core.ptq import decode_scales, pack_params, quantize_params
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import Runtime
 
-# the families the port builds and serves (paged or contiguous)
+# the families the paged engines serve (either engine); ``vlm`` is built
+# and served contiguously only, as in the reference
 SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
-# what each family still to port lacks in the port
-TO_PORT_FAMILIES = {
-    "vlm": "the vision frontend (not paged-servable in the reference either)",
-}
 
 
 class UnsupportedModelError(RuntimeError):
@@ -61,11 +62,15 @@ class PageSpec:
     shared_encoder: bool = False
 
 
-def page_spec(cfg: ArchConfig) -> PageSpec:
+def page_spec(cfg: ArchConfig):
     """What a served family's page pool holds: ``state`` pages for the
     O(1)-state families (ssm, hybrid) and for enc-dec (its decoder self
     caches; the encoder output in ``shared_ro`` pages), KV pages for the
-    rest."""
+    dense and MoE families; None for a VLM, which keeps the KV machinery
+    but is not paged-servable (its prefill needs patch embeddings the
+    engines cannot supply)."""
+    if cfg.family == "vlm":
+        return None
     if cfg.family == "encdec":
         return PageSpec("state_checkpoint", shared_encoder=True)
     return PageSpec("state_checkpoint" if cfg.family in ("ssm", "hybrid") else "kv_paged")
@@ -96,6 +101,10 @@ class ModelAPI:
     init_train: Callable[[int], Any]
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
+    # the transformer families' contiguous caches, ``cache_init(B, max_len)``
+    # (leaves (L, B, max_len, ...) on the api's device): what
+    # ``launch.batching.ContinuousBatcher`` serves from
+    cache_init: Callable[..., Any] = None
     # what the page pool holds (None: not paged-servable)
     page_spec: PageSpec = None
     # kv_paged families: the paged decode step, the page-pool init and the
@@ -129,29 +138,27 @@ class ModelAPI:
 
 
 def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
-    """The model API of a dense or MoE decoder, a Mamba-2 SSM, an RG-LRU
-    hybrid or a Whisper-style encoder-decoder.
+    """The model API of a dense, MoE or VLM-backbone decoder, a Mamba-2
+    SSM, an RG-LRU hybrid or a Whisper-style encoder-decoder; another
+    family raises ``ValueError``, as the reference's.
     ``init(seed)`` draws random weights from seeded ``torch.Generator``s; with
     ``quant_mode="packed"`` they are packed to W4 with the frozen
     universal codebooks, which ride in ``params["codebooks"]``, and their
     dequant scales decoded once (``ptq.decode_scales``); with ``"fake"``
     they are fake-quantized offline (``ptq.quantize_params``, the
-    reference's W4A4 serving tree), with ``"fake_full"`` left float.  A
-    dense, SSM or enc-dec model is drawn whole on the CPU, then moved to
-    ``device``; its (L, K, N) stacks pack with one s_X a layer, the layout
-    of the reference's packed tree.  A
-    MoE model is drawn on ``device`` layer by layer, each layer from its
-    own generator seeded from (seed, layer) and packed before the next is
-    drawn, so at most one layer's float experts are resident in packed
-    mode (the fake modes keep the float stack; full-width Moonlight's float
-    experts alone would be ~106 GB); a hybrid likewise period by period and
-    tail block by tail block (full-width RecurrentGemma-9B is ~34 GB in
-    f32), its (P, K, N) stacks with one s_X a period."""
-    if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(
-            f"the port serves the {', '.join(SERVED_FAMILIES)} families, not {cfg.family!r}; "
-            f"still to be ported: {', '.join(TO_PORT_FAMILIES)} ("
-            + "; ".join(f"{k}: {v}" for k, v in TO_PORT_FAMILIES.items()) + ")")
+    reference's W4A4 serving tree), with ``"fake_full"`` left float.  An
+    SSM or enc-dec model is drawn whole on the CPU, then moved to
+    ``device``.  A dense, VLM or MoE model is drawn on ``device`` layer
+    by layer, each layer from its own generator seeded from (seed, layer)
+    and packed before the next is drawn, so at most one layer's floats
+    are resident in packed mode (the fake modes keep the float stack;
+    full-width Qwen1.5-32B is ~130 GB in f32, Moonlight's float experts
+    alone ~106 GB); a hybrid likewise period by period and tail block by
+    tail block (full-width RecurrentGemma-9B is ~34 GB in f32).  The
+    (L, K, N) stacks keep one s_X a layer (a period), the layout of the
+    reference's packed tree."""
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
+        raise ValueError(cfg.family)
     if torch.device(device).type == "cuda" and (
             rt.quant_mode in ("fake", "fake_full") or (rt.quant_mode == "packed" and rt.fused_linear)):
         check_kernel_config(rt.bcq_cfg, f"zoo.build(quant_mode={rt.quant_mode!r})")
@@ -163,10 +170,9 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         return None
 
     def init(seed: int = 0) -> dict:
-        if cfg.family in ("moe", "hybrid"):
+        if cfg.family not in ("ssm", "encdec"):
             return _init_by_layer(cfg, rt, device, seed, codebooks())
-        draw = {"ssm": ssm.init_ssm_lm, "encdec": encdec.init_encdec}.get(
-            cfg.family, transformer.init_lm)
+        draw = ssm.init_ssm_lm if cfg.family == "ssm" else encdec.init_encdec
         params = draw(cfg, rt, torch.Generator().manual_seed(seed))
         params = _to(params, device)
         cb = codebooks()
@@ -180,7 +186,7 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
 
     def init_train(seed: int = 0) -> dict:
         """What the reference's train CLI starts from (``train.py:108-113``):
-        ``init_lm``'s float weights — this api's draw under
+        the float weights — this api's draw under
         ``quant_mode="none"`` — and, unless ``rt.quant_mode`` is ``none``,
         the universal codebooks as a float leaf that training updates."""
         floats = dataclasses.replace(rt, quant_mode="none", cache_kind="bf16")
@@ -245,6 +251,8 @@ def build(cfg: ArchConfig, rt: Runtime, device="cuda") -> ModelAPI:
         loss_fn=lambda p, b: transformer.forward_train(p, b, cfg, rt),
         prefill_fn=lambda p, b, ml: transformer.prefill(p, b, cfg, rt, ml),
         decode_fn=lambda p, c, t, pos: transformer.decode_step(p, c, t, pos, cfg, rt),
+        cache_init=lambda bsz, ml: transformer.cache_init_stacked(cfg, rt, bsz, ml,
+                                                                  device=device),
         page_spec=page_spec(cfg),
         paged_decode_fn=lambda p, pool, t, bt, ln: transformer.paged_decode_step(
             p, pool, t, bt, ln, cfg, rt
@@ -267,8 +275,8 @@ def _generator(device, seed: int, layer: int) -> torch.Generator:
 
 def _draw_units(cfg, rt: Runtime) -> list:
     """(params key, stack depth or None for an unstacked block, draw) of
-    each unit the init draws in turn: a MoE model's layers; a hybrid's
-    periods, then its tail blocks."""
+    each unit the init draws in turn: a dense, VLM or MoE model's layers;
+    a hybrid's periods, then its tail blocks."""
     if cfg.family == "hybrid":
         _, n_periods, tail = hybrid._counts(cfg)
         return ([("periods", n_periods, lambda g: hybrid.init_period(cfg, rt, g))]
@@ -278,8 +286,8 @@ def _draw_units(cfg, rt: Runtime) -> list:
 
 
 def _init_by_layer(cfg, rt: Runtime, device, seed: int, cb) -> dict:
-    """A MoE model drawn and packed one layer at a time, a hybrid one
-    period and one tail block at a time, into preallocated (n, ...)
+    """A dense, VLM or MoE model drawn and packed one layer at a time, a
+    hybrid one period and one tail block at a time, into preallocated (n, ...)
     leaves: unit i (in ``_draw_units`` order) from generator (seed, i)."""
     params = transformer.init_top(cfg, rt, _generator(device, seed, -1))
     i = 0

@@ -335,7 +335,10 @@ class PagedEngine:
         ``recompress_after > 0``: the cold-page ladder after that many
         pressured ticks.  ``telemetry``: the registry, histograms,
         timelines and journal (a default-level ``Telemetry`` if None)."""
-        if getattr(api, "paged_decode_fn", None) is None:
+        # a model API states its layout (a VLM's is None); a bare stub of
+        # the step functions is taken at its word
+        if getattr(api, "paged_decode_fn", None) is None or (
+                hasattr(api, "page_spec") and getattr(api.page_spec, "layout", None) != "kv_paged"):
             from repro_torch.models.zoo import UnsupportedModelError
 
             cfg = getattr(api, "cfg", None)

@@ -250,17 +250,23 @@ def next_greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
 
 
-def greedy_generate(api, params, prompts, gen_len: int, max_len: int, device="cuda"):
+def greedy_generate(api, params, prompts, gen_len: int, max_len: int, device="cuda",
+                    batch=None):
     """Batched greedy decoding over contiguous caches: prefill the prompt
     batch (B, S), then ``gen_len - 1`` decode steps.  Returns (B, gen_len)
     int32 tokens.  Runs on ``device`` (the card unless asked for the
-    CPU), which must be the one ``api`` was built for."""
+    CPU), which must be the one ``api`` was built for.  ``batch``: further
+    prefill inputs on ``device`` (a VLM's ``patch_embeds``).
+
+    Each decode step reads only the written prefix of the cache, which no
+    bucket of the reference's ``kv_bucket`` exceeds, so the port needs no
+    such bound: its tokens are the bucketed and the whole-cache read's."""
     device = resolve_device(device)
     if api.device != device:
         raise ValueError(f"model built for {api.device}, generation asked for {device}")
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(device)
     s = prompts.shape[1]
-    logits, caches = api.prefill_fn(params, {"tokens": prompts}, max_len)
+    logits, caches = api.prefill_fn(params, {"tokens": prompts, **(batch or {})}, max_len)
     out = [next_greedy_tokens(logits)]
     for t in range(gen_len - 1):
         logits, caches = api.decode_fn(params, caches, out[-1][:, None], s + t)

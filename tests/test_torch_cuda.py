@@ -982,3 +982,171 @@ def test_integer_premise_kernels_refuse_trained_books(cuda):
     q = torch.zeros((2, 64, 64), device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="has no backward"):
         flash.flash_attention_kernel(q, q, q)
+
+
+# ------------------------------------------------------------ the model zoo
+# the GQA groups of the dense zoo's pages: Qwen2-0.5B 14/2, StarCoder2-3B
+# 24/2, Phi-3-medium 40/10, Qwen1.5-32B 40/40 (MHA) — query groups of 7,
+# 12, 4 and 1 over one KV head — each at d_head 64 and 128
+ZOO_HEADS = [(14, 2), (24, 2), (40, 10), (40, 40)]
+
+
+def _zoo_gather_case(kind, c, h, hkv, d, cuda):
+    """Rows over several splits (lengths on and past a split edge, a
+    zero-length row, a full table), NULL past each row's live pages; at
+    C > 1 each row's chunk is its last C positions (causal)."""
+    ps = 16
+    sp = common.SPLIT_PAGES
+    maxp = 2 * sp + 3
+    n_pages = maxp + 5
+    g = torch.Generator().manual_seed(h * d + hkv + c)
+    pool = layers.cache_init(n_pages, ps, hkv, d, kind, CFG, device=cuda)
+    kv = [torch.randn((n_pages, ps, hkv, d), generator=g).to(cuda) for _ in range(2)]
+    for name, val in layers.cache_encode(*kv, kind, CFG, _cb(cuda), pool).items():
+        pool[name].copy_(val)
+    kv_len = [0, 5, sp * ps, sp * ps + 3, maxp * ps - 7, maxp * ps]
+    if c > 1:
+        kv_len = [0] + [max(n, c) for n in kv_len[1:]]
+    bt = torch.randint(1, n_pages, (len(kv_len), maxp), generator=g, dtype=torch.int32)
+    for r, n in enumerate(kv_len):
+        bt[r, -(-n // ps):] = 0
+    q = torch.randn((len(kv_len), c, h, d), generator=g).to(cuda)
+    return (q, pool, bt.to(cuda), torch.tensor(kv_len, dtype=torch.int32, device=cuda), kind,
+            CFG, _cb(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 64])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "bcq4"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h,hkv", ZOO_HEADS, ids=lambda v: str(v))
+def test_page_gather_zoo_query_groups_match_plain(cuda, h, hkv, d, kind, c):
+    """B2's GQA arm at the zoo's query groups (idle query slots of a
+    z-block masked, the combine indexed per query head), at decode and a
+    64-token chunk."""
+    args = _zoo_gather_case(kind, c, h, hkv, d, cuda)
+    got = common.page_gather_attention(*args)
+    want = common.page_gather_attention_plain(*args)
+    assert got.shape == args[0].shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hkv", [2, 10, 40])
+@pytest.mark.parametrize("c", [1, 64])
+def test_page_write_kernel_matches_plain_at_the_zoo_heads(cuda, c, hkv, d):
+    """The KV-page writer at the zoo's KV head counts, byte for byte
+    against the plain writer; layers 0 and 2 stay untouched."""
+    stacked, k, v, kw = _kv_write_case(c, d, hkv, torch.float32, cuda, seed=c + hkv + d)
+    before = {n: t.clone() for n, t in stacked.items()}
+    pool = {n: t[1] for n, t in stacked.items()}
+    plain = {n: t[1].clone() for n, t in stacked.items()}
+    cb = _cb(cuda)
+    bcq_quantize.bcq_page_write(pool, k, v, CFG, cb, **kw)
+    _layers_write(plain, k, v, cb, kw, kernel=False)
+    for n in stacked:
+        assert torch.equal(pool[n], plain[n]), n
+        assert torch.equal(stacked[n][0], before[n][0]) and torch.equal(stacked[n][2], before[n][2])
+
+
+# Qwen2-0.5B's K/V projection (K 896 = 14 arrays, N 128), StarCoder2-3B's
+# (3072 → 256), Qwen1.5-32B's MLP in at a 512-row prefill chunk
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 896, 128), (8, 3072, 256), (512, 5120, 27392)])
+def test_bcq_linear_at_the_zoo_shapes(cuda, m, k, n):
+    g = torch.Generator().manual_seed(m + k + n)
+    x = (torch.randn((m, k), generator=g) * 3.0).to(cuda)
+    w = (torch.randn((k, n), generator=g) * k**-0.5).to(cuda)
+    cb = _cb(cuda)
+    # ``layers.pack_weight``'s bytes, encoded 4,096 rows at a time with the
+    # whole weight's s_X: its plain encode of 27392 × 5120 at once holds
+    # ~30 GB of per-codebook intermediates
+    wt = w.T.contiguous()
+    s_w = bcq.tensor_scale(wt, CFG)
+    encs = [bcq.encode(wt[i:i + 4096], cb, CFG, s_x=s_w) for i in range(0, n, 4096)]
+    pw = ops.packed_operand({"idx": torch.cat([e.packed_idx for e in encs]),
+                             "sel": torch.cat([e.packed_sel for e in encs]),
+                             "scale": torch.cat([e.scale_code for e in encs]), "s_x": s_w})
+    if n <= 4096:
+        whole = layers.pack_weight(w, CFG, cb)
+        assert torch.equal(whole["idx"], pw.idx_packed) and torch.equal(whole["sel"], pw.sel_packed)
+    s_x = bcq.tensor_scale(x, CFG)
+    got = bcq_linear.bcq_linear(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, s_x, CFG)
+    want = fused_linear_ref(x, pw.idx_packed, pw.sel_packed, pw.inv_scale, cb, CFG, s_x, valid_k=k)
+    assert got.shape == (m, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    del got, want, pw, encs, wt, w, x
+    torch.cuda.empty_cache()  # the plain version at 512 × 5120 → 27392 cached ~26 GB
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2_3b", "phi3_medium_14b", "qwen1_5_32b"])
+def test_zoo_smoke_engine_through_the_kernels(cuda, arch, monkeypatch):
+    """Each dense zoo smoke through ``PagedEngine`` on the card: exact launch
+    counts at graph depth 2, none in the plain run, and every B1, B2 and
+    writer launch of an eager kernel run held to its plain version on its
+    own inputs (a whole-run token comparison cannot hold random smoke
+    weights: one W4A4 flip from B1's f32 sum order moves every later
+    launch).  The Qwen2 smoke's d_model 112 is not whole 64-wide arrays,
+    which B1 refuses; Qwen2 runs at full width (d_model 896) in
+    ``chip_smoke.py``'s model-zoo phase."""
+    from repro_torch.kernels import chunked_prefill, paged_attention
+
+    cfg = get_smoke(arch)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (9, 21, 40)]
+    kw = dict(cache="bcq4", packed=True, page_size=8, prefill_chunk=16, device=cuda,
+              chunked_prefill=True, prefix_caching=False)
+    build.reset_counts()
+    _, eng = serve(cfg, prompts, 8, **kw)
+    torch.cuda.synchronize()
+    counts = build.counts()
+    passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
+    per = 7 if cfg.act == "swiglu" else 6
+    assert counts["bcq_linear"] == per * cfg.n_layers * passes
+    assert counts["page_gather"] == counts["bcq_page_write"] == cfg.n_layers * passes
+    build.reset_counts()
+    serve(cfg, prompts, 8, kernels=False, pipeline_depth=1, cuda_graphs=False, **kw)
+    assert not any(build.counts().get(n) for n in ("bcq_linear", "page_gather", "bcq_page_write"))
+
+    held = {"bcq_linear": 0, "page_gather": 0, "bcq_page_write": 0}
+    real_lin = ops.bcq_linear
+
+    def lin(x, w_idx, w_sel, w_inv, cb, s_x, bcfg):
+        out = real_lin(x, w_idx, w_sel, w_inv, cb, s_x, bcfg)
+        want = fused_linear_ref(x, w_idx, w_sel, w_inv, cb, bcfg, s_x, valid_k=x.shape[1])
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        held["bcq_linear"] += 1
+        return out
+
+    def gather(real):
+        def run(q, pool, bt, kv_len, kind, bcfg, cb=None):
+            out = real(q, pool, bt, kv_len, kind, bcfg, cb)
+            want = common.page_gather_attention_plain(q, pool, bt, kv_len, kind, bcfg, cb)
+            torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+            held["page_gather"] += 1
+            return out
+        return run
+
+    def write(real):
+        def run(pool, *args, **kwargs):
+            plain = {n: t.clone() for n, t in pool.items()}
+            out = real(pool, *args, **kwargs)
+            real(plain, *args, **dict(kwargs, kernel=False))
+            assert all(torch.equal(out[n], plain[n]) for n in out)
+            held["bcq_page_write"] += 1
+            return out
+        return run
+
+    monkeypatch.setattr(ops, "bcq_linear", lin)
+    monkeypatch.setattr(paged_attention, "page_gather_attention",
+                        gather(paged_attention.page_gather_attention))
+    monkeypatch.setattr(chunked_prefill, "page_gather_attention",
+                        gather(chunked_prefill.page_gather_attention))
+    monkeypatch.setattr(layers, "paged_token_write", write(layers.paged_token_write))
+    monkeypatch.setattr(layers, "paged_chunk_write", write(layers.paged_chunk_write))
+    _, eng = serve(cfg, prompts, 8, pipeline_depth=1, cuda_graphs=False, **kw)
+    passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
+    assert held == {"bcq_linear": per * cfg.n_layers * passes,
+                    "page_gather": cfg.n_layers * passes, "bcq_page_write": cfg.n_layers * passes}

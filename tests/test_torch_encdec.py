@@ -440,9 +440,18 @@ def test_decode_matches_parallel():
 # -------------------------------------------------------------------- zoo
 def test_zoo_serves_encdec():
     """``encdec`` is served, through the state layout with shared encoder
-    pages; only ``vlm`` is still to port.  The API's serving half has the
-    reference's shapes, and ``init`` packs every GEMM of both stacks."""
-    assert "encdec" in tzoo.SERVED_FAMILIES and set(tzoo.TO_PORT_FAMILIES) == {"vlm"}
+    pages; ``vlm`` is built without a page spec, and both engines refuse
+    it.  The API's serving half has the reference's shapes, and ``init``
+    packs every GEMM of both stacks."""
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    assert "encdec" in tzoo.SERVED_FAMILIES and "vlm" not in tzoo.SERVED_FAMILIES
+    vlm = tzoo.build(t_get_smoke("pixtral_12b"), TRuntime(), device="cpu")
+    assert vlm.page_spec is None
+    for engine in (PagedEngine, StatePagedEngine):
+        with pytest.raises(tzoo.UnsupportedModelError, match="family 'vlm'"):
+            engine(vlm, vlm.init(0), n_slots=2, max_len=16, page_size=8, device="cpu")
     _, trt = _rts("packed")
     api = tzoo.build(TCFG, trt, device="cpu")
     assert api.page_spec == tzoo.PageSpec("state_checkpoint", shared_encoder=True)

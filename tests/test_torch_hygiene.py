@@ -16,6 +16,7 @@ PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 STUDY = ROOT / "chip_gate_study.py"
 ENCODE_STUDY = ROOT / "chip_encode_study.py"
+READ_STUDY = ROOT / "chip_read_study.py"
 
 
 def _imports(path: Path):
@@ -28,7 +29,7 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY, ENCODE_STUDY]
+    files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY, ENCODE_STUDY, READ_STUDY]
     assert len(files) > 10
     bad = [
         (str(f.relative_to(ROOT)), m)
@@ -52,6 +53,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.state_engine, repro_torch.models.ssm\n"
         "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
         "import repro_torch.launch.train, repro_torch.optim.adamw, repro_torch.runtime.elastic\n"
+        "import repro_torch.launch.batching\n"
+        "from repro_torch.configs.base import ARCH_IDS, get_arch, get_smoke\n"
+        "assert {get_arch(a).family for a in ARCH_IDS} >= {'dense', 'vlm'}\n"
+        "assert [get_smoke(a).name for a in ARCH_IDS]\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -185,8 +190,10 @@ def test_serve_cli_runs_on_cpu(capsys):
           "--prompt-len", "10", "--gen", "3", "--page-size", "8", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "6 tokens" in out and "device=cpu" in out
-    with pytest.raises(SystemExit):
-        main(["--smoke", "--device", "cpu"])  # only the paged chunked path is ported
+    assert "contiguous engine" in out  # the batcher over the same model, compared
+    assert main(["--smoke", "--device", "cpu", "--batch", "2", "--gen", "3"]) == 0  # contiguous
+    out = capsys.readouterr().out
+    assert "float  :" in out and "W4A4   :" in out and "contiguous: 6 tokens" in out
 
 
 def test_host_tier_modules_import_with_jax_blocked():

@@ -427,12 +427,16 @@ def test_depth2_equals_depth1(port_runs, arch):
 
 # ---------------------------------------------------------- model building
 def test_zoo_names_the_families_still_to_port():
-    cfg = t_get_smoke("moonshot_v1_16b")
-    import dataclasses
+    """Every family of the reference is built now; ``vlm`` (as in the
+    reference) has no page spec, and both engines refuse it by name."""
+    from repro_torch.serving.state_engine import StatePagedEngine
 
-    for fam in ("vlm",):
-        with pytest.raises(NotImplementedError, match="still to be ported: vlm"):
-            tzoo.build(dataclasses.replace(cfg, family=fam), TRuntime(), device="cpu")
+    api = tzoo.build(t_get_smoke("pixtral_12b"), TRuntime(), device="cpu")
+    assert api.page_spec is None
+    params = api.init(0)
+    for engine in (PagedEngine, StatePagedEngine):
+        with pytest.raises(tzoo.UnsupportedModelError, match="family 'vlm'"):
+            engine(api, params, n_slots=2, max_len=16, page_size=8, device="cpu")
     # enc-dec is built and served now
     api = tzoo.build(t_get_smoke("whisper_base"), TRuntime(), device="cpu")
     assert api.page_spec.shared_encoder and api.encode_xkv_fn is not None

@@ -273,9 +273,14 @@ def test_zoo_ssm_branch_and_what_is_left():
                                        TCFG.ssm.head_dim, TCFG.ssm.d_state)
     dense = tzoo.build(t_get_smoke("gpt3_126m"), TRT, device="cpu")
     assert dense.page_spec == tzoo.PageSpec("kv_paged")
-    for fam in ("vlm",):
-        with pytest.raises(NotImplementedError, match=f"{fam}: "):
-            tzoo.build(dataclasses.replace(TCFG, family=fam), TRT, device="cpu")
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.state_engine import StatePagedEngine
+
+    vlm = tzoo.build(t_get_smoke("pixtral_12b"), TRT, device="cpu")  # built, not paged-servable
+    assert vlm.page_spec is None
+    for engine in (PagedEngine, StatePagedEngine):
+        with pytest.raises(tzoo.UnsupportedModelError, match="family 'vlm'"):
+            engine(vlm, vlm.init(0), n_slots=2, max_len=16, page_size=8, device="cpu")
     encdec = tzoo.build(t_get_smoke("whisper_base"), TRT, device="cpu")  # served now
     assert encdec.page_spec == tzoo.PageSpec("state_checkpoint", shared_encoder=True)
 
