@@ -268,8 +268,8 @@ success):
     tok/s, a state page's swap, resume vs recompute, and B1's times at the
     in_proj shape (N 3352).  Its launches join the ``kernels`` line
     (``state``).
-19. the hybrid family: full-width RecurrentGemma-9B (20 of its 38
-    layers, a depth cut for the script's time: 6 periods of two RG-LRU
+19. the hybrid family: full-width RecurrentGemma-9B (11 of its 38
+    layers, a depth cut for the script's time: 3 periods of two RG-LRU
     blocks and a local-attention block + 2 tail RG-LRU blocks, where the
     model has 12 periods; d 4096, 16 heads of 256 and one KV head, d_ff 12288,
     window 2048, vocab 256000; seeded random weights drawn and packed to
@@ -333,6 +333,17 @@ success):
     128), (8, 3072 → 256), (512, 5120 → 27392), B2 at each GQA config's
     decode and 64-token chunk, the writer at 2, 10 and 40 KV heads.  Its
     launches join the ``kernels`` line (``dense_zoo``; B1's ``vlm``).
+23. the multi-device layer on one card: a one-rank NCCL group and
+    ``derive_mesh()`` = (1, 1); at phase 21's settings 3 mesh train steps
+    bit-equal to 3 plain steps in every leaf with 0 collective bytes,
+    both timed in turns; 2 ``--quant fake`` mesh steps, every B3 launch
+    held to plain; 5 compressed data-parallel steps over NCCL and one
+    step's compressed all-reduce held to the same function on the CPU;
+    the sequence-sharded decode within 1e-5 of the gathered one; the
+    five kernels' meta branches at phase 10's shapes against the real
+    launches and the script's bound arithmetic; the roofline of phase
+    21's step against its measured time; one production dry-run cell in
+    a subprocess.  B3's launches join the ``kernels`` line (``mesh``).
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -3915,9 +3926,10 @@ def train_timing(api, params, opt, batch):
 def start_killed_run():
     """The run to be preempted: a subprocess of the train CLI (full width,
     ``RESUME_BATCH`` × 2048 tokens a step), sent SIGTERM after its step-4
-    log line; the hook writes its snapshot and the process keeps running
-    (the default handler is not callable), so it is killed once the
-    snapshot's sidecar has landed.  A watcher thread does both while this
+    log line; the hook sets its flag, the loop writes the snapshot at the
+    next step boundary and the process keeps running (the default handler
+    is not callable), so it is killed once the snapshot's sidecar has
+    landed.  A watcher thread does both while this
     process goes on (phase 21's main run).  Returns (the process, the
     watcher, what went wrong, its output lines)."""
     import atexit
@@ -6197,6 +6209,494 @@ def phase_zoo(cb, smi):
     return total, vlm_b1, entries, worst
 
 
+# ------------------------------------------------------------------ phase 23
+MESH_STEPS = 3  # mesh steps held bit for bit to the plain step (b)
+MESH_FAKE_STEPS = 2  # --quant fake mesh steps (c)
+CDP_STEPS = 5  # compressed data-parallel steps (d)
+DECODE_ROWS, DECODE_PROMPT, DECODE_MAX_LEN = 4, 64, 128  # the sequence-sharded decode (e)
+DECODE_TOL = 1e-5  # (e): rtol and atol, logits of the flash combine vs the gathered softmax
+# (e): the new token's bf16 K/V in layers 1 and up, relative: one bf16 rounding step (2⁻⁷
+# of the value's binade).  They come from hidden states within ~DECODE_TOL of each other,
+# and a value that close to a rounding boundary lands on its neighbour.
+DECODE_KV_RTOL = 2.0 ** -7
+PHASE21_MODEL_TFLOPS = 34.3  # PERF.md §5: 6·N·tokens a step over phase 21's measured step time
+DRYRUN_CELL = ("whisper_base", "decode_32k", "single")  # the reference's 512-device test's cell
+
+
+def _to_meta(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_meta(v) for v in tree)
+    return tree.to("meta") if isinstance(tree, torch.Tensor) else tree
+
+
+def _same_layout(meta, real, what):
+    import torch
+
+    if isinstance(real, dict):
+        for k in real:
+            _same_layout(meta[k], real[k], what)
+    elif isinstance(real, (tuple, list)):
+        for m, r in zip(meta, real):
+            _same_layout(m, r, what)
+    elif isinstance(real, torch.Tensor):
+        if meta.device.type != "meta" or meta.shape != real.shape or meta.dtype != real.dtype:
+            fail(f"phase 23 (f): {what}'s meta branch gave {tuple(meta.shape)} {meta.dtype} on "
+                 f"{meta.device}, the launch {tuple(real.shape)} {real.dtype}")
+
+
+def meta_held(name, fn, args, kwargs, nbytes, work, what, keep=()):
+    """(f): ``fn`` on the card, then on meta copies of its inputs (the
+    argument positions in ``keep`` stay as they are: host data a count
+    reads); the meta outputs' shapes and dtypes equal the launch's, no
+    launch is counted, and the meta count equals ``nbytes`` and ``work``
+    ({unit: operations}), the script's own bound arithmetic.  Returns the
+    bound (ms) both give."""
+    from repro_torch.kernels import build
+
+    real = fn(*args, **kwargs)
+    build.reset_meta_cost()
+    before = build.counts()
+    meta = fn(*[a if i in keep else _to_meta(a) for i, a in enumerate(args)],
+              **{k: _to_meta(v) for k, v in kwargs.items()})
+    if build.counts() != before:
+        fail(f"phase 23 (f): {what}'s meta call counted a launch")
+    _same_layout(meta, real, what)
+    got = build.meta_cost().get(name, {})
+    units = {"int8": INT8_OPS, "bf16": BF16_FLOPS, "f32": F32_FLOPS}
+    want = dict({u: 0 for u in units}, **work)
+    if got.get("calls") != 1 or got["bytes"] != nbytes or any(got[u] != want[u] for u in units):
+        fail(f"phase 23 (f): {what}'s meta count {got} is not the bound's {nbytes} B and {work}")
+    bound, by = _bound(got["bytes"], *((got[u], units[u]) for u in units if got[u]))
+    print(f"  {what}: meta outputs {[tuple(t.shape) for t in _tensors(meta)]} as the launch's; "
+          f"{nbytes} B, {work}: bound {bound:.5f} ms by {by}", flush=True)
+    return bound
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def meta_branches(cb):
+    """(f): the meta branch of each kernel at phase 10's shapes against the
+    real launch, its count against the script's bound arithmetic."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_linear as bl, bcq_matmul as bm, bcq_quantize as bq
+    from repro_torch.kernels import common, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    cfg = bcq.BCQConfig()
+    cbw = 8 * 16 * 4
+    for m, k, n in ((8, 768, 3072), (EVAL_SEQ * EVAL_BATCH, 768, 3072)):
+        x, w = linear_case(m, k, n, 23, cb)
+        s_x = bcq.tensor_scale(x, cfg)
+        meta_held("bcq_linear", bl.bcq_linear,
+                  (x, w.idx_packed, w.sel_packed, w.inv_scale, cb, s_x, cfg), {},
+                  m * k * 4 + n * k // 2 + n * k // 16 + n * k // 64 * 4 + cbw + 4 + m * n * 4,
+                  {"int8": 2 * m * n * k, "f32": ENCODE_OPS * m * k}, f"B1 M {m} K {k} N {n}")
+    e, c, k, n = STACKED_SHAPES[0]
+    x, w = stacked_case(e, c, k, n, 231, cb)
+    s_x = bcq.tensor_scale(x, cfg)
+    meta_held("bcq_linear_experts", bl.bcq_linear_experts,
+              (x, w.idx_packed, w.sel_packed, w.inv_scale, cb, s_x, cfg), {},
+              e * c * k * 4 + e * (n * k // 2 + n * k // 16 + n * k // 64 * 4) + cbw + 4
+              + e * c * n * 4,
+              {"int8": 2 * e * c * n * k, "f32": ENCODE_OPS * e * c * k}, f"B1s E {e} C {c}")
+    ps, b, h, d = 16, 8, 12, 64
+    for c, kv_len in ((1, [n + GEN for n in PROMPT_LENS]), (64, [500] * 8)):
+        maxp = -(-max(kv_len) // ps)
+        n_pages = 1 + b * maxp
+        pool = gather_pool("bcq4", n_pages, ps, h, d, 232, cb)
+        bt, kvl = gather_case(b, maxp, ps, kv_len, 233, n_pages)
+        q = torch.randn((b, c, h, d), device="cuda")
+        pages = sum(max(1, -(-n // ps)) for n in kv_len)
+        nbytes = (q.numel() * 4 * 2 + 2 * pages * ps * h * (d // 2 + d // 16 + d // 64)
+                  + bt.numel() * 4 + b * 4 + cbw + 8)
+        seen = sum(n - c + i + 1 for n in kv_len for i in range(c))
+        meta_held("page_gather", common.page_gather_attention,
+                  (q, pool, bt, kvl.cpu(), "bcq4", cfg, cb), {}, nbytes,
+                  {"f32": 4 * h * d * seen}, f"B2 C {c}", keep=(3,))
+    m, k = EVAL_SEQ * EVAL_BATCH, 768
+    x = activation(m, k, 234)
+    meta_held("bcq_quantize", bq.bcq_quantize, (x, cb, bcq.tensor_scale(x, cfg), cfg), {},
+              m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + cbw + 4,
+              {"f32": ENCODE_OPS * m * k}, f"B3 M {m} K {k}")
+    for c in (1, 64):
+        pool = layers.cache_init(1 + 8 * 34, ps, h, d, "bcq4", cfg, device="cuda")
+        kk, vv = (torch.randn((8, c, h, d), device="cuda") for _ in range(2))
+        if c == 1:
+            ids = {"page_ids": torch.arange(1, 25, 3, device="cuda"),
+                   "offsets": torch.arange(8, dtype=torch.int32, device="cuda") % ps}
+            rows = 8
+        else:
+            ids = {"chunk_page_ids": torch.arange(1, 33, dtype=torch.int32,
+                                                  device="cuda").reshape(8, 4),
+                   "chunk_len": torch.full((8,), c, dtype=torch.int32, device="cuda")}
+            rows = 8 * 4 * ps
+        nbytes = (2 * kk.numel() * 4 + 2 * rows * h * (d // 2 + d // 16 + d // 64)
+                  + sum(t.numel() * t.element_size() for t in ids.values()) + cbw + 8)
+        meta_held("bcq_page_write", bq.bcq_page_write, (pool, kk, vv, cfg, cb), ids, nbytes,
+                  {"f32": ENCODE_OPS * 2 * kk.numel()}, f"B3's writer C {c}")
+    m, k, n = EVAL_SEQ * EVAL_BATCH, 768, 3072
+    a = ops.quantize(activation(m, k, 235), cb, cfg)
+    _, w = linear_case(8, k, n, 236, cb)
+    meta_held("bcq_matmul", bm.bcq_matmul,
+              (a.idx_packed, a.sel_packed, a.inv_scale, w.idx_packed, w.sel_packed, w.inv_scale,
+               cb, cb, cfg), {},
+              (m + n) * (k // 2 + k // 16 + k // 64 * 4) + 2 * cbw + m * n * 4,
+              {"int8": 2 * m * n * k}, f"B4 M {m} K {k} N {n}")
+    bh, s_len, d = EVAL_BATCH * 12, EVAL_SEQ, 64
+    qkv = [torch.randn((bh, s_len, d), device="cuda").to(torch.bfloat16) for _ in range(3)]
+    meta_held("flash_attention", fa.flash_attention_kernel, (*qkv, True), {},
+              4 * bh * s_len * d * 2, {"bf16": 4 * d * (s_len * (s_len + 1) // 2) * bh},
+              f"B5 ({bh}, {s_len}, {d}) bf16 causal")
+
+
+def _mesh_train_setup(cfg, mesh):
+    """Phase 21's model and batches (bf16 compute, f32 params, 4 × 2048),
+    drawn once for (b)–(d): a namespace of the float api, the plain and the
+    mesh step, the optimizer config, the params and the batches."""
+    from types import SimpleNamespace
+
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.optim import adamw
+
+    api = zoo.build(cfg, Runtime(), device="cuda")
+    params = api.init_train(0)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    pspecs, _ = train.shardings_for(mesh, api, params)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=EVAL_SEQ, global_batch=EVAL_BATCH, seed=0)
+    return SimpleNamespace(
+        api=api, plain=train.make_train_step(api, opt_cfg),
+        step=train.make_sharded_train_step(api, opt_cfg, mesh, pspecs), opt_cfg=opt_cfg,
+        params=params, pspecs=pspecs,
+        batches=[batch_at(dcfg, s, device="cuda") for s in range(max(MESH_STEPS, CDP_STEPS) + 1)])
+
+
+def mesh_equals_plain(st, phase21_ms):
+    """(b): ``MESH_STEPS`` mesh steps ≡ as many plain ``make_train_step``
+    steps from the same weights, every leaf of params and optimizer state;
+    0 collective bytes; both steps timed in turns (mesh, plain, plain,
+    mesh).  Returns (mesh ms/step, plain ms/step, the losses)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib, train
+    from repro_torch.optim import adamw
+
+    plain, step, params, batches = st.plain, st.step, st.params, st.batches
+    mesh_lib.reset_collective_bytes()
+    runs = {}
+    with train.deterministic():
+        for name, fn in (("mesh", step), ("plain", plain)):
+            p, o, losses = params, adamw.init_state(params), []
+            for s in range(MESH_STEPS):
+                p, o, met = fn(p, o, batches[s])
+                losses.append(met["loss"])
+            runs[name] = (p, o, torch.stack(losses))
+    coll = mesh_lib.collective_bytes()
+    if coll:
+        fail(f"phase 23 (b): the one-rank mesh step moved collective bytes {coll}")
+    (pm, om, lm), (pp, op, lp) = runs["mesh"], runs["plain"]
+    fa, fb = _flat({"params": pm, "opt": om}), _flat({"params": pp, "opt": op})
+    diff = [p for (p, a), (_, b) in zip(fa, fb) if a.dtype != b.dtype or not torch.equal(a, b)]
+    if diff or not torch.equal(lm, lp) or len(fa) != len(fb):
+        fail(f"phase 23 (b): {MESH_STEPS} mesh steps differ from the plain steps in "
+             f"{len(diff)} of {len(fa)} leaves ({diff[:5]}); losses {lm.tolist()} vs {lp.tolist()}")
+    opt = adamw.init_state(params)
+
+    def window(fn):
+        with train.deterministic():
+            fn(params, opt, batches[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIME_STEPS):
+                fn(params, opt, batches[0])
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / TIME_STEPS
+
+    ms = {"mesh": [], "plain": []}
+    for name in ("mesh", "plain", "plain", "mesh"):
+        ms[name].append(window(step if name == "mesh" else plain))
+    mesh_ms, plain_ms = float(np.mean(ms["mesh"])), float(np.mean(ms["plain"]))
+    print(f"phase 23 (b) mesh step: full-width gpt3_126m, {EVAL_BATCH} × {EVAL_SEQ} tokens, bf16 "
+          f"on f32: {MESH_STEPS} steps bit-equal to make_train_step's in all {len(fa)} leaves of "
+          f"params and optimizer state, losses {[round(float(v), 4) for v in lm]}; collective "
+          f"bytes 0; {mesh_ms:.1f} ms/step against the plain step's {plain_ms:.1f} in turns "
+          f"(mesh, plain, plain, mesh: {', '.join(f'{v:.1f}' for v in ms['mesh'][:1] + ms['plain'] + ms['mesh'][1:])}); "
+          f"phase 21's CLI step {phase21_ms:.1f} ms/step", flush=True)
+    return mesh_ms, plain_ms, [float(v) for v in lm]
+
+
+def mesh_fake_steps(cfg, mesh, st):
+    """(c): ``MESH_FAKE_STEPS`` ``--quant fake`` mesh steps from (b)'s
+    weights and the universal codebooks (the train CLI's tree), every B3
+    launch held to ``quantize_ref``; returns (B3 launches,
+    threshold-search launches, ties)."""
+    from repro_torch.core.calibrate import default_universal_codebooks
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.optim import adamw
+
+    api = zoo.build(cfg, Runtime(quant_mode="fake"), device="cuda")
+    params = dict(st.params, codebooks=default_universal_codebooks().as_tensor("cuda"))
+    pspecs, _ = train.shardings_for(mesh, api, params)
+    step = train.make_sharded_train_step(api, st.opt_cfg, mesh, pspecs)
+    batches = st.batches
+
+    def run():
+        p, o = params, adamw.init_state(params)
+        with train.deterministic():
+            for s in range(MESH_FAKE_STEPS):
+                p, o, met = step(p, o, batches[s])
+        return met
+
+    build.reset_counts()
+    met, n, ties = hold_fake_route(run, "phase 23 (c)")
+    counts = build.counts()
+    want = 4 * cfg.n_layers * MESH_FAKE_STEPS
+    thr = counts.get("bcq_quantize_thr", 0)
+    if counts.get("bcq_quantize", 0) != want or n != want or thr != want - 4 * cfg.n_layers:
+        fail(f"phase 23 (c): launches {counts}, {n} held; expected {want} B3 launches, "
+             f"{want - 4 * cfg.n_layers} of them the threshold search")
+    print(f"phase 23 (c) --quant fake mesh steps: {MESH_FAKE_STEPS} steps, loss "
+          f"{float(met['loss']):.4f}, {n} B3 launches held to quantize_ref ({ties} with a "
+          f"codebook tie), {thr} of them the threshold search", flush=True)
+    return counts["bcq_quantize"], thr, ties
+
+
+def compressed_steps(mesh, st):
+    """(d): ``CDP_STEPS`` steps of ``make_compressed_dp_step`` over the NCCL
+    mesh's 'data' axis; then the compressed all-reduce of one step's
+    gradients on the card against the same function on the CPU with the
+    same gradients and error buffers, every leaf bit for bit.  On one rank
+    the axis has size 1 and neither run communicates: the check holds the
+    card's int8 arithmetic to the CPU's."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib, train
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import compress_grads_tree, init_error_state, \
+        make_compressed_psum
+
+    api, params, batches = st.api, st.params, st.batches
+    step = train.make_compressed_dp_step(api, st.opt_cfg, mesh, "data")
+    p, o, err, losses = params, adamw.init_state(params), init_error_state(params), []
+    with train.deterministic():
+        for s in range(CDP_STEPS):
+            p, o, err, met = step(p, o, err, batches[s])
+            losses.append(float(met["loss"]))
+        _, grads = train.value_and_grad(api.loss_fn, p, batches[CDP_STEPS])
+    psum = make_compressed_psum(mesh, "data")
+    g_card, e_card = compress_grads_tree(grads, err, psum)
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    g_cpu, e_cpu = compress_grads_tree(adamw.tree_map(cpu, grads), adamw.tree_map(cpu, err),
+                                       make_compressed_psum(mesh_lib.make_mesh((1,), ("data",)),
+                                                            "data"))
+    fc = _flat({"g": g_card, "e": e_card})
+    fh = _flat({"g": g_cpu, "e": e_cpu})
+    diff = [p for (p, a), (_, b) in zip(fc, fh) if not torch.equal(a.cpu(), b)]
+    if diff:
+        fail(f"phase 23 (d): the compressed all-reduce on the card differs from the CPU's in "
+             f"{diff[:6]}")
+    if not all(np.isfinite(losses)):
+        fail(f"phase 23 (d): compressed-DP losses {losses}")
+    print(f"phase 23 (d) compressed-DP step over NCCL: {CDP_STEPS} steps, losses "
+          f"{[round(v, 4) for v in losses]}; one step's compressed gradients and error buffers "
+          f"equal to the CPU's in all {len(fc)} leaves", flush=True)
+    return losses
+
+
+def sharded_decode(cfg, mesh):
+    """(e): the sequence-sharded decode at one rank against the gathered
+    decode (gpt3_126m, contiguous, bf16 cache, f32 compute)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+
+    rt0 = Runtime(compute_dtype=torch.float32, cache_kind="bf16")
+    api0 = zoo.build(cfg, rt0, device="cuda")
+    api1 = zoo.build(cfg, dataclasses.replace(rt0, flash_decode=True, mesh=mesh), device="cuda")
+    params = api0.init(0)
+    g = torch.Generator().manual_seed(23)
+    toks = torch.randint(0, cfg.vocab, (DECODE_ROWS, DECODE_PROMPT), generator=g).cuda()
+    with torch.no_grad():
+        _, c0 = api0.prefill_fn(params, {"tokens": toks}, DECODE_MAX_LEN)
+        c1 = {n: t.clone() for n, t in c0.items()}
+        r0, _ = api0.decode_fn(params, c0, toks[:, -1:], DECODE_PROMPT)
+        mesh_lib.reset_collective_bytes()
+        r1, _ = api1.decode_fn(params, c1, toks[:, -1:], DECODE_PROMPT)
+    ok, err = held(r1, r0, DECODE_TOL, DECODE_TOL)
+    if not ok or mesh_lib.collective_bytes():
+        fail(f"phase 23 (e): the sequence-sharded decode differs from the gathered one by {err:.3e}"
+             f" (tolerance {DECODE_TOL}) or moved collective bytes")
+    # the token's K/V of layer 0 come from its embedding alone, so that layer's cache is
+    # bit-equal; a deeper layer's new K/V follow the attention above it, whose combine
+    # rounds otherwise, and are held to one bf16 rounding step; every other position is
+    # untouched
+    pos = DECODE_PROMPT
+    kv_err, kv_flips, kv_n = 0.0, 0, 0
+    for n in c0:
+        if not (torch.equal(c0[n][0], c1[n][0]) and torch.equal(c0[n][:, :, :pos], c1[n][:, :, :pos])
+                and torch.equal(c0[n][:, :, pos + 1:], c1[n][:, :, pos + 1:])):
+            fail(f"phase 23 (e): the sharded decode's cache write differs from the gathered one's "
+                 f"in {n} (layer 0, or a position it must not touch)")
+        got, ref = c1[n][1:, :, pos], c0[n][1:, :, pos]
+        ok_n, e_n = held(got, ref, DECODE_KV_RTOL, DECODE_TOL)
+        if not ok_n:
+            fail(f"phase 23 (e): the sharded decode wrote {n}[1:, :, {pos}] {e_n:.3e} away from "
+                 f"the gathered one's (rtol {DECODE_KV_RTOL}, atol {DECODE_TOL})")
+        kv_err, kv_flips = max(kv_err, e_n), kv_flips + int((got != ref).sum())
+        kv_n += got.numel()
+    print(f"phase 23 (e) sequence-sharded decode at one rank: {DECODE_ROWS} rows at position "
+          f"{DECODE_PROMPT}, logits within {err:.3e} of the gathered decode (tolerance "
+          f"{DECODE_TOL}); layer 0's cache and every other position bit-equal; the new K/V of "
+          f"layers 1+ within {kv_err:.3e} ({kv_flips} of {kv_n} values one bf16 step apart, "
+          f"rtol {DECODE_KV_RTOL})", flush=True)
+    return err
+
+
+def step_roofline(cfg, mesh, mesh_ms):
+    """(g): the roofline of phase 21's step shape on the (1, 1) mesh (the
+    mesh step traced on meta tensors), against the measured step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline, train
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.optim import adamw
+
+    rt = Runtime()
+    api = zoo.build(cfg, rt, device="meta")
+    params = zoo.param_shapes(cfg, rt)
+    shape = ShapeConfig("phase21", "train", EVAL_SEQ, EVAL_BATCH)
+    batch = zoo.input_specs(cfg, rt, shape)
+    pspecs, _ = train.shardings_for(mesh, api, params)
+    opt = adamw.init_state(params)
+    step = train.make_sharded_train_step(api, adamw.AdamWConfig(), mesh, pspecs)
+    with roofline.trace() as tr:
+        step(params, opt, batch)
+    resident = sum(t.numel() * t.element_size() for t in
+                   adamw.tree_leaves(params) + adamw.tree_leaves(opt) + list(batch.values()))
+    mf = roofline.model_flops(cfg, shape, 1)
+    rl = roofline.analyse(tr, mf, resident)
+    cli_flops = 6.0 * sum(t.numel() for t in adamw.tree_leaves(params)) * EVAL_BATCH * EVAL_SEQ
+    row = rl.row()
+    print(f"phase 23 (g) roofline of phase 21's step ({EVAL_BATCH} × {EVAL_SEQ}, (1, 1) mesh, "
+          f"H100 data-sheet peaks): t_compute {rl.t_compute * 1e3:.1f} ms "
+          f"({ {u: f'{n:.3e}' for u, n in rl.flops_by_unit.items()} } FLOP), t_memory "
+          f"{rl.t_memory * 1e3:.1f} ms ({rl.hbm_bytes:.3e} B, unfused), bottleneck "
+          f"{rl.bottleneck}, peak memory {rl.peak_mem_bytes / 1e9:.1f} GB; measured "
+          f"{mesh_ms:.1f} ms/step: model FLOPs {mf:.3e} a step → {mf / mesh_ms / 1e9:.1f} TFLOP/s "
+          f"({mf / mesh_ms / 1e9 / BF16_FLOPS * 1e12:.3f} of the bf16 peak), the CLI's 6·N·tokens "
+          f"{cli_flops:.3e} → {cli_flops / mesh_ms / 1e9:.1f} TFLOP/s (PERF.md §5: "
+          f"{PHASE21_MODEL_TFLOPS} TFLOP/s); the roofline's bound is "
+          f"{rl.t_bound * 1e3 / mesh_ms:.2f} of the measured step", flush=True)
+    return {k: row[k] for k in ("t_compute_s", "t_memory_s", "bottleneck", "flops_by_unit",
+                                "hbm_bytes_per_dev", "model_flops_per_dev")}
+
+
+def dryrun_cell():
+    """(h): one production dry-run cell in a subprocess."""
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--mesh", mesh], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    recs = [json.loads(line) for line in res.stdout.splitlines() if line.startswith("{")]
+    if res.returncode != 0 or len(recs) != 1 or recs[0].get("status") != "ok":
+        fail(f"phase 23 (h): the dry-run of {DRYRUN_CELL} exited {res.returncode}: "
+             f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+    rec = recs[0]
+    print(f"phase 23 (h) dry-run {arch} {shape} on the fake 16 × 16 mesh: status ok, params "
+          f"{rec['params_gib_per_dev']} GiB and cache {rec['cache_gib_per_dev']} GiB a device, "
+          f"bottleneck {rec['bottleneck']} (t_compute {rec['t_compute_s']:.3e}, t_memory "
+          f"{rec['t_memory_s']:.3e}, t_collective {rec['t_collective_s']:.3e} s), peak "
+          f"{rec['peak_mem_gib']:.2f} GiB (fits 80 GB: {rec['fits_hbm']})", flush=True)
+    return rec
+
+
+def phase_mesh(cb, smi, phase21_ms):
+    """Phase 23: the multi-device layer and the dry-run on one card.
+    (a) a one-rank NCCL group and ``derive_mesh()`` = (1, 1); (b) the mesh
+    step ≡ the plain step; (c) ``--quant fake`` mesh steps through B3;
+    (d) the compressed data-parallel step; (e) the sequence-sharded decode;
+    (f) the five kernels' meta branches; (g) the roofline of phase 21's
+    step; (h) a production dry-run cell.  Returns (B3's launches in (c),
+    the phase's numbers)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime.elastic import derive_mesh
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("gpt3_126m")
+    device = mesh_lib.init_group("cuda")
+    try:
+        mesh = derive_mesh()
+        sizes = mesh_lib.axis_sizes(mesh)
+        if (dist.get_backend(), dist.get_world_size(), sizes) != ("nccl", 1, {"data": 1,
+                                                                                "model": 1}):
+            fail(f"phase 23 (a): {dist.get_backend()} world of {dist.get_world_size()}, "
+                 f"derive_mesh() = {sizes}")
+        print(f"phase 23 (a) process group: {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, {device}; derive_mesh() = {sizes}", flush=True)
+        parts = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            parts[name] = time.perf_counter() - t0
+            return out
+
+        st = timed("setup", _mesh_train_setup, cfg, mesh)
+        mesh_ms, plain_ms, _ = timed("b", mesh_equals_plain, st, phase21_ms)
+        b3, thr, ties = timed("c", mesh_fake_steps, cfg, mesh, st)
+        losses = timed("d", compressed_steps, mesh, st)
+        del st
+        torch.cuda.empty_cache()
+        dec_err = timed("e", sharded_decode, cfg, mesh)
+        print("phase 23 (f) the kernels' meta branches at phase 10's shapes:", flush=True)
+        timed("f", meta_branches, cb)
+        torch.cuda.empty_cache()
+        roof = timed("g", step_roofline, cfg, mesh, mesh_ms)
+        rec = timed("h", dryrun_cell)
+    finally:
+        dist.destroy_process_group()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 23 summary: mesh step {mesh_ms:.1f} vs plain {plain_ms:.1f} ms/step, bit-equal; "
+          f"{b3} B3 launches in the fake mesh steps; compressed-DP losses {losses[0]:.4f} → "
+          f"{losses[-1]:.4f}; sharded decode within {dec_err:.2e}; phase 23 {phase_s:.1f} s ("
+          f"{', '.join(f'{k} {v:.1f}' for k, v in parts.items())}); {smi}", flush=True)
+    return b3, dict(mesh_ms_per_step=mesh_ms, plain_ms_per_step=plain_ms,
+                    threshold_search=thr, ties=ties, compressed_dp_losses=losses,
+                    sharded_decode_err=dec_err, roofline=roof, parts_s=parts,
+                    dryrun={k: rec[k] for k in ("arch", "shape", "status", "bottleneck",
+                                                "params_gib_per_dev", "cache_gib_per_dev")},
+                    phase_s=phase_s)
+
+
 # ------------------------------------------------------------------ phase 10
 def _bound(nbytes, *work):
     """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
@@ -6687,6 +7187,10 @@ def main() -> int:
         kernels[i].update(at)
         kernels[i]["launches"] = sum(kernels[i]["launches_by_path"].values())
         kernels[i]["max_abs_err"] = max(kernels[i]["max_abs_err"], err_zoo[name])
+    counts_mesh, mesh_entry = phase_mesh(cb, smi, trained_form["train_ms_per_step"])
+    kernels[3]["launches_by_path"]["mesh"] = counts_mesh
+    kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
+    kernels[3]["mesh"] = mesh_entry
     kernels.insert(1, stacked)
     check_bounds(kernels)
     print(smi, flush=True)

@@ -15,7 +15,7 @@ atomic, asynchronous, with a retention policy.
 * Async: one writer thread drains a depth-1 queue (a newer snapshot
   replaces a queued stale one), so a caller never waits on the disk.
 * Retention: the newest ``keep`` checkpoints, and every ``keep_every``.
-* Preemption: ``install_sigterm_hook`` runs a final save on SIGTERM.
+* Preemption: ``install_sigterm_hook`` runs a callback on SIGTERM.
 
 Leaves load as CPU tensors; a restore moves them where the caller wants.
 """
@@ -204,7 +204,12 @@ class CheckpointManager:
 
 
 def install_sigterm_hook(fn):
-    """Run ``fn()`` (a final blocking save) on SIGTERM: preemption safety."""
+    """Run ``fn()`` on SIGTERM, then the previous handler if that is
+    callable: preemption safety.  ``fn`` runs inside the signal handler,
+    between two bytecodes of whatever the main thread was doing, so it
+    must not communicate: over several ranks a save that gathers would
+    pair its collectives with another rank's step.  The train CLI passes
+    a flag setter and saves at the next step boundary."""
     prev = signal.getsignal(signal.SIGTERM)
 
     def handler(signum, frame):

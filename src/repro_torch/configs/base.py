@@ -1,8 +1,9 @@
 """Architecture registry: the ``ArchConfig`` dataclass and its lookup.
 
-A copy of ``repro/configs/base.py``'s records and ``ARCH_IDS`` (its
-dry-run shapes aside): the port reads nothing of the JAX package, so it
-keeps its own config records.  Each config module provides ``CONFIG``
+A copy of ``repro/configs/base.py``'s records, ``ARCH_IDS`` and its
+dry-run shapes (``ShapeConfig``, ``SHAPES``, ``cell_is_applicable``): the
+port reads nothing of the JAX package, so it keeps its own config
+records.  Each config module provides ``CONFIG``
 (the published shape) and ``smoke()`` (a 2-layer reduction for CPU
 tests).
 """
@@ -68,8 +69,60 @@ class ArchConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def vocab_padded(self) -> int:
         return ((self.vocab + 255) // 256) * 256  # pad for clean sharding
+
+    def param_count(self) -> int:
+        """Approximate total parameters (embeddings + blocks)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_padded
+        hd = self.head_dim
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        if self.family == "ssm":
+            di = self.ssm.expand * d
+            blk = d * (2 * di + 2 * self.ssm.d_state + di // self.ssm.head_dim) + di * d
+        elif self.family == "moe":
+            blk = attn + self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+        elif self.family == "hybrid":
+            lw = self.hybrid.lru_width or d
+            rec = 2 * d * lw + 2 * lw + lw * d
+            n_attn = sum(1 for p in self.hybrid.pattern if p == "attn")
+            n_rec = len(self.hybrid.pattern) - n_attn
+            blk = (n_attn * attn + n_rec * rec) / len(self.hybrid.pattern) + 3 * d * f
+        else:
+            mlp_mult = 3 if self.act == "swiglu" else 2
+            blk = attn + mlp_mult * d * f
+        total = self.n_layers * blk + v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "encdec":
+            total += self.n_encoder_layers * (attn + 2 * d * f) + self.n_layers * attn  # cross-attn
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        dense = self.param_count() - self.n_layers * self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+        return int(dense + self.n_layers * self.moe.top_k * 3 * d * self.moe.d_ff_expert)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 ARCH_IDS = [
@@ -94,3 +147,10 @@ def get_arch(arch_id: str) -> ArchConfig:
 def get_smoke(arch_id: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{arch_id.replace('-', '_')}")
     return mod.smoke()
+
+
+def cell_is_applicable(arch: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch × shape) dry-run cell runs, and why not if skipped."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, "full quadratic attention — 500k decode assigned to SSM/hybrid only"
+    return True, ""

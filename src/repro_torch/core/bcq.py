@@ -313,8 +313,10 @@ def fake_quant(x: torch.Tensor, codebooks: torch.Tensor, cfg: BCQConfig, s_x=Non
     A CUDA tensor is encoded by the quantize kernel (B3,
     ``kernels.bcq_quantize``, x as (M, K) padded to whole arrays; ``s_x``
     a 0-d tensor) and decoded with torch ops on the device; a CPU tensor
-    takes ``fake_quant_plain``.  The decoded values are the plain
-    route's, bit for bit (a codebook tie moves a selector, not a value).
+    takes ``fake_quant_plain``; a meta tensor (the dry-run) takes the
+    kernel's route, whose meta branch counts B3's work.  The decoded
+    values are the plain route's, bit for bit (a codebook tie moves a
+    selector, not a value).
 
     The gradient is the plain route's, which is the reference's (there is
     no straight-through estimator): the encode's outputs — indices,

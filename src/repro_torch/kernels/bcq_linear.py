@@ -29,6 +29,17 @@ BCQ_LINEAR = build.counter("bcq_linear")
 BCQ_LINEAR_EXPERTS = build.counter("bcq_linear_experts")
 
 
+def linear_cost(e: int, m: int, k: int, n: int) -> tuple:
+    """(HBM bytes, operations by unit) of ``e`` fused linears of M×K by
+    N×K sharing one ``s_x``: x read and out written in f32, each packed
+    weight (idx, sel, dequant scales) read once; the int8 product on the
+    tensor cores and the encode on the CUDA cores."""
+    rows = e * m
+    nbytes = (rows * k * 4 + e * (n * k // 2 + n * k // 16 + n * k // 64 * 4) + 8 * 16 * 4 + 4
+              + rows * n * 4)
+    return nbytes, {"int8": 2 * rows * n * k, "f32": build.ENCODE_OPS * rows * k}
+
+
 def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.Tensor:
     """Fused W4A4 linear: raw x (M, K) f32 + packed weights → f32 (M, N).
 
@@ -41,10 +52,11 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
     if x.device.type == "cpu":
         return fused_linear_ref(x, w_idx, w_sel, w_inv, codebooks, cfg, s_x,
                                 valid_k=x.shape[1])
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_linear: unsupported device {x.device}")
     check_kernel_config(cfg, "bcq_linear kernel")
-    check_kernel_codebooks(codebooks, cfg)
+    if x.device.type == "cuda":
+        check_kernel_codebooks(codebooks, cfg)
     m, k = x.shape
     n = w_idx.shape[0]
     if k % cfg.array_len:
@@ -56,6 +68,9 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
     ):
         build.check_tensor(f"bcq_linear kernel: {name}", t, dt, shape, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        build.add_meta_cost("bcq_linear", *linear_cost(1, m, k, n))
+        return out
     if m == 0 or n == 0:
         return out
     x, w_idx = build.aligned(x, 16), build.aligned(w_idx, 16)  # read in 16-byte words
@@ -82,10 +97,11 @@ def bcq_linear_experts(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -
     build.refuse_grad("bcq_linear_experts", x, w_inv, codebooks, s_x)
     if x.device.type == "cpu":
         return fused_linear_experts_ref(x, w_idx, w_sel, w_inv, codebooks, cfg, s_x)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_linear_experts: unsupported device {x.device}")
     check_kernel_config(cfg, "bcq_linear_experts kernel")
-    check_kernel_codebooks(codebooks, cfg)
+    if x.device.type == "cuda":
+        check_kernel_codebooks(codebooks, cfg)
     e, c, k = x.shape
     n = w_idx.shape[1]
     if k % cfg.array_len or not 1 <= e <= 65535:
@@ -98,6 +114,9 @@ def bcq_linear_experts(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -
     ):
         build.check_tensor(f"bcq_linear_experts kernel: {name}", t, dt, shape, x.device)
     out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        build.add_meta_cost("bcq_linear_experts", *linear_cost(e, c, k, n))
+        return out
     if c == 0 or n == 0:
         return out
     x, w_idx = build.aligned(x, 16), build.aligned(w_idx, 16)  # read in 16-byte words

@@ -3,7 +3,8 @@ W4A4 GEMM.
 
 Counterpart of ``repro/kernels/bcq_matmul.py``.  ``bcq_matmul`` launches
 csrc/bcq_matmul.cu for CUDA tensors (design notes in the source) and runs
-the plain version, ``ref.matmul_ref``, for CPU tensors.
+the plain version, ``ref.matmul_ref``, for CPU tensors; meta tensors (the
+dry-run) get a meta output and ``matmul_cost``'s count.
 """
 from __future__ import annotations
 
@@ -16,6 +17,13 @@ from repro_torch.kernels.ref import matmul_ref
 BCQ_MATMUL = build.counter("bcq_matmul")
 
 
+def matmul_cost(m: int, k: int, n: int) -> tuple:
+    """(HBM bytes, operations by unit): both packed operands read once,
+    the f32 output written once; the int8 product on the tensor cores."""
+    nbytes = (m + n) * (k // 2 + k // 16 + k // 64 * 4) + 2 * 8 * 16 * 4 + m * n * 4
+    return nbytes, {"int8": 2 * m * n * k}
+
+
 def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_w,
                cfg: BCQConfig) -> torch.Tensor:
     """out (M, N) f32 = decode(A) · decode(W)ᵀ for packed rows: idx u8
@@ -25,11 +33,12 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
     build.refuse_grad("bcq_matmul", a_inv, w_inv, codebooks_a, codebooks_w)
     if a_idx.device.type == "cpu":
         return matmul_ref(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_w, cfg)
-    if a_idx.device.type != "cuda":
+    if a_idx.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_matmul: unsupported device {a_idx.device}")
     check_kernel_config(cfg, "bcq_matmul kernel")
-    check_kernel_codebooks(codebooks_a, cfg)
-    check_kernel_codebooks(codebooks_w, cfg)
+    if a_idx.device.type == "cuda":
+        check_kernel_codebooks(codebooks_a, cfg)
+        check_kernel_codebooks(codebooks_w, cfg)
     m, n, k = a_idx.shape[0], w_idx.shape[0], a_idx.shape[1] * 2
     if k % cfg.array_len:
         raise ValueError(f"bcq_matmul kernel: K={k} is not a multiple of {cfg.array_len}")
@@ -44,6 +53,9 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
     ):
         build.check_tensor(f"bcq_matmul kernel: {name}", t, dt, shape, dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        build.add_meta_cost("bcq_matmul", *matmul_cost(m, k, n))
+        return out
     if m == 0 or n == 0:
         return out
     a_idx, w_idx = build.aligned(a_idx, 16), build.aligned(w_idx, 16)  # 16-byte copies

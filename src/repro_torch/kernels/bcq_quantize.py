@@ -16,6 +16,10 @@ the source) for CUDA tensors:
   ``paged_chunk_write`` with ``kernel=True``, which own the choice: for
   CPU tensors, or with ``kernel=False``, they run the plain version (the
   reference's ``bcq.encode`` plus the last-writer scatter).
+
+On meta tensors (the dry-run) both run their checks, make meta outputs
+(the writer none: it writes in place) and add ``quantize_cost`` /
+``page_write_cost`` to the build's meta count.
 """
 from __future__ import annotations
 
@@ -32,6 +36,24 @@ BCQ_QUANTIZE_THR = build.counter("bcq_quantize_thr")
 BCQ_PAGE_WRITE = build.counter("bcq_page_write")
 
 
+def quantize_cost(m: int, k: int) -> tuple:
+    """(HBM bytes, operations by unit) of the encode of (M, K): x read in
+    f32, idx, sel and the ratio written; the encode on the CUDA cores (the
+    table's count; trained books' threshold search does more)."""
+    nbytes = m * k * 4 + m * k // 2 + m * k // 16 + m * k // 64 * 4 + 8 * 16 * 4 + 4
+    return nbytes, {"f32": build.ENCODE_OPS * m * k}
+
+
+def page_write_cost(k: torch.Tensor, rows: int, la: int, id_bytes: int) -> tuple:
+    """(HBM bytes, operations by unit) of the page writer: K and V read,
+    ``rows`` slots of each written (idx, sel, scale per head), the page
+    ids read; the encode on the CUDA cores."""
+    h, d = k.shape[2], k.shape[3]
+    nbytes = (2 * k.numel() * k.element_size() + 2 * rows * h * (d // 2 + d // 16 + d // la)
+              + id_bytes + 8 * 16 * 4 + 8)
+    return nbytes, {"f32": build.ENCODE_OPS * 2 * k.numel()}
+
+
 def bcq_quantize(x: torch.Tensor, codebooks: torch.Tensor, s_x: torch.Tensor, cfg: BCQConfig):
     """Encode x (M, K) f32 with the per-tensor scale ``s_x`` (a 0-d
     tensor) → (idx u8 (M, K/2), sel u8 (M, K/16), ratio f32 (M, K/L_A)).
@@ -42,10 +64,11 @@ def bcq_quantize(x: torch.Tensor, codebooks: torch.Tensor, s_x: torch.Tensor, cf
     (``bcq.fake_quant`` decodes them with torch ops that carry it)."""
     if x.device.type == "cpu":
         return quantize_ref(x, codebooks, cfg, s_x)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_quantize: unsupported device {x.device}")
     check_kernel_config(cfg, "bcq_quantize kernel")
-    whole = check_kernel_codebooks(codebooks, cfg, integer=False)
+    if x.device.type == "cuda":
+        whole = check_kernel_codebooks(codebooks, cfg, integer=False)
     m, k = x.shape
     if k % cfg.array_len:
         raise ValueError(f"bcq_quantize kernel: K={k} is not a multiple of {cfg.array_len}")
@@ -57,6 +80,9 @@ def bcq_quantize(x: torch.Tensor, codebooks: torch.Tensor, s_x: torch.Tensor, cf
     idx = torch.empty((m, k // 2), dtype=torch.uint8, device=x.device)
     sel = torch.empty((m, k // 16), dtype=torch.uint8, device=x.device)
     ratio = torch.empty((m, k // 64), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        build.add_meta_cost("bcq_quantize", *quantize_cost(m, k))
+        return idx, sel, ratio
     if m == 0:
         return idx, sel, ratio
     lib = build.library()
@@ -87,11 +113,12 @@ def bcq_page_write(pool: dict, k, v, cfg: BCQConfig, cb, *, page_ids=None, offse
     row-major order.  The same bytes as the plain writes of
     ``layers.paged_token_write`` / ``paged_chunk_write``.  CUDA tensors
     only: the layers run the plain version for CPU tensors."""
-    if k.device.type != "cuda":
+    if k.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_page_write: unsupported device {k.device}")
     if (cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (8, 16, 8):
         raise ValueError(f"bcq_page_write kernel: unsupported BCQ config {cfg}")
-    check_kernel_codebooks(cb, cfg)
+    if k.device.type == "cuda":
+        check_kernel_codebooks(cb, cfg)
     b, s, h, d = k.shape
     la = cfg.array_len if d % cfg.array_len == 0 else min(cfg.array_len, d)  # layers._cache_cfg
     if la not in (16, 32, 64) or d % la or d > 256:
@@ -104,7 +131,7 @@ def bcq_page_write(pool: dict, k, v, cfg: BCQConfig, cb, *, page_ids=None, offse
     for leaf, last in zip(leaves, (d // 2, d // 16, d // la) * 2):
         build.check_tensor("bcq_page_write kernel: pool leaf", leaf, torch.uint8,
                            (n_pages, ps, h, last), k.device)
-    if leaves[0].data_ptr() % 4 or leaves[3].data_ptr() % 4:
+    if k.device.type == "cuda" and (leaves[0].data_ptr() % 4 or leaves[3].data_ptr() % 4):
         raise ValueError("bcq_page_write kernel: idx leaves must be 4-byte aligned")
     for name in ("k_sx", "v_sx"):
         build.check_tensor(f"bcq_page_write kernel: {name}", pool[name], torch.float32, (),
@@ -124,6 +151,11 @@ def bcq_page_write(pool: dict, k, v, cfg: BCQConfig, cb, *, page_ids=None, offse
             got = "None" if t is None else f"{tuple(t.shape)} {t.dtype} on {t.device}"
             raise ValueError(f"bcq_page_write kernel: {name} is {got}, expected {shape} "
                              f"int32 or int64 on {k.device}")
+    if k.device.type == "meta":  # the pool is written in place: no output to make
+        rows = b if chunk_page_ids is None else b * n_cp * ps
+        build.add_meta_cost("bcq_page_write", *page_write_cost(
+            k, rows, la, sum(t.numel() * t.element_size() for t in (ids, aux) if t is not None)))
+        return pool
     if b == 0 or s == 0 or h == 0 or (n_cp == 0 and chunk_page_ids is not None):
         return pool
     if ids.ndim == 2 and ids.stride(1) != 1:

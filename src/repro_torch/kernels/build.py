@@ -10,7 +10,9 @@ shared header is rebuilt and an unchanged tree reused.
 
 Each kernel wrapper keeps a :class:`LaunchCounter` that it bumps where
 (and only where) it launches its kernel; ``reset_counts`` / ``counts``
-let a script show which kernels a run went through.
+let a script show which kernels a run went through.  Called on meta
+tensors a wrapper runs its checks, returns meta outputs and adds its
+kernel's bytes and operations to ``META_COST`` instead.
 """
 from __future__ import annotations
 
@@ -80,6 +82,35 @@ def reset_counts() -> None:
 
 def counts() -> dict[str, int]:
     return {n: c.count for n, c in COUNTERS.items()}
+
+
+# The LO-BCQ encode's operations per scalar and codebook on the CUDA
+# cores: a table read, the difference, its square, the block sum.
+ENCODE_OPS = 8 * (1 + 3)
+
+# The work of the kernels' calls on meta tensors (the dry-run's trace):
+# kernel → {"calls", "bytes" (HBM, each input read once and each output
+# written once), "int8" / "bf16" (tensor-core operations), "f32"
+# (CUDA-core operations)}, the counts PERF.md's kernel table prices a
+# bound with.  A meta call launches nothing and bumps no launch counter.
+META_COST: dict = {}
+
+
+def add_meta_cost(name: str, nbytes: float, ops: dict) -> None:
+    row = META_COST.setdefault(name, {"calls": 0, "bytes": 0.0, "int8": 0.0, "bf16": 0.0,
+                                      "f32": 0.0})
+    row["calls"] += 1
+    row["bytes"] += nbytes
+    for unit, n in ops.items():
+        row[unit] += n
+
+
+def reset_meta_cost() -> None:
+    META_COST.clear()
+
+
+def meta_cost() -> dict:
+    return {k: dict(v) for k, v in META_COST.items()}
 
 
 def find_nvcc() -> str:

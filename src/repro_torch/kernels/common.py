@@ -12,7 +12,8 @@ Counterpart of ``repro/kernels/common.py``:
   CUDA kernels (csrc/page_gather.cu: a row's pages split into groups of
   ``SPLIT_PAGES``, one block each, then a combine of the splits' partial
   softmax states in ascending split order) for CUDA tensors and runs
-  ``page_gather_attention_plain`` for CPU tensors.
+  ``page_gather_attention_plain`` for CPU tensors; meta tensors (the
+  dry-run) get a meta output and ``gather_cost``'s count.
 
 Semantics of the core (``repro/kernels/common.py:236-262``, ``:330-371``):
 query c of row b sits at ``kv_len[b] - C + c`` and sees page token t iff
@@ -175,6 +176,25 @@ def page_gather_attention_plain(q, pool, block_tables, kv_len, kind, cfg, cb=Non
     return out.reshape(b, c, h, d)
 
 
+def gather_cost(kind: str, q, k_leaves: list, block_tables, kv_len=None) -> tuple:
+    """(HBM bytes, operations by unit) of the page gather: q read and out
+    written in f32, each walked K and V page read once, the tables and
+    lengths read; QK and PV of every query head over its causally visible
+    keys on the CUDA cores.  ``kv_len`` (a list of ints) counts the pages
+    and keys that data walks; None counts every row at its table's full
+    length (the most the call can need: the dry-run's meta lengths)."""
+    b, c, h, d = q.shape
+    ps, hkv = k_leaves[0].shape[1:3]
+    maxp = block_tables.shape[1]
+    lens = [maxp * ps] * b if kv_len is None else kv_len
+    page_bytes = sum(ps * leaf[0, 0].numel() * leaf.element_size() for leaf in k_leaves)
+    pages = sum(min(max(1, -(-n // ps)), maxp) for n in lens)
+    nbytes = (2 * q.numel() * 4 + 2 * pages * page_bytes + block_tables.numel() * 4 + b * 4
+              + (8 * 16 * 4 + 8 if kind == "bcq4" else 0))
+    seen = sum(n - c + i + 1 for n in lens for i in range(c))  # (query, key) pairs, causal
+    return nbytes, {"f32": 4 * h * d * seen}
+
+
 def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
     """The shared page-gather attention over one layer's page pool.
 
@@ -186,7 +206,7 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
     launch of the page gather) or raise."""
     if q.device.type == "cpu":
         return page_gather_attention_plain(q, pool, block_tables, kv_len, kind, cfg, cb)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"page_gather_attention: unsupported device {q.device}")
     b, c, h, d = q.shape
     kl, vl = page_pool_leaves(pool, kind)
@@ -212,6 +232,12 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
                 )
             if not leaf.is_contiguous():
                 raise ValueError("page_gather kernel: pool leaves must be contiguous")
+    if q.device.type == "meta":
+        if tuple(block_tables.shape) != (b, maxp) or tuple(kv_len.shape) != (b,):
+            raise ValueError("page_gather kernel: block_tables (B, MAXP) and kv_len (B,) expected")
+        lens = None if kv_len.device.type == "meta" else kv_len.tolist()
+        build.add_meta_cost("page_gather", *gather_cost(kind, q, kl, block_tables, lens))
+        return torch.empty((b, c, h, d), dtype=torch.float32, device="meta")
     kl[0], vl[0] = build.aligned(kl[0], 16), build.aligned(vl[0], 16)  # copied by 16-byte chunks
     qf = q.float().contiguous()
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()

@@ -9,7 +9,8 @@ f32 inputs on the CUDA cores in f32;
 ``flash_attention_plain`` computes the same function in plain PyTorch;
 ``flash_attention`` takes (B, S, H, D), repeats K/V heads for GQA and
 dispatches by device: CPU tensors run the plain version, CUDA tensors
-the kernel (or raise).
+the kernel (or raise), meta tensors (the dry-run) the kernel's meta
+branch, which adds ``flash_cost`` to the build's meta count.
 
 Semantics (``flash_attention.py:23-59``): scores q·k·dh^-0.5 in f32,
 masked where a key lies after the query (causal) with the finite
@@ -24,6 +25,16 @@ from repro_torch.kernels import build
 
 FLASH_ATTENTION = build.counter("flash_attention")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_cost(bh: int, s_len: int, d: int, dtype, causal: bool = True) -> tuple:
+    """(HBM bytes, operations by unit): q, k, v read once and out written
+    once; q·k and p·v over the (causally) visible pairs, on the bf16 tensor
+    cores for bf16 inputs and the f32 CUDA cores for f32 ones."""
+    item = torch.empty((), dtype=dtype).element_size()
+    pairs = s_len * (s_len + 1) // 2 if causal else s_len * s_len
+    unit = "bf16" if dtype == torch.bfloat16 else "f32"
+    return 4 * bh * s_len * d * item, {unit: 4 * d * pairs * bh}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,13 +57,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16-byte chunks).  No backward: inputs that require grad under autograd
     raise."""
     build.refuse_grad("flash_attention kernel", q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention kernel: unsupported device {q.device}")
     if q.ndim != 3 or q.dtype not in _DTYPE_CODE or q.shape[2] not in (32, 64, 128):
         raise ValueError(f"flash_attention kernel: unsupported q {tuple(q.shape)} {q.dtype}")
     bh, s_len, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.check_tensor(f"flash_attention kernel: {name}", t, q.dtype, (bh, s_len, d), q.device)
+    if q.device.type == "meta":
+        build.add_meta_cost("flash_attention", *flash_cost(bh, s_len, d, q.dtype, causal))
+        return torch.empty_like(q)
     if q.dtype == torch.bfloat16:
         q, k, v = (build.aligned(t, 16) for t in (q, k, v))
     out = torch.empty_like(q)
@@ -74,7 +88,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the reference's), so inputs that require grad under autograd raise on
     either device; the training forward runs the masked softmax."""
     build.refuse_grad("flash_attention", q, k, v)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, s_len, h, d = q.shape
     rep = h // k.shape[2]

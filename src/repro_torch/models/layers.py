@@ -48,7 +48,13 @@ class Runtime:
     (``serving.telemetry.QuantProbeRecorder``), None for no probe.
     remat: each layer of the stack is recomputed in the backward instead
     of keeping its activations (``maybe_remat``); remat_policy ``full``
-    saves nothing of a layer, ``dots`` saves its linears' outputs."""
+    saves nothing of a layer, ``dots`` saves its linears' outputs.
+    flash_decode with ``mesh`` (a ``launch.mesh`` DeviceMesh with a
+    'model' axis): the contiguous single-token decode runs over a cache
+    whose sequence dim is sharded over 'model' — each rank holds its
+    block — through ``cache_write_sharded`` and ``flash_decode_sharded``
+    (exact softmax from per-shard partials: one max and two sums over
+    the axis instead of gathering the cache)."""
 
     quant_mode: str = "none"
     bcq_cfg: BCQConfig = BCQConfig()
@@ -63,6 +69,8 @@ class Runtime:
     quant_probe: Any = None
     remat: bool = False
     remat_policy: str = "full"  # full | dots
+    flash_decode: bool = False
+    mesh: Any = None  # required when flash_decode is set
 
 
 QUANT_MODES = ("none", "fake", "fake_full", "packed")
@@ -493,6 +501,70 @@ def paged_gather_kv(pool, block_tables, kind, cfg: BCQConfig, cb, dtype):
     return cache_read(gathered, kind, cfg, cb, dtype)
 
 
+# -------------------------------------------- sequence-sharded decode
+def _model_axis(rt: Runtime):
+    from repro_torch.launch import mesh as mesh_lib
+
+    if "model" not in rt.mesh.mesh_dim_names:
+        return None
+    return mesh_lib.axis(rt.mesh, "model")
+
+
+def flash_decode_sharded(q, kf, vf, valid, rt: Runtime):
+    """Exact-softmax decode attention with the KV sequence sharded over
+    the 'model' axis of ``rt.mesh``.  Per shard: local scores → running
+    (max, sum, acc); the cross-shard combine is a ``pmax`` and two
+    ``psum``s of (B, H[, D]) instead of all-gathering the cache.
+
+    q: (B, 1, H, D), the same on every rank of the axis; kf/vf: this
+    rank's block (B, S/mp, Hkv, D) of the cache, block i holding
+    positions [i·S/mp, (i+1)·S/mp); valid: the live positions (an int).
+    Returns None (the caller attends over its cache) for more than one
+    query or a mesh without a 'model' axis, as the reference does."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    b, sq, h, d = q.shape
+    ax = _model_axis(rt)
+    if sq != 1 or ax is None:
+        return None
+    rep = h // kf.shape[2]
+    kx = torch.repeat_interleave(kf, rep, dim=2) if rep > 1 else kf
+    vx = torch.repeat_interleave(vf, rep, dim=2) if rep > 1 else vf
+    s_loc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx.float()) * d**-0.5
+    sl = kf.shape[1]
+    j = ax.index * sl + torch.arange(sl, device=q.device)
+    s_loc = torch.where(j[None, None, None, :] < valid, s_loc, -1e30)
+    m = mesh_lib.pmax(s_loc.amax(dim=-1), ax)  # (B, H, 1)
+    p = torch.exp(s_loc - m[..., None])
+    l = mesh_lib.psum(p.sum(dim=-1), ax)  # (B, H, 1)
+    acc = mesh_lib.psum(torch.einsum("bhqk,bkhd->bqhd", p, vx.float()), ax)
+    out = acc / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def cache_write_sharded(cache, k_new, v_new, pos: int, rt: Runtime, cb):
+    """The decode step's cache insert with the sequence dim sharded over
+    'model', IN PLACE: the new (B, 1, H, D) token is quantized through a
+    length-1 staging cache (``cache_write``), then the owning rank (owner
+    = pos // block length) writes it at pos % block length and the
+    others pass through — zero collectives.  Returns the cache."""
+    ax = _model_axis(rt)
+    me = 0 if ax is None else ax.index
+    stage = cache_init(k_new.shape[0], 1, k_new.shape[2], k_new.shape[3], rt.cache_kind,
+                       rt.bcq_cfg, device=k_new.device)
+    for n in ("k_sx", "v_sx"):
+        if n in cache:
+            stage[n] = cache[n]
+    cache_write(stage, k_new, v_new, 0, rt.cache_kind, rt.bcq_cfg, cb)
+    for n, buf in cache.items():
+        if buf.ndim < 2:
+            continue  # the pool-global scales
+        shard_len = buf.shape[1]
+        if pos // shard_len == me:
+            buf[:, pos % shard_len] = stage[n][:, 0].to(buf.dtype)
+    return cache
+
+
 # ---------------------------------------------------------------- attention
 def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True, window=None):
     """Exact softmax attention.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D);
@@ -526,7 +598,10 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
     ``cache_pos`` an int: the SLAB path — x's K/V are written at
     ``cache_pos`` (``cache_write``, in place) and x attends to the first
     ``cache_pos + S`` positions of the cache, the only ones the read
-    dequantizes.  ``cache_pos`` a (B,) tensor: the PER-ROW decode of the
+    dequantizes; with ``rt.flash_decode`` and ``rt.mesh``, a single-token
+    step over this rank's sequence block of the cache instead
+    (``cache_write_sharded``, ``flash_decode_sharded``).  ``cache_pos`` a
+    (B,) tensor: the PER-ROW decode of the
     state engine — S == 1, row i writes its token at ``cache_pos[i]``
     (``cache_write_rows``) and attends to its first ``cache_pos[i] + 1``
     positions.  The reference uses no Pallas kernel here; its linears
@@ -563,7 +638,13 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
     kind = rt.cache_kind
 
     if cache is not None:
-        if torch.is_tensor(cache_pos) and cache_pos.ndim >= 1:  # per-row decode
+        sharded = (rt.flash_decode and rt.mesh is not None and s == 1 and window is None
+                   and not torch.is_tensor(cache_pos))
+        if sharded:  # the sequence-sharded decode: this rank's block of the cache
+            pool = cache_write_sharded(cache, k, v, cache_pos, rt, cb)
+            kf, vf = cache_read(cache, kind, rt.bcq_cfg, cb, rt.compute_dtype)
+            valid = cache_pos + s
+        elif torch.is_tensor(cache_pos) and cache_pos.ndim >= 1:  # per-row decode
             if s != 1:
                 raise ValueError("a per-row cache_pos is a single-token decode")
             pool = cache_write_rows(cache, k, v, cache_pos, kind, rt.bcq_cfg, cb)
@@ -574,7 +655,9 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
             kf, vf = cache_read(cache, kind, rt.bcq_cfg, cb, rt.compute_dtype,
                                 valid_len=cache_pos + s)
             valid = cache_pos + s
-        out = _attend_chunked(q, kf, vf, positions, valid, causal, window)
+        out = flash_decode_sharded(q, kf, vf, valid, rt) if sharded else None
+        if out is None:
+            out = _attend_chunked(q, kf, vf, positions, valid, causal, window)
     elif paged is None:
         pool = None
         if rt.flash_kernel and causal and window is None and s == k.shape[1]:

@@ -11,7 +11,27 @@ model with its encoder output in ``shared_ro`` pages besides.  A VLM
 keeps the transformer's KV machinery but has no page spec: its prefill
 needs patch embeddings that paged admission does not carry, so it serves
 contiguously only (``launch.batching``, ``serving.generate``), as in the
-reference."""
+reference.
+
+The sharding rules (the reference's, spec for spec) and the dry-run's
+stand-ins: ``param_pspecs``, ``cache_pspecs`` and ``batch_pspecs`` lay a
+tree out over a mesh's named axes (per-pod mesh ('data', 'model'); the
+multi-pod mesh adds a leading 'pod' axis, data-parallel by default):
+
+* GEMM kernels (K, N): FSDP over 'data' on K, TP over 'model' on N — each
+  applied only when the dim divides the axis (else replicated on that dim);
+* embeddings / lm_head: vocab over 'model', d_model over 'data';
+* MoE expert kernels (E, K, N): EP over 'model' on E, FSDP over 'data' on K
+  (``MOE_EXPERT_SPEC``; ``PARAM_LAYOUT`` 'tp' keeps weights whole over
+  'data', the serving layout);
+* stacked layers get a leading None (the layer axis is not sharded);
+* KV caches: batch over 'data'; kv-heads over 'model' when divisible,
+  else the *sequence* dim takes 'model' (e.g. full-MHA 40-head caches);
+* norms / biases / codebooks: replicated.
+
+A spec is the reference's ``PartitionSpec`` as a tuple (``launch/mesh.py``).
+``param_shapes``, ``input_specs`` and ``cache_specs`` give the trees on the
+meta device, drawing and allocating nothing."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,12 +39,24 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.bcq import check_kernel_config
 from repro_torch.core.calibrate import default_universal_codebooks
 from repro_torch.core.ptq import decode_scales, pack_params, quantize_params
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.layers import Runtime
+
+STACK_TOKENS = ("layers", "periods", "enc_layers", "dec_layers")
+
+# MoE expert-kernel sharding policy: 'fsdp' (default — EP×FSDP, weights
+# gathered over 'data' per use) or 'tp2d' (EP×TP — activations reduced
+# instead).
+MOE_EXPERT_SPEC = "fsdp"
+
+# Param layout: 'fsdp' (training default — ZeRO-3 over 'data' + TP over
+# 'model') or 'tp' (serving — TP-only, params replicated over 'data' so no
+# per-step weight all-gathers).
+PARAM_LAYOUT = "fsdp"
 
 # the families the paged engines serve (either engine); ``vlm`` is built
 # and served contiguously only, as in the reference
@@ -332,3 +364,188 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ------------------------------------------------------- dry-run stand-ins
+def _to_meta(tree):
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def param_shapes(cfg: ArchConfig, rt: Runtime) -> dict:
+    """The parameter tree ``build(cfg, rt).init`` makes, on the meta
+    device: shapes and dtypes only, nothing drawn (the counterpart of
+    ``jax.eval_shape(api.init, key)``).  The float weights are traced
+    under a fake-tensor mode; the W4A4 modes add the codebooks (and
+    ``packed`` packs the GEMM kernels, still on fake tensors)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    floats = dataclasses.replace(rt, quant_mode="none", cache_kind="bf16")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = build(cfg, floats, device="cpu").init(0)
+        cb = None
+        if rt.quant_mode != "none" or rt.cache_kind == "bcq4":
+            cb = default_universal_codebooks(rt.bcq_cfg).as_tensor("cpu")
+        if cb is not None:
+            if rt.quant_mode == "packed":
+                params = decode_scales(pack_params(params, cb, rt.bcq_cfg))
+            params["codebooks"] = cb
+    return _to_meta(params)
+
+
+def input_specs(cfg: ArchConfig, rt: Runtime, shape: ShapeConfig) -> dict:
+    """Meta stand-ins for every model input of this cell."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":  # one new token against a seq_len cache
+        return {"tokens": meta(b, 1)}
+    specs = {"tokens": meta(b, s)}
+    if shape.kind == "train":
+        specs["labels"] = meta(b, s)
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = meta(b, cfg.n_patches, cfg.d_model, dtype=torch.bfloat16)
+    if cfg.family == "encdec":
+        specs["frames"] = meta(b, cfg.encoder_len, cfg.d_model, dtype=torch.bfloat16)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, rt: Runtime, shape: ShapeConfig):
+    """The serving cache of a decode cell on the meta device."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        xkv = tuple(torch.empty((cfg.n_layers, b, cfg.encoder_len, cfg.n_kv_heads, cfg.head_dim),
+                                dtype=rt.compute_dtype, device="meta") for _ in range(2))
+        return {"self": transformer.cache_init_stacked(cfg, rt, b, s, device="meta"), "xkv": xkv}
+    if cfg.family == "ssm":
+        return ssm.ssm_cache_stacked(cfg, b, device="meta")
+    if cfg.family == "hybrid":
+        return hybrid.hybrid_cache_init(cfg, rt, b, device="meta")
+    return transformer.cache_init_stacked(cfg, rt, b, s, device="meta")
+
+
+# --------------------------------------------------------- sharding rules
+def _div(n, axes, name):
+    return name in axes and n % axes[name] == 0
+
+
+def _kernel_spec(shape, axes):
+    """(K, N) GEMM kernel → FSDP('data') × TP('model')."""
+    k, n = shape[-2], shape[-1]
+    return (
+        "data" if _div(k, axes, "data") else None,
+        "model" if _div(n, axes, "model") else None,
+    )
+
+
+def _spec_for(path: str, shape, axes) -> tuple:
+    ndim = len(shape)
+    stacked = any(t in path for t in STACK_TOKENS)
+    lead = (None,) if stacked else ()
+    core = shape[1:] if stacked else shape
+
+    def wrap(*dims):
+        return lead + tuple(dims)
+
+    if "codebooks" in path or ndim == 0:
+        return ()
+    if "embed" in path or "lm_head" in path:
+        v, d = (core[0], core[1]) if core[0] > core[1] else (core[1], core[0])
+        big = "model" if _div(v, axes, "model") else None
+        small = None if PARAM_LAYOUT == "tp" else ("data" if _div(d, axes, "data") else None)
+        if core[0] >= core[1]:
+            return wrap(big, small)
+        return wrap(small, big)
+    if "kernel_packed" in path and len(core) >= 2:
+        # packed buffers: (..., N, K') — TP on N (+ FSDP on K' for training)
+        dims = [None] * len(core)
+        if _div(core[-2], axes, "model"):
+            dims[-2] = "model"
+        if PARAM_LAYOUT != "tp" and _div(core[-1], axes, "data"):
+            dims[-1] = "data"
+        if len(core) == 3 and _div(core[0], axes, "model"):
+            dims[0] = "model"
+            dims[-2] = None
+        return wrap(*dims)
+    if path.endswith("kernel") and "conv" not in path:
+        if PARAM_LAYOUT == "tp" and len(core) == 2 and "router" not in path:
+            return wrap(None, "model" if _div(core[1], axes, "model") else None)
+        if len(core) == 3:  # MoE experts (E, K, N)
+            if PARAM_LAYOUT == "tp" and MOE_EXPERT_SPEC != "tp2d":
+                return wrap("model" if _div(core[0], axes, "model") else None, None, None)
+            if MOE_EXPERT_SPEC == "tp2d":
+                # 2-D tensor parallel: EP over 'model' + TP over 'data' on
+                # the non-reduction dim — no FSDP weight gathers
+                if "/wo" in path:
+                    return wrap("model", "data" if _div(core[1], axes, "data") else None, None)
+                return wrap("model", None, "data" if _div(core[2], axes, "data") else None)
+            return wrap(
+                "model" if _div(core[0], axes, "model") else None,
+                "data" if _div(core[1], axes, "data") else None,
+                None,
+            )
+        if len(core) == 2:
+            if "router" in path:
+                return wrap(None, None)
+            return wrap(*_kernel_spec(core, axes))
+    return wrap(*([None] * len(core)))
+
+
+def _walk(tree, leaf_fn, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _walk(v, leaf_fn, f"{prefix}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_walk(v, leaf_fn, f"{prefix}/{i}") for i, v in enumerate(tree))
+    return leaf_fn(prefix, tree)
+
+
+def param_pspecs(shape_tree, axes: dict) -> Any:
+    """The spec tree of a parameter tree (any leaves with ``.shape``)."""
+    return _walk(shape_tree, lambda path, leaf: _spec_for(path, tuple(leaf.shape), axes))
+
+
+def _batch_dim_spec(n, axes):
+    """Shard a batch-like dim over ('pod','data') jointly when possible."""
+    if "pod" in axes and n % (axes["pod"] * axes["data"]) == 0:
+        return ("pod", "data")
+    if _div(n, axes, "data"):
+        return "data"
+    return None
+
+
+def _cache_leaf_spec(path: str, shape, axes, stacked_lead=True) -> tuple:
+    ndim = len(shape)
+    if ndim <= 1:
+        return ()
+    lead = (None,) if stacked_lead else ()
+    core = shape[1:] if stacked_lead else shape
+    dims = [None] * len(core)
+    # core: (B, S, H, D) / (B, S, H) / (B, S) / ssm (B, H, P, N) / (B, W)
+    if len(core) >= 1:
+        dims[0] = _batch_dim_spec(core[0], axes)
+    if len(core) >= 3 and ("idx" in path or "sel" in path or path.endswith("k")
+                           or path.endswith("v") or "scale" in path or "state" in path.lower()):
+        # prefer head/model sharding on dim 2 when divisible
+        if _div(core[2], axes, "model"):
+            dims[2] = "model"
+        elif _div(core[1], axes, "model"):
+            dims[1] = "model"  # fall back: shard sequence over 'model'
+    return lead + tuple(dims)
+
+
+def cache_pspecs(cache_shape_tree, axes: dict) -> Any:
+    return _walk(cache_shape_tree,
+                 lambda path, leaf: _cache_leaf_spec(path, tuple(leaf.shape), axes))
+
+
+def batch_pspecs(specs: dict, axes: dict) -> dict:
+    out = {}
+    for k, v in specs.items():
+        dims = [None] * len(v.shape)
+        if len(v.shape) >= 1:
+            dims[0] = _batch_dim_spec(v.shape[0], axes)
+        out[k] = tuple(dims)
+    return out

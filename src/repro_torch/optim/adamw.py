@@ -87,15 +87,19 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
-def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig):
+def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                  grad_norm: torch.Tensor | None = None):
     """One AdamW step → (new params, new state, {"grad_norm", "lr"}).
     Integer and bool leaves (packed W4 buffers; their gradient is None)
     pass through untouched, their moments too; float leaves get decoupled
-    weight decay except 1-D (norm and bias) leaves.  Out of place."""
+    weight decay except 1-D (norm and bias) leaves.  Out of place.
+    ``grad_norm``: the global gradient norm, where ``grads`` are one
+    rank's shards of the gradients it was taken of (the sharded step);
+    else it is ``global_norm(grads)``."""
     with torch.no_grad():
         step = state["step"] + 1
         lr = schedule(cfg, step)
-        gn = global_norm(grads)
+        gn = global_norm(grads) if grad_norm is None else grad_norm
         scale = torch.clamp(torch.full_like(gn, cfg.clip_norm) / torch.clamp(gn, min=1e-12),
                             max=1.0)
         step_f = step.to(torch.float32)

@@ -1,12 +1,20 @@
-"""Straggler watchdog (counterpart of the ``HostBeat`` / ``Watchdog`` part
-of ``repro/runtime/elastic.py``).
+"""Elastic mesh derivation and the straggler watchdog (counterpart of
+``repro/runtime/elastic.py``).
+
+``derive_mesh`` builds the best (data, model[, pod]) mesh for whatever
+rank count survives a failure: model parallelism is capped by what the
+count divides, the rest goes to data.  Checkpoints are rank-count
+agnostic (checkpoint/manager.py), so the recovery story is: a node dies →
+the job restarts on N' ranks → ``derive_mesh`` → restore the latest
+checkpoint → the train step lays the state out by the new mesh's specs →
+training continues (the data pipeline is (seed, step)-pure, so no data is
+lost or repeated).
 
 ``Watchdog`` is the host-level straggler detector: heartbeat timestamps
 per host, flagging hosts whose step time exceeds ``slack`` × the median
 and hosts that have not beaten within a timeout.  On a real cluster the
 action is to evict and restart elastically; a one-card run exercises
-detection only.  The reference's ``derive_mesh`` (the elastic mesh over
-whatever devices survive) waits for the port's multi-device item.
+detection only.
 """
 from __future__ import annotations
 
@@ -15,6 +23,25 @@ import time
 from collections import defaultdict
 
 import numpy as np
+
+
+def derive_mesh(n_devices: int | None = None, model_parallel: int = 16, multi_pod: bool = False,
+                pod_size: int = 256):
+    """Best-effort mesh for an arbitrary rank count: the world's ranks, or
+    its first ``n_devices`` (``launch.mesh.init_group`` first)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    n = dist.get_world_size() if n_devices is None else n_devices
+    if multi_pod and n > pod_size and n % pod_size == 0:
+        pods = n // pod_size
+        mp = min(model_parallel, pod_size)
+        return make_mesh((pods, pod_size // mp, mp), ("pod", "data", "model"), range(n))
+    mp = model_parallel
+    while mp > 1 and n % mp:
+        mp //= 2
+    return make_mesh((n // mp, mp), ("data", "model"), range(n))
 
 
 @dataclasses.dataclass

@@ -54,6 +54,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.hybrid, repro_torch.models.encdec\n"
         "import repro_torch.launch.train, repro_torch.optim.adamw, repro_torch.runtime.elastic\n"
         "import repro_torch.launch.batching\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+        "import repro_torch.optim.compress, repro_torch.runtime.pipeline\n"
         "from repro_torch.configs.base import ARCH_IDS, get_arch, get_smoke\n"
         "assert {get_arch(a).family for a in ARCH_IDS} >= {'dense', 'vlm'}\n"
         "assert [get_smoke(a).name for a in ARCH_IDS]\n"
@@ -151,36 +153,44 @@ def test_build_hash_covers_shared_headers(monkeypatch, tmp_path):
 
 
 def test_wrappers_refuse_other_devices():
+    """Each wrapper runs its plain version on the CPU, its kernel on CUDA
+    and its meta branch on meta tensors (the dry-run); any other device
+    raises (a stand-in whose ``.device`` is an XLA device: no such tensor
+    exists here)."""
+    from types import SimpleNamespace
+
     from repro_torch.core.bcq import BCQConfig
-    from repro_torch.kernels.bcq_linear import bcq_linear
+    from repro_torch.kernels.bcq_linear import bcq_linear, bcq_linear_experts
     from repro_torch.kernels.bcq_matmul import bcq_matmul
     from repro_torch.kernels.bcq_quantize import bcq_page_write, bcq_quantize
     from repro_torch.kernels.common import page_gather_attention
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_kernel
 
-    meta = torch.empty((4, 64), device="meta")
+    other = SimpleNamespace(device=torch.device("xla"), shape=(1, 1, 2, 64))
     with pytest.raises(ValueError, match="unsupported device"):
-        bcq_linear(meta, None, None, None, None, None, BCQConfig())
+        bcq_linear(other, None, None, None, None, None, BCQConfig())
     with pytest.raises(ValueError, match="unsupported device"):
-        page_gather_attention(torch.empty((1, 1, 2, 32), device="meta"), {}, None, None,
-                              "bf16", BCQConfig())
+        bcq_linear_experts(other, None, None, None, None, None, BCQConfig())
     with pytest.raises(ValueError, match="unsupported device"):
-        bcq_quantize(meta, None, None, BCQConfig())
-    kv = torch.empty((2, 1, 2, 64), device="meta")
+        page_gather_attention(other, {}, None, None, "bf16", BCQConfig())
     with pytest.raises(ValueError, match="unsupported device"):
-        bcq_page_write({}, kv, kv, BCQConfig(), None, page_ids=None, offsets=None)
+        bcq_quantize(other, None, None, BCQConfig())
+    with pytest.raises(ValueError, match="unsupported device"):
+        bcq_page_write({}, other, other, BCQConfig(), None, page_ids=None, offsets=None)
+    kv = torch.zeros((2, 1, 2, 64))
     with pytest.raises(ValueError, match="unsupported device"):  # layers run the plain write
-        bcq_page_write({}, torch.zeros(kv.shape), kv, BCQConfig(), None, page_ids=None,
-                       offsets=None)
+        bcq_page_write({}, kv, kv, BCQConfig(), None, page_ids=None, offsets=None)
     with pytest.raises(ValueError, match="unsupported device"):
-        bcq_matmul(torch.empty((4, 32), dtype=torch.uint8, device="meta"), None, None, None,
-                   None, None, None, None, BCQConfig())
-    qkv = torch.empty((1, 8, 2, 32), device="meta")
+        bcq_matmul(other, None, None, None, None, None, None, None, BCQConfig())
     with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(qkv, qkv, qkv)
+        flash_attention(other, other, other)
     cpu = torch.zeros((2, 8, 32))
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_kernel(cpu, cpu, cpu)  # the kernel never runs the plain version
+    meta = torch.empty((4, 64), device="meta")  # the meta branch runs the kernel's checks
+    with pytest.raises(ValueError, match="bcq_linear kernel: w_idx"):
+        bcq_linear(meta, torch.empty((3, 5), dtype=torch.uint8, device="meta"),
+                   None, None, None, None, BCQConfig())
 
 
 def test_serve_cli_runs_on_cpu(capsys):

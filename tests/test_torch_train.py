@@ -386,7 +386,8 @@ def test_train_cli_resume_is_bit_exact(tmp_path, capsys):
     """``launch.train.main`` on the CPU: 6 steps, then a rerun to 12 that
     resumes from step 6 ends bit-equal, in every leaf of params and
     optimizer state, to a straight 12-step run (the data is (seed,
-    step)-pure and the step deterministic)."""
+    step)-pure and the step deterministic); ``--model-parallel 2`` on one
+    rank builds a (1, 1) mesh and ends bit-equal to it too."""
     base = ["--smoke", "--device", "cpu", "--batch", "4", "--seq", "32", "--log-every", "3",
             "--save-every", "4"]
     ttrain.main(base + ["--steps", "6", "--ckpt", str(tmp_path / "a")])
@@ -397,5 +398,9 @@ def test_train_cli_resume_is_bit_exact(tmp_path, capsys):
     (sa, la), (sb, lb) = _ckpt_leaves(tmp_path / "a"), _ckpt_leaves(tmp_path / "b")
     assert sa == sb == 12 and len(la) == len(lb)
     assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(la, lb))
-    with pytest.raises(SystemExit, match="multi-device item"):
-        ttrain.main(base + ["--model-parallel", "2", "--ckpt", str(tmp_path / "c")])
+    # --model-parallel on one rank: derive_mesh builds (1, 1), and the step is the same
+    capsys.readouterr()
+    ttrain.main(base + ["--steps", "12", "--model-parallel", "2", "--ckpt", str(tmp_path / "c")])
+    assert "mesh={'data': 1, 'model': 1}" in capsys.readouterr().out
+    sc, lc = _ckpt_leaves(tmp_path / "c")
+    assert sc == 12 and all(torch.equal(a, c) for a, c in zip(lb, lc))
