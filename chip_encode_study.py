@@ -30,13 +30,13 @@ ONE_COPY = [("constexpr int VAL_COPIES = 8;", "constexpr int VAL_COPIES = 1;")]
 NO_PREFETCH = [
     ("    const long long nxt_job = io.load(g + stride, n_blocks, nxt, nxt_sx);\n",
      "    long long nxt_job;\n"),
-    ("    if (job >= 0) io.store(g, job, ent, sel, pair, ratio, scale);\n",
-     "    if (job >= 0) io.store(g, job, ent, sel, pair, ratio, scale);\n"
-     "    nxt_job = io.load(g + stride, n_blocks, nxt, nxt_sx);\n"),
+    ("    }\n#pragma unroll\n    for (int i = 0; i < LB; ++i) y[i] = nxt[i];\n",
+     "    }\n    nxt_job = io.load(g + stride, n_blocks, nxt, nxt_sx);\n"
+     "#pragma unroll\n    for (int i = 0; i < LB; ++i) y[i] = nxt[i];\n"),
 ]
 TWO_CTAS = [
-    ("encode_kernel<Io, INT_BOOKS>, ENC_THREADS, 0);\n",
-     "encode_kernel<Io, INT_BOOKS>, ENC_THREADS, 0);\n      if (per_sm[dev] > 2) per_sm[dev] = 2;\n"),
+    ("ENC_THREADS, 0);\n    }\n",
+     "ENC_THREADS, 0);\n      if (per_sm[dev] > 2) per_sm[dev] = 2;\n    }\n"),
 ]
 # a val row holds the 8 codewords as bf16 (exact for integers ≤ 31) in one
 # 16-byte row: one 128-bit read a scalar, each codeword unpacked by a shift

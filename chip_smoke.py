@@ -189,7 +189,7 @@ success):
     kernel runs' launches join the ``kernels`` line (``host_tier``).
 16. the MoE family: full-width Moonlight-16B-A3B (``moonshot_v1_16b``:
     d 2048, 16 heads of 128, 64 experts top-6 of d_ff 1408, vocab 163840;
-    4 of its 48 layers, a depth cut for the script's time; seeded random
+    2 of its 48 layers, a depth cut for the script's time; seeded random
     weights drawn and packed to W4 one layer at a time on the card, ~1.4
     GB of packed experts) with phase 4's settings and requests: the stacked fused
     linear (one launch for a layer's 64 experts of wi, wg or wo) bit for
@@ -248,7 +248,7 @@ success):
     packed: 6 B1, B2, writer), every launch of a prefill and a steady tick
     held to plain; B3's fake-quant form timed.  Its launches join the
     ``kernels`` line (``ptq``; B3's as ``ptq_fake_quant``).
-18. the state-checkpoint layout: full-width Mamba2-130m (12 of its 24
+18. the state-checkpoint layout: full-width Mamba2-130m (8 of its 24
     layers, a depth cut for the script's time; d 768, d_state 128; seeded
     random weights packed to W4, f32 compute)
     served in W4A4 through StatePagedEngine on phase 4's settings and
@@ -268,8 +268,8 @@ success):
     tok/s, a state page's swap, resume vs recompute, and B1's times at the
     in_proj shape (N 3352).  Its launches join the ``kernels`` line
     (``state``).
-19. the hybrid family: full-width RecurrentGemma-9B (11 of its 38
-    layers, a depth cut for the script's time: 3 periods of two RG-LRU
+19. the hybrid family: full-width RecurrentGemma-9B (5 of its 38
+    layers, a depth cut for the script's time: 1 period of two RG-LRU
     blocks and a local-attention block + 2 tail RG-LRU blocks, where the
     model has 12 periods; d 4096, 16 heads of 256 and one KV head, d_ff 12288,
     window 2048, vocab 256000; seeded random weights drawn and packed to
@@ -277,7 +277,7 @@ success):
     served in W4A4 through StatePagedEngine on (a) phase 4's settings and
     prompts and (b) two requests of 2,040 and 2,100 tokens for 40 tokens
     each: graph depth 2 ≡ eager depth 1 bit for bit on both, B1 launches
-    134 a decode pass and 146 a prefill pass (254 and 278 at 38 layers);
+    34 a decode pass and 36 a prefill pass (254 and 278 at 38 layers);
     every B1 launch of (a)'s first step, a steady and a checkpoint tick and
     (b)'s first step (its prefills at M 2,040 and 2,100) held to plain;
     kernels vs plain logits of one RG-LRU block at the full width (one
@@ -317,7 +317,8 @@ success):
 22. the rest of the model zoo: Qwen2-0.5B (GQA 14/2, qkv bias, tied),
     StarCoder2-3B (GQA 24/2, GELU, layernorm), Phi-3-medium-14B (GQA
     40/10, d_head 128) and Qwen1.5-32B (MHA 40, d_ff 27392) at full width
-    and full depth, one after the other, each drawn and packed to W4 a
+    and full depth (Qwen1.5-32B at 32 of its 64 layers, for the script's
+    time), one after the other, each drawn and packed to W4 a
     layer at a time on the card (bcq4 pool, f32 compute; init seconds and
     resident GB printed) and served phase 4's workload through
     PagedEngine at graph depth 2: launch counts exact (B1 7 a layer and
@@ -344,6 +345,26 @@ success):
     launches and the script's bound arithmetic; the roofline of phase
     21's step against its measured time; one production dry-run cell in
     a subprocess.  B3's launches join the ``kernels`` line (``mesh``).
+24. every LO-BCQ format on the card: (1) ``bcq.fake_quant`` at the
+    paper's 25 formats (Table 8's L_b × L_A × N_c ablation, Table 5's
+    W3/W2, Table 10's INT4/INT6/INT8 codewords, g128/N_c 16, g32/L_b 4,
+    g16/L_b 2; codebooks fitted on the card) on Table 8's (256, 4096)
+    operand, bit for bit against ``fake_quant_plain``, each NMSE equal to
+    the CPU plain route's; (2) B1 (M 8, 512 × 768 → 3072), B1s (E 4 × C
+    64), B4 (512 × 768 → 3072), the page writer and B2 at decode and a
+    64-token chunk, at 7 formats (the reference kernel tests' 5, g128 at
+    INT8 and at 8 entries), each held to plain, B1s ≡ per-expert B1 and
+    B4 ≡ B1, timed beside the bound of its format's cost; (3) phase 21's
+    checkpoint through the quantize CLI at ``--n-codebooks 16`` and
+    ``--array-len 32 --n-codebooks 4``, each packed artifact served on
+    phase 4's workload with bcq4 pages in its format: kernels (graph
+    depth 2, launch counts exact) vs plain under the margin rule at the
+    noise floor, the last layer's launches held to plain, the held-out
+    W4A4 loss printed beside phase 17's.  Its launches join the
+    ``kernels`` line (``formats``), with a ``formats`` entry per kernel.
+25. the three examples (``examples/torch_*.py``) run in this process on
+    the card at reduced steps; the quickstart's kernel results equal its
+    plain ones.
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -424,8 +445,9 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 
 # ------------------------------------------------------------------ phase 2
-def linear_case(m, k, n, seed, cb):
-    """Seeded activation (with a few outlier channels) and packed weight."""
+def linear_case(m, k, n, seed, cb, cfg=None):
+    """Seeded activation (with a few outlier channels) and packed weight,
+    in the format ``cfg`` (default ``BCQConfig()``)."""
     import torch
 
     from repro_torch.core import bcq
@@ -435,7 +457,7 @@ def linear_case(m, k, n, seed, cb):
     x = torch.randn((m, k), generator=g)
     x[:, :: max(1, k // 8)] *= 12.0
     w = torch.randn((n, k), generator=g) * k**-0.5
-    enc = bcq.encode(w.cuda(), cb, bcq.BCQConfig())
+    enc = bcq.encode(w.cuda(), cb, cfg or bcq.BCQConfig())
     pk = {"idx": enc.packed_idx, "sel": enc.packed_sel, "scale": enc.scale_code, "s_x": enc.s_x}
     return x.cuda(), ops.packed_operand(pk)
 
@@ -471,14 +493,15 @@ def phase_linear(cb):
 
 
 # ------------------------------------------------------------------ phase 3
-def gather_pool(kind, n_pages, ps, hkv, d, seed, cb):
-    """A single-layer page pool with every page written from seeded K/V."""
+def gather_pool(kind, n_pages, ps, hkv, d, seed, cb, cfg=None):
+    """A single-layer page pool with every page written from seeded K/V
+    (bcq4 in the format ``cfg``, default ``BCQConfig()``)."""
     import torch
 
     from repro_torch.core.bcq import BCQConfig
     from repro_torch.models import layers
 
-    cfg = BCQConfig()
+    cfg = cfg or BCQConfig()
     pool = layers.cache_init(n_pages, ps, hkv, d, kind, cfg, device="cuda")
     g = torch.Generator().manual_seed(seed)
     k = torch.randn((n_pages, ps, hkv, d), generator=g).cuda()
@@ -625,10 +648,11 @@ def _fresh_engine(eng_done, prompts):
     return eng
 
 
-def _pool_diff(got: dict, want: dict, cb) -> int:
-    """Differing bytes of two single-layer bcq4 pools, or -1 where they
-    disagree: the scale bytes must be equal, idx/sel bytes may differ only
-    on a codebook tie (equal decoded values)."""
+def _pool_diff(got: dict, want: dict, cb, cfg=None) -> int:
+    """Differing bytes of two single-layer bcq4 pools in the format ``cfg``
+    (default ``BCQConfig()``), or -1 where they disagree: the scale bytes
+    must be equal, idx/sel bytes may differ only on a codebook tie (equal
+    decoded values)."""
     import torch
 
     from repro_torch.core.bcq import BCQConfig
@@ -639,7 +663,7 @@ def _pool_diff(got: dict, want: dict, cb) -> int:
         return 0
     if not all(torch.equal(got[f"{s}_scale"], want[f"{s}_scale"]) for s in "kv"):
         return -1
-    a, b = (cache_read(p, "bcq4", BCQConfig(), cb, torch.float32) for p in (got, want))
+    a, b = (cache_read(p, "bcq4", cfg or BCQConfig(), cb, torch.float32) for p in (got, want))
     return n if all(torch.equal(x, y) for x, y in zip(a, b)) else -1
 
 
@@ -769,7 +793,7 @@ def b1_tolerance_noise(seed: int = 7):
         layers.qdense, moe._expert_matmul = real
 
 
-def phase_logits(eng_k, eng_p, prompts, tokens):
+def phase_logits(eng_k, eng_p, prompts, tokens, float_check=True, margin="ulp"):
     """End-to-end logits of the kernel path against the plain path on
     identical inputs at full width, held to two yardsticks:
 
@@ -789,7 +813,12 @@ def phase_logits(eng_k, eng_p, prompts, tokens):
       gpt3_126m draws it read rounding noise, ~1e-7, with no encode moved.)
 
     Returns the plain path's max|Δ| under a 1-ulp embedding scale (1 +
-    2^-22): the margin rule's tolerance."""
+    2^-22): the margin rule's tolerance; with ``margin="floor"`` the noise
+    floor's max|Δ| instead (phase 24: on trained weights a 1-ulp scale
+    moves the logits by ~1e-5 while B1's allowed rounding moves them by
+    ~1e-1, so a token whose top-2 margin lies inside that may flip).
+    ``float_check`` False skips the float-weights yardstick (phase 24: the
+    W4A4 format is what changes)."""
     import torch
 
     from repro_torch.models import zoo
@@ -810,6 +839,9 @@ def phase_logits(eng_k, eng_p, prompts, tokens):
     nudged = dict(eng_k.params, embed={"kernel": eng_k.params["embed"]["kernel"] * (1 + 2**-22)})
     ulp = _compare("plain vs plain with a 1-ulp embedding scale (the margin rule's tolerance)",
                    _forward_logits(eng_p.api, nudged, prompts, tokens), plain)
+    tol = ulp["max"] if margin == "ulp" else floor["max"]
+    if not float_check:
+        return tol
     apis = [zoo.build(cfg, Runtime(quant_mode="none", compute_dtype=torch.float32,
                                    cache_kind="bf16", paged_kernel=k), device="cuda")
             for k in (True, False)]
@@ -819,7 +851,7 @@ def phase_logits(eng_k, eng_p, prompts, tokens):
                   _forward_logits(apis[1], params, prompts, tokens))
     if fl["max"] > 1e-3 * fl["scale"]:
         fail(f"without W4A4 the kernel path must agree to rounding: {fl}")
-    return ulp["max"]
+    return tol
 
 
 def _device_kernels(fn, n=1):
@@ -3152,8 +3184,8 @@ def phase_host_tier(eng4, tol, core, g2, core_g2, smi):
 
 # ------------------------------------------------------------------ phase 16
 MOE_ARCH = "moonshot_v1_16b"
-MOE_LAYERS = 4  # of Moonlight's 48: the depth cut that keeps the script in its time (width whole)
-MOE_PLAIN_LAYERS = 4  # depth of the whole-run kernel vs plain comparison
+MOE_LAYERS = 2  # of Moonlight's 48: the depth cut that keeps the script in its time (width whole)
+MOE_PLAIN_LAYERS = 4  # depth of the whole-run kernel vs plain comparison (its tolerance's premise)
 # (E, C, K, N) of the stacked fused linear's own checks: decode (C 1), a
 # 512-token chunk's wo (C 61), a ragged stack
 STACKED_SHAPES = [(64, 1, 2048, 1408), (64, 61, 1408, 2048), (3, 37, 192, 100)]
@@ -3442,7 +3474,7 @@ def phase_moe(cb, smi):
     del api, params, model
     torch.cuda.empty_cache()
 
-    # whole runs at 4 layers of the same width: kernels vs plain paths
+    # whole runs at MOE_PLAIN_LAYERS of the same width: kernels vs plain paths
     cfg4 = dataclasses.replace(cfg, n_layers=MOE_PLAIN_LAYERS)
     runs = {}
     for kernels in (True, False):
@@ -3468,7 +3500,7 @@ def phase_moe(cb, smi):
     if not agree["ok"]:
         fail("phase 16: the kernel and plain runs disagree beyond the margin rule")
     # the whole-run comparison stops at the first launch whose tokens part;
-    # phase 11's workload at 4 layers holds every launch to the plain paths
+    # phase 11's workload at MOE_PLAIN_LAYERS holds every launch to the plain paths
     api_k4, api_p4, params4 = eng_k.api, eng_p.api, eng_k.params
     del runs, fin_k, eng_k, fin_p, eng_p
     fin_c, eng_c, _, c_c = drive_core(api_k4, params4, core_requests(cfg4), cuda_graphs=True,
@@ -3556,10 +3588,10 @@ def _counted(fn, totals):
     return out, counts
 
 
-def _expect(counts, want, what):
+def _expect(counts, want, what, label="phase 17"):
     got = {k: counts.get(k, 0) for k in want}
     if got != want or any(v for k, v in counts.items() if k not in want):
-        fail(f"phase 17 {what}: launches {counts}, expected {want} and no other")
+        fail(f"{label} {what}: launches {counts}, expected {want} and no other")
 
 
 def ptq_fit_checks(params, cfg, calib, written):
@@ -3841,7 +3873,7 @@ def phase_ptq(cb, smi, train_ck):
           f"launches {totals}; phase 17 {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
     worst["bcq_linear"] = max(worst["bcq_linear"], err_ev.get("bcq_linear", 0.0))
     worst["flash_attention"] = err_ev.get("flash_attention", 0.0)
-    return totals, worst, fake_form
+    return totals, worst, fake_form, losses
 
 
 # ------------------------------------------------------------------ phase 21
@@ -4231,7 +4263,7 @@ def phase_train(smi):
 
 # ------------------------------------------------------------------ phase 18
 STATE_ARCH = "mamba2_130m"
-STATE_LAYERS = 12  # of Mamba2-130m's 24: the depth cut that keeps the script in its time
+STATE_LAYERS = 8  # of Mamba2-130m's 24: the depth cut that keeps the script in its time
 STATE_PER_LAYER = 2  # B1 launches a layer and pass: in_proj, out_proj
 STATE_PS = 16
 STATE_MAX_LEN = -(-(max(PROMPT_LENS) + GEN + 1) // STATE_PS) * STATE_PS  # serve()'s
@@ -4787,7 +4819,7 @@ def phase_state(cb, smi):
 
 # ------------------------------------------------------------------ phase 19
 HYB_ARCH = "recurrentgemma_9b"
-HYB_LAYERS = 20  # of its 38: 6 of 12 periods + the 2 tail blocks, for the script's time
+HYB_LAYERS = 5  # of its 38: 1 of 12 periods + the 2 tail blocks, for the script's time
 # B1 launches a block and pass: a recurrent block's proj_x, proj_gate,
 # gate_a, gate_x, proj_out and MLP wi, wo; an attention block's wq, wk,
 # wv, wo and MLP at decode, and wk, wv again to fill the ring at prefill
@@ -5792,6 +5824,7 @@ def phase_encdec(cb, smi):
 
 # ------------------------------------------------------------------ phase 22
 ZOO_ARCHS = ("qwen2_0_5b", "starcoder2_3b", "phi3_medium_14b", "qwen1_5_32b")
+ZOO_LAYERS = {"qwen1_5_32b": 32}  # of its 64: the depth cut that keeps the script in its time
 ZOO_COUNTED = ("bcq_linear", "page_gather", "bcq_page_write")
 ZOO_TIME_TICKS = 6  # steady ticks timed on the host clock
 # tokens a request in the ContinuousBatcher comparison: its contiguous
@@ -5817,17 +5850,17 @@ def _zoo_per_layer(cfg) -> dict:
             "bcq_page_write": 1}
 
 
-def _zoo_counts_ok(counts, passes, cfg, what):
+def _zoo_counts_ok(counts, passes, cfg, what, label="phase 22"):
     per = _zoo_per_layer(cfg)
     expect = {n: v * cfg.n_layers * passes for n, v in per.items()}
     if any(counts.get(n, 0) != v for n, v in expect.items()) or not passes:
-        fail(f"phase 22 {cfg.name} {what}: launches {counts}, expected {expect} "
+        fail(f"{label} {cfg.name} {what}: launches {counts}, expected {expect} "
              f"({cfg.n_layers} layers × {per} a layer × {passes} passes)")
     return expect
 
 
 @contextlib.contextmanager
-def held_layer(cfg, layer, label, cb):
+def held_layer(cfg, layer, label, cb, bcq_cfg=None):
     """Within the block, every B1, B2 and KV-page writer launch of layer
     ``layer`` is held to its plain version on its own inputs (B1
     ``fused_linear_ref``, B2 ``page_gather_attention_plain``, the writer the
@@ -5888,7 +5921,7 @@ def held_layer(cfg, layer, label, cb):
             out = real[name](pool, *args, **kw)
             plain = {k: t.clone() for k, t in before.items()}
             real[name](plain, *args, **dict(kw, kernel=False))
-            diff = _pool_diff(out, plain, cb)
+            diff = _pool_diff(out, plain, cb, bcq_cfg)
             tally("bcq_page_write", diff >= 0, max(diff, 0), f"{name} k {tuple(args[0].shape)}")
             return out
         return run
@@ -5916,7 +5949,8 @@ def hold_layer(eng, layer, label):
     cfg = eng.api.cfg
     per = _zoo_per_layer(cfg)
     before = eng.stats["decode_ticks"] + eng.stats["prefill_launches"]
-    with held_layer(cfg, layer, label, eng.params["codebooks"]) as (calls, n, worst):
+    with held_layer(cfg, layer, label, eng.params["codebooks"], eng.api.rt.bcq_cfg) as (
+            calls, n, worst):
         eng.step()
     passes = eng.stats["decode_ticks"] + eng.stats["prefill_launches"] - before
     for name in ZOO_COUNTED:
@@ -6022,12 +6056,14 @@ def _zoo_build(cfg):
 
 
 def zoo_model(arch, cb, smi):
-    """One dense zoo model at full width and depth: built packed (W4, bcq4
+    """One dense zoo model at full width and depth (``ZOO_LAYERS`` cuts a
+    model's depth for the script's time): built packed (W4, bcq4
     pool, f32 compute) a layer at a time on the card, phase 4's workload
     through PagedEngine at graph depth 2 (launch counts exact, the steady
     tick's wall, busy and graph nodes), the last layer's launches held to
     plain, and the prompts again through ContinuousBatcher.  Returns (the
     main path's launches, worst held errors, a summary)."""
+    import dataclasses
     from types import SimpleNamespace
 
     import torch
@@ -6036,6 +6072,8 @@ def zoo_model(arch, cb, smi):
 
     t_model = time.perf_counter()
     cfg = get_arch(arch)
+    if arch in ZOO_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=ZOO_LAYERS[arch])
     label = f"phase 22 {cfg.name}"
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n) for n in PROMPT_LENS]
@@ -6181,8 +6219,9 @@ def time_zoo(cb, smi):
 
 def phase_zoo(cb, smi):
     """Phase 22: the rest of the model zoo.  The four public dense configs
-    at full width and full depth through PagedEngine in W4A4, one after
-    the other (each freed before the next), then Pixtral-12B contiguously,
+    at full width and full depth (but ``ZOO_LAYERS``) through PagedEngine
+    in W4A4, one after the other (each freed before the next), then
+    Pixtral-12B contiguously,
     then the zoo's new kernel shapes timed.  Returns (launches by kernel
     on the dense path, B1's launches on the vlm path, ``kernels``-line
     entries, worst held errors)."""
@@ -6697,6 +6736,417 @@ def phase_mesh(cb, smi, phase21_ms):
                     phase_s=phase_s)
 
 
+# ------------------------------------------------------------------ phase 24
+# The paper's LO-BCQ formats as (L_b, L_A, N_c, B, B_c): Table 8's L_b ×
+# L_A × N_c ablation (benchmarks/table8_ablation.py), Table 5's W3/W2
+# (table5_sub4bit.py), Table 10's INT4/INT6/INT8 codewords
+# (table10_codeword.py), then Fig. 4's g128/N_c 16 and the reference's
+# kernel tests' g32/L_b 4 and g16/L_b 2.
+FMT_PAPER = ([(8, la, nc, 4, 6) for la in (64, 32, 16) for nc in (2, 4, 8, 16)]
+             + [(4, 64, 2, 4, 6), (4, 64, 4, 4, 6), (2, 64, 2, 4, 6)]
+             + [(8, 128, nc, b, 6) for b, nc in ((3, 4), (3, 8), (2, 4), (2, 8))]
+             + [(8, 128, 8, 4, bc) for bc in (4, 6, 8)]
+             + [(8, 128, 16, 4, 6), (4, 32, 4, 4, 6), (2, 16, 2, 4, 6)])
+# the kernels' formats: the reference kernel tests' five
+# (tests/test_kernels.py:19-24, tests/test_fused_linear.py:24-28), then
+# g128 at INT8 codewords and at 8 entries
+FMT_KERNEL = [(8, 64, 8, 4, 6), (8, 128, 16, 4, 6), (4, 32, 4, 4, 6), (2, 16, 2, 4, 6),
+              (8, 64, 16, 4, 6), (8, 128, 8, 4, 8), (8, 128, 8, 3, 6)]
+FMT_OPERAND = (256, 4096)  # Table 8's operand
+# the quantize CLI's two non-default formats on phase 21's model: Fig. 4's
+# g64/Lb8/Nc16 (4.625 bits) and Table 8's iso-bitwidth partner of the
+# default, g32/Lb8/Nc4 (4.5 bits)
+FMT_CLI = (("--n-codebooks", "16"), ("--array-len", "32", "--n-codebooks", "4"))
+FMT_DIR = os.path.join(ROOT, "build", "formats")  # under the ignored build/
+
+
+def _fmt(spec):
+    from repro_torch.core.bcq import BCQConfig
+
+    lb, la, nc, b, bc = spec
+    return BCQConfig(block_len=lb, array_len=la, n_codebooks=nc, index_bits=b, codeword_bits=bc)
+
+
+def _fmt_tag(cfg):
+    return f"{cfg.tag()}_B{cfg.index_bits}_Bc{cfg.codeword_bits}"
+
+
+def fmt_books(specs):
+    """Integer codebooks for each format, fitted on the card by
+    ``fit_lobcq`` (4 iterations on 4,096 blocks, as the reference's kernel
+    tests fit theirs) on one seeded Laplace operand."""
+    import torch
+
+    from repro_torch.core.bcq import fit_lobcq
+    from repro_torch.serving.prng import prng_key
+
+    data = torch.from_numpy(np.random.default_rng(0).laplace(size=60000).astype(np.float32)).cuda()
+    t0 = time.perf_counter()
+    books = {}
+    for spec in specs:
+        cfg = _fmt(spec)
+        books[spec] = fit_lobcq(data, cfg, key=prng_key(0), iters=4, max_blocks=4096).as_tensor(
+            "cuda")
+    torch.cuda.synchronize()
+    print(f"phase 24 codebooks: {len(books)} formats fitted on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return books
+
+
+def _fmt_entry(entry, spec, shape, t):
+    entry.setdefault("timings", []).append(
+        {"format": _fmt_tag(_fmt(spec)), "shape": shape,
+         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+
+
+def fmt_fake_quant(books, out):
+    """(1) ``bcq.fake_quant`` (B3's quantize form + a torch decode) on the
+    card at the 25 formats, on Table 8's (256, 4096) operand: bit for bit
+    against ``fake_quant_plain`` on the card, and each NMSE computed on the
+    CPU from the card's values bit-equal to the plain route's on the CPU;
+    B3 timed (CUDA events) beside its bound."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_quantize as bq
+    from repro_torch.kernels import build
+
+    g = np.random.default_rng(24)
+    x = g.standard_normal(FMT_OPERAND).astype(np.float32)
+    x = np.where(g.random(FMT_OPERAND) < 0.005, x * 20.0, x).astype(np.float32)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).cuda()
+    m, k = FMT_OPERAND
+    rows = []
+    for spec in FMT_PAPER:
+        cfg, cb = _fmt(spec), books[spec]
+        build.reset_counts()
+        got = bcq.fake_quant(xg, cb, cfg)
+        torch.cuda.synchronize()
+        counts = build.counts()
+        route = bcq.kernel_route(cfg)
+        thr = counts.get("bcq_quantize_thr", 0)
+        if counts.get("bcq_quantize") != 1 or thr != (0 if route.table else 1):
+            fail(f"phase 24 fake_quant at {_fmt_tag(cfg)}: launches {counts}")
+        if not torch.equal(got, bcq.fake_quant_plain(xg, cb, cfg)):
+            fail(f"phase 24: fake_quant at {_fmt_tag(cfg)} differs from fake_quant_plain on the "
+                 "card")
+        nmse = float(bcq.quantization_nmse(xc, got.cpu()))
+        plain = float(bcq.quantization_nmse(xc, bcq.fake_quant_plain(xc, cb.cpu(), cfg)))
+        if np.float32(nmse).tobytes() != np.float32(plain).tobytes():
+            fail(f"phase 24: the NMSE at {_fmt_tag(cfg)} is {nmse!r} from the card's values, "
+                 f"{plain!r} from the CPU's plain route")
+        s_x = bcq.tensor_scale(xg, cfg)
+        ms = cuda_ms(lambda: bq.bcq_quantize(xg, cb, s_x, cfg), iters=20)
+        plain_ms = cuda_ms(lambda: bcq.fake_quant_plain(xg, cb, cfg), iters=3, warmup=1)
+        nbytes, work = bq.quantize_cost(m, k, cfg, route)
+        bound, by = _bound(nbytes, (work["f32"], F32_FLOPS))
+        t = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        _fmt_entry(out["bcq_quantize"], spec, f"M {m} K {k}", t)
+        rows.append((cfg, nmse, ms, bound))
+        print(f"phase 24 fake_quant {_fmt_tag(cfg):22s} ({cfg.bitwidth():.4f} bits): NMSE "
+              f"{nmse:.6e} (= the CPU plain route's, bit for bit), kernel route ≡ plain; B3 "
+              f"{ms:.4f} ms (CUDA events; {'table' if route.table else 'threshold search'}) vs bound "
+              f"{bound:.5f} ms by {by}, plain fake_quant {plain_ms:.3f} ms", flush=True)
+    out["bcq_quantize"]["formats"] = [_fmt_tag(c) for c, *_ in rows]
+    return rows
+
+
+def _fmt_time(what, fn, ref_fn, tol_abs, rtol, nbytes, work, iters=30):
+    """One kernel call at a format: held to its plain version, timed
+    (CUDA events) with its plain version, and its bound."""
+    got, ref = fn(), ref_fn()
+    ok, err = held(got, ref, rtol, tol_abs(ref))
+    if not ok:
+        fail(f"phase 24: {what} disagrees with its plain version: max|err| {err:.3e}")
+    bound, by = _bound(nbytes, *work)
+    return {"ms": cuda_ms(fn, iters=iters), "plain_ms": cuda_ms(ref_fn, iters=3, warmup=1),
+            "bound_ms": bound, "bound_by": by, "err": err, "out": got}
+
+
+def fmt_kernels(books, out):
+    """(2) B1 (M 8 and 512, 768 → 3072), B1s (E 4 × C 64), B4 (512 × 768 →
+    3072), the page writer and B2 (bcq4) at decode (8 rows × 12 heads of
+    64) and a 64-token chunk, at the 7 kernel formats: each held to its
+    plain version at phase 10's tolerances, B1s ≡ per-expert B1 and B4 ≡ B1
+    bit for bit, timed (CUDA events) beside the bound of its corrected
+    cost.  Returns the launches by kernel."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_linear as bl
+    from repro_torch.kernels import bcq_matmul as bm
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import fused_linear_experts_ref, fused_linear_ref, matmul_ref
+
+    rel = lambda ref: LINEAR_TOL * float(ref.abs().max())  # noqa: E731
+    totals = {}
+    k, n = 768, 3072
+    for spec in FMT_KERNEL:
+        cfg, cb = _fmt(spec), books[spec]
+        tag = _fmt_tag(cfg)
+        torch.cuda.synchronize()
+        build.reset_counts()
+        lin = {}
+        for m in (8, 512):
+            x, w = linear_case(m, k, n, m, cb, cfg)
+            s_x = bcq.tensor_scale(x, cfg)
+            args = (x, w.idx_packed, w.sel_packed, w.inv_scale, cb)
+            nbytes, work = bl.linear_cost(1, m, k, n, cfg)
+            t = lin[m] = _fmt_time(f"B1 at {tag} M {m}", lambda: bl.bcq_linear(*args, s_x, cfg),
+                                   lambda: fused_linear_ref(*args, cfg, s_x, valid_k=k), rel,
+                                   LINEAR_TOL, nbytes, ((work["int8"], INT8_OPS),
+                                                        (work["f32"], F32_FLOPS)))
+            _fmt_entry(out["bcq_linear"], spec, f"M {m} K {k} N {n}", t)
+        a = ops.quantize(x, cb, cfg)
+        margs = (a.idx_packed, a.sel_packed, a.inv_scale, w.idx_packed, w.sel_packed,
+                 w.inv_scale, cb, cb, cfg)
+        nbytes, work = bm.matmul_cost(512, k, n, cfg)
+        t4 = _fmt_time(f"B4 at {tag}", lambda: bm.bcq_matmul(*margs), lambda: matmul_ref(*margs),
+                       rel, LINEAR_TOL, nbytes, ((work["int8"], INT8_OPS),), iters=20)
+        if not torch.equal(t4["out"], lin[512]["out"]):
+            fail(f"phase 24: B4 at {tag} differs from B1 on the same codes (the two routes)")
+        _fmt_entry(out["bcq_matmul"], spec, f"M 512 K {k} N {n}", t4)
+        e, c = 4, 64
+        xs, ws = zip(*(linear_case(c, k, n, 40 + i, cb, cfg) for i in range(e)))
+        xe = torch.stack(xs)
+        st = [torch.stack([getattr(w, f) for w in ws])
+              for f in ("idx_packed", "sel_packed", "inv_scale")]
+        s_e = bcq.tensor_scale(xe, cfg)
+        nbytes, work = bl.linear_cost(e, c, k, n, cfg)
+        ts = _fmt_time(f"B1s at {tag}", lambda: bl.bcq_linear_experts(xe, *st, cb, s_e, cfg),
+                       lambda: fused_linear_experts_ref(xe, *st, cb, cfg, s_e), rel, LINEAR_TOL,
+                       nbytes, ((work["int8"], INT8_OPS), (work["f32"], F32_FLOPS)), iters=20)
+        per = torch.stack([bl.bcq_linear(xe[i], *(t[i] for t in st), cb, s_e, cfg)
+                           for i in range(e)])
+        if not torch.equal(ts["out"], per):
+            fail(f"phase 24: B1s at {tag} differs from per-expert B1 launches")
+        _fmt_entry(out["bcq_linear_experts"], spec, f"E {e} C {c} K {k} N {n}", ts)
+        wr = {nm: _write_times(cb, c_, 70 + c_, cfg=cfg, profile=False)
+              for nm, c_ in (("decode", 1), ("chunk", 64))}
+        kv_dec = [p + GEN for p in PROMPT_LENS]
+        ga = {"decode": _gather_times(cb, 1, kv_dec, 5, cfg=cfg, profile=False),
+              "chunk": _gather_times(cb, 64, [c_ + 64 for c_ in PROMPT_LENS], 6, cfg=cfg,
+                                     profile=False)}
+        for nm in ("decode", "chunk"):
+            _fmt_entry(out["bcq_quantize"], spec, f"writer {nm}: B 8 C "
+                       f"{1 if nm == 'decode' else 64} H 12 D 64 f32", wr[nm])
+            _fmt_entry(out["page_gather"], spec, f"{nm}: B 8 C {1 if nm == 'decode' else 64} "
+                       "H 12 D 64", ga[nm])
+        torch.cuda.synchronize()
+        counts = build.counts()
+        for kk, v in counts.items():
+            totals[kk] = totals.get(kk, 0) + v
+        worst = max(lin[8]["err"], lin[512]["err"], ts["err"])
+        out["bcq_linear"]["max_abs_err"] = max(out["bcq_linear"].get("max_abs_err", 0.0),
+                                               lin[8]["err"], lin[512]["err"])
+        out["bcq_linear_experts"]["max_abs_err"] = max(
+            out["bcq_linear_experts"].get("max_abs_err", 0.0), ts["err"])
+        out["bcq_matmul"]["max_abs_err"] = max(out["bcq_matmul"].get("max_abs_err", 0.0), t4["err"])
+        out["page_gather"]["max_abs_err"] = max(out["page_gather"].get("max_abs_err", 0.0),
+                                                ga["decode"]["err"], ga["chunk"]["err"])
+        f = lambda t: (f"{t['ms']:.4f} ms (bound {t['bound_ms']:.5f} "  # noqa: E731
+                       f"by {t['bound_by']})")
+        print(f"phase 24 kernels at {tag}: B1 M 8 {f(lin[8])}, M 512 {f(lin[512])}; B1s E 4 × C "
+              f"64 {f(ts)} ≡ per-expert B1; B4 M 512 {f(t4)} ≡ B1; writer decode "
+              f"{f(wr['decode'])}, "
+              f"chunk {f(wr['chunk'])} (bytes = plain); B2 decode {f(ga['decode'])}, chunk "
+              f"{f(ga['chunk'])}; worst B1/B1s max|err| {worst:.3e}; launches {counts}", flush=True)
+    for name in ("bcq_linear", "bcq_linear_experts", "bcq_matmul", "page_gather"):
+        out[name]["formats"] = [_fmt_tag(_fmt(s)) for s in FMT_KERNEL]
+    return totals
+
+
+def fmt_serve(flags, train_ck, prompts, ptq_losses, smi):
+    """(3) Phase 21's checkpoint through the quantize CLI on the card at a
+    non-default format (``flags``), the packed artifact served through
+    PagedEngine with bcq4 pages in the same format on phase 4's workload:
+    kernels (graph depth 2, launch counts exact) vs plain (eager depth 1)
+    — their logits within the plain path's noise floor at B1's tolerance,
+    their tokens under the margin rule with that floor as its tolerance
+    (``phase_logits(margin="floor")``) —, the last layer's B1, B2 and
+    writer launches of
+    the first step and a steady tick held to plain, and the held-out W4A4
+    loss beside phase 17's.  Returns (the served run's launches, worst
+    held errors, a summary)."""
+    import dataclasses
+    import math
+    import shutil
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.checkpoint.manager import load_pytree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import ptq
+    from repro_torch.core.bcq import BCQConfig
+    from repro_torch.data.pipeline import DataConfig, eval_stream
+    from repro_torch.launch import quantize
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serving.engine import PagedEngine
+    from repro_torch.serving.generate import Request, greedy_agreement
+
+    t0 = time.perf_counter()
+    cfg = get_arch("gpt3_126m")
+    out = os.path.join(FMT_DIR, "_".join(f.strip("-") for f in flags))
+    shutil.rmtree(out, ignore_errors=True)
+    totals = {}
+    manifest, counts = _counted(lambda: quantize.main(["--ckpt", train_ck, "--out", out, *flags]),
+                                totals)
+    bcfg = BCQConfig(array_len=manifest["bcq"]["L_A"], n_codebooks=manifest["bcq"]["N_c"])
+    label = f"phase 24 [{bcfg.tag()}]"
+    _expect(counts, {"bcq_quantize": 6, "bcq_quantize_thr": 6}, "quantize CLI", label)
+    to_cuda = lambda t: ({k: to_cuda(v) for k, v in t.items()} if isinstance(t, dict)  # noqa: E731
+                         else t.to("cuda"))
+    fake = to_cuda(load_pytree(os.path.join(out, "weights_w4_fake.npz")))
+    params = ptq.packed_from_artifact(
+        fake, to_cuda(load_pytree(os.path.join(out, "weights_w4_packed.npz"))))
+    cli_s = time.perf_counter() - t0
+    print(f"{label} quantize CLI {' '.join(flags)} on phase 21's checkpoint: {cli_s:.2f} s, "
+          f"{manifest['bcq']['bits']} bits a weight (Eq. 9), 6 B3 launches (threshold search)",
+          flush=True)
+    rt = Runtime(quant_mode="packed", bcq_cfg=bcfg, compute_dtype=torch.float32,
+                 cache_kind="bcq4", paged_kernel=True)
+    api_k = zoo.build(cfg, rt, device="cuda")
+    api_p = zoo.build(cfg, dataclasses.replace(rt, paged_kernel=False, fused_linear=False),
+                      device="cuda")
+    model = SimpleNamespace(api=api_k, params=params, max_len=MOE_MAX_LEN)
+
+    def served(api, graphs, depth):
+        eng = PagedEngine(api, params, n_slots=len(prompts), max_len=MOE_MAX_LEN, page_size=16,
+                          prefill_chunk=64, chunked_prefill=True, prefix_caching=False,
+                          device="cuda", pipeline_depth=depth, cuda_graphs=graphs)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=GEN - 1))
+        fin, _ = eng.run_to_completion()
+        return eng, {r.rid: r for r in fin}
+
+    (eng_k, fin_k), counts = _counted(lambda: served(api_k, True, 2), totals)
+    st = eng_k.stats
+    passes = st["decode_ticks"] + st["prefill_launches"]
+    expect = _zoo_counts_ok(counts, passes, cfg, "graph depth 2", label)
+    wall = 1e3 * st["t_decode_s"] / max(st["decode_ticks"], 1)
+    eng_p, plain = served(api_p, False, 1)
+    if sorted(fin_k) != sorted(plain) or any(len(r.out) != GEN for r in fin_k.values()):
+        fail(f"{label}: the engines did not finish every request with {GEN} tokens")
+    tol = phase_logits(SimpleNamespace(api=api_k, params=params),
+                       SimpleNamespace(api=api_p, params=params), prompts,
+                       [plain[i].out[0] for i in sorted(plain)], float_check=False,
+                       margin="floor")
+    agree = greedy_agreement(plain, fin_k, tol)
+    if not agree["ok"]:
+        fail(f"{label}: kernels vs plain tokens disagree beyond the margin rule: {agree}")
+    worst, held_n = zoo_launch_checks(model, prompts, label)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=EVAL_SEQ, global_batch=EVAL_BATCH)
+    batches = list(eval_stream(dc, EVAL_BATCHES, device="cuda"))
+    api_e = zoo.build(cfg, Runtime(compute_dtype=torch.bfloat16, flash_kernel=True,
+                                   quant_mode="packed", bcq_cfg=bcfg), device="cuda")
+    (losses, ms), counts_ev = _counted(lambda: _eval_losses(api_e, params, batches), totals)
+    _expect(counts_ev, {"bcq_linear": 6 * cfg.n_layers * len(batches),
+                        "flash_attention": cfg.n_layers * len(batches)}, "evaluation", label)
+    loss = sum(losses) / len(losses)
+    if not math.isfinite(loss):
+        fail(f"{label}: non-finite held-out loss {losses}")
+    print(f"{label}: PagedEngine (bcq4 pages in {bcfg.tag()}) at graph depth 2: launches "
+          f"{expect} over {passes} passes; decode {wall:.2f} ms/tick (host clock over the "
+          f"run's {st['decode_ticks']} ticks); kernels vs plain "
+          f"(eager depth 1) tokens {agree} (margin rule, logit tol {tol:.3e}: the plain path's "
+          f"noise floor at B1's tolerance; {agree['tie_flips']} W4A4 flips inside it); "
+          f"held-out W4A4 loss (packed artifact, {EVAL_BATCHES} × {EVAL_BATCH} × {EVAL_SEQ} "
+          f"tokens) {loss:.6f} ({math.exp(loss):.3f} ppl) vs phase 17's default g64_Lb8_Nc8 "
+          f"packed {ptq_losses.get('packed', float('nan')):.6f}, fake "
+          f"{ptq_losses.get('fake bcq', float('nan')):.6f} (printed, not gated); "
+          f"{time.perf_counter() - t0:.1f} s; {smi}", flush=True)
+    del eng_k, eng_p, model, api_k, api_p, api_e, params, fake
+    _free_model()
+    return totals, worst, {"format": bcfg.tag(), "bits": manifest["bcq"]["bits"],
+                           "loss": loss, "ptq_default_loss": ptq_losses.get("packed"),
+                           "tick_wall_ms": wall, "passes": passes, "held": held_n}
+
+
+def phase_formats(smi, train_ck, ptq_losses):
+    """Phase 24: every LO-BCQ format on the card.  (1) ``bcq.fake_quant`` at
+    the paper's 25 formats; (2) B1, B1s, B4, the page writer and B2 at 7;
+    (3) full-width gpt3_126m quantized by the CLI in two non-default
+    formats and served.  Returns (launches by kernel of (3), the main
+    path's run; the ``formats`` entries by kernel; worst errors)."""
+    import torch
+
+    from repro_torch.configs.base import get_arch
+
+    t_phase = time.perf_counter()
+    books = fmt_books(sorted(set(FMT_PAPER) | set(FMT_KERNEL)))
+    entries = {n: {} for n in ("bcq_linear", "bcq_linear_experts", "page_gather",
+                               "bcq_quantize", "bcq_matmul")}
+    fmt_fake_quant(books, entries)
+    kern = fmt_kernels(books, entries)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, get_arch("gpt3_126m").vocab, n) for n in PROMPT_LENS]
+    served, worst = {}, {}
+    for flags in FMT_CLI:
+        counts, w, summary = fmt_serve(flags, train_ck, prompts, ptq_losses, smi)
+        for kk, v in counts.items():
+            served[kk] = served.get(kk, 0) + v
+        worst = {kk: max(worst.get(kk, 0.0), v) for kk, v in w.items()}
+        entries["bcq_linear"].setdefault("served", []).append(summary)
+    entries["page_gather"]["max_abs_err"] = max(entries["page_gather"].get("max_abs_err", 0.0),
+                                                worst.get("page_gather", 0.0))
+    entries["bcq_linear"]["max_abs_err"] = max(entries["bcq_linear"].get("max_abs_err", 0.0),
+                                               worst.get("bcq_linear", 0.0))
+    torch.cuda.synchronize()
+    print(f"phase 24 summary: 25 formats through fake_quant bit for bit, 7 through B1, B1s, B4, "
+          f"the writer and B2 (launches {kern}), 2 CLI formats served (launches {served}); "
+          f"phase 24 {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return served, entries
+
+
+# ------------------------------------------------------------------ phase 25
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+# the examples' reduced steps on the card: (name, argv)
+EXAMPLE_RUNS = (("torch_quickstart", []),
+                ("torch_calibrate_and_eval", ["--steps", "30"]),
+                ("torch_serve_w4a4", ["--steps", "30", "--gen", "12"]))
+
+
+def phase_examples(smi):
+    """Phase 25: the three examples' ``main`` in this process on the card
+    at reduced steps; each must finish, and the quickstart's kernel
+    results (the two-launch GEMM, the fused linear) must equal its plain
+    ones (the same codes: the two routes bit for bit; each against its
+    plain version at B1's tolerance)."""
+    import importlib.util
+
+    import torch
+
+    t_phase = time.perf_counter()
+    outs = {}
+    for name, argv in EXAMPLE_RUNS:
+        path = os.path.join(EXAMPLES_DIR, f"{name}.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        outs[name] = mod.main(argv)
+        torch.cuda.synchronize()
+        print(f"phase 25 example {name} {' '.join(argv)}: finished in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    qs = outs["torch_quickstart"]
+    if qs["gemm"].device.type != "cuda" or not torch.equal(qs["gemm"], qs["fused"]):
+        fail("phase 25: the quickstart's fused linear and two-launch GEMM differ on the card")
+    for key in ("gemm", "fused"):
+        ok, err = held(qs[key], qs[f"{key}_plain"], LINEAR_TOL,
+                       LINEAR_TOL * float(qs[f"{key}_plain"].abs().max()))
+        if not ok:
+            fail(f"phase 25: the quickstart's {key} differs from its plain version: {err:.3e}")
+    rows = outs["torch_calibrate_and_eval"]["rows"]
+    if not all(np.isfinite(r[2]) for r in rows):
+        fail(f"phase 25: non-finite perplexities {rows}")
+    print(f"phase 25 summary: quickstart NMSE {qs['nmse']['LO-BCQ']:.5f}, kernels ≡ plain; "
+          f"calibrate_and_eval {[(r[0], round(r[2], 3)) for r in rows]}; serve_w4a4 agreement "
+          f"{outs['torch_serve_w4a4']['agreement']}; phase 25 "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+
+
 # ------------------------------------------------------------------ phase 10
 def _bound(nbytes, *work):
     """The least time (ms) for ``nbytes`` of HBM traffic and the ``(ops,
@@ -6815,22 +7265,23 @@ def time_linear(cb, worst_err, launches):
     }
 
 
-def _gather_times(cb, c, kv_len, seed, h=12, hkv=12, d=64):
-    """Page gather (bcq4, page 16, ``h`` query heads of ``d`` over ``hkv``
-    KV heads; gpt3_126m's 12 of 64 by default) over rows of ``kv_len``
-    tokens with ``c`` queries each: kernel (event loop and device time of
-    its two launches), plain, bound."""
+def _gather_times(cb, c, kv_len, seed, h=12, hkv=12, d=64, cfg=None, profile=True):
+    """Page gather (bcq4 in the format ``cfg``, default ``BCQConfig()``,
+    page 16, ``h`` query heads of ``d`` over ``hkv`` KV heads; gpt3_126m's
+    12 of 64 by default) over rows of ``kv_len`` tokens with ``c`` queries
+    each: kernel (event loop and, with ``profile``, device time of its two
+    launches), plain, bound (``common.gather_cost``'s bytes)."""
     import torch
 
     from repro_torch.core.bcq import BCQConfig
     from repro_torch.kernels import common
 
-    cfg = BCQConfig()
+    cfg = cfg or BCQConfig()
     ps = 16
     b = len(kv_len)
     maxp = -(-max(kv_len) // ps)
     n_pages = 1 + b * maxp
-    pool = gather_pool("bcq4", n_pages, ps, hkv, d, seed, cb)
+    pool = gather_pool("bcq4", n_pages, ps, hkv, d, seed, cb, cfg)
     bt, kvl = gather_case(b, maxp, ps, kv_len, seed + 1, n_pages)
     q = torch.randn((b, c, h, d), generator=torch.Generator().manual_seed(seed + 2)).cuda()
     run = (q, pool, bt, kvl, "bcq4", cfg, cb)
@@ -6840,12 +7291,12 @@ def _gather_times(cb, c, kv_len, seed, h=12, hkv=12, d=64):
                    GATHER_TOL, GATHER_TOL)
     if not ok:
         fail(f"page_gather disagrees with its plain version at C={c} kv_len={kv_len}: {err:.3e}")
-    pages = sum(max(1, -(-n // ps)) for n in kv_len)
-    page_bytes = ps * hkv * (d // 2 + d // 16 + d // 64)  # one K or V page
-    nbytes = q.numel() * 4 * 2 + 2 * pages * page_bytes + bt.numel() * 4 + b * 4 + 8 * 16 * 4 + 8
-    seen = sum(n - c + i + 1 for n in kv_len for i in range(c))  # (query, key) pairs, causal
-    flops = 4 * h * d * seen  # QK and PV of every query head
+    nbytes, work = common.gather_cost("bcq4", q, common.page_pool_leaves(pool, "bcq4")[0], bt,
+                                      kv_len, cfg)
+    flops = work["f32"]  # QK and PV of every query head over its causally visible keys
     bound, by = _bound(nbytes, (flops, F32_FLOPS))
+    if not profile:
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "err": err}
     by_name = kernel_split_ms(lambda: common.page_gather_attention(*run), bound,
                               f"page_gather at C={c}")
     pick = lambda key: sum(t for nm, t in by_name.items() if key in nm) or None  # noqa: E731
@@ -6937,19 +7388,21 @@ def time_flash(worst_err, launches):
     }
 
 
-def _write_times(cb, c, seed, h=12, d=64):
+def _write_times(cb, c, seed, h=12, d=64, cfg=None, profile=True):
     """The KV-page writer at a serving shape: 8 rows of ``c`` tokens (c ==
     1: a decode tick; c == 64: a prefill chunk, every slot of 4 pages a
     row) of ``h`` KV heads of ``d`` (gpt3_126m's 12 of 64 by default), f32
     K and V (the serving run's compute dtype), into a pool of the serving
     run's size.  Kernel (event loop, device time), plain writer, bound; the
-    two pools must end byte-equal."""
+    two pools must end byte-equal.  ``cfg``: the pages' format (default
+    ``BCQConfig()``); ``profile`` False skips the profiled device time."""
     import torch
 
     from repro_torch.core.bcq import BCQConfig
+    from repro_torch.kernels.bcq_quantize import page_write_cost
     from repro_torch.models import layers
 
-    cfg = BCQConfig()
+    cfg = cfg or BCQConfig()
     b, ps, n_pages = 8, 16, 1 + 8 * 34
     pool = layers.cache_init(n_pages, ps, h, d, "bcq4", cfg, device="cuda")
     pool["v_sx"].fill_(0.37)
@@ -6972,13 +7425,16 @@ def _write_times(cb, c, seed, h=12, d=64):
     run = lambda: write(pool, True)  # noqa: E731
     ms = cuda_ms(run)
     plain_ms = cuda_ms(lambda: write(plain, False), iters=10)
-    diff = _pool_diff(pool, plain, cb)
+    diff = _pool_diff(pool, plain, cb, cfg)
     if diff != 0:
-        fail(f"the KV-page writer disagrees with the plain writer at C={c} ({diff})")
-    nbytes = (2 * k.numel() * 4 + 2 * rows * h * (d // 2 + d // 16 + d // 64)
-              + sum(t.numel() * t.element_size() for t in ids) + 8 * 16 * 4 + 8)
-    ops = ENCODE_OPS * 2 * k.numel()
+        fail(f"the KV-page writer disagrees with the plain writer at C={c} {cfg.tag()} ({diff})")
+    la = cfg.array_len if d % cfg.array_len == 0 else min(cfg.array_len, d)
+    nbytes, work = page_write_cost(k, rows, la, sum(t.numel() * t.element_size() for t in ids),
+                                   cfg)
+    ops = work["f32"]
     bound, by = _bound(nbytes, (ops, F32_FLOPS))
+    if not profile:
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
     by_name = kernel_split_ms(run, bound, f"the KV-page writer at C={c}")
     return {"ms": ms, "device_ms": device_ms(by_name), "timer": timer(by_name),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "nbytes": nbytes, "ops": ops}
@@ -7072,7 +7528,9 @@ def check_bounds(kernels):
     """No time in the ``kernels`` line may read below its bound: the card
     cannot do the work faster, so such a reading is a measurement fault."""
     for entry in kernels:
-        for at in [entry] + [v for v in entry.values() if isinstance(v, dict) and "bound_ms" in v]:
+        timings = entry.get("formats", {}).get("timings", [])
+        for at in ([entry] + [v for v in entry.values() if isinstance(v, dict) and "bound_ms" in v]
+                   + timings):
             for key in ("ms", "device_ms"):
                 if at.get(key) is not None and at[key] < at["bound_ms"]:
                     fail(f"{entry['name']} ({at.get('shape')}): {key} {at[key]:.5f} reads below "
@@ -7100,7 +7558,7 @@ def main() -> int:
     ).stdout.strip()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"device: {kind} x{count}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.1f}s", flush=True)
     log = (build.BUILD_DIR / "build.log")
@@ -7136,7 +7594,7 @@ def main() -> int:
     counts_tier, _ = phase_host_tier(eng4, tol, core, g2, core_g2, smi)
     counts_moe, stacked, err_moe = phase_moe(cb, smi)
     counts_train, train_ck, trained_form = phase_train(smi)
-    counts_ptq, err_ptq, fake_form = phase_ptq(cb, smi, train_ck)
+    counts_ptq, err_ptq, fake_form, ptq_losses = phase_ptq(cb, smi, train_ck)
     counts_state, state_entry, err_state = phase_state(cb, smi)
     counts_hyb, hyb_entry, err_hyb = phase_hybrid(cb, smi)
     counts_enc, flash_enc, enc_entry, flash_entry, err_enc = phase_encdec(cb, smi)
@@ -7191,8 +7649,22 @@ def main() -> int:
     kernels[3]["launches_by_path"]["mesh"] = counts_mesh
     kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
     kernels[3]["mesh"] = mesh_entry
+    print(f"chip_smoke: phases 1–23 done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    counts_fmt, fmt_entries = phase_formats(smi, train_ck, ptq_losses)
+    phase_examples(smi)
+    for entry, name, counters in ((kernels[0], "bcq_linear", ("bcq_linear",)),
+                                  (kernels[1], "page_gather", ("page_gather",)),
+                                  (kernels[3], "bcq_quantize", ("bcq_quantize", "bcq_page_write")),
+                                  (kernels[4], "bcq_matmul", ()),
+                                  (stacked, "bcq_linear_experts", ())):
+        entry["formats"] = fmt_entries[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], fmt_entries[name].get("max_abs_err", 0.0))
+        if counters:
+            entry["launches_by_path"]["formats"] = sum(counts_fmt.get(c, 0) for c in counters)
+            entry["launches"] = sum(entry["launches_by_path"].values())
     kernels.insert(1, stacked)
     check_bounds(kernels)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

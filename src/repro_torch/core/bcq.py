@@ -128,9 +128,10 @@ class CodebookSet:
 
 def check_codebook_levels(levels: np.ndarray, cfg: BCQConfig, integer: bool = True) -> bool:
     """The premise of the W4A4 kernels: B1, B4 and the KV-page writer
-    multiply codewords as int8 integers and find the nearest entry by a
-    table over floor(2y), both exact only for sorted integer levels within
-    ±codeword_max (csrc/bcq_encode.cuh, csrc/bcq_gemm.cuh).  B3's quantize
+    multiply codewords as int8 integers (and, in the default format, find
+    the nearest entry by a table over floor(2y)), exact only for sorted
+    integer levels within ±codeword_max (csrc/bcq_encode.cuh,
+    csrc/bcq_gemm.cuh).  B3's quantize
     form (``integer=False``) also takes any sorted, finite f32 levels —
     trained codebooks — through its threshold search, as the reference's
     kernel does.  Raises ValueError; returns whether the levels are
@@ -166,16 +167,75 @@ def check_kernel_codebooks(codebooks: torch.Tensor, cfg: BCQConfig, integer: boo
     return whole
 
 
+# The formats the CUDA kernels are built for (csrc/bcq_encode.cuh:
+# format_ok): L_b, L_A and 2^B; N_c from 1 to 16.
+KERNEL_BLOCK_LENS = (2, 4, 8)
+KERNEL_ARRAY_LENS = (16, 32, 64, 128)
+KERNEL_N_ENTRIES = (4, 8, 16)
+ISUM_BOUND = 2**22  # csrc/bcq_gemm.cuh: an array's int32 sum stays below it (ISUM_BIAS)
+
+
 def check_kernel_config(cfg: BCQConfig, what: str) -> None:
-    """Refuse a config that B1, B3 and B4 cannot run (they are built for
-    ``BCQConfig()``'s (L_A, L_b, entries, N_c)): at their entry, and up
-    front where an entry point on the card (``what``) would reach them."""
-    got = (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks)
-    if got != (64, 8, 16, 8):
+    """Refuse a format that no kernel, and no correct packing, can take —
+    at the kernels' entry, and up front where an entry point on the card
+    (``what``) would reach them: N_c or 2^B past 16 (a selector or index
+    must fit its nibble; the reference's ``pack_u4`` would wrap it), B_c
+    past 8 (not an int8 code), L_A not a multiple of 2·L_b (a selector
+    byte would straddle two arrays), or an array's integer dot product
+    L_A·codeword_max² reaching 2^22 (the GEMM's exact int32-to-f32 fold).
+    The message names the bound that was broken."""
+    nc, ne, la, lb = cfg.n_codebooks, cfg.n_entries, cfg.array_len, cfg.block_len
+    broken = []
+    if nc > 16:
+        broken.append(f"N_c {nc} exceeds 16 (a codebook selector is a 4-bit nibble)")
+    if ne > 16:
+        broken.append(f"2^B = {ne} entries exceed 16 (a codeword index is a 4-bit nibble)")
+    if cfg.codeword_bits > 8:
+        broken.append(f"B_c {cfg.codeword_bits} exceeds 8 (a codeword is an int8 code)")
+    if la % (2 * lb):
+        broken.append(f"L_A {la} is not a multiple of 2·L_b = {2 * lb} (a selector byte "
+                      "would straddle two arrays)")
+    if la * cfg.codeword_max**2 >= ISUM_BOUND:
+        broken.append(f"L_A·codeword_max² = {la * cfg.codeword_max**2:.0f} reaches 2^22 (an "
+                      "array's int32 sum must fold into f32 exactly)")
+    if broken:
+        raise ValueError(f"{what}: the CUDA kernels cannot take {cfg}: " + "; ".join(broken))
+
+
+def check_kernel_format(cfg: BCQConfig, what: str) -> None:
+    """``check_kernel_config``, and the formats the kernels are built for:
+    L_b ∈ {2, 4, 8}, L_A ∈ {16, 32, 64, 128}, 2^B ∈ {4, 8, 16}, N_c ≥ 1 —
+    at a kernel wrapper's entry, so a format outside them raises rather
+    than falling back to plain torch."""
+    check_kernel_config(cfg, what)
+    if (cfg.block_len not in KERNEL_BLOCK_LENS or cfg.array_len not in KERNEL_ARRAY_LENS
+            or cfg.n_entries not in KERNEL_N_ENTRIES or cfg.n_codebooks < 1):
         raise ValueError(
-            f"{what}: the CUDA kernels take only L_A 64, L_b 8, 16 entries and N_c 8 "
-            f"(BCQConfig()), not L_A {got[0]}, L_b {got[1]}, {got[2]} entries, N_c {got[3]}; "
-            "run this config on the CPU (device='cpu')")
+            f"{what}: the CUDA kernels take L_b in {KERNEL_BLOCK_LENS}, L_A in "
+            f"{KERNEL_ARRAY_LENS}, 2^B in {KERNEL_N_ENTRIES} and N_c 1 to 16, not {cfg}")
+
+
+class KernelRoute(NamedTuple):
+    """The compiled paths a kernel launch takes in one format.  Decided
+    here alone (``kernel_route``): the wrappers pass it to the C entries,
+    which refuse a route their format cannot take, and read it for their
+    launch counters and their ``*_cost`` bounds."""
+
+    table: bool    # the encode's integer table (else the threshold search)
+    special: bool  # the default format's compiled forms: the specialised GEMM, B2's bcq4
+                   # read (kind 2), B3's unrolled threshold search
+
+
+def kernel_route(cfg: BCQConfig, integer: bool = True) -> KernelRoute:
+    """The route of a launch in ``cfg``'s format (for KV pages, the format
+    with L_A shrunk to the head: ``page_cfg``): ``special`` in the default
+    format (L_A 64, L_b 8, 16 entries, N_c 8); ``table`` there too with
+    integer codebooks (``integer``: ``check_kernel_codebooks``' answer)
+    within ±codeword_max ≤ 31.  Every other format takes the threshold
+    search and the general GEMM / bcq4 read (csrc/bcq_encode.cuh,
+    csrc/bcq_gemm.cuh, csrc/page_gather.cu)."""
+    special = (cfg.array_len, cfg.block_len, cfg.n_entries, cfg.n_codebooks) == (64, 8, 16, 8)
+    return KernelRoute(integer and special and cfg.codeword_max <= 31, special)
 
 
 class Encoded(NamedTuple):

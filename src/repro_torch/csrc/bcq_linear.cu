@@ -18,6 +18,12 @@
 // operations at 1979 TOP/s) and the f32 output it writes, with the encode
 // of x (32 f32 operations a scalar) well below either.
 //
+// Every LO-BCQ format the reference's kernel takes runs here: the default
+// (L_A 64, L_b 8, 16 entries, N_c 8, INT6) through the table encode and
+// the specialised GEMM below, any other through the threshold-search
+// encode and the general GEMM (bcq_encode.cuh, bcq_gemm.cuh: gemm_fmt),
+// the format passed at run time.
+//
 // Design: two launches behind this one C entry, on one stream.
 //
 // 1. The encode pass (bcq_encode.cuh's encode_kernel) touches each
@@ -62,71 +68,94 @@ using bcq::LB;
 struct CodesIo : bcq::RowMajorIn {
   uint2* codes;
   float* a_inv;
-  __device__ void store(long long g, long long, const uint32_t (&ent)[LB], int, int, float,
-                        float scale) const {
+  __device__ void store_codes(long long g, const uint32_t (&ent)[LB]) const {
     uint2 c;
     c.x = bcq::entry_code(ent[0]) | bcq::entry_code(ent[1]) << 8 |
           bcq::entry_code(ent[2]) << 16 | bcq::entry_code(ent[3]) << 24;
     c.y = bcq::entry_code(ent[4]) | bcq::entry_code(ent[5]) << 8 |
           bcq::entry_code(ent[6]) << 16 | bcq::entry_code(ent[7]) << 24;
     codes[g] = c;
+  }
+  __device__ void store(long long g, long long, const uint32_t (&ent)[LB], int, int, float,
+                        float scale) const {
+    store_codes(g, ent);
     if ((g & 7) == 0) a_inv[g / 8] = __fdiv_rn(1.f, scale);
+  }
+  __device__ void store_fmt(long long g, long long, const uint32_t (&ent)[LB], uint32_t, float,
+                            float scale, const bcq::Fmt& f) const {
+    store_codes(g, ent);
+    if ((g & (f.lanes - 1)) == 0) a_inv[g >> f.sh] = __fdiv_rn(1.f, scale);
   }
 };
 
-}  // namespace
-
-// Plain C entry: launches the encode pass and the GEMM on ``stream``,
-// allocates nothing (codes (M, K) int8 and a_inv (M, K/64) f32 are the
-// caller's workspace), returns the launch status (cudaGetLastError).
-// Requires K % 64 == 0, 16-byte aligned x, w_idx and codes, 4-byte
-// aligned w_sel, and the paper config (L_A 64, L_b 8, 16 entries, 8
-// integer codebooks); the wrapper checks.
-extern "C" int bcq_linear_launch(const float* x, const uint8_t* w_idx, const uint8_t* w_sel,
-                                 const float* w_inv, const float* cb, const float* s_x,
-                                 int8_t* codes, float* a_inv, float* out, int M, int N, int K,
-                                 float cw_max, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % LA) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_blocks = static_cast<long long>(M) * (K / LB);
-  CodesIo enc;
-  enc.x = x;
-  enc.s_x = s_x;
-  enc.codes = reinterpret_cast<uint2*>(codes);
-  enc.a_inv = a_inv;
-  bcq::encode_kernel<<<bcq::encode_grid<CodesIo>(n_blocks), bcq::ENC_THREADS, 0, st>>>(
-      enc, cb, n_blocks, cw_max, LA / LB);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bcq::Operand a{codes, nullptr, nullptr, a_inv, nullptr};
-  const bcq::Operand w{nullptr, w_idx, w_sel, w_inv, cb};
-  return static_cast<int>(bcq::gemm<true>(a, w, out, M, N, K, st));
-}
-
-// Plain C entry of the expert-stacked form: E linears of C rows each,
-// x (E, C, K) f32 against w_idx (E, N, K/2), w_sel (E, N, K/16), w_inv
-// (E, N, K/64), one s_x for all; codes (E·C, K) and a_inv (E·C, K/64) are
-// the caller's workspace, out (E, C, N).  Returns the launch status.
-// Requires 1 ≤ E ≤ 65535 and what bcq_linear_launch requires.
-extern "C" int bcq_linear_experts_launch(const float* x, const uint8_t* w_idx,
-                                         const uint8_t* w_sel, const float* w_inv,
-                                         const float* cb, const float* s_x, int8_t* codes,
-                                         float* a_inv, float* out, int E, int C, int N, int K,
-                                         float cw_max, void* stream) {
-  if (E <= 0 || E > 65535 || C <= 0 || N <= 0 || K <= 0 || K % LA)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The encode pass and the GEMM of E · C rows (C a GEMM, E of them stacked
+// on grid z) in the format (lb, la, nc, ne): the table encode or the
+// threshold search (table), the specialised GEMM or gemm_fmt (special).
+int linear(const float* x, const uint8_t* w_idx, const uint8_t* w_sel, const float* w_inv,
+           const float* cb, const float* s_x, int8_t* codes, float* a_inv, float* out, int E,
+           int C, int N, int K, float cw_max, int lb, int la, int nc, int ne, int table,
+           int special, cudaStream_t st) {
   const long long n_blocks = static_cast<long long>(E) * C * (K / LB);
   CodesIo enc;
   enc.x = x;
   enc.s_x = s_x;
   enc.codes = reinterpret_cast<uint2*>(codes);
   enc.a_inv = a_inv;
-  bcq::encode_kernel<<<bcq::encode_grid<CodesIo>(n_blocks), bcq::ENC_THREADS, 0, st>>>(
-      enc, cb, n_blocks, cw_max, LA / LB);
-  cudaError_t e = cudaGetLastError();
+  const bcq::Fmt f = bcq::make_fmt(la, nc, ne, lb);
+  cudaError_t e = table ? bcq::encode_launch<bcq::TABLE>(enc, cb, n_blocks, cw_max, f, st)
+                        : bcq::encode_launch<bcq::SEARCH>(enc, cb, n_blocks, cw_max, f, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const bcq::Operand a{codes, nullptr, nullptr, a_inv, nullptr};
   const bcq::Operand w{nullptr, w_idx, w_sel, w_inv, cb};
-  return static_cast<int>(bcq::gemm<true>(a, w, out, C, N, K, st, E));
+  if (special) return static_cast<int>(bcq::gemm<true>(a, w, out, C, N, K, st, E));
+  return static_cast<int>(
+      bcq::gemm_fmt<true>(a, w, out, C, N, K, bcq::GemmFmt{la, lb, nc, ne}, st, E));
+}
+
+// The routes a format can take: the table and the specialised GEMM only in
+// the default format, the table only with |codeword| ≤ 31.
+bool route_ok(int lb, int la, int nc, int ne, float cw_max, int table, int special) {
+  const bool dflt = bcq::default_format(lb, la, nc, ne);
+  return (!table || (dflt && cw_max <= 31.f)) && (!special || dflt);
+}
+
+}  // namespace
+
+// Plain C entry: launches the encode pass and the GEMM on ``stream``,
+// allocates nothing (codes (M, K) int8 and a_inv (M, K/la) f32 are the
+// caller's workspace), returns the launch status (cudaGetLastError).
+// Requires K % 64 == 0 and K % la == 0, 16-byte aligned x, w_idx and
+// codes, 4-byte aligned w_sel, a format (lb, la, nc, ne) the kernels take
+// (bcq_encode.cuh: format_ok) and nc × ne integer codebooks within
+// ±cw_max ≤ 127; the wrapper checks.  table, special: the route
+// (core/bcq.kernel_route); one the format cannot take is refused.
+extern "C" int bcq_linear_launch(const float* x, const uint8_t* w_idx, const uint8_t* w_sel,
+                                 const float* w_inv, const float* cb, const float* s_x,
+                                 int8_t* codes, float* a_inv, float* out, int M, int N, int K,
+                                 float cw_max, int lb, int la, int nc, int ne, int table,
+                                 int special, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % LA || !bcq::format_ok(lb, la, nc, ne) || K % la ||
+      !route_ok(lb, la, nc, ne, cw_max, table, special))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return linear(x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, 1, M, N, K, cw_max, lb, la,
+                nc, ne, table, special, static_cast<cudaStream_t>(stream));
+}
+
+// Plain C entry of the expert-stacked form: E linears of C rows each,
+// x (E, C, K) f32 against w_idx (E, N, K/2), w_sel (E, N, K/(2·lb)), w_inv
+// (E, N, K/la), one s_x for all; codes (E·C, K) and a_inv (E·C, K/la) are
+// the caller's workspace, out (E, C, N).  Returns the launch status.
+// Requires 1 ≤ E ≤ 65535 and what bcq_linear_launch requires.
+extern "C" int bcq_linear_experts_launch(const float* x, const uint8_t* w_idx,
+                                         const uint8_t* w_sel, const float* w_inv,
+                                         const float* cb, const float* s_x, int8_t* codes,
+                                         float* a_inv, float* out, int E, int C, int N, int K,
+                                         float cw_max, int lb, int la, int nc, int ne,
+                                         int table, int special, void* stream) {
+  if (E <= 0 || E > 65535 || C <= 0 || N <= 0 || K <= 0 || K % LA ||
+      !bcq::format_ok(lb, la, nc, ne) || K % la ||
+      !route_ok(lb, la, nc, ne, cw_max, table, special))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return linear(x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, E, C, N, K, cw_max, lb, la,
+                nc, ne, table, special, static_cast<cudaStream_t>(stream));
 }

@@ -9,13 +9,13 @@
 //
 // * quantize (bcq_quantize_launch): x f32 (M, K) with the per-tensor scale
 //   s_x the caller reduced →
-//       idx   u8  (M, K/2)   codeword indices, two nibbles a byte, low first
-//       sel   u8  (M, K/16)  codebook selectors, two nibbles a byte
-//       ratio f32 (M, K/64)  E4M3-snapped s_A / s_X per 64-scalar array
-//   with integer codebooks (the table lookup), or, through
-//   bcq_quantize_thr_launch, with any sorted f32 codebooks (the threshold
-//   search: the trained codebooks of W4A4 fake-quant training), as the
-//   reference's kernel takes them;
+//       idx   u8  (M, K/2)        codeword indices, two nibbles a byte, low first
+//       sel   u8  (M, K/(2·L_b))  codebook selectors, two nibbles a byte
+//       ratio f32 (M, K/L_A)      E4M3-snapped s_A / s_X per array
+//   with the default format's integer codebooks (the table lookup), or,
+//   through bcq_quantize_thr_launch, with any sorted f32 codebooks of any
+//   format (the threshold search: trained codebooks, and every L_b, L_A,
+//   N_c, 2^B and B_c the reference's kernel takes);
 // * page store (bcq_page_write_launch): the bcq4 KV-page writer of the
 //   serving path, where the reference encodes with jnp bcq.encode
 //   (repro/models/layers.py: paged_token_write, paged_chunk_write).  One
@@ -23,6 +23,9 @@
 //   head) vector on its own with L_A = min(64, d_head) and the pool-global
 //   k_sx / v_sx, and stores idx nibbles, selector nibbles and the ratio's
 //   E4M3 bits straight into their page slots (pool leaves (P, ps, H, ·)).
+//   The format is the caller's (L_A already shrunk to d_head where the
+//   cache does so), and so is the route: the default format's table, or
+//   the threshold search for every other.
 //   Decode (n_cp == 0): row b's one token goes to slot (ids[b], aux[b]);
 //   of rows that share a slot only the last writes.  Chunked prefill
 //   (n_cp > 0): row b's C tokens fill pages ids[b, 0..n_cp); slots past C
@@ -76,6 +79,12 @@ struct QuantizeIo : bcq::RowMajorIn {
     idx[g] = pack_idx(ent);
     if ((g & 1) == 0) sel[g / 2] = static_cast<uint8_t>(s | (pair << 4));
     if ((g & 7) == 0) ratio[g / 8] = r;
+  }
+  __device__ void store_fmt(long long g, long long, const uint32_t (&ent)[LB], uint32_t sb,
+                            float r, float, const bcq::Fmt& f) const {
+    idx[g] = pack_idx(ent);
+    bcq::store_sel(sel, g, sb, f.lb);
+    if ((g & (f.lanes - 1)) == 0) ratio[g >> f.sh] = r;
   }
 };
 
@@ -168,16 +177,22 @@ struct PageWriteIo {
     if ((q & 1) == 0) sel[side][vec * (nb / 2) + q / 2] = zero ? 0 : static_cast<uint8_t>(s | (pair << 4));
     if (q % bpa == 0) scale[side][vec * (D / la) + q / bpa] = zero ? 0 : static_cast<uint8_t>(bcq::e4m3_bits(r));
   }
-};
 
-template <class Io, bool INT_BOOKS = true>
-int launch(const Io& io, const float* cb, long long n_blocks, float cw_max, int lanes,
-           void* stream) {
-  bcq::encode_kernel<Io, INT_BOOKS><<<bcq::encode_grid<Io, INT_BOOKS>(n_blocks), bcq::ENC_THREADS,
-                                      0, static_cast<cudaStream_t>(stream)>>>(io, cb, n_blocks,
-                                                                              cw_max, lanes);
-  return static_cast<int>(cudaGetLastError());
-}
+  // The threshold search's store: a head vector's D / (2 · L_b) selector
+  // bytes, 8 / L_b blocks of each thread.
+  __device__ void store_fmt(long long g, long long job, const uint32_t (&ent)[LB], uint32_t sb,
+                            float r, float, const bcq::Fmt& f) const {
+    const bool zero = job & 1;
+    const int side = (job >> 1) & 1;
+    const long long vec = job >> 2;
+    const int nb = D / LB, q = static_cast<int>(g % nb), bpa = la / LB;
+    reinterpret_cast<uint32_t*>(idx[side])[vec * nb + q] = zero ? 0u : pack_idx(ent);
+    // the vector's selector bytes start at vec · nb · 4 / L_b: block q of
+    // the vector is block vec · nb + q of one run
+    bcq::store_sel(sel[side], vec * nb + q, zero ? 0u : sb, f.lb);
+    if (q % bpa == 0) scale[side][vec * (D / la) + q / bpa] = zero ? 0 : static_cast<uint8_t>(bcq::e4m3_bits(r));
+  }
+};
 
 QuantizeIo quantize_io(const float* x, const float* s_x, uint8_t* idx, uint8_t* sel,
                        float* ratio) {
@@ -193,49 +208,69 @@ QuantizeIo quantize_io(const float* x, const float* s_x, uint8_t* idx, uint8_t* 
 }  // namespace
 
 // Plain C entries: launch on ``stream``, allocate nothing, return the
-// launch status (cudaGetLastError).  All need the paper config (L_b 8, 16
-// entries, 8 codebooks); the wrappers check shapes, types and alignment.
+// launch status (cudaGetLastError); the wrappers check shapes, types and
+// alignment.
 //
-// Quantize: K % 64 == 0, 16-byte aligned x, 4-byte aligned idx; integer
-// codebooks within ±cw_max (the tables).
+// Quantize: the default format (L_A 64, L_b 8, 16 entries, N_c 8), K % 64
+// == 0, 16-byte aligned x, 4-byte aligned idx; integer codebooks within
+// ±cw_max ≤ 31 (the tables).
 extern "C" int bcq_quantize_launch(const float* x, const float* cb, const float* s_x,
                                    uint8_t* idx, uint8_t* sel, float* ratio, int M, int K,
                                    float cw_max, void* stream) {
-  if (M <= 0 || K <= 0 || K % LA) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(quantize_io(x, s_x, idx, sel, ratio), cb, static_cast<long long>(M) * (K / LB),
-                cw_max, LA / LB, stream);
+  if (M <= 0 || K <= 0 || K % LA || cw_max > 31.f) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bcq::encode_launch<bcq::TABLE>(
+      quantize_io(x, s_x, idx, sel, ratio), cb, static_cast<long long>(M) * (K / LB), cw_max,
+      bcq::make_fmt(LA, 8, 16), static_cast<cudaStream_t>(stream)));
 }
 
-// Quantize with any sorted, finite f32 codebooks (the threshold search of
-// bcq_encode.cuh: trained codebooks); otherwise as bcq_quantize_launch.
+// Quantize with any sorted, finite f32 codebooks (nc × ne) of the format
+// (lb, la, nc, ne) through the threshold search of bcq_encode.cuh; K % la
+// == 0, 16-byte aligned x, 4-byte aligned idx and sel.  special: the
+// default format's compiled search (SEARCH8), which only that format takes.
 extern "C" int bcq_quantize_thr_launch(const float* x, const float* cb, const float* s_x,
                                        uint8_t* idx, uint8_t* sel, float* ratio, int M, int K,
-                                       float cw_max, void* stream) {
-  if (M <= 0 || K <= 0 || K % LA) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<QuantizeIo, false>(quantize_io(x, s_x, idx, sel, ratio), cb,
-                                   static_cast<long long>(M) * (K / LB), cw_max, LA / LB, stream);
+                                       float cw_max, int lb, int la, int nc, int ne, int special,
+                                       void* stream) {
+  if (M <= 0 || K <= 0 || !bcq::format_ok(lb, la, nc, ne) || K % la ||
+      (special && !bcq::default_format(lb, la, nc, ne)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const QuantizeIo io = quantize_io(x, s_x, idx, sel, ratio);
+  const long long n_blocks = static_cast<long long>(M) * (K / LB);
+  const bcq::Fmt f = bcq::make_fmt(la, nc, ne, lb);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = special ? bcq::encode_launch<bcq::SEARCH8>(io, cb, n_blocks, cw_max, f, st)
+                                : bcq::encode_launch<bcq::SEARCH>(io, cb, n_blocks, cw_max, f, st);
+  return static_cast<int>(e);
 }
 
 // Page store: k, v (B, S, H, D) contiguous and 16-byte aligned, f32
-// (bf16 = 0) or bf16 (bf16 = 1); D = la · m with la ∈ {16, 32, 64}; leaves
-// contiguous with 4-byte aligned idx; ids / aux int32 or int64 (ids64,
-// aux64), row b's at b · ids_stride (aux_stride), a chunk row's n_cp ids
-// contiguous.  A page id outside [0, P) or a slot outside [0, ps) aborts the
-// kernel (the stream's next synchronisation reports a launch failure).
+// (bf16 = 0) or bf16 (bf16 = 1); the format (lb, la, nc, ne) with D = la
+// · m ≤ 256; leaves contiguous with 4-byte aligned idx and sel; ids / aux
+// int32 or int64 (ids64, aux64), row b's at b · ids_stride (aux_stride), a
+// chunk row's n_cp ids contiguous.  table: the table encode, which takes
+// L_b 8, 16 entries, N_c 8 and |codeword| ≤ 31 (any la); else the
+// threshold search.  The codebooks are integers either way (the int8 codes
+// are not stored, but the wrapper holds both paths to one premise).  A
+// page id outside [0, P) or a slot outside [0, ps) aborts the kernel (the
+// stream's next synchronisation reports a launch failure).
 extern "C" int bcq_page_write_launch(int bf16, const void* k, const void* v, const float* k_sx,
                                      const float* v_sx, const float* cb, uint8_t* k_idx,
                                      uint8_t* k_sel, uint8_t* k_scale, uint8_t* v_idx,
                                      uint8_t* v_sel, uint8_t* v_scale, const void* ids,
                                      int ids64, int ids_stride, const void* aux, int aux64,
                                      int aux_stride, int B, int S, int H, int D, int P, int ps,
-                                     int n_cp, int la, float cw_max, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || ps <= 0 || n_cp < 0 || (la != 16 && la != 32 && la != 64) ||
-      D % la || D / LB > 32)
+                                     int n_cp, int lb, int la, int nc, int ne, int table,
+                                     float cw_max, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || ps <= 0 || n_cp < 0 || !bcq::format_ok(lb, la, nc, ne) ||
+      D % la || D / LB > 32 || (table && !bcq::default_format(lb, LA, nc, ne)) ||
+      (table && cw_max > 31.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = n_cp ? static_cast<long long>(B) * n_cp * ps : B;
   const long long n_blocks = 2 * rows * H * (D / LB);
   if (n_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto fill = [&](auto& io) {
+  const bcq::Fmt f = bcq::make_fmt(la, nc, ne, lb);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto& io) {
     io.k = k; io.v = v; io.k_sx = k_sx; io.v_sx = v_sx;
     io.idx[0] = k_idx; io.idx[1] = v_idx;
     io.sel[0] = k_sel; io.sel[1] = v_sel;
@@ -243,13 +278,13 @@ extern "C" int bcq_page_write_launch(int bf16, const void* k, const void* v, con
     io.ids = ids; io.aux = aux; io.ids64 = ids64; io.aux64 = aux64;
     io.ids_stride = ids_stride; io.aux_stride = aux_stride;
     io.B = B; io.S = S; io.H = H; io.D = D; io.P = P; io.ps = ps; io.n_cp = n_cp; io.la = la;
+    return table ? bcq::encode_launch<bcq::TABLE>(io, cb, n_blocks, cw_max, f, st)
+                 : bcq::encode_launch<bcq::SEARCH>(io, cb, n_blocks, cw_max, f, st);
   };
   if (bf16) {
     PageWriteIo<true> io;
-    fill(io);
-    return launch(io, cb, n_blocks, cw_max, la / LB, stream);
+    return static_cast<int>(run(io));
   }
   PageWriteIo<false> io;
-  fill(io);
-  return launch(io, cb, n_blocks, cw_max, la / LB, stream);
+  return static_cast<int>(run(io));
 }

@@ -14,7 +14,13 @@
 // Pages are dequantized in the kernel from the pool's own layout: bf16;
 // int8 with a per-(token, head) f32 scale; or bcq4 nibble indices and
 // selectors with E4M3 scale bits (decoded like bits_to_e4m3_impl) and the
-// pool-global k_sx / v_sx, with L_A shrunk to d_head when d_head < 64.
+// pool-global k_sx / v_sx, with L_A shrunk to d_head when d_head < L_A
+// (the wrapper's page_cfg).  bcq4 in the default format (L_b 8, 16
+// entries, N_c 8, at most 2 arrays a head vector) keeps a token's side data
+// in registers (kind BCQ4); any other LO-BCQ format (kind BCQ4G: L_b 2, 4
+// or 8, N_c ≤ 16, 4, 8 or 16 entries, up to 8 arrays) copies a token's
+// selector bytes and its arrays' inverse scales into 64 bytes of shared
+// memory, and the codebooks into a 16 × 16 table.
 //
 // What bounds it on this card: the page bytes it must read.  A bcq4 page
 // holds 4.6 bits per scalar, so even a 500-token row is ~0.1 MB per
@@ -62,7 +68,9 @@ constexpr int DPL = 4;  // head dims per lane in P·V (D <= 128)
 constexpr int NE = 16;  // codebook entries
 constexpr int NCB = 8;  // codebooks
 
-enum Kind { BF16 = 0, INT8 = 1, BCQ4 = 2 };
+enum Kind { BF16 = 0, INT8 = 1, BCQ4 = 2, BCQ4G = 3 };
+constexpr int CBG = 16;      // BCQ4G: a codebook's row stride, and the most codebooks
+constexpr int SIDE_G = 16;   // BCQ4G: words of a token's side data (8 selector, 8 inverse scales)
 
 __device__ __forceinline__ float pow2i(int e) { return __int_as_float((e + 127) << 23); }
 
@@ -87,19 +95,21 @@ __host__ __device__ __forceinline__ int row_bytes(int kind, int D) {
   return kind == BF16 ? 2 * D : kind == INT8 ? D : D / 2;
 }
 
-// Shared memory: q tile (NQ × D f32), the bcq4 codebooks (128 f32), then
-// one region per warp: raw K and V page rows, per-token side data (16
-// bytes a token for K and for V), and the f32 K and V tiles (ps rows of
-// D + 1), which the warp's partial state (NQ × (D + 2)) reuses at the end.
+// Shared memory: q tile (NQ × D f32), the bcq4 codebooks (128 f32; 256 for
+// BCQ4G), then one region per warp: raw K and V page rows, per-token side
+// data (16 bytes a token for K and for V; 64 for BCQ4G), and the f32 K and
+// V tiles (ps rows of D + 1), which the warp's partial state (NQ × (D +
+// 2)) reuses at the end.
 struct Layout {
-  int raw, side, tiles, warp, total;
+  int raw, side, tiles, warp, cb, total;
   __host__ __device__ Layout(int kind, int D, int ps, int nq) {
     raw = align16(2 * ps * row_bytes(kind, D));
-    side = 2 * ps * 16;
+    side = 2 * ps * (kind == BCQ4G ? 4 * SIDE_G : 16);
     const int t = 2 * ps * (D + 1), p = nq * (D + 2);
     tiles = align16(4 * (t > p ? t : p));
     warp = raw + side + tiles;
-    total = 4 * nq * D + 4 * NCB * NE + WARPS * warp;
+    cb = 4 * (kind == BCQ4G ? CBG * CBG : NCB * NE);
+    total = 4 * nq * D + cb + WARPS * warp;
   }
 };
 
@@ -182,12 +192,39 @@ __device__ __forceinline__ void dequant8(float* dst, const uint8_t* raw, const f
   }
 }
 
+// BCQ4G: a token's side data straight into shared memory (dst, SIDE_G
+// words): its D / (2 · lb) selector bytes, then its D / la arrays'
+// inverse scales from word 8.
+__device__ __forceinline__ void load_side_g(uint32_t* dst, const Leaves& lv, size_t row, int D,
+                                            int la, int lb, float sx) {
+  const int ns = D / (2 * lb), nc = D / la;
+  const uint8_t* sp = lv.l1 + row * ns;
+  uint8_t* sb = reinterpret_cast<uint8_t*>(dst);
+  for (int i = 0; i < ns; ++i) sb[i] = sp[i];
+  float* inv = reinterpret_cast<float*>(dst + 8);
+  for (int a = 0; a < nc; ++a) inv[a] = bcq4_inv(lv.l2[row * nc + a], sx);
+}
+
+// BCQ4G: the 8 dims [8c, 8c + 8) of token t from its raw row and side data.
+__device__ __forceinline__ void dequant8_g(float* dst, const uint8_t* raw, const uint32_t* side,
+                                           const float* cb_s, int c, int la, int lb) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + 4 * c);
+  const uint8_t* sb = reinterpret_cast<const uint8_t*>(side);
+  const float inv = reinterpret_cast<const float*>(side + 8)[(8 * c) / la];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int blk = (8 * c + i) / lb;
+    const int sel = (sb[blk >> 1] >> (4 * (blk & 1))) & 15;
+    dst[i] = __fmul_rn(cb_s[sel * CBG + ((w >> (4 * i)) & 15)], inv);
+  }
+}
+
 template <int KIND, int NQ>
 __global__ void __launch_bounds__(THREADS) page_gather_split_kernel(
     const float* __restrict__ q, Leaves kl, Leaves vl, const float* __restrict__ cb,
     const int* __restrict__ block_tables, const int* __restrict__ kv_len,
     float* __restrict__ part, int C, int H, int Hkv, int D, int ps, int maxp, int la,
-    int split_pages, int n_split, float scale) {
+    int split_pages, int n_split, float scale, int lb, int ncb, int ne) {
   const int len = kv_len[blockIdx.y / Hkv];
   int steps = (len + ps - 1) / ps;
   steps = steps < 1 ? 1 : (steps > maxp ? maxp : steps);
@@ -201,11 +238,13 @@ __global__ void __launch_bounds__(THREADS) page_gather_split_kernel(
   float* cb_s = q_s + NQ * D;
   const int b = blockIdx.y / Hkv, g = blockIdx.y % Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  unsigned char* wbase = smem + 4 * NQ * D + 4 * NCB * NE + warp * lay.warp;
+  unsigned char* wbase = smem + 4 * NQ * D + lay.cb + warp * lay.warp;
   uint8_t* raw_k = wbase;
   uint8_t* raw_v = raw_k + ps * row_bytes(KIND, D);
   float4* side_k = reinterpret_cast<float4*>(wbase + lay.raw);
   float4* side_v = side_k + ps;
+  uint32_t* gside_k = reinterpret_cast<uint32_t*>(wbase + lay.raw);  // BCQ4G
+  uint32_t* gside_v = gside_k + ps * SIDE_G;
   float* kt = reinterpret_cast<float*>(wbase + lay.raw + lay.side);
   const int ldt = D + 1;  // padded rows: lane-per-token reads hit distinct banks
   float* vt = kt + ps * ldt;
@@ -225,6 +264,13 @@ __global__ void __launch_bounds__(THREADS) page_gather_split_kernel(
   float sxk = 0.f, sxv = 0.f;
   if (KIND == BCQ4) {
     for (int e = tid; e < NCB * NE; e += THREADS) cb_s[e] = cb[e];
+    sxk = *kl.sx;
+    sxv = *vl.sx;
+  } else if (KIND == BCQ4G) {
+    for (int e = tid; e < CBG * CBG; e += THREADS) {
+      const int c = e / CBG, i = e % CBG;
+      cb_s[e] = c < ncb && i < ne ? cb[c * ne + i] : 0.f;
+    }
     sxk = *kl.sx;
     sxv = *vl.sx;
   }
@@ -255,8 +301,13 @@ __global__ void __launch_bounds__(THREADS) page_gather_split_kernel(
     ptx::cp_async_commit();
     if (lane < ps) {
       const size_t row = (pid * ps + lane) * Hkv + g;
-      load_side<KIND>(sk, kl, row, D, la);
-      load_side<KIND>(sv, vl, row, D, la);
+      if (KIND == BCQ4G) {  // the previous page's side data is read: shared memory is free
+        load_side_g(gside_k + lane * SIDE_G, kl, row, D, la, lb, sxk);
+        load_side_g(gside_v + lane * SIDE_G, vl, row, D, la, lb, sxv);
+      } else {
+        load_side<KIND>(sk, kl, row, D, la);
+        load_side<KIND>(sv, vl, row, D, la);
+      }
     }
   };
 
@@ -280,8 +331,13 @@ __global__ void __launch_bounds__(THREADS) page_gather_split_kernel(
     __syncwarp();
     for (int u = lane; u < ps * (D / 8); u += 32) {
       const int t = u / (D / 8), c = u % (D / 8);
-      dequant8<KIND>(kt + t * ldt + 8 * c, raw_k + t * rb, side_k[t], cb_s, c, la);
-      dequant8<KIND>(vt + t * ldt + 8 * c, raw_v + t * rb, side_v[t], cb_s, c, la);
+      if (KIND == BCQ4G) {
+        dequant8_g(kt + t * ldt + 8 * c, raw_k + t * rb, gside_k + t * SIDE_G, cb_s, c, la, lb);
+        dequant8_g(vt + t * ldt + 8 * c, raw_v + t * rb, gside_v + t * SIDE_G, cb_s, c, la, lb);
+      } else {
+        dequant8<KIND>(kt + t * ldt + 8 * c, raw_k + t * rb, side_k[t], cb_s, c, la);
+        dequant8<KIND>(vt + t * ldt + 8 * c, raw_v + t * rb, side_v[t], cb_s, c, la);
+      }
     }
     __syncwarp();
     if (i + 1 < n_mine) load_page(i + 1);  // in flight during this page's math
@@ -357,7 +413,7 @@ __global__ void __launch_bounds__(THREADS) page_gather_split_kernel(
   const float* wpart[WARPS];
 #pragma unroll
   for (int w = 0; w < WARPS; ++w)
-    wpart[w] = reinterpret_cast<const float*>(smem + 4 * NQ * D + 4 * NCB * NE + w * lay.warp +
+    wpart[w] = reinterpret_cast<const float*>(smem + 4 * NQ * D + lay.cb + w * lay.warp +
                                               lay.raw + lay.side);
   for (int e = tid; e < NQ * (D + 2); e += THREADS) {
     const int k = e / (D + 2), x = e % (D + 2), v = vbase + k;
@@ -411,13 +467,13 @@ template <int KIND, int NQ>
 int launch_split(const dim3& grid, size_t smem, cudaStream_t st, const float* q, Leaves kl,
                  Leaves vl, const float* cb, const int* bt, const int* kv_len, float* part,
                  int C, int H, int Hkv, int D, int ps, int maxp, int la, int split_pages,
-                 int n_split, float scale) {
+                 int n_split, float scale, int lb, int ncb, int ne) {
   auto kern = page_gather_split_kernel<KIND, NQ>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<grid, THREADS, smem, st>>>(q, kl, vl, cb, bt, kv_len, part, C, H, Hkv, D, ps, maxp, la,
-                                    split_pages, n_split, scale);
+                                    split_pages, n_split, scale, lb, ncb, ne);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,16 +481,15 @@ template <int NQ>
 int launch_kind(int kind, const dim3& grid, size_t smem, cudaStream_t st, const float* q,
                 Leaves kl, Leaves vl, const float* cb, const int* bt, const int* kv_len,
                 float* part, int C, int H, int Hkv, int D, int ps, int maxp, int la,
-                int split_pages, int n_split, float scale) {
-  if (kind == BF16)
-    return launch_split<BF16, NQ>(grid, smem, st, q, kl, vl, cb, bt, kv_len, part, C, H, Hkv, D,
-                                  ps, maxp, la, split_pages, n_split, scale);
-  if (kind == INT8)
-    return launch_split<INT8, NQ>(grid, smem, st, q, kl, vl, cb, bt, kv_len, part, C, H, Hkv, D,
-                                  ps, maxp, la, split_pages, n_split, scale);
-  if (kind == BCQ4)
-    return launch_split<BCQ4, NQ>(grid, smem, st, q, kl, vl, cb, bt, kv_len, part, C, H, Hkv, D,
-                                  ps, maxp, la, split_pages, n_split, scale);
+                int split_pages, int n_split, float scale, int lb, int ncb, int ne) {
+#define PG_LAUNCH(K)                                                                         \
+  launch_split<K, NQ>(grid, smem, st, q, kl, vl, cb, bt, kv_len, part, C, H, Hkv, D, ps, maxp, \
+                      la, split_pages, n_split, scale, lb, ncb, ne)
+  if (kind == BF16) return PG_LAUNCH(BF16);
+  if (kind == INT8) return PG_LAUNCH(INT8);
+  if (kind == BCQ4) return PG_LAUNCH(BCQ4);
+  if (kind == BCQ4G) return PG_LAUNCH(BCQ4G);
+#undef PG_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -442,22 +497,30 @@ int launch_kind(int kind, const dim3& grid, size_t smem, cudaStream_t st, const 
 
 // Plain C entry: two launches on ``stream`` (the split kernel, then the
 // combine), allocates nothing, returns the launch status
-// (cudaGetLastError).  kind: 0 bf16, 1 int8, 2 bcq4.  Pool leaves are one
-// layer's (P, ps, Hkv, ...) contiguous tensors (k1/k2 and v1/v2 unused for
-// bf16; k2/v2 unused for int8), k0/v0 16-byte aligned.  ``part`` is
-// scratch of B·C·H · ceil(MAXP / split_pages) · (D + 2) f32.  Requires
-// ps <= 32, D <= 128, D % 16 == 0, D % la == 0, la % 8 == 0 and
-// split_pages in [1, 128]; the wrapper checks.
+// (cudaGetLastError).  kind: 0 bf16, 1 int8, 2 bcq4 in the default format,
+// 3 bcq4 in the format (lb, ncb, ne, la).  Pool leaves are one layer's
+// (P, ps, Hkv, ...) contiguous tensors (k1/k2 and v1/v2 unused for bf16;
+// k2/v2 unused for int8), k0/v0 16-byte aligned; cb the (ncb, ne) f32
+// codebooks.  ``part`` is scratch of B·C·H · ceil(MAXP / split_pages) ·
+// (D + 2) f32.  Requires ps <= 32, D <= 128, D % 16 == 0, D % la == 0,
+// la % 8 == 0, split_pages in [1, 128], kind 2 at L_b 8, 16 entries, 8
+// codebooks and D / la <= 2, kind 3 at lb ∈ {2, 4, 8}, ncb ≤ 16, ne ≤ 16
+// and D / la ≤ 8; the wrapper checks.
 extern "C" int page_gather_launch(int kind, const float* q, const void* k0, const void* k1,
                                   const void* k2, const void* v0, const void* v1,
                                   const void* v2, const float* k_sx, const float* v_sx,
                                   const float* cb, const int* block_tables, const int* kv_len,
                                   float* out, float* part, int B, int C, int H, int Hkv, int D,
                                   int ps, int maxp, int la, int split_pages, float scale,
-                                  void* stream) {
+                                  int lb, int ncb, int ne, void* stream) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv || ps <= 0 || ps > 32 || D <= 0 ||
       D > DPL * 32 || D % 16 || la <= 0 || D % la || la % 8 || maxp <= 0 || split_pages <= 0 ||
       split_pages > 128 || static_cast<long long>(B) * Hkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == BCQ4 && (lb != 8 || ncb != NCB || ne != NE || D / la > 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kind == BCQ4G && ((lb != 2 && lb != 4 && lb != 8) || ncb < 1 || ncb > CBG || ne < 2 ||
+                        ne > CBG || D / la > 8 || la % (2 * lb)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Leaves kl{static_cast<const uint8_t*>(k0), static_cast<const uint8_t*>(k1),
@@ -472,9 +535,11 @@ extern "C" int page_gather_launch(int kind, const float* q, const void* k0, cons
   const size_t smem = Layout(kind, D, ps, nq).total;
   const int status =
       nq == 4 ? launch_kind<4>(kind, grid, smem, st, q, kl, vl, cb, block_tables, kv_len, part,
-                               C, H, Hkv, D, ps, maxp, la, split_pages, n_split, scale)
+                               C, H, Hkv, D, ps, maxp, la, split_pages, n_split, scale, lb, ncb,
+                               ne)
               : launch_kind<16>(kind, grid, smem, st, q, kl, vl, cb, block_tables, kv_len, part,
-                                C, H, Hkv, D, ps, maxp, la, split_pages, n_split, scale);
+                                C, H, Hkv, D, ps, maxp, la, split_pages, n_split, scale, lb, ncb,
+                                ne);
   if (status != 0) return status;
   const int n_vec = B * C * H;
   page_gather_combine_kernel<<<(n_vec + WARPS - 1) / WARPS, THREADS, 0, st>>>(

@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bcq import BCQConfig, check_kernel_codebooks, check_kernel_config
+from repro_torch.core.bcq import (BCQConfig, check_kernel_codebooks, check_kernel_format,
+                                  kernel_route)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import fused_linear_experts_ref, fused_linear_ref
 
@@ -29,24 +30,34 @@ BCQ_LINEAR = build.counter("bcq_linear")
 BCQ_LINEAR_EXPERTS = build.counter("bcq_linear_experts")
 
 
-def linear_cost(e: int, m: int, k: int, n: int) -> tuple:
+def linear_cost(e: int, m: int, k: int, n: int, cfg: BCQConfig = BCQConfig()) -> tuple:
     """(HBM bytes, operations by unit) of ``e`` fused linears of M×K by
-    N×K sharing one ``s_x``: x read and out written in f32, each packed
-    weight (idx, sel, dequant scales) read once; the int8 product on the
-    tensor cores and the encode on the CUDA cores."""
+    N×K sharing one ``s_x``, in ``cfg``'s format: x read and out written in
+    f32, each packed weight (idx, sel, dequant scales) and the codebooks
+    read once; the int8 product on the tensor cores and the encode (the
+    table's or the threshold search's) on the CUDA cores."""
     rows = e * m
-    nbytes = (rows * k * 4 + e * (n * k // 2 + n * k // 16 + n * k // 64 * 4) + 8 * 16 * 4 + 4
-              + rows * n * 4)
-    return nbytes, {"int8": 2 * rows * n * k, "f32": build.ENCODE_OPS * rows * k}
+    w_bytes = n * k // 2 + n * k // (2 * cfg.block_len) + n * k // cfg.array_len * 4
+    nbytes = rows * k * 4 + e * w_bytes + build.codebook_bytes(cfg) + 4 + rows * n * 4
+    ops = build.encode_ops(cfg, kernel_route(cfg).table)
+    return nbytes, {"int8": 2 * rows * n * k, "f32": ops * rows * k}
+
+
+def _check_k(what: str, k: int, cfg: BCQConfig) -> None:
+    """The GEMM walks K in 64-wide steps of whole arrays."""
+    if k % cfg.array_len or k % 64:
+        raise ValueError(f"{what}: K={k} is not a multiple of 64 and of L_A={cfg.array_len}")
 
 
 def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.Tensor:
     """Fused W4A4 linear: raw x (M, K) f32 + packed weights → f32 (M, N).
 
-    w_idx (N, K/2) uint8, w_sel (N, K/16) uint8, w_inv (N, K/L_A) f32 =
-    1/(ŝ_A·s_W) (zero where never written); s_x: the per-tensor activation
-    scale, a 0-d tensor the caller reduced over the whole launch batch.
-    K must be a multiple of L_A; ragged M and N are masked in the kernel.
+    w_idx (N, K/2) uint8, w_sel (N, K/(2·L_b)) uint8, w_inv (N, K/L_A) f32
+    = 1/(ŝ_A·s_W) (zero where never written); s_x: the per-tensor
+    activation scale, a 0-d tensor the caller reduced over the whole
+    launch batch; any format ``check_kernel_format`` takes, with integer
+    codebooks (N_c, 2^B).  K must be a multiple of 64 and of L_A; ragged M
+    and N are masked in the kernel.
     No backward: an input that requires grad under autograd raises."""
     build.refuse_grad("bcq_linear", x, w_inv, codebooks, s_x)
     if x.device.type == "cpu":
@@ -54,33 +65,35 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
                                 valid_k=x.shape[1])
     if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_linear: unsupported device {x.device}")
-    check_kernel_config(cfg, "bcq_linear kernel")
+    check_kernel_format(cfg, "bcq_linear kernel")
     if x.device.type == "cuda":
         check_kernel_codebooks(codebooks, cfg)
     m, k = x.shape
     n = w_idx.shape[0]
-    if k % cfg.array_len:
-        raise ValueError(f"bcq_linear kernel: K={k} is not a multiple of {cfg.array_len}")
+    _check_k("bcq_linear kernel", k, cfg)
     for name, t, dt, shape in (
         ("x", x, torch.float32, (m, k)), ("w_idx", w_idx, torch.uint8, (n, k // 2)),
-        ("w_sel", w_sel, torch.uint8, (n, k // 16)), ("w_inv", w_inv, torch.float32, (n, k // 64)),
-        ("codebooks", codebooks, torch.float32, (8, 16)), ("s_x", s_x, torch.float32, ()),
+        ("w_sel", w_sel, torch.uint8, (n, k // (2 * cfg.block_len))),
+        ("w_inv", w_inv, torch.float32, (n, k // cfg.array_len)),
+        ("codebooks", codebooks, torch.float32, (cfg.n_codebooks, cfg.n_entries)),
+        ("s_x", s_x, torch.float32, ()),
     ):
         build.check_tensor(f"bcq_linear kernel: {name}", t, dt, shape, x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if x.device.type == "meta":
-        build.add_meta_cost("bcq_linear", *linear_cost(1, m, k, n))
+        build.add_meta_cost("bcq_linear", *linear_cost(1, m, k, n, cfg))
         return out
     if m == 0 or n == 0:
         return out
     x, w_idx = build.aligned(x, 16), build.aligned(w_idx, 16)  # read in 16-byte words
     w_sel = build.aligned(w_sel, 4)
     codes = torch.empty((m, k), dtype=torch.int8, device=x.device)  # encode-pass workspace
-    a_inv = torch.empty((m, k // 64), dtype=torch.float32, device=x.device)
+    a_inv = torch.empty((m, k // cfg.array_len), dtype=torch.float32, device=x.device)
     status = build.library().bcq_linear_launch(
         x.data_ptr(), w_idx.data_ptr(), w_sel.data_ptr(), w_inv.data_ptr(),
         codebooks.data_ptr(), s_x.data_ptr(), codes.data_ptr(), a_inv.data_ptr(),
-        out.data_ptr(), m, n, k, cfg.codeword_max,
+        out.data_ptr(), m, n, k, cfg.codeword_max, *build.format_args(cfg),
+        *map(int, kernel_route(cfg)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(status, "bcq_linear_launch")
@@ -90,8 +103,8 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
 
 def bcq_linear_experts(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.Tensor:
     """Expert-stacked fused W4A4 linear: raw x (E, C, K) f32 against E
-    packed weights — w_idx (E, N, K/2), w_sel (E, N, K/16), w_inv (E, N,
-    K/L_A) — with one shared s_x → f32 (E, C, N).  Expert e's output has
+    packed weights — w_idx (E, N, K/2), w_sel (E, N, K/(2·L_b)), w_inv (E,
+    N, K/L_A) — with one shared s_x → f32 (E, C, N).  Expert e's output has
     the bits of ``bcq_linear(x[e], w_idx[e], …)`` (the tile shape follows
     C, not E·C).  No backward, as ``bcq_linear``."""
     build.refuse_grad("bcq_linear_experts", x, w_inv, codebooks, s_x)
@@ -99,34 +112,37 @@ def bcq_linear_experts(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -
         return fused_linear_experts_ref(x, w_idx, w_sel, w_inv, codebooks, cfg, s_x)
     if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_linear_experts: unsupported device {x.device}")
-    check_kernel_config(cfg, "bcq_linear_experts kernel")
+    check_kernel_format(cfg, "bcq_linear_experts kernel")
     if x.device.type == "cuda":
         check_kernel_codebooks(codebooks, cfg)
     e, c, k = x.shape
     n = w_idx.shape[1]
-    if k % cfg.array_len or not 1 <= e <= 65535:
-        raise ValueError(f"bcq_linear_experts kernel: E={e}, K={k} (K % {cfg.array_len})")
+    _check_k("bcq_linear_experts kernel", k, cfg)
+    if not 1 <= e <= 65535:
+        raise ValueError(f"bcq_linear_experts kernel: E={e} is not in [1, 65535]")
     for name, t, dt, shape in (
         ("x", x, torch.float32, (e, c, k)), ("w_idx", w_idx, torch.uint8, (e, n, k // 2)),
-        ("w_sel", w_sel, torch.uint8, (e, n, k // 16)),
-        ("w_inv", w_inv, torch.float32, (e, n, k // 64)),
-        ("codebooks", codebooks, torch.float32, (8, 16)), ("s_x", s_x, torch.float32, ()),
+        ("w_sel", w_sel, torch.uint8, (e, n, k // (2 * cfg.block_len))),
+        ("w_inv", w_inv, torch.float32, (e, n, k // cfg.array_len)),
+        ("codebooks", codebooks, torch.float32, (cfg.n_codebooks, cfg.n_entries)),
+        ("s_x", s_x, torch.float32, ()),
     ):
         build.check_tensor(f"bcq_linear_experts kernel: {name}", t, dt, shape, x.device)
     out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
     if x.device.type == "meta":
-        build.add_meta_cost("bcq_linear_experts", *linear_cost(e, c, k, n))
+        build.add_meta_cost("bcq_linear_experts", *linear_cost(e, c, k, n, cfg))
         return out
     if c == 0 or n == 0:
         return out
     x, w_idx = build.aligned(x, 16), build.aligned(w_idx, 16)  # read in 16-byte words
     w_sel = build.aligned(w_sel, 4)
     codes = torch.empty((e * c, k), dtype=torch.int8, device=x.device)  # encode-pass workspace
-    a_inv = torch.empty((e * c, k // 64), dtype=torch.float32, device=x.device)
+    a_inv = torch.empty((e * c, k // cfg.array_len), dtype=torch.float32, device=x.device)
     status = build.library().bcq_linear_experts_launch(
         x.data_ptr(), w_idx.data_ptr(), w_sel.data_ptr(), w_inv.data_ptr(),
         codebooks.data_ptr(), s_x.data_ptr(), codes.data_ptr(), a_inv.data_ptr(),
-        out.data_ptr(), e, c, n, k, cfg.codeword_max,
+        out.data_ptr(), e, c, n, k, cfg.codeword_max, *build.format_args(cfg),
+        *map(int, kernel_route(cfg)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(status, "bcq_linear_experts_launch")

@@ -10,51 +10,58 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bcq import BCQConfig, check_kernel_codebooks, check_kernel_config
+from repro_torch.core.bcq import (BCQConfig, check_kernel_codebooks, check_kernel_format,
+                                  kernel_route)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import matmul_ref
 
 BCQ_MATMUL = build.counter("bcq_matmul")
 
 
-def matmul_cost(m: int, k: int, n: int) -> tuple:
-    """(HBM bytes, operations by unit): both packed operands read once,
-    the f32 output written once; the int8 product on the tensor cores."""
-    nbytes = (m + n) * (k // 2 + k // 16 + k // 64 * 4) + 2 * 8 * 16 * 4 + m * n * 4
+def matmul_cost(m: int, k: int, n: int, cfg: BCQConfig = BCQConfig()) -> tuple:
+    """(HBM bytes, operations by unit) in ``cfg``'s format: both packed
+    operands and both codebooks read once, the f32 output written once;
+    the int8 product on the tensor cores."""
+    row = k // 2 + k // (2 * cfg.block_len) + k // cfg.array_len * 4
+    nbytes = (m + n) * row + 2 * build.codebook_bytes(cfg) + m * n * 4
     return nbytes, {"int8": 2 * m * n * k}
 
 
 def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_w,
                cfg: BCQConfig) -> torch.Tensor:
     """out (M, N) f32 = decode(A) · decode(W)ᵀ for packed rows: idx u8
-    (R, K/2), sel u8 (R, K/16), inv f32 (R, K/L_A) = 1/(ŝ_A·s_X).  K must
-    be a multiple of L_A; ragged M and N are masked in the kernel.  No
-    backward: an input that requires grad under autograd raises."""
+    (R, K/2), sel u8 (R, K/(2·L_b)), inv f32 (R, K/L_A) = 1/(ŝ_A·s_X), in
+    any format ``check_kernel_format`` takes with integer codebooks (N_c,
+    2^B).  K must be a multiple of 64 and of L_A; ragged M and N are
+    masked in the kernel.  No backward: an input that requires grad under
+    autograd raises."""
     build.refuse_grad("bcq_matmul", a_inv, w_inv, codebooks_a, codebooks_w)
     if a_idx.device.type == "cpu":
         return matmul_ref(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_w, cfg)
     if a_idx.device.type not in ("cuda", "meta"):
         raise ValueError(f"bcq_matmul: unsupported device {a_idx.device}")
-    check_kernel_config(cfg, "bcq_matmul kernel")
+    check_kernel_format(cfg, "bcq_matmul kernel")
     if a_idx.device.type == "cuda":
         check_kernel_codebooks(codebooks_a, cfg)
         check_kernel_codebooks(codebooks_w, cfg)
     m, n, k = a_idx.shape[0], w_idx.shape[0], a_idx.shape[1] * 2
-    if k % cfg.array_len:
-        raise ValueError(f"bcq_matmul kernel: K={k} is not a multiple of {cfg.array_len}")
+    if k % cfg.array_len or k % 64:
+        raise ValueError(f"bcq_matmul kernel: K={k} is not a multiple of 64 and of "
+                         f"L_A={cfg.array_len}")
     dev = a_idx.device
+    sb, na, cbs = k // (2 * cfg.block_len), k // cfg.array_len, (cfg.n_codebooks, cfg.n_entries)
     for name, t, dt, shape in (
-        ("a_idx", a_idx, torch.uint8, (m, k // 2)), ("a_sel", a_sel, torch.uint8, (m, k // 16)),
-        ("a_inv", a_inv, torch.float32, (m, k // 64)),
-        ("w_idx", w_idx, torch.uint8, (n, k // 2)), ("w_sel", w_sel, torch.uint8, (n, k // 16)),
-        ("w_inv", w_inv, torch.float32, (n, k // 64)),
-        ("codebooks_a", codebooks_a, torch.float32, (8, 16)),
-        ("codebooks_w", codebooks_w, torch.float32, (8, 16)),
+        ("a_idx", a_idx, torch.uint8, (m, k // 2)), ("a_sel", a_sel, torch.uint8, (m, sb)),
+        ("a_inv", a_inv, torch.float32, (m, na)),
+        ("w_idx", w_idx, torch.uint8, (n, k // 2)), ("w_sel", w_sel, torch.uint8, (n, sb)),
+        ("w_inv", w_inv, torch.float32, (n, na)),
+        ("codebooks_a", codebooks_a, torch.float32, cbs),
+        ("codebooks_w", codebooks_w, torch.float32, cbs),
     ):
         build.check_tensor(f"bcq_matmul kernel: {name}", t, dt, shape, dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if dev.type == "meta":
-        build.add_meta_cost("bcq_matmul", *matmul_cost(m, k, n))
+        build.add_meta_cost("bcq_matmul", *matmul_cost(m, k, n, cfg))
         return out
     if m == 0 or n == 0:
         return out
@@ -63,7 +70,8 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
     status = build.library().bcq_matmul_launch(
         a_idx.data_ptr(), a_sel.data_ptr(), a_inv.data_ptr(), w_idx.data_ptr(),
         w_sel.data_ptr(), w_inv.data_ptr(), codebooks_a.data_ptr(), codebooks_w.data_ptr(),
-        out.data_ptr(), m, n, k, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), m, n, k, *build.format_args(cfg), int(kernel_route(cfg).special),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, "bcq_matmul_launch")
     BCQ_MATMUL.count += 1

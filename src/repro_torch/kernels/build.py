@@ -34,23 +34,32 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the format's fields as the C entries take them: lb, la, nc, ne; and a
+# route flag (core/bcq.kernel_route)
+_FMT = (_I,) * 4
+_ROUTE = (_I,)
 _SIGNATURES = {
-    # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, M, N, K, cw_max, stream
-    "bcq_linear_launch": (_P,) * 9 + (_I, _I, _I, _F, _P),
-    # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, E, C, N, K, cw_max, stream
-    "bcq_linear_experts_launch": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
+    # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, M, N, K, cw_max, format, table,
+    # special, stream
+    "bcq_linear_launch": (_P,) * 9 + (_I, _I, _I, _F) + _FMT + _ROUTE * 2 + (_P,),
+    # x, w_idx, w_sel, w_inv, cb, s_x, codes, a_inv, out, E, C, N, K, cw_max, format,
+    # table, special, stream
+    "bcq_linear_experts_launch": (_P,) * 9 + (_I, _I, _I, _I, _F) + _FMT + _ROUTE * 2 + (_P,),
     # kind, q, k0..k2, v0..v2, k_sx, v_sx, cb, tables, kv_len, out, part,
-    # B, C, H, Hkv, D, ps, maxp, la, split_pages, scale, stream
-    "page_gather_launch": (_I,) + (_P,) * 14 + (_I,) * 9 + (_F, _P),
-    # x, cb, s_x, idx, sel, ratio, M, K, cw_max, stream
+    # B, C, H, Hkv, D, ps, maxp, la, split_pages, scale, lb, nc, ne, stream
+    "page_gather_launch": (_I,) + (_P,) * 14 + (_I,) * 9 + (_F, _I, _I, _I, _P),
+    # x, cb, s_x, idx, sel, ratio, M, K, cw_max, stream (the default format)
     "bcq_quantize_launch": (_P,) * 6 + (_I, _I, _F, _P),
-    "bcq_quantize_thr_launch": (_P,) * 6 + (_I, _I, _F, _P),
+    # x, cb, s_x, idx, sel, ratio, M, K, cw_max, format, special, stream
+    "bcq_quantize_thr_launch": (_P,) * 6 + (_I, _I, _F) + _FMT + _ROUTE + (_P,),
     # bf16, k, v, k_sx, v_sx, cb, k_idx, k_sel, k_scale, v_idx, v_sel, v_scale,
     # ids, ids64, ids_stride, aux, aux64, aux_stride, B, S, H, D, P, ps, n_cp,
-    # la, cw_max, stream
-    "bcq_page_write_launch": (_I,) + (_P,) * 12 + (_I, _I, _P) + (_I,) * 10 + (_F, _P),
-    # a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, cb_a, cb_w, out, M, N, K, stream
-    "bcq_matmul_launch": (_P,) * 9 + (_I, _I, _I, _P),
+    # format (la: the pages' L_A), table, cw_max, stream
+    "bcq_page_write_launch": ((_I,) + (_P,) * 12 + (_I, _I, _P) + (_I,) * 9 + _FMT + _ROUTE
+                              + (_F, _P)),
+    # a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, cb_a, cb_w, out, M, N, K, format, special,
+    # stream
+    "bcq_matmul_launch": (_P,) * 9 + (_I, _I, _I) + _FMT + _ROUTE + (_P,),
     # dtype, q, k, v, out, BH, S, D, causal, scale, stream
     "flash_attention_launch": (_I,) + (_P,) * 4 + (_I,) * 4 + (_F, _P),
 }
@@ -84,9 +93,24 @@ def counts() -> dict[str, int]:
     return {n: c.count for n, c in COUNTERS.items()}
 
 
-# The LO-BCQ encode's operations per scalar and codebook on the CUDA
-# cores: a table read, the difference, its square, the block sum.
-ENCODE_OPS = 8 * (1 + 3)
+def encode_ops(cfg, table: bool = True) -> int:
+    """The encode's operations per scalar in ``cfg``'s format: the table's
+    (per codebook a table read, d, d², Σ) or the threshold search's (per
+    codebook log2(2^B) compares, a level read, d, d², Σ; then log2(2^B)
+    compares for the winner's index)."""
+    if table:
+        return cfg.n_codebooks * (1 + 3)
+    return cfg.n_codebooks * (cfg.index_bits + 1 + 3) + cfg.index_bits
+
+
+def codebook_bytes(cfg) -> int:
+    """The f32 codebooks a kernel reads: N_c × 2^B levels."""
+    return cfg.n_codebooks * cfg.n_entries * 4
+
+
+def format_args(cfg) -> tuple:
+    """A format's fields in the C entries' order: L_b, L_A, N_c, 2^B."""
+    return cfg.block_len, cfg.array_len, cfg.n_codebooks, cfg.n_entries
 
 # The work of the kernels' calls on meta tensors (the dry-run's trace):
 # kernel → {"calls", "bytes" (HBM, each input read once and each output

@@ -28,7 +28,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.bcq import BCQConfig, block_sq_err, codeword_over, unpack_nibbles
+from repro_torch.core.bcq import (BCQConfig, block_sq_err, check_kernel_format, codeword_over,
+                                  kernel_route, unpack_nibbles)
 from repro_torch.core.formats import bits_to_e4m3, pow2
 from repro_torch.kernels import build
 
@@ -38,7 +39,8 @@ _E4M3_MAX = 448.0
 _E4M3_MIN_SUB = 2.0**-9
 
 PAGE_GATHER = build.counter("page_gather")
-_KIND_CODE = {"bf16": 0, "int8": 1, "bcq4": 2}
+# the C entry's kinds: bcq4 in the default format (2) or in any other (3)
+_KIND_CODE = {"bf16": 0, "int8": 1, "bcq4": 2, "bcq4_fmt": 3}
 # Pages per split of the CUDA page gather: fixed, so a row's result depends
 # on its own pages only (not on the batch or the grid).
 SPLIT_PAGES = 8
@@ -176,7 +178,8 @@ def page_gather_attention_plain(q, pool, block_tables, kv_len, kind, cfg, cb=Non
     return out.reshape(b, c, h, d)
 
 
-def gather_cost(kind: str, q, k_leaves: list, block_tables, kv_len=None) -> tuple:
+def gather_cost(kind: str, q, k_leaves: list, block_tables, kv_len=None,
+                cfg: BCQConfig = BCQConfig()) -> tuple:
     """(HBM bytes, operations by unit) of the page gather: q read and out
     written in f32, each walked K and V page read once, the tables and
     lengths read; QK and PV of every query head over its causally visible
@@ -190,7 +193,7 @@ def gather_cost(kind: str, q, k_leaves: list, block_tables, kv_len=None) -> tupl
     page_bytes = sum(ps * leaf[0, 0].numel() * leaf.element_size() for leaf in k_leaves)
     pages = sum(min(max(1, -(-n // ps)), maxp) for n in lens)
     nbytes = (2 * q.numel() * 4 + 2 * pages * page_bytes + block_tables.numel() * 4 + b * 4
-              + (8 * 16 * 4 + 8 if kind == "bcq4" else 0))
+              + (build.codebook_bytes(cfg) + 8 if kind == "bcq4" else 0))
     seen = sum(n - c + i + 1 for n in lens for i in range(c))  # (query, key) pairs, causal
     return nbytes, {"f32": 4 * h * d * seen}
 
@@ -215,12 +218,16 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
     la = page_cfg(cfg, d).array_len if kind == "bcq4" else d
     if h % hkv or ps > 32 or d > 128 or d % 16 or d % la:
         raise ValueError(f"page_gather kernel: unsupported shape H={h} Hkv={hkv} ps={ps} D={d}")
-    if kind == "bcq4" and (cfg.block_len, cfg.n_entries, cfg.n_codebooks) != (8, 16, 8):
-        raise ValueError(f"page_gather kernel: unsupported BCQ config {cfg}")
+    code = _KIND_CODE[kind]
+    if kind == "bcq4":
+        check_kernel_format(page_cfg(cfg, d), "page_gather kernel")
+        if not kernel_route(page_cfg(cfg, d)).special:
+            code = _KIND_CODE["bcq4_fmt"]  # up to 8 arrays a head vector
     expect = {
         "bf16": [(torch.bfloat16, d)],
         "int8": [(torch.int8, d), (torch.float32, None)],
-        "bcq4": [(torch.uint8, d // 2), (torch.uint8, d // 16), (torch.uint8, d // la)],
+        "bcq4": [(torch.uint8, d // 2), (torch.uint8, d // (2 * cfg.block_len)),
+                 (torch.uint8, d // la)],
     }[kind]
     for leaves in (kl, vl):
         for leaf, (dt, last) in zip(leaves, expect):
@@ -236,7 +243,7 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
         if tuple(block_tables.shape) != (b, maxp) or tuple(kv_len.shape) != (b,):
             raise ValueError("page_gather kernel: block_tables (B, MAXP) and kv_len (B,) expected")
         lens = None if kv_len.device.type == "meta" else kv_len.tolist()
-        build.add_meta_cost("page_gather", *gather_cost(kind, q, kl, block_tables, lens))
+        build.add_meta_cost("page_gather", *gather_cost(kind, q, kl, block_tables, lens, cfg))
         return torch.empty((b, c, h, d), dtype=torch.float32, device="meta")
     kl[0], vl[0] = build.aligned(kl[0], 16), build.aligned(vl[0], 16)  # copied by 16-byte chunks
     qf = q.float().contiguous()
@@ -253,13 +260,16 @@ def page_gather_attention(q, pool, block_tables, kv_len, kind, cfg, cb=None):
         sxk = pool["k_sx"].to(device=q.device, dtype=torch.float32).contiguous()
         sxv = pool["v_sx"].to(device=q.device, dtype=torch.float32).contiguous()
         cbf = cb.to(device=q.device, dtype=torch.float32).contiguous()
+        if tuple(cbf.shape) != (cfg.n_codebooks, cfg.n_entries):
+            raise ValueError(f"page_gather kernel: codebooks {tuple(cbf.shape)}, expected "
+                             f"{(cfg.n_codebooks, cfg.n_entries)}")
         extra = (sxk.data_ptr(), sxv.data_ptr(), cbf.data_ptr())
     else:
         extra = (None, None, None)
     status = build.library().page_gather_launch(
-        _KIND_CODE[kind], qf.data_ptr(), *k_ptrs, *v_ptrs, *extra, bt.data_ptr(),
+        code, qf.data_ptr(), *k_ptrs, *v_ptrs, *extra, bt.data_ptr(),
         kvl.data_ptr(), out.data_ptr(), part.data_ptr(), b, c, h, hkv, d, ps, maxp, la,
-        SPLIT_PAGES, d**-0.5,
+        SPLIT_PAGES, d**-0.5, cfg.block_len, cfg.n_codebooks, cfg.n_entries,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(status, "page_gather_launch")

@@ -15,10 +15,10 @@ writes, with the reference's names and formats:
   ``quant_mode="packed"`` tree);
 - ``manifest.json`` — the bit accounting of Eq. 9.
 
-Runs on the card unless ``--device cpu`` is given.  On the card the
-kernels take only the default config (L_A 64, N_c 8): other
-``--array-len`` / ``--n-codebooks`` values are refused before the
-checkpoint is read, and run with ``--device cpu``::
+Runs on the card unless ``--device cpu`` is given, at any
+``--array-len`` / ``--n-codebooks`` the kernels take
+(``bcq.check_kernel_config`` refuses the rest before the checkpoint is
+read)::
 
     PYTHONPATH=src python -m repro_torch.launch.quantize --ckpt CKPT_DIR \\
         --out OUT_DIR [--arch gpt3_126m] [--smoke --device cpu]

@@ -137,7 +137,8 @@ def test_bcq_linear_encode_pass_bytes_match_quantize_ref(cuda, mk):
     status = build.library().bcq_linear_launch(
         x.data_ptr(), w.idx_packed.data_ptr(), w.sel_packed.data_ptr(), w.inv_scale.data_ptr(),
         cb.data_ptr(), s_x.data_ptr(), codes.data_ptr(), a_inv.data_ptr(), out.data_ptr(), m, 64,
-        k, CFG.codeword_max, torch.cuda.current_stream(cuda).cuda_stream)
+        k, CFG.codeword_max, *build.format_args(CFG), 1, 1,
+        torch.cuda.current_stream(cuda).cuda_stream)
     build.check(status, "bcq_linear_launch")
     r_idx, r_sel, r_ratio = quantize_ref(x, cb, CFG, s_x)
     sel = torch.repeat_interleave(bcq.unpack_nibbles(r_sel).long(), 8, dim=-1)
@@ -918,7 +919,8 @@ def test_bcq_quantize_integer_books_keep_the_table(cuda):
     outs = [torch.empty_like(t) for t in (idx, sel, ratio)]
     status = build.library().bcq_quantize_thr_launch(
         x.data_ptr(), cb.data_ptr(), s_x.data_ptr(), *(t.data_ptr() for t in outs), m, k,
-        CFG.codeword_max, torch.cuda.current_stream(cuda).cuda_stream)
+        CFG.codeword_max, *build.format_args(CFG), 1,
+        torch.cuda.current_stream(cuda).cuda_stream)
     build.check(status, "bcq_quantize_thr_launch")
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(outs, (idx, sel, ratio)))

@@ -196,3 +196,35 @@ def test_meta_page_gather_page_write_and_flash(fresh):
     assert got["page_gather"]["bytes"] == gather_cost(
         "bcq4", q, [pool["k_idx"], pool["k_sel"], pool["k_scale"]], bt, [20, 9])[0]
     assert got["flash_attention"]["bf16"] == flash_cost(8, 16, 32, torch.bfloat16)[1]["bf16"]
+
+
+@pytest.mark.parametrize("fmt, integer, route", [
+    ({}, True, (True, True)),                          # the default: table, compiled paths
+    ({}, False, (False, True)),                        # trained books: the compiled search
+    ({"codeword_bits": 8}, True, (False, True)),       # INT8 levels pass the table's rows
+    ({"array_len": 32}, True, (False, False)),
+    ({"n_codebooks": 16}, True, (False, False)),
+    ({"block_len": 4, "array_len": 64}, True, (False, False)),
+])
+def test_kernel_route_and_the_quantize_bound_follow_it(fresh, fmt, integer, route):
+    """One function decides a launch's route; B3's meta bound counts the
+    operations of that route (a meta call cannot read the books: the
+    integer books' route)."""
+    cfg = bcq.BCQConfig(**fmt)
+    assert tuple(bcq.kernel_route(cfg, integer)) == route
+    cb = torch.zeros((cfg.n_codebooks, cfg.n_entries))
+    x = torch.randn((8, 128), generator=torch.Generator().manual_seed(31))
+    bcq_quantize(*_meta(x, cb, bcq.tensor_scale(x, cfg)), cfg)
+    got = build.meta_cost()["bcq_quantize"]["f32"]
+    assert got == quantize_cost(8, 128, cfg)[1]["f32"]
+    assert got == build.encode_ops(cfg, bcq.kernel_route(cfg).table) * 8 * 128
+
+
+def test_kv_pages_take_one_route_in_the_writer_and_the_reader():
+    """The page writer and B2's bcq4 read route a format by its L_A at the
+    head (``page_cfg``): L_A 128 at d_head 64 pages at L_A 64, the default."""
+    from repro_torch.kernels.common import page_cfg
+
+    wide = bcq.BCQConfig(array_len=128)
+    assert bcq.kernel_route(page_cfg(wide, 64)) == bcq.kernel_route(bcq.BCQConfig())
+    assert not bcq.kernel_route(page_cfg(wide, 128)).special

@@ -17,6 +17,8 @@ SMOKE = ROOT / "chip_smoke.py"
 STUDY = ROOT / "chip_gate_study.py"
 ENCODE_STUDY = ROOT / "chip_encode_study.py"
 READ_STUDY = ROOT / "chip_read_study.py"
+ROUTE_STUDY = ROOT / "chip_route_study.py"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imports(path: Path):
@@ -29,8 +31,9 @@ def _imports(path: Path):
 
 
 def test_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY, ENCODE_STUDY, READ_STUDY]
-    assert len(files) > 10
+    files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY, ENCODE_STUDY, READ_STUDY, ROUTE_STUDY,
+                                             *EXAMPLES]
+    assert len(files) > 10 and len(EXAMPLES) == 3
     bad = [
         (str(f.relative_to(ROOT)), m)
         for f in files
@@ -59,6 +62,10 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.configs.base import ARCH_IDS, get_arch, get_smoke\n"
         "assert {get_arch(a).family for a in ARCH_IDS} >= {'dense', 'vlm'}\n"
         "assert [get_smoke(a).name for a in ARCH_IDS]\n"
+        "import importlib.util\n"
+        f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -87,6 +94,14 @@ def test_entry_points_default_to_the_card():
     params = api.init(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         greedy_generate(api, params, np.zeros((1, 4), np.int32), 2, 16)
+    import importlib.util
+
+    for path in EXAMPLES:  # the examples, counterparts of the reference's, as every entry point
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            example.main([])
     # the slab functions run where their model was built: the CPU only when asked
     logits, caches = api.prefill_fn(params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 16)
     logits2, _ = api.decode_fn(params, caches, torch.zeros((1, 1), dtype=torch.int32), 4)
@@ -218,6 +233,10 @@ def test_host_tier_modules_import_with_jax_blocked():
         "h = tier.put([np.arange(4, dtype=np.float32)], pages.KIND_KV)\n"
         "c = prefix.PrefixCache(); c.host_register(b'x', h)\n"
         "assert c.host_claim(b'x') == h and tier.take(h).nbytes == 16\n"
+        "import importlib.util\n"
+        f"for path in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules if sys.modules[m])\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -122,21 +122,44 @@ def test_quantize_main_on_a_port_checkpoint(tmp_path, dense, capsys):
     assert "artifacts in" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--array-len", "32"], ["--n-codebooks", "4"]])
+@pytest.mark.parametrize("flags", [["--n-codebooks", "32"],
+                                   ["--array-len", "32", "--n-codebooks", "32"]])
 def test_quantize_main_refuses_on_the_card_a_config_the_kernels_cannot_take(tmp_path, flags):
-    """On the card (the default device) the kernels take only BCQConfig()'s
-    L_A 64 and N_c 8: another config is refused before the checkpoint is
+    """On the card (the default device) the kernels take every LO-BCQ
+    format of the reference's kernels, but not N_c 32: a selector would
+    not fit its nibble.  Such a config is refused before the checkpoint is
     read (there is none here) and before the device is resolved."""
-    with pytest.raises(ValueError, match="the CUDA kernels take only L_A 64, L_b 8"):
+    with pytest.raises(ValueError, match="N_c 32 exceeds 16"):
         tquant.main(["--ckpt", str(tmp_path / "none"), "--smoke", "--out", str(tmp_path / "w4"),
                      *flags])
 
 
 @pytest.mark.parametrize("mode", ["fake", "fake_full", "packed"])
 def test_zoo_build_refuses_on_the_card_a_config_the_kernels_cannot_take(mode):
-    rt = TRuntime(quant_mode=mode, bcq_cfg=tbcq.BCQConfig(array_len=32))
-    with pytest.raises(ValueError, match="the CUDA kernels take only L_A 64, L_b 8"):
+    rt = TRuntime(quant_mode=mode, bcq_cfg=tbcq.BCQConfig(array_len=32, n_codebooks=32))
+    with pytest.raises(ValueError, match="N_c 32 exceeds 16"):
         tzoo.build(t_get_smoke("gpt3_126m"), rt, device="cuda")
+
+
+@pytest.mark.parametrize("mode", ["fake", "fake_full", "packed"])
+def test_zoo_build_refuses_on_the_card_an_index_past_its_nibble(mode):
+    """index_bits 5 (32 entries) is no format the kernels, or the packing
+    of indices as nibbles, can take."""
+    rt = TRuntime(quant_mode=mode, bcq_cfg=tbcq.BCQConfig(index_bits=5))
+    with pytest.raises(ValueError, match="2\\^B = 32 entries exceed 16"):
+        tzoo.build(t_get_smoke("gpt3_126m"), rt, device="cuda")
+
+
+@pytest.mark.parametrize("cfg", [tbcq.BCQConfig(array_len=32, n_codebooks=4),
+                                 tbcq.BCQConfig(n_codebooks=16),
+                                 tbcq.BCQConfig(block_len=2, array_len=16, n_codebooks=2),
+                                 tbcq.BCQConfig(array_len=128, codeword_bits=8)],
+                         ids=lambda c: f"{c.tag()}_B{c.index_bits}_Bc{c.codeword_bits}")
+def test_check_kernel_config_takes_the_reference_kernels_formats(cfg):
+    """Every format of the reference kernels' tests (and Table 10's INT8 at
+    L_A 128, 128 · 127² < 2^22) passes the card's up-front check."""
+    tbcq.check_kernel_config(cfg, "test")
+    tbcq.check_kernel_format(cfg, "test")
 
 
 def _tokens(vocab, n, seed):
