@@ -225,8 +225,13 @@ success):
     longer integers); one fake step's loss and every gradient leaf
     through B3's route equal to the plain route's (a codebook tie may move
     the codebook gradient: counted); B3's threshold search timed at (8192,
-    768).  Its B3 launches join the ``kernels`` line (``training``; B3's
-    entry gains ``trained_books``).
+    768); the attention knobs on the trained state (``train_attention``):
+    one train step with bf16 scores (``Runtime(attn_f32=False)``) against
+    f32 in turns — ms/step, peak memory, |Δloss| within 1e-2 nat — and one
+    held-out evaluation forward at query chunks of 256 and 2,048: the
+    memory each adds, its logits held to the one-chunk run's.  Its B3
+    launches join the ``kernels`` line (``training``; B3's entry gains
+    ``trained_books``).
 17. the PTQ deploy step on full-width gpt3_126m trained by phase 21: its
     weights saved again by the port's ``CheckpointManager`` (async writer)
     and restored bit for bit; ``python -m repro_torch.launch.quantize``'s
@@ -316,9 +321,9 @@ success):
     (``encdec``; B5's ``encdec_eval``).
 22. the rest of the model zoo: Qwen2-0.5B (GQA 14/2, qkv bias, tied),
     StarCoder2-3B (GQA 24/2, GELU, layernorm), Phi-3-medium-14B (GQA
-    40/10, d_head 128) and Qwen1.5-32B (MHA 40, d_ff 27392) at full width
-    and full depth (Qwen1.5-32B at 32 of its 64 layers, for the script's
-    time), one after the other, each drawn and packed to W4 a
+    40/10, d_head 128) and Qwen1.5-32B (MHA 40, d_ff 27392) at full width,
+    their depths cut for the script's time (``ZOO_LAYERS``: 6 of 24, 8 of
+    30, 10 of 40, 8 of 64), one after the other, each drawn and packed to W4 a
     layer at a time on the card (bcq4 pool, f32 compute; init seconds and
     resident GB printed) and served phase 4's workload through
     PagedEngine at graph depth 2: launch counts exact (B1 7 a layer and
@@ -354,7 +359,11 @@ success):
     64), B4 (512 × 768 → 3072), the page writer and B2 at decode and a
     64-token chunk, at 7 formats (the reference kernel tests' 5, g128 at
     INT8 and at 8 entries), each held to plain, B1s ≡ per-expert B1 and
-    B4 ≡ B1, timed beside the bound of its format's cost; (3) phase 21's
+    B4 ≡ B1, timed beside the bound of its format's cost and, for B1, B1s
+    and B4, one bf16 PyTorch call of the same product; (2′) B1, B1s and B4
+    at a K of whole arrays but not of 64 (112 and 80 at L_A 16, 96 at L_A
+    32: padded with zero arrays by the wrappers), held the same way, their
+    launches counted exactly; (3) phase 21's
     checkpoint through the quantize CLI at ``--n-codebooks 16`` and
     ``--array-len 32 --n-codebooks 4``, each packed artifact served on
     phase 4's workload with bcq4 pages in its format: kernels (graph
@@ -365,6 +374,19 @@ success):
 25. the three examples (``examples/torch_*.py``) run in this process on
     the card at reduced steps; the quickstart's kernel results equal its
     plain ones.
+26. the four families' training at full width (``FAM_TRAIN``):
+    Moonlight-16B-A3B at 2 of its 48 layers, Mamba2-130m and Whisper-base
+    whole (Whisper's 448-token decoder over the 1,500 stub frames),
+    RecurrentGemma-9B at one period (3 of 38), 2 × 512 tokens a step, one
+    family at a time through the train CLI's ``make_train_step`` (bf16
+    compute on f32 params, the deterministic algorithms on): 3 float
+    steps (step 1 run twice from the same state and equal bit for bit,
+    every loss and grad norm finite, no kernel launched), then one
+    ``--quant fake`` step from that state, B3 launched exactly once a
+    quantized linear input, its loss and gradients through B3's route
+    equal to the plain route's.  Prints ms/step, tokens/s and peak memory
+    a family; B3's launches join the ``kernels`` line
+    (``family_training``).
     Then the ``kernels`` JSON line
     (launches, error, times, bound), the card's name and power limit, and
     the device line as the last line.
@@ -3955,6 +3977,85 @@ def train_timing(api, params, opt, batch):
     return float(np.mean(ms[True])), float(np.mean(ms[False])), ms, prof
 
 
+# A15 on the trained model: bf16 scores against f32 in one train step, and
+# the query chunk of one held-out evaluation forward.  The bound on the
+# step's |Δloss|: bf16 rounds each score and each p to 2^-9 relative, errors
+# that average over 2,048 keys, so the loss should move by ~1e-3 nat; 1e-2
+# nat is a 1.01× perplexity ratio, a tenth of phase 17's W4A4 bar (1.10×).
+ATTN_BF16_LOSS_TOL = 1e-2
+ATTN_CHUNKS = (256, EVAL_SEQ)  # the evaluation forward's query chunks
+# the chunked evaluation's logits against the one-chunk forward's, a
+# fraction of max|logit|: rows are independent, but the two score products
+# take other cuBLAS kernels (other M), so an f32 sum may round a bf16
+# activation the other way, a 2^-8 step that 12 layers carry on
+ATTN_CHUNK_LOGIT_TOL = 2**-5
+
+
+def train_attention(cfg, params, opt, batch, dcfg):
+    """A15 on the trained state: one train step (deterministic algorithms
+    on, as the CLI) with f32 scores (``Runtime()``) and with bf16 scores
+    (``Runtime(attn_f32=False)``) in turns (f32, bf16, bf16, f32), each
+    way's ms/step, peak device memory and loss, |Δloss| held within
+    ``ATTN_BF16_LOSS_TOL``; then one held-out evaluation forward under
+    ``no_grad`` at each ``ATTN_CHUNKS`` query chunk: the peak memory it adds
+    above what is resident, and its logits, held to the one-chunk run's
+    within ``ATTN_CHUNK_LOGIT_TOL`` · max|logit|.  Returns the numbers."""
+    import torch
+
+    from repro_torch.data.pipeline import eval_stream
+    from repro_torch.launch import train
+    from repro_torch.models import transformer, zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.optim import adamw
+
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    steps = {f32: train.make_train_step(zoo.build(cfg, Runtime(attn_f32=f32), device="cuda"),
+                                        opt_cfg) for f32 in (True, False)}
+    ms, peak, loss = {True: [], False: []}, {}, {}
+    with train.deterministic():
+        for f32 in (True, False, False, True):
+            steps[f32](params, opt, batch)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(TIME_STEPS):
+                out = steps[f32](params, opt, batch)
+            torch.cuda.synchronize()
+            ms[f32].append(1e3 * (time.perf_counter() - t0) / TIME_STEPS)
+            peak[f32] = torch.cuda.max_memory_allocated() / 1e9
+            loss[f32] = float(out[2]["loss"])
+            del out
+    d_loss = abs(loss[False] - loss[True])
+    if not (np.isfinite(loss[False]) and d_loss <= ATTN_BF16_LOSS_TOL):
+        fail(f"phase 21: one train step's loss is {loss[False]!r} with bf16 scores, {loss[True]!r} "
+             f"with f32: |Δ| {d_loss:.3e} > {ATTN_BF16_LOSS_TOL}")
+    tokens = next(iter(eval_stream(dcfg, 1, device="cuda")))["tokens"]
+    ev = {}
+    for chunk in ATTN_CHUNKS:
+        rt = Runtime(attn_chunk=chunk)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            hid = transformer.forward_hidden(params, tokens, cfg, rt)
+            torch.cuda.synchronize()
+            added = (torch.cuda.max_memory_allocated() - base) / 1e9
+            ev[chunk] = (added, transformer.lm_logits(params, hid, rt).float())
+            del hid
+    small, whole = ev[ATTN_CHUNKS[0]][1], ev[ATTN_CHUNKS[1]][1]
+    tol = ATTN_CHUNK_LOGIT_TOL * float(whole.abs().max())
+    ok, err = held(small, whole, 0.0, tol)
+    if not ok:
+        fail(f"phase 21: the evaluation logits at attn_chunk {ATTN_CHUNKS[0]} differ from one "
+             f"chunk's by {err:.3e} > {tol:.3e}")
+    same = bool(torch.equal(small, whole))
+    return {"ms": {"f32": float(np.mean(ms[True])), "bf16": float(np.mean(ms[False]))},
+            "turns": ms, "peak_gb": {"f32": peak[True], "bf16": peak[False]},
+            "loss": {"f32": loss[True], "bf16": loss[False]}, "d_loss": d_loss,
+            "eval_added_gb": {c: ev[c][0] for c in ATTN_CHUNKS}, "eval_logit_err": err,
+            "eval_logits_equal": same}
+
+
 def start_killed_run():
     """The run to be preempted: a subprocess of the train CLI (full width,
     ``RESUME_BATCH`` × 2048 tokens a step), sent SIGTERM after its step-4
@@ -4085,11 +4186,13 @@ def fake_train(trained, totals):
     return counts, n, ties, thr, state["params"], out[1]
 
 
-def fake_grads_equal(params, batch):
+def fake_grads_equal(params, batch, api=None, label="phase 21"):
     """One fake-quant step's loss and every gradient leaf through B3's route
-    against the plain route on the same inputs (trained, non-integer
-    codebooks); every B3 launch held and its ties counted.  Returns (leaves
-    bit-equal, leaves, ties, the max |Δ| of the codebook gradient)."""
+    against the plain route on the same inputs (phase 21: trained,
+    non-integer codebooks); every B3 launch held and its ties counted.
+    ``api``: the fake-quant model (default full-width gpt3_126m).  Returns
+    (leaves bit-equal, leaves, ties, launches held, the max |Δ| of the
+    codebook gradient)."""
     import torch
 
     from repro_torch.core import bcq
@@ -4098,10 +4201,11 @@ def fake_grads_equal(params, batch):
     from repro_torch.models import zoo
     from repro_torch.models.layers import Runtime
 
-    api = zoo.build(get_arch("gpt3_126m"), Runtime(quant_mode="fake"), device="cuda")
+    if api is None:
+        api = zoo.build(get_arch("gpt3_126m"), Runtime(quant_mode="fake"), device="cuda")
     with train.deterministic():
         (kl, kg), n, ties = hold_fake_route(lambda: train.value_and_grad(api.loss_fn, params, batch),
-                                            "phase 21 gradient step")
+                                            f"{label} gradient step")
         real = bcq.fake_quant
         bcq.fake_quant = bcq.fake_quant_plain
         try:
@@ -4110,7 +4214,7 @@ def fake_grads_equal(params, batch):
             bcq.fake_quant = real
     torch.cuda.synchronize()
     if not torch.equal(kl, pl):
-        fail(f"phase 21: the fake-quant loss through B3's route ({float(kl)!r}) differs from the "
+        fail(f"{label}: the fake-quant loss through B3's route ({float(kl)!r}) differs from the "
              f"plain route's ({float(pl)!r})")
     fk, fp = _flat(kg), _flat(pg)
     same = [torch.equal(a, b) for (_, a), (_, b) in zip(fk, fp)]
@@ -4120,10 +4224,10 @@ def fake_grads_equal(params, batch):
             continue
         if path == "/codebooks" and ties:
             continue  # a codebook tie moved a block's share of the codebook gradient
-        fail(f"phase 21: the gradient of {path} through B3's route differs from the plain "
+        fail(f"{label}: the gradient of {path} through B3's route differs from the plain "
              f"route's by {float((a - b).abs().max()):.3e} ({ties} ties)")
     if not bool(torch.isfinite(kg["codebooks"]).all()) or float(kg["codebooks"].abs().max()) == 0:
-        fail("phase 21: the codebook gradient is zero or non-finite")
+        fail(f"{label}: the codebook gradient is zero or non-finite")
     return sum(same), len(same), ties, n, cb_diff
 
 
@@ -4228,6 +4332,20 @@ def phase_train(smi):
           f"({(ms_det / ms_free - 1) * 100:+.1f}%; windows of {TIME_STEPS} steps on, off, off, "
           f"on: {turns[True][0]:.1f}, {turns[False][0]:.1f}, {turns[False][1]:.1f}, "
           f"{turns[True][1]:.1f}); {smi}", flush=True)
+    att = train_attention(cfg, trained, opt, batch, dcfg)
+    print(f"phase 21 attention (A15), one train step on the trained state, deterministic "
+          f"algorithms on: f32 scores {att['ms']['f32']:.1f} ms/step, peak "
+          f"{att['peak_gb']['f32']:.2f} GB, loss {att['loss']['f32']:.6f}; bf16 scores "
+          f"{att['ms']['bf16']:.1f} ms/step, peak {att['peak_gb']['bf16']:.2f} GB, loss "
+          f"{att['loss']['bf16']:.6f} (|Δloss| {att['d_loss']:.3e} ≤ {ATTN_BF16_LOSS_TOL}; "
+          f"windows of {TIME_STEPS} steps f32, bf16, bf16, f32: "
+          f"{att['turns'][True][0]:.1f}, {att['turns'][False][0]:.1f}, "
+          f"{att['turns'][False][1]:.1f}, {att['turns'][True][1]:.1f}); held-out evaluation "
+          f"forward ({EVAL_BATCH} × {EVAL_SEQ}, no_grad) adds "
+          + ", ".join(f"{gb:.3f} GB at attn_chunk {c}" for c, gb in att["eval_added_gb"].items())
+          + f" above the resident memory; logits at chunk {ATTN_CHUNKS[0]} vs one chunk: "
+          f"{'bit-equal' if att['eval_logits_equal'] else 'max|Δ| %.3e' % att['eval_logit_err']}; "
+          f"{smi}", flush=True)
     del opt
 
     snap_step, resume_s = train_kill_resume(killer)
@@ -4258,7 +4376,7 @@ def phase_train(smi):
         trained_form, launches_threshold_search=thr, held=n, ties=ties,
         gradient_leaves_equal=f"{same}/{leaves}", codebook_gradient_max_diff=cb_diff,
         train_ms_per_step=ms_det, train_ms_per_step_nondeterministic=ms_free,
-        train_idle_share=idle, phase_s=phase_s)
+        train_idle_share=idle, attention=att, phase_s=phase_s)
 
 
 # ------------------------------------------------------------------ phase 18
@@ -5824,7 +5942,10 @@ def phase_encdec(cb, smi):
 
 # ------------------------------------------------------------------ phase 22
 ZOO_ARCHS = ("qwen2_0_5b", "starcoder2_3b", "phi3_medium_14b", "qwen1_5_32b")
-ZOO_LAYERS = {"qwen1_5_32b": 32}  # of its 64: the depth cut that keeps the script in its time
+# the depth cuts that keep the script in its time (widths whole): of 24,
+# 30, 40 and 64 layers, a quarter or so, to make room for phase 26 (the
+# batcher's eager decode costs ~8 ms a layer)
+ZOO_LAYERS = {"qwen2_0_5b": 6, "starcoder2_3b": 8, "phi3_medium_14b": 10, "qwen1_5_32b": 8}
 ZOO_COUNTED = ("bcq_linear", "page_gather", "bcq_page_write")
 ZOO_TIME_TICKS = 6  # steady ticks timed on the host clock
 # tokens a request in the ContinuousBatcher comparison: its contiguous
@@ -6056,8 +6177,8 @@ def _zoo_build(cfg):
 
 
 def zoo_model(arch, cb, smi):
-    """One dense zoo model at full width and depth (``ZOO_LAYERS`` cuts a
-    model's depth for the script's time): built packed (W4, bcq4
+    """One dense zoo model at full width, its depth cut to ``ZOO_LAYERS``
+    for the script's time: built packed (W4, bcq4
     pool, f32 compute) a layer at a time on the card, phase 4's workload
     through PagedEngine at graph depth 2 (launch counts exact, the steady
     tick's wall, busy and graph nodes), the last layer's launches held to
@@ -6219,7 +6340,7 @@ def time_zoo(cb, smi):
 
 def phase_zoo(cb, smi):
     """Phase 22: the rest of the model zoo.  The four public dense configs
-    at full width and full depth (but ``ZOO_LAYERS``) through PagedEngine
+    at full width (depth ``ZOO_LAYERS``) through PagedEngine
     in W4A4, one after the other (each freed before the next), then
     Pixtral-12B contiguously,
     then the zoo's new kernel shapes timed.  Returns (launches by kernel
@@ -6956,6 +7077,152 @@ def fmt_kernels(books, out):
     return totals
 
 
+# K a whole number of arrays but not of the GEMM's 64-wide steps (the
+# wrappers pad it with zero arrays): (K, format); L_A 16 at K 112 (Qwen2's
+# smoke width) and 80, L_A 32 at K 96
+FMT_ODD_K = ((112, (2, 16, 2, 4, 6)), (80, (2, 16, 2, 4, 6)), (96, (4, 32, 4, 4, 6)))
+
+
+def fmt_library(out):
+    """One PyTorch call per shape of (2) computing the same product in bf16
+    (``torch.matmul`` for B1 and B4, ``torch.bmm`` for B1s), timed with
+    CUDA events — the library yardstick of rows 1f, 1sf and 4f; the port
+    calls neither."""
+    import torch
+
+    k, n = 768, 3072
+    g = torch.Generator(device="cuda").manual_seed(24)
+    w = torch.randn((k, n), generator=g, device="cuda").to(torch.bfloat16)
+    lib = {}
+    for m in (8, 512):
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        lib[f"M {m} K {k} N {n}"] = cuda_ms(lambda: torch.matmul(x, w))
+    xe = torch.randn((4, 64, k), generator=g, device="cuda").to(torch.bfloat16)
+    we = torch.randn((4, k, n), generator=g, device="cuda").to(torch.bfloat16)
+    lib[f"E 4 C 64 K {k} N {n}"] = cuda_ms(lambda: torch.bmm(xe, we))
+    out["bcq_linear"]["library_ms"] = {sh: t for sh, t in lib.items() if sh.startswith("M")}
+    out["bcq_matmul"]["library_ms"] = {sh: t for sh, t in lib.items() if sh.startswith("M 512")}
+    out["bcq_linear_experts"]["library_ms"] = {sh: t for sh, t in lib.items()
+                                               if sh.startswith("E")}
+    print("phase 24 library yardsticks (bf16, CUDA events): "
+          + ", ".join(f"{sh} {t:.4f} ms" for sh, t in lib.items()), flush=True)
+    return lib
+
+
+def fmt_odd_k(books, out):
+    """(2′) B1 at M 8 and 512, B1s at E 4 × C 64 and B4 at M 512, N 3072,
+    at each ``FMT_ODD_K`` K: held to the plain versions at phase 10's
+    tolerance, B4 ≡ B1 and B1s ≡ per-expert B1 bit for bit, the launches of
+    the held calls counted exactly (B1 2 + 4 per-expert, B1s 1, B3 1 on
+    its threshold search, B4 1 a K), each timed (CUDA events) beside its plain version, its bound
+    (the work at the unpadded K) and the bf16 library call.  Returns the
+    launches by kernel."""
+    import torch
+
+    from repro_torch.core import bcq
+    from repro_torch.kernels import bcq_linear as bl
+    from repro_torch.kernels import bcq_matmul as bm
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import fused_linear_experts_ref, fused_linear_ref, matmul_ref
+
+    rel = lambda ref: LINEAR_TOL * float(ref.abs().max())  # noqa: E731
+    n, e, c = 3072, 4, 64
+    want = {"bcq_linear": 6, "bcq_linear_experts": 1, "bcq_quantize": 1, "bcq_quantize_thr": 1,
+            "bcq_matmul": 1}
+    totals, rows = {}, {name: [] for name in ("bcq_linear", "bcq_linear_experts", "bcq_matmul")}
+    worst = {}
+    for k, spec in FMT_ODD_K:
+        cfg, cb = _fmt(spec), books[spec]
+        tag = f"{_fmt_tag(cfg)} K {k}"
+        cases = {m: linear_case(m, k, n, 300 + m + k, cb, cfg) for m in (8, 512)}
+        xs, ws = zip(*(linear_case(c, k, n, 340 + i + k, cb, cfg) for i in range(e)))
+        xe = torch.stack(xs)
+        st = [torch.stack([getattr(w, f) for w in ws])
+              for f in ("idx_packed", "sel_packed", "inv_scale")]
+        s_e = bcq.tensor_scale(xe, cfg)
+        torch.cuda.synchronize()
+        build.reset_counts()
+        got, errs = {}, {}
+        for m, (x, w) in cases.items():
+            s_x = bcq.tensor_scale(x, cfg)
+            args = (x, w.idx_packed, w.sel_packed, w.inv_scale, cb)
+            got[m] = bl.bcq_linear(*args, s_x, cfg)
+            ref = fused_linear_ref(*args, cfg, s_x, valid_k=k)
+            ok, errs[f"B1 M {m}"] = held(got[m], ref, LINEAR_TOL, rel(ref))
+            if not ok:
+                fail(f"phase 24: B1 at {tag} M {m} disagrees with its plain version: max|err| "
+                     f"{errs[f'B1 M {m}']:.3e}")
+        x, w = cases[512]
+        a = ops.quantize(x, cb, cfg, s_x=bcq.tensor_scale(x, cfg))
+        margs = (a.idx_packed, a.sel_packed, a.inv_scale, w.idx_packed, w.sel_packed,
+                 w.inv_scale, cb, cb, cfg)
+        two = bm.bcq_matmul(*margs)
+        ref = matmul_ref(*margs)
+        ok, errs["B4"] = held(two, ref, LINEAR_TOL, rel(ref))
+        if not ok or not torch.equal(two, got[512]):
+            fail(f"phase 24: B4 at {tag} disagrees with its plain version (max|err| "
+                 f"{errs['B4']:.3e}) or with B1 on the same codes")
+        stacked = bl.bcq_linear_experts(xe, *st, cb, s_e, cfg)
+        ref = fused_linear_experts_ref(xe, *st, cb, cfg, s_e)
+        ok, errs["B1s"] = held(stacked, ref, LINEAR_TOL, rel(ref))
+        per = torch.stack([bl.bcq_linear(xe[i], *(t[i] for t in st), cb, s_e, cfg)
+                           for i in range(e)])
+        if not ok or not torch.equal(stacked, per):
+            fail(f"phase 24: B1s at {tag} disagrees with its plain version (max|err| "
+                 f"{errs['B1s']:.3e}) or with per-expert B1 launches")
+        torch.cuda.synchronize()
+        counts = {kk: v for kk, v in build.counts().items() if v}
+        if counts != want:
+            fail(f"phase 24: the held calls at {tag} launched {counts}, expected {want}")
+        for kk, v in counts.items():
+            totals[kk] = totals.get(kk, 0) + v
+        timed = {}
+        for m, (x, w) in cases.items():
+            s_x = bcq.tensor_scale(x, cfg)
+            args = (x, w.idx_packed, w.sel_packed, w.inv_scale, cb)
+            nbytes, work = bl.linear_cost(1, m, k, n, cfg)
+            timed[f"B1 M {m}"] = ("bcq_linear", f"M {m} K {k} N {n}", _fmt_time(
+                f"B1 at {tag} M {m}", lambda: bl.bcq_linear(*args, s_x, cfg),
+                lambda: fused_linear_ref(*args, cfg, s_x, valid_k=k), rel, LINEAR_TOL, nbytes,
+                ((work["int8"], INT8_OPS), (work["f32"], F32_FLOPS))))
+        nbytes, work = bm.matmul_cost(512, k, n, cfg)
+        timed["B4"] = ("bcq_matmul", f"M 512 K {k} N {n}", _fmt_time(
+            f"B4 at {tag}", lambda: bm.bcq_matmul(*margs), lambda: matmul_ref(*margs), rel,
+            LINEAR_TOL, nbytes, ((work["int8"], INT8_OPS),), iters=20))
+        nbytes, work = bl.linear_cost(e, c, k, n, cfg)
+        timed["B1s"] = ("bcq_linear_experts", f"E {e} C {c} K {k} N {n}", _fmt_time(
+            f"B1s at {tag}", lambda: bl.bcq_linear_experts(xe, *st, cb, s_e, cfg),
+            lambda: fused_linear_experts_ref(xe, *st, cb, cfg, s_e), rel, LINEAR_TOL, nbytes,
+            ((work["int8"], INT8_OPS), (work["f32"], F32_FLOPS)), iters=20))
+        g = torch.Generator(device="cuda").manual_seed(k)
+        wb = torch.randn((k, n), generator=g, device="cuda").to(torch.bfloat16)
+        web = torch.randn((e, k, n), generator=g, device="cuda").to(torch.bfloat16)
+        xb = {m: cases[m][0].to(torch.bfloat16) for m in (8, 512)}
+        xeb = xe.to(torch.bfloat16)
+        lib_k = {f"B1 M {m}": cuda_ms(lambda: torch.matmul(xb[m], wb)) for m in (8, 512)}
+        lib_k["B4"] = lib_k["B1 M 512"]
+        lib_k["B1s"] = cuda_ms(lambda: torch.bmm(xeb, web))
+        for what, (name, shape, t) in timed.items():
+            rows[name].append({"format": _fmt_tag(cfg), "shape": shape, "library_ms": lib_k[what],
+                               **{kk: t[kk] for kk in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+            worst[name] = max(worst.get(name, 0.0), t["err"], *(v for kk, v in errs.items()
+                                                               if kk.startswith(what)))
+        f = lambda t: f"{t['ms']:.4f} ms (bound {t['bound_ms']:.5f} by {t['bound_by']})"  # noqa: E731
+        print(f"phase 24 odd K at {tag} (padded to {build.pad_k(k)}): B1 M 8 "
+              f"{f(timed['B1 M 8'][2])}, M 512 {f(timed['B1 M 512'][2])}; B4 M 512 "
+              f"{f(timed['B4'][2])} ≡ B1; B1s E 4 × C 64 {f(timed['B1s'][2])} ≡ per-expert B1; "
+              f"bf16 library {lib_k['B1 M 8']:.4f} / {lib_k['B1 M 512']:.4f} / "
+              f"{lib_k['B1s']:.4f} ms; max|err| "
+              + ", ".join(f"{kk} {v:.3e}" for kk, v in errs.items())
+              + f"; held launches {counts}", flush=True)
+    for name, r in rows.items():
+        out[name]["odd_k"] = {"rows": r, "max_abs_err": worst.get(name, 0.0),
+                              "held_launches": totals.get(name, 0)}
+        out[name]["max_abs_err"] = max(out[name].get("max_abs_err", 0.0), worst.get(name, 0.0))
+    out["bcq_quantize"]["odd_k_held_launches"] = totals.get("bcq_quantize", 0)
+    return totals
+
+
 def fmt_serve(flags, train_ck, prompts, ptq_losses, smi):
     """(3) Phase 21's checkpoint through the quantize CLI on the card at a
     non-default format (``flags``), the packed artifact served through
@@ -7080,6 +7347,8 @@ def phase_formats(smi, train_ck, ptq_losses):
                                "bcq_quantize", "bcq_matmul")}
     fmt_fake_quant(books, entries)
     kern = fmt_kernels(books, entries)
+    fmt_library(entries)
+    odd = fmt_odd_k(books, entries)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, get_arch("gpt3_126m").vocab, n) for n in PROMPT_LENS]
     served, worst = {}, {}
@@ -7095,7 +7364,8 @@ def phase_formats(smi, train_ck, ptq_losses):
                                                worst.get("bcq_linear", 0.0))
     torch.cuda.synchronize()
     print(f"phase 24 summary: 25 formats through fake_quant bit for bit, 7 through B1, B1s, B4, "
-          f"the writer and B2 (launches {kern}), 2 CLI formats served (launches {served}); "
+          f"the writer and B2 (launches {kern}), B1, B1s and B4 at K 112, 80 and 96 (held "
+          f"launches {odd}), 2 CLI formats served (launches {served}); "
           f"phase 24 {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
     return served, entries
 
@@ -7145,6 +7415,228 @@ def phase_examples(smi):
           f"calibrate_and_eval {[(r[0], round(r[2], 3)) for r in rows]}; serve_w4a4 agreement "
           f"{outs['torch_serve_w4a4']['agreement']}; phase 25 "
           f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+
+
+# ------------------------------------------------------------------ phase 26
+# the four families' training at full width: (arch, layers kept — None:
+# whole —, batch, tokens a row).  Moonlight-16B-A3B keeps 2 of its 48
+# layers and RecurrentGemma-9B one period (rec, rec, attn) of its 38, for
+# the card's memory (f32 params with the step's out-of-place AdamW: ~28 B a
+# parameter at the update) and the script's time; widths whole.  Whisper's
+# decoder at its 448-token context over phase 20's 1,500 stub frames.
+FAM_TRAIN = (("moonshot_v1_16b", 2, 2, 512), ("mamba2_130m", None, 2, 512),
+             ("recurrentgemma_9b", 3, 2, 512), ("whisper_base", None, 2, 448))
+FAM_FLOAT_STEPS = 3
+
+
+def fam_fake_sites(cfg):
+    """B3 launches of one fake-quant forward: one a quantized linear input
+    (a shared input — QKV, a gate pair, K and V of the cross attention —
+    once).  MoE: QKV, the attention output, the experts' wi, wg and wo
+    inputs; SSM: in_proj, out_proj; a RG-LRU block (proj_x + gate),
+    (gate_a + gate_x), proj_out, the MLP's two; an attention block QKV, wo
+    and the MLP's two; Whisper's encoder layer 4, decoder layer 7 (self QKV
+    and output, cross Q, cross K + V over the encoder output, cross output,
+    the MLP's two)."""
+    fam, n = cfg.family, cfg.n_layers
+    if fam == "moe":
+        return 5 * n
+    if fam == "ssm":
+        return 2 * n
+    if fam == "hybrid":
+        pat = cfg.hybrid.pattern
+        n_attn = sum(pat[i % len(pat)] == "attn" for i in range(n))
+        return 5 * (n - n_attn) + 4 * n_attn
+    if fam == "encdec":
+        return 4 * cfg.n_encoder_layers + 7 * n
+    raise ValueError(fam)
+
+
+def _bit_sums(tree):
+    """Each leaf's per-row sums of its bit patterns as integers (int64:
+    exact for 32-bit leaves; a 0-d leaf its one value), in sorted-key
+    order: two trees with equal sums agree bit for bit but for flips that
+    cancel in a row."""
+    import torch
+
+    out = []
+    for _, t in _flat(tree):
+        bits = t.detach().reshape(t.shape[0] if t.ndim else 1, -1)
+        bits = bits.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                          8: torch.int64}[bits.element_size()])
+        out.append(bits.sum(dim=1, dtype=torch.int64))
+    return out
+
+
+def fam_train(arch, n_layers, batch_rows, seq, smi):
+    """One family's training at full width on the card through the train
+    CLI's ``make_train_step`` (its Runtime: bf16 compute on f32 params; its
+    AdamW; the deterministic algorithms on): ``FAM_FLOAT_STEPS`` float
+    steps from ``init_train(0)`` on the CLI's data (``batch_at``; Whisper's
+    rows over the stub frames), step 1 run twice from the same state and
+    equal bit for bit (loss, grad_norm and every leaf of params and
+    moments by ``_bit_sums``), every loss and grad_norm finite, no kernel
+    launched; then one ``quant_mode="fake"`` step from the trained state
+    plus the universal codebooks, B3's launches counted exactly
+    (``fam_fake_sites``), and its loss and gradients through B3's route
+    held to the plain route's (``fake_grads_equal``, every launch held to
+    ``quantize_ref``).  Returns its numbers."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.calibrate import default_universal_codebooks
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import _stub_frames
+    from repro_torch.models import zoo
+    from repro_torch.models.layers import Runtime
+    from repro_torch.optim import adamw
+
+    t_fam = time.perf_counter()
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    label = f"phase 26 [{arch}]"
+    rt = Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.float32)  # the CLI's
+    api = zoo.build(cfg, rt, device="cuda")
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=FAM_FLOAT_STEPS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch_rows, seed=0)
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(_stub_frames(cfg)).cuda().expand(batch_rows, -1, -1)
+
+    def batch(i):
+        b = dict(batch_at(dcfg, i, device="cuda"))
+        if frames is not None:
+            b["frames"] = frames
+        return b
+
+    t0 = time.perf_counter()
+    params = api.init_train(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in _flat(params))
+    opt = adamw.init_state(params)
+    step = train.make_train_step(api, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    ms, losses, norms = [], [], []
+    with train.deterministic():
+        t0 = time.perf_counter()
+        p1, o1, m1 = step(params, opt, batch(0))
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        sums = _bit_sums({"params": p1, "opt": o1})
+        metrics = (m1["loss"].clone(), m1["grad_norm"].clone())
+        del p1, o1, m1
+        p1, o1, m1 = step(params, opt, batch(0))  # step 1 again, from the same state
+        if not (torch.equal(metrics[0], m1["loss"]) and torch.equal(metrics[1], m1["grad_norm"])
+                and all(torch.equal(a, b) for a, b in zip(sums, _bit_sums({"params": p1, "opt": o1})))):
+            fail(f"{label}: step 1 run twice from the same state differs")
+        del params, opt, sums
+        params, opt = p1, o1
+        del p1, o1  # the step-1 state lives on as params, opt only: the loop frees it
+        losses.append(float(m1["loss"]))
+        norms.append(float(m1["grad_norm"]))
+        for i in range(1, FAM_FLOAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch(i))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: v for k, v in build.counts().items() if v}
+    if counts:
+        fail(f"{label}: the float steps launched kernels {counts} (the float step has none)")
+    if not all(np.isfinite(losses + norms)):
+        fail(f"{label}: non-finite losses {losses} or grad norms {norms}")
+    del opt, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fapi = zoo.build(cfg, dataclasses.replace(rt, quant_mode="fake"), device="cuda")
+    params["codebooks"] = default_universal_codebooks().as_tensor("cuda")
+    opt = adamw.init_state(params)
+    fstep = train.make_train_step(fapi, opt_cfg)
+    sites = fam_fake_sites(cfg)
+    torch.cuda.synchronize()
+    build.reset_counts()
+    with train.deterministic():
+        t0 = time.perf_counter()
+        out = fstep(params, opt, batch(FAM_FLOAT_STEPS))
+        torch.cuda.synchronize()
+        fake_ms = 1e3 * (time.perf_counter() - t0)
+    fcounts = {k: v for k, v in build.counts().items() if v}
+    if fcounts != {"bcq_quantize": sites}:
+        fail(f"{label}: the fake step launched {fcounts}, expected B3 {sites} times "
+             "(fam_fake_sites; the universal books take the table)")
+    fake_loss = float(out[2]["loss"])
+    if not np.isfinite(fake_loss) or not np.isfinite(float(out[2]["grad_norm"])):
+        fail(f"{label}: the fake step's loss {fake_loss} or grad_norm is not finite")
+    del out, opt
+    gc.collect()
+    same, leaves, ties, held_n, cb_diff = fake_grads_equal(params, batch(FAM_FLOAT_STEPS), fapi,
+                                                           label)
+    if held_n != sites:
+        fail(f"{label}: the held gradient step launched B3 {held_n} times, expected {sites}")
+    tokens = batch_rows * seq
+    step_ms = float(np.mean(ms))
+    res = {"arch": arch, "layers": cfg.n_layers, "params": n_params, "tokens_a_step": tokens,
+           "init_s": init_s, "first_step_ms": first_ms, "ms_per_step": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak_gb, "losses": losses,
+           "grad_norms": norms, "fake_step_ms": fake_ms, "fake_loss": fake_loss,
+           "b3_launches": sites, "fake_gradient_leaves_equal": f"{same}/{leaves}",
+           "fake_ties": ties, "codebook_gradient_max_diff": cb_diff}
+    del params, fapi, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_fam
+    print(f"{label}: {cfg.n_layers} layers at full width ({n_params / 1e9:.3f} B params, drawn "
+          f"in {init_s:.1f} s), {batch_rows} × {seq} tokens a step, bf16 compute on f32 params: "
+          f"step 1 {first_ms:.1f} ms (run twice: bit-equal), steps 2–{FAM_FLOAT_STEPS} "
+          f"{step_ms:.1f} ms/step ({res['tokens_per_s']:.0f} tokens/s), peak {peak_gb:.1f} GB, "
+          f"losses {[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in norms]}, no "
+          f"kernel launched; --quant fake step {fake_ms:.1f} ms, loss {fake_loss:.4f}, B3 "
+          f"{sites} launches, its loss and {same} of {leaves} gradient leaves equal to the plain "
+          f"route's ({held_n} launches held, {ties} ties, codebook gradient Δ {cb_diff:.3e}); "
+          f"{res['seconds']:.1f} s; {smi}", flush=True)
+    return res
+
+
+def phase_families_train(smi):
+    """Phase 26: training of the MoE, SSM, hybrid and enc-dec families at
+    full width (``fam_train``), one family at a time, the cache freed
+    between them.  Returns (B3's launches of the fake steps — the main
+    path's run —, the families' numbers)."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # RecurrentGemma's period peaks at ~73 GB allocated (f32 params, grads,
+    # two moments and the out-of-place update's new three: ~28 B a
+    # parameter); the caching allocator's fixed segments then reserve past
+    # the card's 79 GiB (81.3 GB reserved on an H100), expandable ones do
+    # not (73.5 GB).  The last phase, so the setting stays with it.
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        rows = [fam_train(*spec, smi) for spec in FAM_TRAIN]
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    print("phase 26 summary: " + "; ".join(
+        f"{r['arch']} {r['ms_per_step']:.1f} ms/step, {r['tokens_per_s']:.0f} tokens/s, peak "
+        f"{r['peak_gb']:.1f} GB" for r in rows)
+        + f"; phase 26 {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return sum(r["b3_launches"] for r in rows), rows
 
 
 # ------------------------------------------------------------------ phase 10
@@ -7652,6 +8144,7 @@ def main() -> int:
     print(f"chip_smoke: phases 1–23 done at {time.perf_counter() - t_start:.1f} s", flush=True)
     counts_fmt, fmt_entries = phase_formats(smi, train_ck, ptq_losses)
     phase_examples(smi)
+    counts_fam, fam_rows = phase_families_train(smi)
     for entry, name, counters in ((kernels[0], "bcq_linear", ("bcq_linear",)),
                                   (kernels[1], "page_gather", ("page_gather",)),
                                   (kernels[3], "bcq_quantize", ("bcq_quantize", "bcq_page_write")),
@@ -7662,6 +8155,9 @@ def main() -> int:
         if counters:
             entry["launches_by_path"]["formats"] = sum(counts_fmt.get(c, 0) for c in counters)
             entry["launches"] = sum(entry["launches_by_path"].values())
+    kernels[3]["launches_by_path"]["family_training"] = counts_fam
+    kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
+    kernels[3]["family_training"] = fam_rows
     kernels.insert(1, stacked)
     check_bounds(kernels)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

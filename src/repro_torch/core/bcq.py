@@ -299,7 +299,12 @@ def _array_scales(arrays: torch.Tensor, cfg: BCQConfig, s_x: torch.Tensor):
     """ŝ_A (E4M3-snapped) and the total scale ŝ_A·s_X per array."""
     amax = arrays.abs().amax(dim=-1)
     s_a = torch.where(amax > 0, codeword_over(amax, cfg), s_x)
-    ratio = formats.E4M3.quantize(s_a / s_x)
+    # the E4M3 rounding has zero gradient, so it takes detached values: a
+    # zero cotangent through the unselected cw / amax of an all-zero array
+    # (amax 0, slope -inf) would make 0 · inf = NaN, where JAX skips the
+    # branch as a symbolic zero (the MoE's padding rows, under fake-quant
+    # training)
+    ratio = formats.E4M3.quantize((s_a / s_x).detach())
     ratio = torch.clamp_min(ratio, formats.E4M3.min_subnormal)
     return ratio, ratio * s_x
 

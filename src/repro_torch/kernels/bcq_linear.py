@@ -16,6 +16,16 @@ pair: the E expert linears of a mixture-of-experts layer, one shared
 ``s_x``, in one call (the GEMM's grid z is the expert); its plain version
 is ``ref.fused_linear_experts_ref``, the per-expert loop.  It counts one
 launch per call, on its own counter.
+
+Both take any K that is a whole number of arrays, as the reference's
+wrappers do (``repro/kernels/ops.py``: zero arrays with zero dequant
+scales past K).  The GEMM walks K in 64-wide steps, so where K is not a
+multiple of 64 (K 112 or 80 at L_A 16, K 96 at L_A 32) the wrappers append
+zero columns up to the next multiple (``pad_k``): x's extra arrays
+encode to finite scales, the weight's carry zero codes and zero
+``w_inv``, so each adds ``isum · (a_inv · 0)`` = 0 to every output.  A K
+that is a multiple of 64 (every full-width config's) launches on the
+caller's tensors as before: no copy, the same bits.
 """
 from __future__ import annotations
 
@@ -44,9 +54,18 @@ def linear_cost(e: int, m: int, k: int, n: int, cfg: BCQConfig = BCQConfig()) ->
 
 
 def _check_k(what: str, k: int, cfg: BCQConfig) -> None:
-    """The GEMM walks K in 64-wide steps of whole arrays."""
-    if k % cfg.array_len or k % 64:
-        raise ValueError(f"{what}: K={k} is not a multiple of 64 and of L_A={cfg.array_len}")
+    """K must be a whole number of arrays (``pad_weight`` fills the GEMM's
+    last 64-wide step)."""
+    if k % cfg.array_len:
+        raise ValueError(f"{what}: K={k} is not a multiple of L_A={cfg.array_len}")
+
+
+def pad_weight(w_idx, w_sel, w_inv, kp: int, cfg: BCQConfig) -> tuple:
+    """A packed weight (..., N, K) widened to ``kp`` columns with zero
+    arrays: zero idx and sel bytes, zero dequant scales (whole bytes: K is
+    a multiple of L_A, itself of 2·L_b)."""
+    return (build.pad_last(w_idx, kp // 2), build.pad_last(w_sel, kp // (2 * cfg.block_len)),
+            build.pad_last(w_inv, kp // cfg.array_len))
 
 
 def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.Tensor:
@@ -56,8 +75,9 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
     = 1/(ŝ_A·s_W) (zero where never written); s_x: the per-tensor
     activation scale, a 0-d tensor the caller reduced over the whole
     launch batch; any format ``check_kernel_format`` takes, with integer
-    codebooks (N_c, 2^B).  K must be a multiple of 64 and of L_A; ragged M
-    and N are masked in the kernel.
+    codebooks (N_c, 2^B).  K must be a multiple of L_A (padded to whole
+    64-wide steps here when it is not one of 64); ragged M and N are
+    masked in the kernel.
     No backward: an input that requires grad under autograd raises."""
     build.refuse_grad("bcq_linear", x, w_inv, codebooks, s_x)
     if x.device.type == "cpu":
@@ -85,14 +105,17 @@ def bcq_linear(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -> torch.
         return out
     if m == 0 or n == 0:
         return out
+    kp = build.pad_k(k)
+    x = build.pad_last(x, kp)
+    w_idx, w_sel, w_inv = pad_weight(w_idx, w_sel, w_inv, kp, cfg)
     x, w_idx = build.aligned(x, 16), build.aligned(w_idx, 16)  # read in 16-byte words
     w_sel = build.aligned(w_sel, 4)
-    codes = torch.empty((m, k), dtype=torch.int8, device=x.device)  # encode-pass workspace
-    a_inv = torch.empty((m, k // cfg.array_len), dtype=torch.float32, device=x.device)
+    codes = torch.empty((m, kp), dtype=torch.int8, device=x.device)  # encode-pass workspace
+    a_inv = torch.empty((m, kp // cfg.array_len), dtype=torch.float32, device=x.device)
     status = build.library().bcq_linear_launch(
         x.data_ptr(), w_idx.data_ptr(), w_sel.data_ptr(), w_inv.data_ptr(),
         codebooks.data_ptr(), s_x.data_ptr(), codes.data_ptr(), a_inv.data_ptr(),
-        out.data_ptr(), m, n, k, cfg.codeword_max, *build.format_args(cfg),
+        out.data_ptr(), m, n, kp, cfg.codeword_max, *build.format_args(cfg),
         *map(int, kernel_route(cfg)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -134,14 +157,17 @@ def bcq_linear_experts(x, w_idx, w_sel, w_inv, codebooks, s_x, cfg: BCQConfig) -
         return out
     if c == 0 or n == 0:
         return out
+    kp = build.pad_k(k)
+    x = build.pad_last(x, kp)
+    w_idx, w_sel, w_inv = pad_weight(w_idx, w_sel, w_inv, kp, cfg)
     x, w_idx = build.aligned(x, 16), build.aligned(w_idx, 16)  # read in 16-byte words
     w_sel = build.aligned(w_sel, 4)
-    codes = torch.empty((e * c, k), dtype=torch.int8, device=x.device)  # encode-pass workspace
-    a_inv = torch.empty((e * c, k // cfg.array_len), dtype=torch.float32, device=x.device)
+    codes = torch.empty((e * c, kp), dtype=torch.int8, device=x.device)  # encode-pass workspace
+    a_inv = torch.empty((e * c, kp // cfg.array_len), dtype=torch.float32, device=x.device)
     status = build.library().bcq_linear_experts_launch(
         x.data_ptr(), w_idx.data_ptr(), w_sel.data_ptr(), w_inv.data_ptr(),
         codebooks.data_ptr(), s_x.data_ptr(), codes.data_ptr(), a_inv.data_ptr(),
-        out.data_ptr(), e, c, n, k, cfg.codeword_max, *build.format_args(cfg),
+        out.data_ptr(), e, c, n, kp, cfg.codeword_max, *build.format_args(cfg),
         *map(int, kernel_route(cfg)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.bcq import (BCQConfig, check_kernel_codebooks, check_kernel_format,
                                   kernel_route)
 from repro_torch.kernels import build
+from repro_torch.kernels.bcq_linear import pad_weight
 from repro_torch.kernels.ref import matmul_ref
 
 BCQ_MATMUL = build.counter("bcq_matmul")
@@ -32,9 +33,10 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
     """out (M, N) f32 = decode(A) · decode(W)ᵀ for packed rows: idx u8
     (R, K/2), sel u8 (R, K/(2·L_b)), inv f32 (R, K/L_A) = 1/(ŝ_A·s_X), in
     any format ``check_kernel_format`` takes with integer codebooks (N_c,
-    2^B).  K must be a multiple of 64 and of L_A; ragged M and N are
-    masked in the kernel.  No backward: an input that requires grad under
-    autograd raises."""
+    2^B).  K must be a multiple of L_A: a K that is not one of 64 is padded
+    to whole 64-wide steps with zero arrays (``bcq_linear.pad_weight``), as
+    the reference's wrapper pads; ragged M and N are masked in the kernel.
+    No backward: an input that requires grad under autograd raises."""
     build.refuse_grad("bcq_matmul", a_inv, w_inv, codebooks_a, codebooks_w)
     if a_idx.device.type == "cpu":
         return matmul_ref(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_w, cfg)
@@ -45,9 +47,8 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
         check_kernel_codebooks(codebooks_a, cfg)
         check_kernel_codebooks(codebooks_w, cfg)
     m, n, k = a_idx.shape[0], w_idx.shape[0], a_idx.shape[1] * 2
-    if k % cfg.array_len or k % 64:
-        raise ValueError(f"bcq_matmul kernel: K={k} is not a multiple of 64 and of "
-                         f"L_A={cfg.array_len}")
+    if k % cfg.array_len:
+        raise ValueError(f"bcq_matmul kernel: K={k} is not a multiple of L_A={cfg.array_len}")
     dev = a_idx.device
     sb, na, cbs = k // (2 * cfg.block_len), k // cfg.array_len, (cfg.n_codebooks, cfg.n_entries)
     for name, t, dt, shape in (
@@ -65,12 +66,15 @@ def bcq_matmul(a_idx, a_sel, a_inv, w_idx, w_sel, w_inv, codebooks_a, codebooks_
         return out
     if m == 0 or n == 0:
         return out
+    kp = build.pad_k(k)  # both operands' arrays past K: zero codes, zero scales
+    a_idx, a_sel, a_inv = pad_weight(a_idx, a_sel, a_inv, kp, cfg)
+    w_idx, w_sel, w_inv = pad_weight(w_idx, w_sel, w_inv, kp, cfg)
     a_idx, w_idx = build.aligned(a_idx, 16), build.aligned(w_idx, 16)  # 16-byte copies
     a_sel, w_sel = build.aligned(a_sel, 4), build.aligned(w_sel, 4)
     status = build.library().bcq_matmul_launch(
         a_idx.data_ptr(), a_sel.data_ptr(), a_inv.data_ptr(), w_idx.data_ptr(),
         w_sel.data_ptr(), w_inv.data_ptr(), codebooks_a.data_ptr(), codebooks_w.data_ptr(),
-        out.data_ptr(), m, n, k, *build.format_args(cfg), int(kernel_route(cfg).special),
+        out.data_ptr(), m, n, kp, *build.format_args(cfg), int(kernel_route(cfg).special),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(status, "bcq_matmul_launch")

@@ -230,6 +230,24 @@ def aligned(t, nbytes: int):
     return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
+K_STEP = 64  # the GEMM's step along K (csrc/bcq_gemm.cuh)
+
+
+def pad_k(k: int) -> int:
+    """The K the GEMM of B1, B1s and B4 walks: ``k`` rounded up to whole
+    64-wide steps."""
+    return -(-k // K_STEP) * K_STEP
+
+
+def pad_last(t, n: int):
+    """``t`` with zeros appended along its last dim up to ``n`` entries;
+    ``t`` itself when it has them already (no copy)."""
+    import torch
+
+    extra = n - t.shape[-1]
+    return t if extra == 0 else torch.nn.functional.pad(t, (0, extra))
+
+
 def refuse_grad(what: str, *tensors) -> None:
     """The kernels have no backward (nor has the reference's Pallas call):
     raise where autograd records and an input requires grad, rather than

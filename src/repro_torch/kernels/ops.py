@@ -19,9 +19,10 @@ The dispatch is by device: CUDA tensors launch the kernels, CPU tensors
 run their plain versions.  The wrappers own the per-tensor activation
 scale: ``s_x`` is one torch reduction over the whole launch batch
 (``ops.py:187-190``), so every row of a launch shares it — the reason the
-serving engine stages launches exactly like the reference.  No padding
-is needed: the kernels mask ragged M and N, and K must already be a
-multiple of L_A.
+serving engine stages launches exactly like the reference.  The kernels
+mask ragged M and N; K must be a multiple of L_A, and the GEMM wrappers
+pad it to whole 64-wide steps with zero arrays where it is not one of 64
+(``bcq_linear.pad_weight``).
 """
 from __future__ import annotations
 

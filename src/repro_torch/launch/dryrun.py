@@ -23,11 +23,12 @@ XLA's compile-time failures have two counterparts here: a spec that its
 axes do not divide (``mesh.ShardingError``) and a meta shape mismatch;
 either one makes the cell ``"status": "FAIL"``.  Meta execution unrolls
 nothing and undercounts no loop body, so ``--no-unroll`` changes nothing
-(accepted for the reference's command lines).  ``--attn-chunk`` and
-``--attn-bf16`` are accepted for the same reason, but the port's
-attention has neither knob (it is not query-chunked and scores in f32):
-a record whose command line set either says in its ``cost_source`` that
-it was ignored and what was priced instead.
+(accepted for the reference's command lines).  ``--attn-chunk`` (1024,
+the reference's default) and ``--attn-bf16`` set ``Runtime.attn_chunk``
+and ``Runtime.attn_f32`` as the reference's dry-run does: the trace
+prices the masked-softmax attention a query chunk at a time (a smaller
+chunk, a lower peak) and, with ``--attn-bf16``, its scores in bf16 (half
+the score bytes).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
@@ -69,10 +70,12 @@ def make_runtime(kind: str, args, mesh) -> Runtime:
     if kind == "train":
         return Runtime(quant_mode=args.train_quant, compute_dtype=torch.bfloat16,
                        param_dtype=torch.bfloat16, remat=not args.no_remat,
-                       remat_policy=args.remat_policy, logit_chunk=args.logit_chunk)
+                       remat_policy=args.remat_policy, logit_chunk=args.logit_chunk,
+                       attn_chunk=args.attn_chunk, attn_f32=not args.attn_bf16)
     return Runtime(quant_mode=args.quant, compute_dtype=torch.bfloat16,
                    param_dtype=torch.bfloat16, cache_kind=args.cache,
-                   logit_chunk=args.logit_chunk, flash_decode=args.flash_decode,
+                   attn_chunk=args.attn_chunk, logit_chunk=args.logit_chunk,
+                   flash_decode=args.flash_decode, attn_f32=not args.attn_bf16,
                    mesh=mesh if args.flash_decode and kind == "decode" else None)
 
 
@@ -196,19 +199,8 @@ def lower_cell(arch_id: str, shape_name: str, mesh, args) -> dict:
     rec["fits_hbm"] = rl.peak_mem_bytes <= roofline.HBM_BYTES
     rec["kernels"] = {k: v["calls"] for k, v in tr.kernels.items()}
     rec["cost_source"] = ("meta trace (aten ops unfused: HBM bytes an upper bound; the kernels' "
-                          "own counts)" + "".join(f"; {note}" for note in ignored_flags(args)))
+                          "own counts)")
     return rec
-
-
-def ignored_flags(args) -> list:
-    """What the record must say of the reference's attention flags, which
-    the port has no knob for."""
-    notes = []
-    if args.attn_bf16:
-        notes.append("--attn-bf16 ignored: attention priced with f32 scores")
-    if args.attn_chunk is not None:
-        notes.append(f"--attn-chunk {args.attn_chunk} ignored: attention priced unchunked")
-    return notes
 
 
 def main(argv=None):
@@ -219,9 +211,8 @@ def main(argv=None):
     ap.add_argument("--quant", default="fake", choices=["none", "fake", "fake_full", "packed"])
     ap.add_argument("--train-quant", default="none", choices=["none", "fake", "fake_full"])
     ap.add_argument("--cache", default="bf16", choices=["bf16", "int8", "bcq4"])
-    ap.add_argument("--attn-chunk", type=int, default=None,
-                    help="accepted and ignored (noted in cost_source): the port's attention "
-                         "is not query-chunked")
+    ap.add_argument("--attn-chunk", type=int, default=1024,
+                    help="query chunk of the masked-softmax attention (Runtime.attn_chunk)")
     ap.add_argument("--logit-chunk", type=int, default=512)
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--no-unroll", action="store_true",
@@ -233,8 +224,7 @@ def main(argv=None):
     ap.add_argument("--param-layout", default="fsdp", choices=["fsdp", "tp"],
                     help="'tp' = serving layout: no FSDP weight gathers")
     ap.add_argument("--attn-bf16", action="store_true",
-                    help="accepted and ignored (noted in cost_source): the port's attention "
-                         "scores in f32")
+                    help="bf16 attention scores with an f32 softmax (Runtime.attn_f32=False)")
     ap.add_argument("--tag", default="", help="free-form label copied to the record")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)

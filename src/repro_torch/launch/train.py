@@ -293,6 +293,9 @@ def run(args):
                 if snap or (step + 1) % args.save_every == 0:
                     save(step + 1, params, opt_state, blocking=snap)
         pf.close()
+        # the writer may still be writing this very step (save_every divides
+        # steps): let it land first, or the two writes race on one tmp file
+        cm.wait()
         save(args.steps, params, opt_state, blocking=True)
         cm.wait()
 

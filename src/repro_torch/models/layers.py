@@ -12,6 +12,7 @@ server.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -54,7 +55,13 @@ class Runtime:
     whose sequence dim is sharded over 'model' — each rank holds its
     block — through ``cache_write_sharded`` and ``flash_decode_sharded``
     (exact softmax from per-shard partials: one max and two sums over
-    the axis instead of gathering the cache)."""
+    the axis instead of gathering the cache).
+    attn_chunk: the masked-softmax attention takes its queries this many
+    rows at a time (``_attend_chunked``), so no whole Sq × Sk score matrix
+    is live.  attn_f32: its scores in f32 (the default, safest); False
+    scores in bf16 with an f32 softmax — half the score bytes of a
+    prefill or a training step.  Neither touches the flash or paged
+    kernels."""
 
     quant_mode: str = "none"
     bcq_cfg: BCQConfig = BCQConfig()
@@ -71,6 +78,8 @@ class Runtime:
     remat_policy: str = "full"  # full | dots
     flash_decode: bool = False
     mesh: Any = None  # required when flash_decode is set
+    attn_chunk: int = 1024  # query-chunked attention block
+    attn_f32: bool = True  # f32 scores; False: bf16 scores with an f32 softmax
 
 
 QUANT_MODES = ("none", "fake", "fake_full", "packed")
@@ -566,27 +575,69 @@ def cache_write_sharded(cache, k_new, v_new, pos: int, rt: Runtime, cb):
 
 
 # ---------------------------------------------------------------- attention
-def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True, window=None):
-    """Exact softmax attention.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D);
-    q_pos (B, Sq) absolute positions; kv index j is absolute position j.
-    Masks: j < kv_valid_len, j <= pos when causal, and pos - j < window
-    when ``window`` (local attention), with finite -1e30.
-    (The reference scans over query chunks to bound memory; rows are
-    independent, so all rows at once give the same values.)"""
-    d = q.shape[-1]
-    rep = q.shape[2] // k.shape[2]
+@functools.lru_cache(maxsize=None)
+def _bf16_value(x: float) -> float:
+    """``x`` rounded to bf16, as a Python float: a bf16 tensor times it
+    rounds like the reference's bf16 × bf16 product, and no tensor is made
+    on the device (the decode graphs capture this path)."""
+    return torch.tensor(x, dtype=torch.bfloat16).item()
+
+
+def _attend_chunked(q, k, v, q_pos, kv_valid_len, causal=True, window=None, chunk=None,
+                    score_f32=True):
+    """Exact softmax attention over query chunks.  q: (B, Sq, H, D); k/v:
+    (B, Sk, Hkv, D); q_pos (B, Sq) absolute positions; kv index j is
+    absolute position j.  Masks: j < kv_valid_len, j <= pos when causal,
+    and pos - j < window when ``window`` (local attention).
+
+    ``chunk`` (``Runtime.attn_chunk``): the queries go ``chunk`` rows at a
+    time, one chunk when Sq ≤ chunk, so the scores of B·H·chunk·Sk, never
+    Sq × Sk, are live at once (``repro/models/layers.py:_attend_chunked``);
+    None: all rows at once.  Rows are independent, so the chunking moves
+    no value.  Where ``chunk`` does not divide Sq the last chunk is
+    shorter: the reference halves ``chunk`` until it divides Sq (its scan
+    takes equal chunks), which at an odd Sq means one query row a chunk
+    and at Whisper's 1,500 encoder frames 375 chunks of 4 rows — an encode
+    of 726 ms on an H100 against ~21 ms in one chunk.  K and V are laid
+    out for the products once, not once a chunk.
+    ``score_f32`` (``Runtime.attn_f32``): True scores in f32 with finite
+    -1e30 masks; False as the reference's bf16 scores: q and k in bf16,
+    the scale multiplied in bf16, masks -3e38, the softmax in f32 and p
+    rounded to bf16 (torch's bf16 softmax computes in f32 and rounds once:
+    the reference's f32 softmax then cast, in one pass), p · v in bf16,
+    then f32.  Every op on the scores is out of place: an in-place op on
+    a view of them would make autograd copy their gradient whole."""
+    b, sq, h, d = q.shape
+    rep = h // k.shape[2]
     kx = torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
     vx = torch.repeat_interleave(v, rep, dim=2) if rep > 1 else v
-    s = torch.einsum("bchd,bkhd->bhck", q.float(), kx.float()) * d**-0.5
-    j = torch.arange(k.shape[1], device=q.device)
-    m = j[None, None, None, :] < kv_valid_len
-    if causal:
-        m = m & (j[None, None, None, :] <= q_pos[:, None, :, None])
-    if window:
-        m = m & (q_pos[:, None, :, None] - j[None, None, None, :] < window)
-    s = torch.where(m, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhck,bkhd->bchd", p, vx.float()).to(q.dtype)
+    sdt = torch.float32 if score_f32 else torch.bfloat16
+    scale = d**-0.5 if score_f32 else _bf16_value(d**-0.5)
+    neg = -1e30 if score_f32 else -3e38
+    sk = k.shape[1]
+    kt = kx.to(sdt).permute(0, 2, 3, 1).reshape(b * h, d, sk)  # one copy: (B·H, D, Sk)
+    vh = vx.to(sdt).transpose(1, 2).reshape(b * h, sk, d)
+    qh = q.to(sdt).transpose(1, 2)  # (B, H, Sq, D)
+    j = torch.arange(sk, device=q.device)
+
+    def one_chunk(qc, pc):  # (B, H, C, D), (B, C) → (B, H, C, D) f32
+        c = qc.shape[2]
+        s = torch.bmm(qc.reshape(b * h, c, d), kt).view(b, h, c, sk) * scale
+        drop = j[None, None, None, :] >= kv_valid_len
+        if causal:
+            drop = drop | (j[None, None, None, :] > pc[:, None, :, None])
+        if window:
+            drop = drop | (pc[:, None, :, None] - j[None, None, None, :] >= window)
+        p = torch.softmax(torch.where(drop, neg, s), dim=-1)
+        return torch.bmm(p.view(b * h, c, sk), vh).view(b, h, c, d).float()
+
+    chunk = sq if chunk is None else chunk
+    if sq <= chunk:
+        out = one_chunk(qh, q_pos)
+    else:
+        out = torch.cat([one_chunk(qh[:, :, i:i + chunk], q_pos[:, i:i + chunk])
+                         for i in range(0, sq, chunk)], dim=2)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cache_pos=None,
@@ -657,7 +708,8 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
             valid = cache_pos + s
         out = flash_decode_sharded(q, kf, vf, valid, rt) if sharded else None
         if out is None:
-            out = _attend_chunked(q, kf, vf, positions, valid, causal, window)
+            out = _attend_chunked(q, kf, vf, positions, valid, causal, window, rt.attn_chunk,
+                                  rt.attn_f32)
     elif paged is None:
         pool = None
         if rt.flash_kernel and causal and window is None and s == k.shape[1]:
@@ -665,19 +717,21 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
 
             out = flash_attention(q, k, v, causal=True).to(q.dtype)
         else:
-            out = _attend_chunked(q, k, v, positions, k.shape[1], causal, window)
+            out = _attend_chunked(q, k, v, positions, k.shape[1], causal, window,
+                                  rt.attn_chunk, rt.attn_f32)
     elif len(paged) >= 4:
         pool, block_tables, n_past, chunk_page_ids = paged[:4]
         chunk_len = paged[4] if len(paged) == 5 else None
         paged_chunk_write(pool, k, v, chunk_page_ids, kind, rt.bcq_cfg, cb, chunk_len,
                           kernel=rt.paged_kernel)
-        if rt.paged_kernel:
+        if rt.paged_kernel and window is None:
             from repro_torch.kernels.chunked_prefill import chunked_prefill
 
             out = chunked_prefill(q, pool, block_tables, n_past, kind, rt.bcq_cfg, cb).to(q.dtype)
         else:
             kf, vf = paged_gather_kv(pool, block_tables, kind, rt.bcq_cfg, cb, rt.compute_dtype)
-            out = _attend_chunked(q, kf, vf, positions, (n_past + s).reshape(b, 1, 1, 1))
+            out = _attend_chunked(q, kf, vf, positions, (n_past + s).reshape(b, 1, 1, 1),
+                                  causal, window, rt.attn_chunk, rt.attn_f32)
     else:
         pool, block_tables, lengths = paged
         ps = pool_page_size(pool)
@@ -686,14 +740,15 @@ def attention(x, p, cfg, rt: Runtime, cb, positions, paged=None, cache=None, cac
         paged_token_write(pool, k, v, page_ids, lengths % ps, kind, rt.bcq_cfg, cb,
                           kernel=rt.paged_kernel)
         valid = lengths + s
-        if rt.paged_kernel and s == 1:
+        if rt.paged_kernel and s == 1 and window is None:
             from repro_torch.kernels.paged_attention import paged_attention
 
             out = paged_attention(q[:, 0], pool, block_tables, valid, kind, rt.bcq_cfg, cb)
             out = out.to(q.dtype)[:, None]
         else:
             kf, vf = paged_gather_kv(pool, block_tables, kind, rt.bcq_cfg, cb, rt.compute_dtype)
-            out = _attend_chunked(q, kf, vf, positions, valid.reshape(b, 1, 1, 1))
+            out = _attend_chunked(q, kf, vf, positions, valid.reshape(b, 1, 1, 1), causal,
+                                  window, rt.attn_chunk, rt.attn_f32)
     out = qdense(out.reshape(b, s, cfg.n_heads * hd), p["wo"], rt, cb, tag="attn_out")
     return out, pool
 

@@ -107,17 +107,30 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
         bc2 = 1 - cfg.b2 ** step_f
 
         def upd(p, g, m, v):
+            # the reference's expressions, op by op and in its order, but in
+            # place on this function's own temporaries, so that at most four
+            # leaf-sized ones are live at once (a 1 B-parameter embedding
+            # otherwise holds ~8 × 4 GB at its update)
             if not p.is_floating_point():
                 return p, m, v
             g = g.to(torch.float32) * scale
-            m2 = cfg.b1 * m + (1 - cfg.b1) * g
-            v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
-            mh = m2 / bc1
-            vh = v2 / bc2
-            delta = mh / (torch.sqrt(vh) + cfg.eps)
+            t = (1 - cfg.b2) * g
+            t.mul_(g)
+            v2 = cfg.b2 * v
+            v2.add_(t)  # b2·v + (1 − b2)·g·g
+            del t
+            m2 = cfg.b1 * m
+            m2.add_((1 - cfg.b1) * g)  # b1·m + (1 − b1)·g
+            del g
+            den = v2 / bc2
+            den.sqrt_().add_(cfg.eps)
+            delta = m2 / bc1
+            delta.div_(den)  # m̂ / (sqrt(v̂) + ε)
+            del den
             if p.ndim >= 2:
-                delta = delta + cfg.weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr * delta).to(p.dtype), m2, v2
+                delta.add_(cfg.weight_decay * p.to(torch.float32))
+            delta.mul_(lr)
+            return (p.to(torch.float32) - delta).to(p.dtype), m2, v2
 
         out = tree_map(lambda p, g, m, v: upd(p, g, m, v), params, grads, state["m"], state["v"])
 

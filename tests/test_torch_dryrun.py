@@ -7,15 +7,16 @@
   cell's ``cache_gib_per_dev``) equal to the reference's analytic values
   from ``jax.eval_shape`` (``repro/launch/dryrun.py:153-161``);
 * a spec its axes do not divide is ``"status": "FAIL"``;
-* ``--attn-bf16`` and ``--attn-chunk``, which the port has no knob for,
-  are named as ignored in the record's ``cost_source``;
+* ``--attn-bf16`` and ``--attn-chunk`` are priced: ``gpt3_126m``'s
+  ``prefill_32k`` at ``--attn-chunk 512 --attn-bf16`` moves fewer HBM
+  bytes and peaks lower than with f32 scores over one whole chunk, and no
+  record says a flag was ignored;
 * each kernel wrapper's meta branch, at small shapes, gives the shapes
   and dtypes its plain version gives on the CPU, launches nothing, and
   adds its cost function's count.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -57,6 +58,14 @@ try:
                  "--tag", "undivided", "--out", sys.argv[1]])
 except SystemExit as e:
     print("second exit", e.code)
+zoo._spec_for = real
+for tag, flags in (("f32_whole", ["--attn-chunk", "32768"]),
+                   ("bf16_512", ["--attn-chunk", "512", "--attn-bf16"])):
+    try:
+        dryrun.main(["--arch", "gpt3_126m", "--shape", "prefill_32k", "--mesh", "single",
+                     "--tag", tag, *flags, "--out", sys.argv[1]])
+    except SystemExit as e:
+        print(tag, "exit", e.code)
 """
 
 
@@ -66,13 +75,14 @@ def records(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(RUN), str(out)], env=env, cwd=REPO,
                        capture_output=True, text=True, timeout=600)
-    assert "first exit 0" in r.stdout and "second exit 1" in r.stdout, (
+    assert ("first exit 0" in r.stdout and "second exit 1" in r.stdout
+            and "f32_whole exit 0" in r.stdout and "bf16_512 exit 0" in r.stdout), (
         r.stdout[-3000:] + r.stderr[-3000:])
     return [json.loads(line) for line in out.read_text().splitlines()]
 
 
 def test_dryrun_cells_ok(records):
-    ok = {(r["arch"], r["shape"]): r for r in records if r.get("tag") != "undivided"}
+    ok = {(r["arch"], r["shape"]): r for r in records if r.get("tag") == ""}
     assert len(ok) == 4 and all(r["status"] == "ok" for r in ok.values()), ok
     for cell in CELLS:
         rec = ok[cell]
@@ -80,8 +90,7 @@ def test_dryrun_cells_ok(records):
         assert rec["t_compute_s"] > 0 and rec["t_memory_s"] > 0
         assert rec["bottleneck"] in ("compute", "memory", "collective")
         assert rec["cost_source"].startswith("meta trace")
-        assert "--attn-bf16 ignored" in rec["cost_source"]  # the port has no such knobs
-        assert "--attn-chunk 512 ignored" in rec["cost_source"]
+        assert "ignored" not in rec["cost_source"]  # --attn-bf16 --attn-chunk 512: priced
     dec = ok["whisper_base", "decode_32k"]
     assert dec["kernels"]["bcq_quantize"] > 0  # W4A4 fake: B3's meta branch counted
     assert dec["coll_breakdown"]["all-gather"] > 0  # the FSDP weights and the 'model' cache blocks
@@ -114,11 +123,22 @@ def test_dryrun_footprints_match_reference_analytic(records):
                                                                rel=1e-12)
 
 
-def test_attention_flags_noted_only_when_set():
-    from repro_torch.launch.dryrun import ignored_flags
-
-    assert ignored_flags(argparse.Namespace(attn_bf16=False, attn_chunk=None)) == []
-    assert len(ignored_flags(argparse.Namespace(attn_bf16=True, attn_chunk=1024))) == 2
+def test_attention_flags_are_priced(records):
+    """``--attn-chunk 512 --attn-bf16`` against f32 scores over one whole
+    chunk on ``gpt3_126m``'s ``prefill_32k`` (2 × 32,768 tokens a rank):
+    bf16 scores halve the score bytes of every pass over them (fewer HBM
+    bytes in all, though each chunk reads K and V again), and 512-query
+    chunks keep 1/64 of the scores live (a far lower peak); the model's
+    work is the same."""
+    by_tag = {r["tag"]: r for r in records if r["tag"] in ("f32_whole", "bf16_512")}
+    whole, chunked = by_tag["f32_whole"], by_tag["bf16_512"]
+    assert whole["status"] == chunked["status"] == "ok"
+    assert chunked["hbm_bytes_per_dev"] < 0.75 * whole["hbm_bytes_per_dev"]
+    assert chunked["peak_mem_gib"] < 0.25 * whole["peak_mem_gib"]
+    assert chunked["model_flops_per_dev"] == whole["model_flops_per_dev"]
+    assert chunked["flops_by_unit"]["bf16"] > whole["flops_by_unit"]["bf16"]  # scores on bf16
+    for rec in (whole, chunked):
+        assert "ignored" not in rec["cost_source"]
 
 
 def test_undivided_spec_fails(records):

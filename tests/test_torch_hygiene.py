@@ -18,6 +18,8 @@ STUDY = ROOT / "chip_gate_study.py"
 ENCODE_STUDY = ROOT / "chip_encode_study.py"
 READ_STUDY = ROOT / "chip_read_study.py"
 ROUTE_STUDY = ROOT / "chip_route_study.py"
+TRAIN_STUDY = ROOT / "chip_train_study.py"
+FLOOR_STUDY = ROOT / "chip_floor_study.py"
 EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
@@ -32,7 +34,7 @@ def _imports(path: Path):
 
 def test_no_jax_or_reference_imports():
     files = sorted(PORT.rglob("*.py")) + [SMOKE, STUDY, ENCODE_STUDY, READ_STUDY, ROUTE_STUDY,
-                                             *EXAMPLES]
+                                             TRAIN_STUDY, FLOOR_STUDY, *EXAMPLES]
     assert len(files) > 10 and len(EXAMPLES) == 3
     bad = [
         (str(f.relative_to(ROOT)), m)
